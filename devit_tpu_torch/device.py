@@ -1,0 +1,26 @@
+"""Device resolution shared by every entry point of the port.
+
+The port runs on CUDA unless the caller asks for the CPU. A request for CUDA
+on a machine without a usable card raises; nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """None -> cuda. Raises when cuda is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")
+    return dev
+

@@ -1,0 +1,330 @@
+"""Serving daemon for the deployed collaborative ensemble (counterpart of
+devit_tpu/serving/daemon.py:79-283, :312-417, :499-611).
+
+One batcher thread owns the device: requests land in a queue, the batcher
+coalesces everything that arrives within `max_wait_ms` of the oldest waiting
+request, pads the batch up to a fixed bucket size and runs one forward.
+Batches above the largest bucket are chunked.
+
+Protocol (stdlib http.server; one POST = one or more images):
+
+    POST /predict
+      body:    raw uint8 RGB bytes, C-order
+      headers: X-Image-Shape: "N,H,W,3" (or "H,W,3" for a single image)
+      query:   ?topk=5 (optional, default ServeConfig.topk)
+      reply:   {"predictions": [{"topk": [...], "probs": [...]}, ...],
+                "latency_ms": float}
+    GET /healthz   -> model/device info (also the readiness probe)
+    GET /stats     -> request/image/batch counters + latency percentiles
+
+Images are scaled by 1/255 once, as on the offline eval path. (The JAX
+daemon divides by 255 twice; the port does not reproduce that defect.)
+This slice serves one device; the multi-device topology, `/reload` and
+loading artifacts from disk wait for later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Sequence, Tuple
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+from devit_tpu_torch.data.pipeline import normalize
+from devit_tpu_torch.device import DeviceLike, resolve_device
+from devit_tpu_torch.models.compact_vit import CompactViT, stack_division_features
+from devit_tpu_torch.models.ensemble import EnsMLP
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    input_size: int = 224
+    patch_size: int = 16
+    # batch buckets: requests pad up to the smallest bucket that fits, bigger
+    # coalesced batches chunk at max()
+    buckets: Tuple[int, ...] = (1, 8, 32, 128, 256)
+    max_wait_ms: float = 5.0  # coalescing window from the OLDEST queued request
+    topk: int = 5
+    dtype: torch.dtype = torch.bfloat16
+    fast_math: bool = True  # serving default (parity runs: False)
+
+
+class InferenceEngine:
+    """Bucketed forward over the compact divisions + EnsMLP fusion.
+
+    `predict(uint8 images (N,S,S,3)) -> np.float32 logits (N,K)`; intended to
+    be driven by the single MicroBatcher thread, with a lock serializing
+    stray direct callers.
+    """
+
+    def __init__(self, cms: Sequence[CompactViT], ens: EnsMLP, cfg: ServeConfig,
+                 *, device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.cms = [cm.to(self.device) for cm in cms]
+        self.ens = ens.to(self.device)
+        self.num_divisions = len(self.cms)
+        self.num_classes = ens.num_classes
+        self._lock = threading.Lock()
+
+    @torch.inference_mode()
+    def _run_bucket(self, images_u8: np.ndarray) -> np.ndarray:
+        """One padded-bucket forward; images_u8 (n <= max bucket, S, S, 3)."""
+        n = images_u8.shape[0]
+        bucket = next(b for b in sorted(self.cfg.buckets) if b >= n)
+        if n < bucket:
+            pad = np.zeros((bucket - n,) + images_u8.shape[1:], np.uint8)
+            images_u8 = np.concatenate([images_u8, pad], axis=0)
+        # request bodies arrive as read-only views: torch wants writable memory
+        img = torch.from_numpy(np.require(images_u8, requirements=("C", "W"))).to(self.device)
+        x = normalize(img, torch.float32)
+        cls_stack, dist_stack = stack_division_features(
+            self.cms, x, patch_size=self.cfg.patch_size, dtype=self.cfg.dtype,
+            fast_math=self.cfg.fast_math)
+        logits = self.ens(cls_stack, dist_stack).logits
+        return logits[:n].float().cpu().numpy()
+
+    def predict(self, images_u8: np.ndarray) -> np.ndarray:
+        """uint8 (N, S, S, 3) -> float32 logits (N, num_classes). N beyond the
+        largest bucket is chunked."""
+        s = self.cfg.input_size
+        if images_u8.ndim != 4 or images_u8.shape[1:] != (s, s, 3):
+            raise ValueError(
+                f"predict expects (N,{s},{s},3) uint8, got {images_u8.shape}")
+        if images_u8.dtype != np.uint8:
+            raise ValueError(f"predict expects uint8 images, got {images_u8.dtype}")
+        cap = max(self.cfg.buckets)
+        with self._lock:
+            outs = [self._run_bucket(images_u8[i:i + cap])
+                    for i in range(0, images_u8.shape[0], cap)]
+        return np.concatenate(outs, axis=0)
+
+    def warm_up(self) -> float:
+        """Run every bucket once before traffic (builds the kernel and lets
+        the allocator and cuBLAS settle). Returns the seconds it took."""
+        t0 = time.perf_counter()
+        s = self.cfg.input_size
+        for b in sorted(self.cfg.buckets):
+            self.predict(np.zeros((b, s, s, 3), np.uint8))
+        return time.perf_counter() - t0
+
+
+def _host_resize(img: np.ndarray, size: int) -> np.ndarray:
+    """torchvision eval geometry on the host (PIL): Resize(int(256/224*size),
+    bicubic, shorter edge) + CenterCrop(size)."""
+    from PIL import Image
+
+    if img.shape[0] == size and img.shape[1] == size:
+        return img
+    scale = int(256 / 224 * size)
+    im = Image.fromarray(img)
+    w, h = im.size
+    if w <= h:
+        nw, nh = scale, int(scale * h / w)
+    else:
+        nh, nw = scale, int(scale * w / h)
+    im = im.resize((nw, nh), Image.BICUBIC)
+    left = int(round((nw - size) / 2.0))
+    top = int(round((nh - size) / 2.0))
+    return np.asarray(im.crop((left, top, left + size, top + size)), dtype=np.uint8)
+
+
+class MicroBatcher:
+    """Single device-owner thread coalescing concurrent requests.
+
+    Requests (uint8 (n,S,S,3), Future) enter a queue; the loop takes the
+    oldest request, drains everything that arrives within `max_wait_ms` of it
+    (up to the largest bucket), runs ONE engine.predict over the
+    concatenation, and splits the logits back per request."""
+
+    def __init__(self, engine: InferenceEngine):
+        self.engine = engine
+        self.q: "queue.Queue" = queue.Queue()
+        self.stats = {"requests": 0, "images": 0, "batches": 0, "coalesced": 0}
+        self._latencies: deque = deque(maxlen=1024)  # seconds, per request
+        self._lock = threading.Lock()  # guards stats + latencies vs snapshots
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="devit-batcher")
+
+    def start(self) -> "MicroBatcher":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.q.put(None)  # wake the blocking get
+        if self._thread.is_alive():
+            self._thread.join(timeout=10)
+        # fail any request still queued: a waiter must get a prompt error
+        while True:
+            try:
+                item = self.q.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                item[1].set_exception(RuntimeError("server shutting down"))
+
+    def submit(self, images_u8: np.ndarray) -> Future:
+        fut: Future = Future()
+        self.q.put((images_u8, fut, time.time()))
+        return fut
+
+    def _loop(self) -> None:
+        cap = max(self.engine.cfg.buckets)
+        wait = self.engine.cfg.max_wait_ms / 1000.0
+        while not self._stop.is_set():
+            item = self.q.get()
+            if item is None:
+                continue
+            group = [item]
+            total = item[0].shape[0]
+            deadline = item[2] + wait
+            while total < cap:
+                try:
+                    # requests that queued while the previous batch ran are
+                    # ready at zero cost: always drain them
+                    nxt = self.q.get_nowait()
+                except queue.Empty:
+                    timeout = deadline - time.time()
+                    if timeout <= 0:
+                        break
+                    try:
+                        nxt = self.q.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                if nxt is None:
+                    break
+                group.append(nxt)
+                total += nxt[0].shape[0]
+            try:
+                batch = (group[0][0] if len(group) == 1 else
+                         np.concatenate([g[0] for g in group], axis=0))
+                logits = self.engine.predict(batch)
+            except Exception as e:  # deliver the failure to every waiter
+                for _, fut, _ in group:
+                    fut.set_exception(e)
+                continue
+            now = time.time()
+            off = 0
+            for imgs, fut, t0 in group:
+                n = imgs.shape[0]
+                fut.set_result(logits[off:off + n])
+                off += n
+            with self._lock:
+                self._latencies.extend(now - t0 for _, _, t0 in group)
+                self.stats["requests"] += len(group)
+                self.stats["images"] += total
+                self.stats["batches"] += 1
+                self.stats["coalesced"] += len(group) > 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            lat = sorted(self._latencies)
+            out = dict(self.stats)
+        pct = (lambda p: round(lat[min(int(p * len(lat)), len(lat) - 1)] * 1e3, 3)
+               ) if lat else (lambda p: None)
+        out.update(latency_ms_p50=pct(0.50), latency_ms_p99=pct(0.99),
+                   queue_depth=self.q.qsize())
+        return out
+
+
+class _Handler(BaseHTTPRequestHandler):
+    # set per server by build_server
+    batcher: MicroBatcher = None
+    engine: InferenceEngine = None
+    started: float = 0.0
+
+    def log_message(self, fmt, *args):  # no line on stderr per request
+        pass
+
+    def _json(self, code: int, payload: dict):
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        path = urlparse(self.path).path
+        if path == "/healthz":
+            e = self.engine
+            self._json(200, {
+                "status": "ok",
+                "num_divisions": e.num_divisions,
+                "num_classes": e.num_classes,
+                "input_size": e.cfg.input_size,
+                "buckets": sorted(e.cfg.buckets),
+                "device": str(e.device),
+                "uptime_s": round(time.time() - self.started, 1),
+            })
+        elif path == "/stats":
+            self._json(200, self.batcher.snapshot())
+        else:
+            self._json(404, {"error": f"unknown path {path!r}"})
+
+    def do_POST(self):
+        url = urlparse(self.path)
+        if url.path != "/predict":
+            return self._json(404, {"error": f"unknown path {url.path!r}"})
+        t0 = time.time()
+        try:
+            shape = tuple(int(v) for v in
+                          self.headers.get("X-Image-Shape", "").split(","))
+            if len(shape) == 3:
+                shape = (1,) + shape
+            if len(shape) != 4 or shape[-1] != 3 or any(v <= 0 for v in shape):
+                raise ValueError(
+                    "X-Image-Shape must be 'N,H,W,3' or 'H,W,3' (uint8 RGB)")
+            n = int(self.headers.get("Content-Length", 0))
+            raw = self.rfile.read(n)
+            expect = int(np.prod(shape))
+            if len(raw) != expect:
+                raise ValueError(
+                    f"body is {len(raw)} bytes, shape {shape} needs {expect}")
+            imgs = np.frombuffer(raw, np.uint8).reshape(shape)
+            s = self.engine.cfg.input_size
+            if imgs.shape[1] != s or imgs.shape[2] != s:
+                imgs = np.stack([_host_resize(i, s) for i in imgs])
+            q = parse_qs(url.query)
+            topk = min(int(q.get("topk", [self.engine.cfg.topk])[0]),
+                       self.engine.num_classes)
+            if topk <= 0:
+                raise ValueError("topk must be >= 1")
+        except (ValueError, OverflowError) as e:
+            return self._json(400, {"error": str(e)})
+        try:
+            logits = self.batcher.submit(imgs).result(timeout=600)
+        except Exception as e:  # noqa: BLE001 — report, keep serving
+            return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+        # softmax + topk on the host: K floats per image
+        z = logits - logits.max(axis=-1, keepdims=True)
+        p = np.exp(z)
+        p /= p.sum(axis=-1, keepdims=True)
+        idx = np.argsort(-logits, axis=-1)[:, :topk]
+        self._json(200, {
+            "predictions": [
+                {"topk": r.tolist(), "probs": np.round(p[i, r], 6).tolist()}
+                for i, r in enumerate(idx)],
+            "latency_ms": round((time.time() - t0) * 1e3, 3),
+        })
+
+
+def build_server(engine: InferenceEngine, host: str = "127.0.0.1",
+                 port: int = 0) -> Tuple[ThreadingHTTPServer, MicroBatcher]:
+    """Wire engine + batcher into a ThreadingHTTPServer (not started).
+    port=0 binds an ephemeral port; callers run serve_forever()."""
+    batcher = MicroBatcher(engine).start()
+    handler = type("Handler", (_Handler,), {
+        "batcher": batcher, "engine": engine, "started": time.time()})
+    return ThreadingHTTPServer((host, port), handler), batcher

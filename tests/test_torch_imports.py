@@ -1,0 +1,52 @@
+"""The port stands alone: importing every module of devit_tpu_torch, and
+chip_smoke.py's import graph, loads neither JAX (jax, flax, optax) nor
+anything of the JAX package. Checked in a fresh interpreter, since this
+test process has imported both."""
+
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import devit_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "devit_tpu")
+
+_PROBE = """
+import importlib, json, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+"""
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(devit_tpu_torch.__path__,
+                                                        "devit_tpu_torch."))
+
+
+def _top_level_modules_after_import(*modules):
+    out = subprocess.run([sys.executable, "-c", _PROBE, *modules], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return set(json.loads(out.stdout.strip().splitlines()[-1]))
+
+
+def test_every_port_module_is_listed():
+    mods = _port_modules()
+    for name in ("devit_tpu_torch.kernels.attention", "devit_tpu_torch.models.compact_vit",
+                 "devit_tpu_torch.serving.daemon", "devit_tpu_torch.io.bridge",
+                 "devit_tpu_torch.deploy", "devit_tpu_torch.device"):
+        assert name in mods
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_no_jax_and_no_jax_package(target):
+    modules = ["devit_tpu_torch", *_port_modules()] if target == "package" else ["chip_smoke"]
+    loaded = _top_level_modules_after_import(*modules)
+    assert "torch" in loaded
+    assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
