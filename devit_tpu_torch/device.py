@@ -24,3 +24,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")
     return dev
 
+
+
+def to_device(t: torch.Tensor, device: DeviceLike) -> torch.Tensor:
+    """Copy a small host tensor (random draws made on the CPU) to `device`.
+    On CUDA the copy is from pinned memory and does not block, so the host
+    does not wait for the work already queued on the device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)

@@ -3,17 +3,92 @@
 Inputs are the flax parameter trees as nested dicts of arrays (numpy, or
 anything np.asarray takes); the port copies them as float32, bit for bit.
 Reading the JAX package's .msgpack artifacts waits for a later slice.
+
+A VisionTransformer's tree is scan-stacked: every `blocks/*` leaf carries a
+leading depth axis, which the port's `blocks.<i>.*` parameters split.
 """
 
 from __future__ import annotations
 
+from typing import Mapping, Union
+
 import numpy as np
+import torch
 
 from devit_tpu_torch.configs import ViTConfig
 from devit_tpu_torch.device import DeviceLike, resolve_device
 from devit_tpu_torch.models.compact_vit import CompactViT, compact_vit_ragged
 from devit_tpu_torch.models.ensemble import EnsMLP
-from devit_tpu_torch.models.vit import Gates, map_leaves
+from devit_tpu_torch.models.vit import Gates, VisionTransformer, map_leaves
+
+
+def _flax_path(name: str):
+    """Port parameter name -> (flax tree path, layer index or None)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return ["blocks"] + parts[2:], int(parts[1])
+    return parts, None
+
+
+def vit_from_jax_params(params_np: dict, cfg: ViTConfig, *, device: DeviceLike = None,
+                        **model_kw) -> VisionTransformer:
+    """A flax VisionTransformer `params` tree -> the port's module (f32, bit
+    for bit). `model_kw` goes to VisionTransformer (dtype, use_kernel, ...)."""
+    model = VisionTransformer(cfg, **model_kw)
+    names = dict(model.named_parameters())
+    seen = set()
+    with torch.no_grad():
+        for name, p in names.items():
+            path, layer = _flax_path(name)
+            node = params_np
+            for key in path:
+                node = node[key]
+            src = np.asarray(node, np.float32)
+            if layer is not None:
+                src = src[layer]
+            if src.shape != tuple(p.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {src.shape} != {tuple(p.shape)}")
+            p.copy_(torch.tensor(src))
+            seen.add("/".join(path))
+    extra = set(_flat_paths(params_np)) - seen
+    if extra:
+        raise ValueError(f"flax leaves without a port parameter: {sorted(extra)}")
+    return model.to(resolve_device(device))
+
+
+def _flat_paths(tree, prefix=""):
+    if isinstance(tree, Mapping):
+        out = []
+        for k in sorted(tree):
+            out += _flat_paths(tree[k], f"{prefix}{k}/")
+        return out
+    return [prefix[:-1]]
+
+
+def vit_to_jax_params(values: Union[VisionTransformer, Mapping[str, torch.Tensor]]) -> dict:
+    """The inverse: the module's parameters, or any {port name: tensor} of
+    the same names (gradients, an EMA copy), as a scan-stacked nested dict of
+    f32 numpy arrays shaped like the flax tree."""
+    if isinstance(values, torch.nn.Module):
+        values = dict(values.named_parameters())
+    tree: dict = {}
+    stacks: dict = {}
+    for name, t in values.items():
+        path, layer = _flax_path(name)
+        arr = t.detach().float().cpu().numpy()
+        if layer is None:
+            _put(tree, path, arr)
+        else:
+            stacks.setdefault(tuple(path), {})[layer] = arr
+    for path, layers in stacks.items():
+        _put(tree, list(path), np.stack([layers[i] for i in range(len(layers))]))
+    return tree
+
+
+def _put(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
 
 
 def compact_from_jax_params(params_np: dict, gates_np, cfg: ViTConfig, *,

@@ -1,10 +1,10 @@
 """Build the port's CUDA kernel library with nvcc and load it with ctypes.
 
-kernels/csrc/attention.cu compiles into a shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), for sm_90a, into
-build/devit_tpu_torch_kernels/ at the root of the checkout, at first use. The
-library is named by the hash of its source and flags, so an edited source is
-never served by a stale build.
+Every kernels/csrc/*.cu compiles, in one nvcc call, into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds), for
+sm_90a, into build/devit_tpu_torch_kernels/ at the root of the checkout, at
+first use. The library is named by the hash of every source and header in
+csrc/ and of the flags, so an edited file is never served by a stale build.
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ import time
 from pathlib import Path
 from typing import Tuple
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "devit_tpu_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,9 +40,10 @@ def _nvcc() -> str:
 
 
 def _lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{SOURCE.stem}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in SOURCES + HEADERS:
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    return BUILD_DIR / f"attention-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Tuple[float, str]:
@@ -52,10 +55,10 @@ def build() -> Tuple[float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {[f.name for f in SOURCES]}:\n{proc.stdout}")
     os.replace(tmp, out)
     return time.perf_counter() - t0, proc.stdout
 

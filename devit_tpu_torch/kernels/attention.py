@@ -1,5 +1,5 @@
-"""Fused multi-head self-attention (counterpart of
-devit_tpu/kernels/attention.py:30-121).
+"""Fused multi-head self-attention and its backward (counterpart of
+devit_tpu/kernels/attention.py:30-121 and :238-295, :391-433).
 
 `fused_attention` consumes the raw fused-qkv activations (B, N, 3C), ordered
 [q | k | v] and head-major inside each third, and returns the proj-ready
@@ -10,6 +10,12 @@ rounded to v's dtype, f32 accumulation). Any other device raises; nothing
 falls back.
 
 The head gate is applied outside the kernel, as in the JAX package.
+
+`make_trainable_attention` is the differentiable form the training path
+uses: its forward is `fused_attention`, it saves only qkv, and its backward
+`attention_bwd` recomputes the probabilities. On a CUDA tensor that is the
+hand-written kernel in csrc/attention_bwd.cu; on a CPU tensor
+`reference_attention_bwd`, the plain version with the TPU kernel's numerics.
 """
 
 from __future__ import annotations
@@ -53,6 +59,30 @@ def reference_attention(qkv: torch.Tensor, head_gate: Optional[torch.Tensor] = N
     return _apply_gate(o, head_gate, dh)
 
 
+def reference_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """Plain PyTorch backward with the kernel's layout and numerics, line
+    for line the TPU kernel's: f32 p, p rounded to v's dtype for dv, f32 dp,
+    ds rounded to v's dtype, every product accumulated in f32. Returns dqkv
+    of qkv's shape and dtype."""
+    B, N, C, dh = _split_heads(qkv, num_heads)
+    scale = dh ** -0.5
+    x = qkv.reshape(B, N, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    q, k, v = x[0].float(), x[1].float(), x[2]
+    gh = g.reshape(B, N, num_heads, dh).permute(0, 2, 1, 3).float()
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)  # f32 (B, H, N, N)
+    pb = p.to(v.dtype).float()
+    dv = torch.matmul(pb.transpose(-1, -2), gh)
+    dp = torch.matmul(gh, v.float().transpose(-1, -2))
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    ds = (ds * scale).to(v.dtype).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    out = torch.stack([dq, dk, dv]).to(qkv.dtype)  # (3, B, H, N, dh)
+    return out.permute(1, 3, 0, 2, 4).reshape(B, N, 3 * C)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signatures declared."""
@@ -62,8 +92,11 @@ def _library() -> ctypes.CDLL:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.devit_fused_attention.argtypes = [vp, vp, i, i, i, i, i, vp]
     lib.devit_fused_attention.restype = i
-    lib.devit_attention_smem_bytes.argtypes = [i, i, i]
-    lib.devit_attention_smem_bytes.restype = ll
+    lib.devit_attention_bwd.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+    lib.devit_attention_bwd.restype = i
+    for fn in (lib.devit_attention_smem_bytes, lib.devit_attention_bwd_smem_bytes):
+        fn.argtypes = [i, i, i]
+        fn.restype = ll
     lib.devit_max_smem_optin.argtypes = [i]
     lib.devit_max_smem_optin.restype = ll
     lib.devit_error_string.argtypes = [i]
@@ -72,27 +105,43 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _check_smem(N: int, dh: int, elem: int, device: int) -> None:
-    """Raise if one block at sequence length N does not fit shared memory."""
+def _check_smem(kernel: str, N: int, dh: int, elem: int, device: int) -> None:
+    """Raise if one block of `kernel` ("fwd" or "bwd") at sequence length N
+    does not fit shared memory."""
     lib = _library()
-    need = lib.devit_attention_smem_bytes(N, dh, elem)
+    need = (lib.devit_attention_smem_bytes if kernel == "fwd"
+            else lib.devit_attention_bwd_smem_bytes)(N, dh, elem)
+    if need < 0:
+        raise ValueError(f"sequence length N={N} is past what the {kernel} kernel takes "
+                         f"(its shared memory and registers hold N <= 256)")
     limit = lib.devit_max_smem_optin(device)
     if need > limit:
         raise ValueError(f"sequence length N={N} needs {need} bytes of shared "
-                         f"memory per block; the device allows {limit}")
+                         f"memory per {kernel} block; the device allows {limit}")
+
+
+def _check_kernel_input(qkv: torch.Tensor, num_heads: int, kernel: str):
+    B, N, C, dh = _split_heads(qkv, num_heads)
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA attention kernels take head_dim in "
+                         f"{HEAD_DIMS}, got {dh}")
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA attention kernels take float32 or bfloat16, "
+                        f"got {qkv.dtype}")
+    _check_smem(kernel, N, dh, qkv.element_size(), qkv.device.index)
+    return B, N, C, dh
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + _library().devit_error_string(err).decode())
 
 
 def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    B, N, C, dh = _split_heads(qkv, num_heads)
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {dh}")
-    if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the CUDA attention kernel takes float32 or bfloat16, "
-                        f"got {qkv.dtype}")
     if not qkv.is_contiguous():
         raise ValueError("the CUDA attention kernel needs a contiguous qkv")
-    _check_smem(N, dh, qkv.element_size(), qkv.device.index)
+    B, N, C, dh = _check_kernel_input(qkv, num_heads, "fwd")
     lib = _library()
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
@@ -102,9 +151,7 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         err = lib.devit_fused_attention(qkv.data_ptr(), out.data_ptr(), B, N,
                                         num_heads, dh, _DTYPE_CODES[qkv.dtype],
                                         stream)
-    if err != 0:
-        raise RuntimeError("fused_attention launch failed: "
-                           + lib.devit_error_string(err).decode())
+    _raise_on(err, "fused_attention")
     fused_attention.launches += 1
     return out
 
@@ -126,3 +173,70 @@ def fused_attention(qkv: torch.Tensor, head_gate: Optional[torch.Tensor] = None,
 
 
 fused_attention.launches = 0
+
+
+def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, N, C, dh = _check_kernel_input(qkv, num_heads, "bwd")
+    if g.shape != (B, N, C) or g.dtype != qkv.dtype or g.device != qkv.device:
+        raise ValueError(f"g must be {(B, N, C)} {qkv.dtype} on {qkv.device}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    qkv, g = qkv.contiguous(), g.contiguous()
+    dqkv = torch.empty_like(qkv)
+    if B == 0:
+        return dqkv
+    lib = _library()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.devit_attention_bwd(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B, N,
+                                      num_heads, dh, _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, "attention_bwd")
+    attention_bwd.launches += 1
+    return dqkv
+
+
+def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """dqkv of `fused_attention` (no gate) at qkv for the output gradient g.
+
+    CUDA tensor: the hand-written kernel (counted in `attention_bwd.launches`).
+    CPU tensor: `reference_attention_bwd`. g may be a non-contiguous view."""
+    if qkv.device.type == "cpu":
+        return reference_attention_bwd(qkv, g, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_bwd runs on cuda (kernel) or cpu "
+                         f"(plain version), not {qkv.device}")
+    return _launch_bwd(qkv, g, num_heads)
+
+
+attention_bwd.launches = 0
+
+
+class _TrainableAttention(torch.autograd.Function):
+    """fused_attention with attention_bwd as its gradient; saves only qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+        qkv = qkv.contiguous()
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv)
+        return fused_attention(qkv, None, num_heads=num_heads)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        return attention_bwd(qkv, g, ctx.num_heads), None
+
+
+def make_trainable_attention(num_heads: int, bwd_mode: str = "monolithic"):
+    """Differentiable fused attention (no gate, no dropout): qkv (B, N, 3C)
+    -> (B, N, C). Only the monolithic backward is ported; "split" (two
+    kernels in the JAX package) is still to port."""
+    if bwd_mode == "split":
+        raise ValueError("bwd_mode='split' is still to port (the JAX package's "
+                         "_attention_bwd_split_impl); use 'monolithic'")
+    if bwd_mode != "monolithic":
+        raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
+
+    def attention(qkv: torch.Tensor) -> torch.Tensor:
+        return _TrainableAttention.apply(qkv, num_heads)  # some torch versions take no keywords
+
+    return attention

@@ -31,49 +31,26 @@
 // memory. At N = 198 a bf16 block takes ~107 KB (two blocks per SM), an f32
 // block ~165 KB.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "common.cuh"
 
 namespace {
 
+using devit::from_f;
+using devit::score_stride;
+using devit::to_f;
+using devit::warp_max;
+using devit::warp_sum;
+
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kThreads = 256;  // 8 warps: 16 column lanes x 16 row groups of 4
-constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__host__ __device__ __forceinline__ int score_stride(int n) {
-  // odd row stride: the two row groups of a warp land on different banks
-  return n | 1;
-}
 
 size_t smem_bytes(int n, int head_dim, int elem) {
   // S [kBQ][stride] f32 | K^T [dh][N] | V [N][dh] | Q^T [dh][kBQ]  (T = elem bytes)
   return (size_t)kBQ * score_stride(n) * sizeof(float) +
          (size_t)elem * (2 * (size_t)n * head_dim + (size_t)head_dim * kBQ);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 template <typename T, int DH>
@@ -194,23 +171,9 @@ attn_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H,
 
 template <typename T, int DH>
 cudaError_t launch(const void* qkv, void* out, int B, int N, int H, cudaStream_t stream) {
-  // Opt in to the device's whole shared memory once per device, so a launch
-  // at any N that fits (the wrapper checks) needs no further attribute call.
-  // Every caller sets the same value, so a race between threads is harmless.
-  static std::atomic<bool> opted_in[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)attn_kernel<T, DH>, opted_in);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!opted_in[dev].load(std::memory_order_acquire)) {
-    int optin = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(attn_kernel<T, DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err != cudaSuccess) return err;
-    opted_in[dev].store(true, std::memory_order_release);
-  }
   const size_t smem = smem_bytes(N, DH, sizeof(T));
   const int n_tiles = (N + kBQ - 1) / kBQ;
   const dim3 grid((unsigned)B * n_tiles, (unsigned)H);

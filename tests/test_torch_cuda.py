@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: fused_attention (the hand-written
-kernel in devit_tpu_torch/kernels/csrc/attention.cu) vs its plain PyTorch
-version, its launch counter and what its wrapper rejects.
+"""The port's CUDA kernels on the card: fused_attention and attention_bwd
+(the hand-written kernels in devit_tpu_torch/kernels/csrc/attention.cu and
+attention_bwd.cu) vs their plain PyTorch versions, their launch counters
+and what their wrappers reject.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); elsewhere every test skips. The
 machine with the card has no JAX, so run without the repo's conftest:
@@ -11,7 +12,10 @@ machine with the card has no JAX, so run without the repo's conftest:
 import pytest
 import torch
 
-from devit_tpu_torch.kernels.attention import fused_attention, reference_attention
+from devit_tpu_torch.kernels.attention import (
+    attention_bwd, fused_attention, make_trainable_attention, reference_attention,
+    reference_attention_bwd,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -27,7 +31,9 @@ def gen():
 
 
 def _rel(got, want):
-    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    # floored: at N = 1 the softmax is constant, so dq and dk are exactly 0
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-12))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -79,3 +85,78 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
                         num_heads=1)
     with pytest.raises(ValueError, match="shared"):
         fused_attention(torch.zeros((1, 4096, 3 * DH), device="cuda"), num_heads=1)
+
+
+# ---- the backward kernel: attention_bwd (csrc/attention_bwd.cu)
+
+
+def _bwd_errs(got, want, C):
+    """max-abs over max-ref of dq, dk and dv, each on its own."""
+    return [_rel(got[..., i * C:(i + 1) * C], want[..., i * C:(i + 1) * C]) for i in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kh", [1, 3, 6, 12])
+def test_bwd_kernel_matches_plain(gen, kh, dtype):
+    for n in (197, 198):
+        for B in (1, 7):
+            x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
+            g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").to(dtype)
+            got = attention_bwd(x, g, kh)
+            torch.cuda.synchronize()
+            errs = _bwd_errs(got, reference_attention_bwd(x, g, kh), kh * DH)
+            assert max(errs) <= TOL[dtype], (n, B, errs)
+
+
+def test_bwd_randomized_shape_sweep(gen):
+    """Sequence lengths around the 32-row query tile and the 16-row key
+    stripes of a warp, up to the 256 the kernel takes, odd batches and head
+    counts: the kernel's own index arithmetic, which no fixed shape covers."""
+    rng = torch.Generator().manual_seed(7)
+    lengths = [1, 15, 17, 31, 32, 33, 256] + torch.randint(2, 257, (6,), generator=rng).tolist()
+    for trial, n in enumerate(lengths):
+        B = int(torch.randint(1, 6, (1,), generator=rng))
+        kh = int(torch.randint(1, 7, (1,), generator=rng))
+        dtype = (torch.float32, torch.bfloat16)[trial % 2]
+        x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").to(dtype)
+        got = attention_bwd(x, g, kh)
+        torch.cuda.synchronize()
+        errs = _bwd_errs(got, reference_attention_bwd(x, g, kh), kh * DH)
+        assert max(errs) <= TOL[dtype], f"trial {trial}: B{B} N{n} kh{kh} {dtype}: {errs}"
+
+
+def test_bwd_is_deterministic_and_counted(gen):
+    x = torch.randn((3, N, 3 * 2 * DH), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((3, N, 2 * DH), generator=gen, device="cuda").bfloat16()
+    before = attention_bwd.launches
+    a, b = attention_bwd(x, g, 2), attention_bwd(x, g, 2)
+    reference_attention_bwd(x, g, 2)
+    assert attention_bwd.launches == before + 2
+    assert torch.equal(a, b)  # no atomics: the same bits on every run
+
+
+def test_function_gradient_matches_autograd_through_plain(gen):
+    """tests/test_kernels.py:100-117 on the card: the Function's gradient
+    (both kernels) vs autograd through reference_attention."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, N, 3 * 6 * DH), generator=gen, device="cuda").to(dtype)
+        cot = torch.randn((2, N, 6 * DH), generator=gen, device="cuda")
+        x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+        (g1,) = torch.autograd.grad((make_trainable_attention(6)(x1).float() * cot).sum(), x1)
+        (g2,) = torch.autograd.grad(
+            (reference_attention(x2, num_heads=6).float() * cot).sum(), x2)
+        assert max(_bwd_errs(g1, g2, 6 * DH)) <= TOL[dtype]
+
+
+def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    x = torch.randn((1, N, 3 * 4 * 32), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_bwd(x, torch.zeros((1, N, 4 * 32), device="cuda"), 4)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention_bwd(x.half(), torch.zeros((1, N, 2 * 64), device="cuda").half(), 2)
+    with pytest.raises(ValueError, match="must divide"):
+        attention_bwd(x, torch.zeros((1, N, 4 * 32), device="cuda"), 5)
+    with pytest.raises(ValueError, match="shared"):
+        attention_bwd(torch.zeros((1, 1024, 3 * DH), device="cuda"),
+                      torch.zeros((1, 1024, DH), device="cuda"), 1)

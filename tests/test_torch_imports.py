@@ -40,7 +40,12 @@ def test_every_port_module_is_listed():
     mods = _port_modules()
     for name in ("devit_tpu_torch.kernels.attention", "devit_tpu_torch.models.compact_vit",
                  "devit_tpu_torch.serving.daemon", "devit_tpu_torch.io.bridge",
-                 "devit_tpu_torch.deploy", "devit_tpu_torch.device"):
+                 "devit_tpu_torch.deploy", "devit_tpu_torch.device",
+                 "devit_tpu_torch.models.vit", "devit_tpu_torch.data.mixup",
+                 "devit_tpu_torch.data.datasets", "devit_tpu_torch.train.losses",
+                 "devit_tpu_torch.train.optim", "devit_tpu_torch.train.state",
+                 "devit_tpu_torch.train.meters", "devit_tpu_torch.train.steps",
+                 "devit_tpu_torch.train.loop"):
         assert name in mods
 
 
