@@ -10,8 +10,12 @@ serves it over HTTP to concurrent clients, times the kernels and the
 forward, and runs the stage-2 training step of full-width dedeit at bs256
 (remat, mixup/cutmix, AdamW, EMA) through train_epoch, with the attention
 forward and backward kernels, against the same step with the plain
-attention. Any failure raises and exits non-zero; so does a machine without
-CUDA, or a directory that holds this script without the package.
+attention. Then the stage-5 ensemble step (four gated dedeit divisions, a
+deit-base teacher, EnsMLP, two optimizers) at bs64 with the monolithic
+backward kernel, with the split pair (DEVIT_ATTN_BWD=split) and with the
+plain attention, and the stage-4 DEKD step in both distillation_inter modes.
+Any failure raises and exits non-zero; so does a machine without CUDA, or a
+directory that holds this script without the package.
 
 The last lines of standard output are the card's name and power limit (as
 nvidia-smi gives them), one JSON line with the kernels' record, and
@@ -21,7 +25,9 @@ nvidia-smi gives them), one JSON line with the kernels' record, and
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -38,16 +44,20 @@ from devit_tpu_torch.data.mixup import MixupConfig
 from devit_tpu_torch.data.pipeline import normalize
 from devit_tpu_torch.kernels import _build
 from devit_tpu_torch.kernels.attention import (
-    attention_bwd, fused_attention, make_trainable_attention, reference_attention,
-    reference_attention_bwd,
+    attention_bwd, attention_bwd_dqdk, attention_bwd_dv, attention_bwd_split, fused_attention,
+    make_trainable_attention, reference_attention, reference_attention_bwd,
+    reference_attention_bwd_dqdk, reference_attention_bwd_dv,
 )
 from devit_tpu_torch.models.compact_vit import stack_division_features
-from devit_tpu_torch.models.vit import create_vit
+from devit_tpu_torch.models.ensemble import EnsMLP, init_multivit, stack_division_gates
+from devit_tpu_torch.models.vit import Gates, create_vit
 from devit_tpu_torch.serving.daemon import InferenceEngine, ServeConfig, build_server
 from devit_tpu_torch.train.loop import train_epoch
 from devit_tpu_torch.train.optim import OptimConfig, make_optimizer
 from devit_tpu_torch.train.state import TrainState
-from devit_tpu_torch.train.steps import make_stage2_step
+from devit_tpu_torch.train.steps import (
+    make_dekd_step, make_ensemble_train_step, make_stage2_step,
+)
 
 ROOT = Path(__file__).resolve().parent
 N, DH = 198, 64  # tokens (196 patches + cls + dist) and head width of dedeit
@@ -104,37 +114,112 @@ def phase_build() -> float:
 
 def phase_kernel_checks() -> float:
     """fused_attention (the kernel) vs reference_attention on the card, at
-    the main path's N and dh, every kh it meets and one more, every serving
-    bucket (1, 8, 32, 128, 256), remainder batches (7, 64), with and without
-    a head gate, and with an all-zero head.
+    the main path's N and dh, every kh the divisions meet and one more, every
+    serving bucket (1, 8, 32, 128, 256), remainder batches (7, 64), with and
+    without a head gate, and with an all-zero head; and at the stage-5
+    teacher's shape (deit-base: kh 12, C 768) at B 1, 7 and 64.
     Returns the largest max-abs error of the bf16 cases."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     max_abs_bf16 = 0.0
     n = 0
+    shapes = ([(kh, B) for kh in range(1, 7) for B in (1, 7, 8, 32, 64, 128, 256)]
+              + [(12, B) for B in (1, 7, 64)])
+    for dtype in (torch.bfloat16, torch.float32):
+        for kh, B in shapes:
+            for case in ("plain", "gate", "zero_head"):
+                x = _qkv(B, kh, dtype, gen, zero_head=case == "zero_head")
+                gate = (torch.rand((kh,), generator=gen, device="cuda")
+                        if case == "gate" else None)
+                got = fused_attention(x, gate, num_heads=kh)
+                torch.cuda.synchronize()
+                want = reference_attention(x, gate, num_heads=kh)
+                rel = _rel(got, want)
+                if rel > TOL[dtype]:
+                    raise AssertionError(f"fused_attention {dtype} kh={kh} B={B} {case}: "
+                                         f"rel err {rel:.3e} > {TOL[dtype]:.0e}")
+                if dtype == torch.bfloat16:
+                    max_abs_bf16 = max(max_abs_bf16,
+                                       float((got.float() - want.float()).abs().max()))
+                worst[dtype] = max(worst[dtype], rel)
+                n += 1
+    print(f"[kernel] fused_attention vs plain: {n} cases pass (kh 1-6 at every bucket, kh 12 "
+          f"at B 1/7/64); worst rel err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 "
+          f"{worst[torch.float32]:.3e} (tol 1e-4); max abs err bf16 {max_abs_bf16:.3e}")
+    return max_abs_bf16
+
+
+def phase_split_checks() -> dict:
+    """The split backward on the card: attention_bwd_dqdk and
+    attention_bwd_dv (the kernels) vs their plain versions, dq, dk and dv
+    each on its own, at N 198, kh 1-6, B 1/7/64/256, bf16 and f32; the pair
+    (attention_bwd_split) vs the monolithic kernel on the same inputs; a
+    repeat launch bit for bit; and make_trainable_attention(6, "split")'s
+    gradient vs autograd through reference_attention.
+    Returns the largest bf16 max-abs error of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_vs_mono = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    max_abs = {"dv": 0.0, "dqdk": 0.0}
+    equal_to_mono = 0
+    n_cases = 0
     for dtype in (torch.bfloat16, torch.float32):
         for kh in range(1, 7):
-            for B in (1, 7, 8, 32, 64, 128, 256):
-                for case in ("plain", "gate", "zero_head"):
-                    x = _qkv(B, kh, dtype, gen, zero_head=case == "zero_head")
-                    gate = (torch.rand((kh,), generator=gen, device="cuda")
-                            if case == "gate" else None)
-                    got = fused_attention(x, gate, num_heads=kh)
-                    torch.cuda.synchronize()
-                    want = reference_attention(x, gate, num_heads=kh)
-                    rel = _rel(got, want)
-                    if rel > TOL[dtype]:
-                        raise AssertionError(f"fused_attention {dtype} kh={kh} B={B} {case}: "
-                                             f"rel err {rel:.3e} > {TOL[dtype]:.0e}")
-                    if dtype == torch.bfloat16:
-                        max_abs_bf16 = max(max_abs_bf16,
-                                           float((got.float() - want.float()).abs().max()))
-                    worst[dtype] = max(worst[dtype], rel)
-                    n += 1
-    print(f"[kernel] fused_attention vs plain: {n} cases pass; worst rel err "
-          f"bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 {worst[torch.float32]:.3e} "
-          f"(tol 1e-4); max abs err bf16 {max_abs_bf16:.3e}")
-    return max_abs_bf16
+            for B in (1, 7, 64, 256):
+                C = kh * DH
+                x = _qkv(B, kh, dtype, gen)
+                g = torch.randn((B, N, C), generator=gen, device="cuda").to(dtype)
+                dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
+                split = attention_bwd_split(x, g, kh)
+                again = attention_bwd_split(x, g, kh)
+                mono = attention_bwd(x, g, kh)
+                torch.cuda.synchronize()
+                want_qk = reference_attention_bwd_dqdk(x, g, kh)
+                want_v = reference_attention_bwd_dv(x, g, kh)
+                errs = [_rel(dqdk[..., :C], want_qk[..., :C]),
+                        _rel(dqdk[..., C:], want_qk[..., C:]), _rel(dv, want_v)]
+                if max(errs) > TOL[dtype]:
+                    raise AssertionError(f"split kernels {dtype} kh={kh} B={B}: rel err "
+                                         f"dq/dk/dv {errs} > {TOL[dtype]:.0e}")
+                if not (torch.equal(split, again) and torch.equal(split[..., :2 * C], dqdk)
+                        and torch.equal(split[..., 2 * C:], dv)):
+                    raise AssertionError(f"split kernels {dtype} kh={kh} B={B}: a repeat "
+                                         "launch, or a slice of the dqkv buffer, differs")
+                vs_mono = max(_bwd_errs(split, mono, C))
+                if vs_mono > TOL[dtype]:
+                    raise AssertionError(f"split vs monolithic {dtype} kh={kh} B={B}: rel err "
+                                         f"{vs_mono:.3e}")
+                equal_to_mono += int(torch.equal(split, mono))
+                if dtype == torch.bfloat16:
+                    max_abs["dqdk"] = max(max_abs["dqdk"],
+                                          float((dqdk.float() - want_qk.float()).abs().max()))
+                    max_abs["dv"] = max(max_abs["dv"],
+                                        float((dv.float() - want_v.float()).abs().max()))
+                worst[dtype] = max(worst[dtype], max(errs))
+                worst_vs_mono[dtype] = max(worst_vs_mono[dtype], vs_mono)
+                n_cases += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((7, N, 3 * 6 * DH), generator=gen, device="cuda").to(dtype)
+        cot = torch.randn((7, N, 6 * DH), generator=gen, device="cuda")
+        x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+        b0 = attention_bwd.launches
+        (g1,) = torch.autograd.grad((make_trainable_attention(6, "split")(x1).float() * cot)
+                                    .sum(), x1)
+        (g2,) = torch.autograd.grad((reference_attention(x2, num_heads=6).float() * cot).sum(), x2)
+        errs = _bwd_errs(g1, g2, 6 * DH)
+        if max(errs) > TOL[dtype] or attention_bwd.launches != b0:
+            raise AssertionError(f"trainable attention (split) {dtype}: grad vs autograd "
+                                 f"through the plain forward, rel err dq/dk/dv {errs}")
+        print(f"[kernel] trainable attention (split) {str(dtype)[6:]} B=7 kh=6: gradient vs "
+              f"autograd through reference_attention, rel err dq/dk/dv "
+              f"{', '.join(f'{e:.3e}' for e in errs)}")
+    print(f"[kernel] attention_bwd_dqdk + attention_bwd_dv vs plain: {n_cases} cases pass (dq, "
+          f"dk, dv each); worst rel err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 "
+          f"{worst[torch.float32]:.3e} (tol 1e-4); max abs err bf16 dqdk "
+          f"{max_abs['dqdk']:.3e}, dv {max_abs['dv']:.3e}; repeat launches bit-identical; vs "
+          f"the monolithic kernel worst rel err bf16 {worst_vs_mono[torch.bfloat16]:.3e}, f32 "
+          f"{worst_vs_mono[torch.float32]:.3e}, bit-identical in {equal_to_mono} of {n_cases}")
+    return max_abs
 
 
 def _forward(cms, ens, x, *, dtype, use_kernel, fast_math):
@@ -193,7 +278,7 @@ def phase_serving(cms, ens) -> int:
     rng = np.random.default_rng(2)
     batches = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8) for n in sizes]
     try:
-        fused_attention.launches = 0
+        _set_counts((0, 0, 0, 0))
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(sizes)) as pool:
             replies = list(pool.map(lambda b: _post(url, b), batches))
@@ -258,6 +343,48 @@ def _forward_flops(cms, ens) -> float:
     return float(flops)
 
 
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+
+
+def unported_bounds(cms, B: int = 256) -> dict:
+    """Least time of the two TPU kernels still to port, at the deployed
+    ensemble's layer shapes (each division's ragged layers, batch B, N 198),
+    summed over one forward, counted from the code of each:
+    - fused_block_attention (t + proj(attn(qkv(LN1(t)))) in one kernel): reads
+      t (B, N, C) and the layer's LN, qkv (C, 3K) and proj (K, C) weights and
+      biases in bf16, writes (B, N, C) bf16; 2 B N C 3K + 4 B N^2 K + 2 B N K C
+      bf16 operations.
+    - fused_int8_matmul in place of each of the int8 branch's four
+      dynamic_int8_matmul calls a layer (qkv, proj, fc1, fc2): reads x (M, K)
+      bf16, the (K, N) int8 weight and its f32 scales and bias, writes (M, N)
+      bf16, M = B N; 2 M K N int8 operations (the row quantization's few
+      operations an element are left out).
+    Each is the larger of bytes over 3.35 TB/s and operations over the
+    dtype's peak, per call, summed."""
+    M = B * N
+    block = {"ms": 0.0, "bytes_ms": 0.0, "calls": 0}
+    int8 = {"ms": 0.0, "bytes_ms": 0.0, "calls": 0}
+    for cm in cms:
+        C = cm.patch_kernel.shape[1]
+        for lp in cm.layers:
+            K = lp.num_heads * DH
+            hidden = lp.fc1_kernel.shape[1]
+            nbytes = 2 * (2 * M * C + 4 * C + C * 3 * K + 3 * K + K * C + C)
+            flops = 2 * M * C * 3 * K + 4 * B * N * N * K + 2 * M * K * C
+            block["ms"] += max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+            block["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+            block["calls"] += 1
+            for k_in, n_out in ((C, 3 * K), (K, C), (C, hidden), (hidden, C)):
+                nbytes = 2 * M * k_in + k_in * n_out + 8 * n_out + 2 * M * n_out
+                ops = 2 * M * k_in * n_out
+                int8["ms"] += max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS) * 1e3
+                int8["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+                int8["calls"] += 1
+    for r in (block, int8):
+        r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ms"] * (1 - 1e-9) else "operations"
+    return {"fused_block_attention": block, "fused_int8_matmul": int8}
+
+
 @torch.inference_mode()
 def phase_times(cms, ens, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -293,6 +420,11 @@ def phase_times(cms, ens, card: str) -> dict:
 
     flops_img = _forward_flops(cms, ens)
     print(f"[time] one image's forward: {flops_img / 1e9:.3f} GFLOP (counted from the shapes)")
+    unported = unported_bounds(cms)
+    for name, r in unported.items():
+        print(f"[time] still to port: {name}, bound over one bs256 deployed forward "
+              f"({r['calls']} calls): {r['ms']:.4f} ms ({r['bound_by']}; the bytes alone "
+              f"{r['bytes_ms']:.4f} ms), counted from the shapes")
     rng = np.random.default_rng(4)
     e2e = {}
     for bs in (64, 128, 256):
@@ -325,7 +457,7 @@ def phase_times(cms, ens, card: str) -> dict:
               f"plain attention; runs {runs}; logits kernel vs plain rel err {rel:.3e} "
               f"(tol 2e-2); peak memory {peak:.2f} GiB [{card}]")
     return dict(per_kh=per_kh, forward_attention=total, forward=e2e, mix=mix,
-                gflop_per_img=flops_img / 1e9)
+                gflop_per_img=flops_img / 1e9, unported_bounds=unported)
 
 
 def _kind(kernel_name: str) -> str:
@@ -464,6 +596,10 @@ def _step_grads(model, batch, seed: int):
 def _step_kind(kernel_name: str) -> str:
     if "attn_bwd_kernel" in kernel_name:
         return "attention backward (attention_bwd)"
+    if "attn_bwd_dv_kernel" in kernel_name:
+        return "attention backward, dv (attention_bwd_dv)"
+    if "attn_bwd_dqdk_kernel" in kernel_name:
+        return "attention backward, dq/dk (attention_bwd_dqdk)"
     return _kind(kernel_name)
 
 
@@ -515,7 +651,7 @@ def phase_train(card: str) -> dict:
 
     # the main path: counts at 0, warm-up, then the timed turns (kernel, plain,
     # plain, kernel); the plain model's steps launch no kernel
-    fused_attention.launches = attention_bwd.launches = 0
+    _set_counts((0, 0, 0, 0))
     for use_kernel in (True, False):
         run(use_kernel, 2, seed=100)
     torch.cuda.reset_peak_memory_stats()
@@ -639,6 +775,432 @@ def phase_train_kernel_times(card: str) -> dict:
     return res
 
 
+ENS_B, ENS_D, ENS_CLASSES, DEKD_CLASSES = 64, 4, 100, 25
+ENS_MODES = ("monolithic", "split", "plain")
+_KERNELS = (fused_attention, attention_bwd, attention_bwd_dv, attention_bwd_dqdk)
+
+
+def _counts() -> tuple:
+    return tuple(k.launches for k in _KERNELS)
+
+
+def _set_counts(counts) -> None:
+    for k, c in zip(_KERNELS, counts):
+        k.launches = c
+
+
+def _delta(before) -> tuple:
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+def _set_mode(models, mode: str) -> None:
+    """Attention of `models` through the kernels with the backward `mode`
+    picks from DEVIT_ATTN_BWD (as a user selects it), or the plain path."""
+    for m in models:
+        m.use_kernel = mode != "plain"
+    os.environ["DEVIT_ATTN_BWD"] = "split" if mode == "split" else "monolithic"
+
+
+def _mixup(num_classes: int) -> MixupConfig:
+    return MixupConfig(mixup_alpha=0.8, cutmix_alpha=1.0, prob=1.0, switch_prob=0.5,
+                       label_smoothing=0.1, num_classes=num_classes)
+
+
+def _teacher(num_classes: int):
+    """deit_base_distilled_patch16_224 (768 wide, 12 heads) with random
+    weights from a seed, bf16 compute."""
+    return create_vit("deit_base_distilled_patch16_224", num_classes=num_classes,
+                      dtype=torch.bfloat16, use_kernel=True, device="cuda",
+                      generator=torch.Generator().manual_seed(5))
+
+
+def _division_gates() -> Gates:
+    """The canonical shrink policies of the deployed divisions
+    (deploy.build_inputs: screen(0.3 x 9.19 GMACs, seed 42+i) -> build_gates)."""
+    _, _, gates_list = deploy.build_inputs(ENS_D)
+    g = stack_division_gates(gates_list)
+    return Gates(g.head.float().to("cuda"), g.neuron.float().to("cuda"))
+
+
+def _ens_setup(card: str) -> dict:
+    """The stage-5 configuration: four full-width dedeit divisions (drop_path
+    0.1, bf16 compute, f32 parameters, full remat), gated by the deployed
+    shrink policies; the deit-base teacher; EnsMLP(teacher 768, 100 classes,
+    deit); hard distillation (alpha 0.5, mse tokens), mixup 0.8 / cutmix 1.0,
+    smoothing 0.1; AdamW lr 3e-4, weight decay 0.05, EMA on both states."""
+    backbone = create_vit("dedeit", num_classes=ENS_CLASSES, drop_path_rate=0.1,
+                          dtype=torch.bfloat16, use_kernel=True, use_remat=True, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    stacked = init_multivit(backbone, [torch.Generator().manual_seed(42 + i)
+                                       for i in range(ENS_D)])
+    teacher = _teacher(ENS_CLASSES)
+    ens = EnsMLP(num_classes=ENS_CLASSES, sub_size=backbone.cfg.embed_dim, num_divisions=ENS_D,
+                 teacher_size=teacher.cfg.embed_dim, family="deit")
+    ens = ens.reset_parameters(torch.Generator().manual_seed(9)).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    px = backbone.cfg.img_size
+    images = torch.randn((ENS_B, px, px, 3), generator=gen, device="cuda").bfloat16()
+    labels = torch.randint(0, ENS_CLASSES, (ENS_B,), generator=gen, device="cuda")
+    L, Lt = backbone.cfg.depth, teacher.cfg.depth
+    # the teacher alone: one forward launch a layer, at its kh (12 for deit-base)
+    before = _counts()
+    with torch.no_grad():
+        teacher(images, distill_token=True)
+    torch.cuda.synchronize()
+    if _delta(before) != (Lt, 0, 0, 0):
+        raise AssertionError(f"teacher forward launches {_delta(before)}, expected {Lt}")
+    _set_counts(before)
+    gates = _division_gates()
+    # per step: each division's layers forward and again in the remat
+    # re-forward, the teacher's once; one backward (or dv + dqdk) a layer
+    fwd, bwd = 2 * ENS_D * L + Lt, ENS_D * L
+    expect = {"monolithic": (fwd, bwd, 0, 0), "split": (fwd, 0, bwd, bwd), "plain": (0, 0, 0, 0)}
+    print(f"[ens-train] stage-5 configuration: {ENS_D} dedeit divisions (kept heads per layer "
+          f"{[[int(h) for h in g.sum(-1).tolist()] for g in gates.head]}), deit-base teacher "
+          f"({Lt} launches at kh {teacher.cfg.num_heads} per forward), EnsMLP "
+          f"{ENS_D}x{backbone.cfg.embed_dim} -> {teacher.cfg.embed_dim} -> {ENS_CLASSES}, "
+          f"bs{ENS_B}; launches per step (fused, bwd, dv, dqdk) {expect} [{card}]")
+    return dict(backbone=backbone, stacked=stacked, teacher=teacher, ens=ens, gates=gates,
+                batch=(images, labels), expect=expect)
+
+
+def _ens_states(setup: dict):
+    """Fresh backbone and head states (and the step over them) from the
+    setup's initial parameters."""
+    cfg = OptimConfig(lr=3e-4, weight_decay=0.05, epochs=100)
+    stacked = {k: torch.nn.Parameter(v.detach().clone()) for k, v in setup["stacked"].items()}
+    ens = copy.deepcopy(setup["ens"])
+    bb = TrainState.create(stacked, make_optimizer(cfg, 100), use_ema=True)
+    en = TrainState.create(ens, make_optimizer(cfg, 100), use_ema=True)
+    step = make_ensemble_train_step(setup["backbone"], ens, setup["teacher"],
+                                    mixup=_mixup(ENS_CLASSES), smoothing=0.1,
+                                    distillation_type="hard", distillation_alpha=0.5,
+                                    token_loss_type="mse")
+    return bb, en, step
+
+
+def _grad_rel(got: dict, want: dict) -> dict:
+    return {k: float((got[k].float() - want[k].float()).norm()
+                     / want[k].float().norm().clamp_min(1e-30)) for k in want}
+
+
+def phase_ens_train(card: str) -> dict:
+    """The stage-5 ensemble step at full width, bs64, on the card: one step
+    in each mode from one state, batch and draws (loss and every gradient
+    leaf of both states within 2e-2 of the plain step), then steps through
+    train_epoch in each mode, timed in turns."""
+    setup = _ens_setup(card)
+    models = (setup["backbone"], setup["teacher"])
+    batch, gates, expect = setup["batch"], setup["gates"], setup["expect"]
+
+    one = {}
+    for mode in ENS_MODES:
+        bb, en, step = _ens_states(setup)
+        seen = {"bb": {}, "ens": {}}
+        for key, st in (("bb", bb), ("ens", en)):
+            update = st.tx.update
+            st.tx.update = (lambda sink, upd: lambda g, s_, p_: (sink.update(g), upd(g, s_, p_))[1]
+                            )(seen[key], update)
+        _set_mode(models, mode)
+        before = _counts()
+        _, _, metrics = step(bb, en, None, gates, *batch, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        launches = _delta(before)
+        _set_counts(before)  # the comparison's launches are not the main path's
+        if launches != expect[mode]:
+            raise AssertionError(f"stage-5 {mode} step launches {launches}, expected {expect[mode]}")
+        one[mode] = (float(metrics["loss"]), seen)
+        del bb, en, step
+    loss_p, seen_p = one["plain"]
+    checks = {}
+    for mode in ("monolithic", "split"):
+        loss_k, seen_k = one[mode]
+        rel = {**{f"bb/{k}": v for k, v in _grad_rel(seen_k["bb"], seen_p["bb"]).items()},
+               **{f"ens/{k}": v for k, v in _grad_rel(seen_k["ens"], seen_p["ens"]).items()}}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        if not (np.isfinite(loss_k) and loss_rel <= 2e-2 and rel[worst] <= 2e-2):
+            raise AssertionError(f"stage-5 step {mode} vs plain: loss {loss_k} vs {loss_p} (rel "
+                                 f"{loss_rel:.3e}), worst gradient {worst} rel {rel[worst]:.3e}")
+        checks[mode] = dict(loss=loss_k, loss_rel=loss_rel, worst_leaf=worst,
+                            grad_rel_worst=rel[worst], leaves=len(rel))
+        print(f"[ens-train] one step, {mode} kernels vs plain attention (same state, batch and "
+              f"draws): loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}); gradients of "
+              f"both states: worst leaf {worst} ||diff||/||plain|| {rel[worst]:.3e} (tol 2e-2, "
+              f"{len(rel)} leaves); launches per step {expect[mode]} (fused, bwd, dv, dqdk)")
+
+    runs = {m: [] for m in ENS_MODES}
+    per_step = {m: [] for m in ENS_MODES}
+    peak = {m: 0.0 for m in ENS_MODES}
+    losses = []
+    carries = {m: _ens_states(setup) for m in ENS_MODES}
+
+    def run(mode, n_steps, seed):
+        bb, en, step = carries[mode]
+
+        def fn(carry, images, labels, generator):
+            before = _counts()
+            b, e, metrics = step(*carry, None, gates, images, labels, generator)
+            per_step[mode].append(_delta(before))
+            losses.append(metrics["loss"])
+            return (b, e), metrics
+
+        _set_mode(models, mode)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (bb, en), _, _ = train_epoch(fn, (bb, en), [batch] * n_steps,
+                                     torch.Generator().manual_seed(seed), epoch=0,
+                                     log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated() / 2**30)
+        carries[mode] = (bb, en, step)
+        return ms
+
+    # the main path: counts at 0, a warm-up step per mode, then the timed turns
+    _set_counts((0, 0, 0, 0))
+    for mode in ENS_MODES:
+        run(mode, 1, seed=300)
+    turn_steps = 6  # the step is host-bound at bs64, so its times spread: average more
+    order = ("monolithic", "split", "plain", "plain", "split", "monolithic")
+    for i, mode in enumerate(order):
+        runs[mode].append(run(mode, turn_steps, seed=400 + i))
+    launches = dict(zip(("fused_attention", "attention_bwd", "attention_bwd_dv",
+                         "attention_bwd_dqdk"), _counts()))
+    os.environ.pop("DEVIT_ATTN_BWD")
+    for mode in ENS_MODES:
+        bad = [c for c in per_step[mode] if c != expect[mode]]
+        if bad or len(per_step[mode]) != 1 + 2 * turn_steps:
+            raise AssertionError(f"stage-5 {mode} per-step launches {per_step[mode]}, expected "
+                                 f"{expect[mode]} each")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"stage-5 run launched a kernel of its path no time: {launches}")
+    host_losses = [float(l) for l in losses]
+    if not all(np.isfinite(host_losses)):
+        raise AssertionError(f"non-finite stage-5 loss: {host_losses}")
+    ms = {m: sum(v) / len(v) for m, v in runs.items()}
+    for mode in ENS_MODES:
+        print(f"[ens-train] stage-5 step ({mode}), {ENS_D} dedeit divisions + deit-base teacher "
+              f"+ EnsMLP, bs{ENS_B}, bf16, remat, mixup/cutmix, 2 x AdamW + EMA: "
+              f"{ms[mode]:.3f} ms/step = {ENS_B / ms[mode] * 1e3:.1f} img/s; turns (ms/step) "
+              f"{runs[mode]}; {len(per_step[mode])} steps of {expect[mode]} launches (fused, "
+              f"bwd, dv, dqdk); peak memory {peak[mode]:.2f} GiB [{card}]")
+    print(f"[ens-train] {len(host_losses)} losses all finite (first {host_losses[0]:.4f}, last "
+          f"{host_losses[-1]:.4f}); launches in the run {launches}")
+    bb, en, step = carries["monolithic"]
+    return dict(ms=ms, img_s={m: ENS_B / ms[m] * 1e3 for m in ms}, runs_ms=runs, peak_gib=peak,
+                launches=launches, checks=checks, losses=host_losses, setup=setup,
+                steps={m: carries[m] for m in ("monolithic", "split")})
+
+
+def phase_ens_profile(ens: dict, card: str) -> dict:
+    """Device time by kernel class over one stage-5 step in each kernel mode
+    (torch.profiler) and the device's idle share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    setup = ens["setup"]
+    models = (setup["backbone"], setup["teacher"])
+    out = {}
+    for mode, (bb, en, step) in ens["steps"].items():
+        _set_mode(models, mode)
+        call = lambda: step(bb, en, None, setup["gates"], *setup["batch"],
+                            torch.Generator().manual_seed(7))
+        before = _counts()
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        _set_counts(before)
+        kernels = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_ms = sum(ms for _, _, ms in kernels)
+        by_kind = {}
+        for name, count, ms in kernels:
+            acc = by_kind.setdefault(_step_kind(name), [0.0, 0])
+            acc[0] += ms
+            acc[1] += count
+        print(f"[ens-train-profile] one bs{ENS_B} stage-5 step ({mode}): wall {wall_ms:.3f} ms, "
+              f"device busy {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+              f"{sum(c for _, c, _ in kernels)} kernel launches [{card}]")
+        for kind, (ms, count) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
+            print(f"[ens-train-profile]   {kind}: {ms:.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of "
+                  f"device time), {count} launches")
+        for name, count, ms in sorted(kernels, key=lambda k: -k[2])[:10]:
+            print(f"[ens-train-profile]   {ms:8.3f} ms  x{count:<4d} {name[:100]}")
+        out[mode] = dict(wall_ms=wall_ms, busy_ms=busy_ms, by_kind=by_kind,
+                         top=sorted(kernels, key=lambda k: -k[2])[:25])
+    os.environ.pop("DEVIT_ATTN_BWD")
+    return out
+
+
+def _split_bounds(B: int, kh: int, elem: int) -> dict:
+    """Least time of one launch of each split kernel: the dv kernel reads q,
+    k and g and writes dv (4 B N C elements) against s and dv (4 B N^2 C
+    operations); the dqdk kernel reads qkv and g and writes dq and dk (6 B N
+    C elements) against s, dp, dq and dk (8 B N^2 C operations)."""
+    C = kh * DH
+    out = {}
+    for name, elems, flops in (("dv", 4, 4), ("dqdk", 6, 8)):
+        t_bytes = elems * B * N * C * elem / HBM_BYTES_PER_S
+        t_ops = flops * B * N * N * C / BF16_FLOPS
+        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def phase_ens_kernel_times(card: str) -> dict:
+    """The stage-5 step's attention kernels at their shapes, timed on their
+    own beside their bounds, plain versions and library yardsticks: the split
+    pair and the monolithic backward at B 64, kh 6 (48 launches per step
+    each), the forward at kh 6 (96 per step) and at the teacher's kh 12 (12
+    per step). SDPA's forward, and its backward through autograd, are timed
+    here and never on the path."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    before = _counts()
+    per = {}
+    for kh in (6, 12):
+        x = _qkv(ENS_B, kh, torch.bfloat16, gen)
+        q, k, v = (t.contiguous() for t in x.view(ENS_B, N, 3, kh, DH).permute(2, 0, 3, 1, 4))
+        per[f"fwd_kh{kh}"] = dict(ms=_time_ms(lambda: fused_attention(x, num_heads=kh)),
+                                  plain_ms=_time_ms(lambda: reference_attention(x, num_heads=kh)),
+                                  library_ms=_time_ms(lambda: sdpa(q, k, v)))
+        bound, by_bytes = _bound(ENS_B, kh, 2, BF16_FLOPS)
+        per[f"fwd_kh{kh}"].update(bound_ms=bound, bound_by="bytes" if by_bytes else "operations")
+    kh = 6
+    x = _qkv(ENS_B, kh, torch.bfloat16, gen)
+    g = torch.randn((ENS_B, N, kh * DH), generator=gen, device="cuda").bfloat16()
+    q, k, v = (t.contiguous().requires_grad_() for t in
+               x.view(ENS_B, N, 3, kh, DH).permute(2, 0, 3, 1, 4))
+    out = sdpa(q, k, v)
+    gh = g.view(ENS_B, N, kh, DH).transpose(1, 2)
+    library = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True))
+    bounds = _split_bounds(ENS_B, kh, 2)
+    for name, fn, plain in (("dv", attention_bwd_dv, reference_attention_bwd_dv),
+                            ("dqdk", attention_bwd_dqdk, reference_attention_bwd_dqdk)):
+        per[name] = dict(ms=_time_ms(lambda: fn(x, g, kh)),
+                         plain_ms=_time_ms(lambda: plain(x, g, kh)), library_ms=library,
+                         bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    bb, bb_by = _bwd_bound(ENS_B, kh, 2, BF16_FLOPS)
+    per["bwd"] = dict(ms=_time_ms(lambda: attention_bwd(x, g, kh)),
+                      plain_ms=_time_ms(lambda: reference_attention_bwd(x, g, kh)),
+                      library_ms=library, bound_ms=bb, bound_by="bytes" if bb_by else "operations")
+    _set_counts(before)
+    step = {}
+    for name, n in (("fwd_kh6", 96), ("fwd_kh12", 12), ("dv", 48), ("dqdk", 48), ("bwd", 48)):
+        r = per[name]
+        step[name] = {key: n * r[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        step[name]["bound_by"] = r["bound_by"]
+        print(f"[ens-time] {name} bf16 B={ENS_B} N={N}: kernel {r['ms']:.4f} ms/launch, plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}); x{n} per stage-5 step: kernel {n * r['ms']:.3f} ms, plain "
+              f"{n * r['plain_ms']:.3f}, library {n * r['library_ms']:.3f}, bound "
+              f"{n * r['bound_ms']:.3f} [{card}]")
+    print(f"[ens-time] backward per stage-5 step: split pair {step['dv']['ms'] + step['dqdk']['ms']:.3f} "
+          f"ms vs monolithic {step['bwd']['ms']:.3f} ms; SDPA backward (the pair's library "
+          f"yardstick) {step['bwd']['library_ms']:.3f} ms [{card}]")
+    return dict(per_launch=per, per_step=step)
+
+
+def phase_dekd(card: str) -> dict:
+    """The stage-4 DEKD step on the card: a gated full-width dedeit student
+    (division 0's shrink policy, 25 classes), the deit-base teacher, bs64,
+    gamma (0.2, 0.1, 0.3), hard distillation, clip_grad 1.0, mixup/cutmix,
+    AdamW + EMA, in both distillation_inter modes; the False mode (kernels)
+    against the same step with the plain attention."""
+    student0 = create_vit("dedeit", num_classes=DEKD_CLASSES, drop_path_rate=0.1,
+                          dtype=torch.bfloat16, use_kernel=True, use_remat=True, device="cuda",
+                          generator=torch.Generator().manual_seed(1))
+    teacher = _teacher(DEKD_CLASSES)
+    g = _division_gates()
+    gates = Gates(g.head[0], g.neuron[0])
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    px = student0.cfg.img_size
+    batch = (torch.randn((ENS_B, px, px, 3), generator=gen, device="cuda").bfloat16(),
+             torch.randint(0, DEKD_CLASSES, (ENS_B,), generator=gen, device="cuda"))
+    cfg = OptimConfig(epochs=100, weight_decay=0.05, clip_grad=1.0)
+
+    def fresh(inter):
+        student = copy.deepcopy(student0)
+        state = TrainState.create(student, make_optimizer(cfg, 100), use_ema=True)
+        step = make_dekd_step(student, teacher, gamma=(0.2, 0.1, 0.3), mixup=_mixup(DEKD_CLASSES),
+                              smoothing=0.1, distillation_type="hard", distillation_alpha=0.5,
+                              distillation_inter=inter)
+        return student, state, step
+
+    # distillation_inter=False: kernels vs plain attention, one step from one state
+    one = {}
+    for mode in ("monolithic", "plain"):
+        student, state, step = fresh(False)
+        seen = {}
+        update = state.tx.update
+        state.tx.update = lambda g_, s_, p_: (seen.update(g_), update(g_, s_, p_))[1]
+        _set_mode((student, teacher), mode)
+        before = _counts()
+        _, metrics = step(state, None, gates, *batch, torch.Generator().manual_seed(2))
+        torch.cuda.synchronize()
+        _set_counts(before)
+        one[mode] = (float(metrics["loss"]), seen)
+    (loss_k, seen_k), (loss_p, seen_p) = one["monolithic"], one["plain"]
+    rel = _grad_rel(seen_k, seen_p)
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    if not (np.isfinite(loss_k) and loss_rel <= 2e-2 and rel[worst] <= 2e-2):
+        raise AssertionError(f"DEKD (inter=False) kernels vs plain: loss {loss_k} vs {loss_p} "
+                             f"(rel {loss_rel:.3e}), worst gradient {worst} rel {rel[worst]:.3e}")
+    print(f"[dekd] one step, distillation_inter=False, kernels vs plain attention: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}); worst gradient leaf {worst} "
+          f"||diff||/||plain|| {rel[worst]:.3e} (tol 2e-2, {len(rel)} leaves)")
+
+    L = student0.cfg.depth  # inter=False: student forward + re-forward, teacher, backward
+    expect = {True: (0, 0, 0, 0), False: (2 * L + teacher.cfg.depth, L, 0, 0)}
+    res = dict(loss_rel=loss_rel, grad_rel_worst=rel[worst], worst_leaf=worst)
+    _set_counts((0, 0, 0, 0))  # the main path: both modes, the kernels on
+    for inter in (True, False):
+        student, state, step = fresh(inter)
+        _set_mode((student, teacher), "monolithic")
+        per_step, losses = [], []
+
+        def fn(st, images, labels, generator):
+            before = _counts()
+            st, metrics = step(st, None, gates, images, labels, generator)
+            per_step.append(_delta(before))
+            losses.append(metrics["loss"])
+            return st, metrics
+
+        torch.cuda.reset_peak_memory_stats()
+        state, _, _ = train_epoch(fn, state, [batch], torch.Generator().manual_seed(60),
+                                  epoch=0, log_fn=lambda *_: None)
+        n_steps = 4
+        t0 = time.perf_counter()
+        state, _, _ = train_epoch(fn, state, [batch] * n_steps,
+                                  torch.Generator().manual_seed(61), epoch=0,
+                                  log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        host = [float(l) for l in losses]
+        if any(c != expect[inter] for c in per_step) or not all(np.isfinite(host)):
+            raise AssertionError(f"DEKD inter={inter}: per-step launches {per_step} (expected "
+                                 f"{expect[inter]}), losses {host}")
+        print(f"[dekd] stage-4 step, distillation_inter={inter}, dedeit student + deit-base "
+              f"teacher, bs{ENS_B}, bf16, remat, clip 1.0: {ms:.3f} ms/step = "
+              f"{ENS_B / ms * 1e3:.1f} img/s; {len(per_step)} steps of {expect[inter]} launches "
+              f"(fused, bwd, dv, dqdk); losses finite (first {host[0]:.4f}, last {host[-1]:.4f});"
+              f" peak memory {peak:.2f} GiB [{card}]")
+        res[f"inter_{inter}"] = dict(ms=ms, img_s=ENS_B / ms * 1e3, peak_gib=peak, losses=host)
+    launches = dict(zip(("fused_attention", "attention_bwd", "attention_bwd_dv",
+                         "attention_bwd_dqdk"), _counts()))
+    os.environ.pop("DEVIT_ATTN_BWD")
+    if launches["fused_attention"] == 0 or launches["attention_bwd"] == 0:
+        raise AssertionError(f"DEKD run launched a kernel of its path no time: {launches}")
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -668,29 +1230,52 @@ def main() -> int:
     del cms, ens
 
     bwd_max_abs_err = phase_bwd_checks()
+    split_max_abs_err = phase_split_checks()
     train = phase_train(card)
     step = train.pop("step")
     train["profile"] = phase_train_profile(step, card)
     train["kernel_times"] = phase_train_kernel_times(card)
     times["train"] = train
+    del step
+
+    ens = phase_ens_train(card)
+    ens["profile"] = phase_ens_profile(ens, card)
+    del ens["setup"], ens["steps"]
+    torch.cuda.empty_cache()
+    ens["kernel_times"] = phase_ens_kernel_times(card)
+    times["ens_train"] = ens
+    times["dekd"] = dekd = phase_dekd(card)
 
     fa = times["forward_attention"]
     bw = train["kernel_times"]["bwd_step"]
+    es = ens["kernel_times"]["per_step"]
     record = {"kernels": [{
         "name": "fused_attention", "route": "cuda",
         "source": "devit_tpu_torch/kernels/csrc/attention.cu",
         "replaces": "devit_tpu/kernels/attention.py:30",
-        # the serving run's launches plus the training run's
-        "launches": launches + train["launches"]["fused_attention"],
+        # the launches of every main-path run: serving, stage 2, stage 5, DEKD
+        "launches": (launches + train["launches"]["fused_attention"]
+                     + ens["launches"]["fused_attention"] + dekd["launches"]["fused_attention"]),
         "max_abs_err": max_abs_err,
         "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"]}, {
         "name": "attention_bwd", "route": "cuda",
         "source": "devit_tpu_torch/kernels/csrc/attention_bwd.cu",
         "replaces": "devit_tpu/kernels/attention.py:238",
-        "launches": train["launches"]["attention_bwd"], "max_abs_err": bwd_max_abs_err,
+        "launches": (train["launches"]["attention_bwd"] + ens["launches"]["attention_bwd"]
+                     + dekd["launches"]["attention_bwd"]),
+        "max_abs_err": bwd_max_abs_err,
         "ms": bw["ms"], "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
-        "bound_by": bw["bound_by"], "library_ms": bw["library_ms"]}]}
+        "bound_by": bw["bound_by"], "library_ms": bw["library_ms"]}] + [{
+        # per stage-5 step (48 launches at B 64, kh 6); the library yardstick
+        # is SDPA's whole backward, for the pair
+        "name": f"attention_bwd_{k}", "route": "cuda",
+        "source": "devit_tpu_torch/kernels/csrc/attention_bwd_split.cu",
+        "replaces": f"devit_tpu/kernels/attention.py:{line}",
+        "launches": ens["launches"][f"attention_bwd_{k}"], "max_abs_err": split_max_abs_err[k],
+        "ms": es[k]["ms"], "plain_ms": es[k]["plain_ms"], "bound_ms": es[k]["bound_ms"],
+        "bound_by": es[k]["bound_by"], "library_ms": es[k]["library_ms"]}
+        for k, line in (("dv", 306), ("dqdk", 324))]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(

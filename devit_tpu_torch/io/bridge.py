@@ -5,7 +5,10 @@ anything np.asarray takes); the port copies them as float32, bit for bit.
 Reading the JAX package's .msgpack artifacts waits for a later slice.
 
 A VisionTransformer's tree is scan-stacked: every `blocks/*` leaf carries a
-leading depth axis, which the port's `blocks.<i>.*` parameters split.
+leading depth axis, which the port's `blocks.<i>.*` parameters split. The
+ensemble's division-stacked tree (init_multivit) puts the division axis in
+front of that: a `blocks/*` leaf is (D, depth, ...), the port's stacked
+`blocks.<i>.*` entry (D, ...).
 """
 
 from __future__ import annotations
@@ -71,6 +74,10 @@ def vit_to_jax_params(values: Union[VisionTransformer, Mapping[str, torch.Tensor
     f32 numpy arrays shaped like the flax tree."""
     if isinstance(values, torch.nn.Module):
         values = dict(values.named_parameters())
+    return _to_tree(values, layer_axis=0)
+
+
+def _to_tree(values: Mapping[str, torch.Tensor], layer_axis: int) -> dict:
     tree: dict = {}
     stacks: dict = {}
     for name, t in values.items():
@@ -81,8 +88,41 @@ def vit_to_jax_params(values: Union[VisionTransformer, Mapping[str, torch.Tensor
         else:
             stacks.setdefault(tuple(path), {})[layer] = arr
     for path, layers in stacks.items():
-        _put(tree, list(path), np.stack([layers[i] for i in range(len(layers))]))
+        _put(tree, list(path), np.stack([layers[i] for i in range(len(layers))], axis=layer_axis))
     return tree
+
+
+def stacked_vit_from_jax_params(stacked_np: dict, model: VisionTransformer, *,
+                                device: DeviceLike = None) -> dict:
+    """A division-stacked flax VisionTransformer `params` tree (every leaf
+    (D, ...), `blocks/*` (D, depth, ...)) -> the port's stacked dict
+    {name: (D, ...) trainable f32 tensor} over `model`'s parameter names, bit
+    for bit. The tree may lack the classifier heads (a features_only init)."""
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    depth, dev = model.cfg.depth, resolve_device(device)
+    out = {}
+    for path in _flat_paths(stacked_np):
+        node = stacked_np
+        for key in path.split("/"):
+            node = node[key]
+        arr = np.asarray(node, np.float32)
+        parts = path.split("/")
+        names = ([(f"blocks.{i}." + ".".join(parts[1:]), arr[:, i]) for i in range(depth)]
+                 if parts[0] == "blocks" else [(".".join(parts), arr)])
+        for name, a in names:
+            if name not in shapes:
+                raise ValueError(f"flax leaf {path} has no port parameter {name}")
+            if a.shape[1:] != shapes[name]:
+                raise ValueError(f"{path}: per-division shape {a.shape[1:]} != {shapes[name]}")
+            out[name] = torch.nn.Parameter(torch.tensor(np.ascontiguousarray(a), device=dev))
+    return {k: out[k] for k in shapes if k in out}  # the model's parameter order
+
+
+def stacked_vit_to_jax_params(stacked: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse: a stacked {port name: (D, ...)} dict (parameters,
+    gradients, an EMA copy) -> the division-stacked flax tree of f32 numpy
+    arrays, `blocks/*` leaves (D, depth, ...)."""
+    return _to_tree(stacked, layer_axis=1)
 
 
 def _put(tree: dict, path, value) -> None:
@@ -118,3 +158,15 @@ def ensmlp_from_jax_params(ens_params_np: dict, *, num_divisions: int, dtype=Non
                  teacher_size=int(kc.shape[0]) if "cls_mlp" in ens_params_np else None,
                  family="deit" if "dist_classifier" in ens_params_np else "vit", **kw)
     return ens.load_params(ens_params_np).to(dev)
+
+
+def ensmlp_to_jax_params(values: Union[EnsMLP, Mapping[str, torch.Tensor]]) -> dict:
+    """The inverse of ensmlp_from_jax_params: the head's parameters, or any
+    {port name: tensor} of the same names, as the flax EnsMLP `params` tree of
+    f32 numpy arrays."""
+    if isinstance(values, torch.nn.Module):
+        values = dict(values.named_parameters())
+    tree: dict = {}
+    for name, t in values.items():
+        _put(tree, name.split("."), t.detach().float().cpu().numpy())
+    return tree

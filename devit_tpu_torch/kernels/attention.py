@@ -13,15 +13,21 @@ The head gate is applied outside the kernel, as in the JAX package.
 
 `make_trainable_attention` is the differentiable form the training path
 uses: its forward is `fused_attention`, it saves only qkv, and its backward
-`attention_bwd` recomputes the probabilities. On a CUDA tensor that is the
-hand-written kernel in csrc/attention_bwd.cu; on a CPU tensor
-`reference_attention_bwd`, the plain version with the TPU kernel's numerics.
+recomputes the probabilities. The backward mode comes from DEVIT_ATTN_BWD
+(default "monolithic"), as in the JAX package:
+- "monolithic": `attention_bwd`, the kernel in csrc/attention_bwd.cu;
+- "split": `attention_bwd_split`, two kernels in csrc/attention_bwd_split.cu,
+  `attention_bwd_dqdk` ([dq | dk]) and `attention_bwd_dv` (dv).
+Each takes its plain version (`reference_attention_bwd`,
+`reference_attention_bwd_dqdk`, `reference_attention_bwd_dv`, the TPU
+kernels' numerics) on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional
 
 import torch
@@ -83,6 +89,44 @@ def reference_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     return out.permute(1, 3, 0, 2, 4).reshape(B, N, 3 * C)
 
 
+def _bwd_operands(qkv: torch.Tensor, g: torch.Tensor, num_heads: int):
+    B, N, C, dh = _split_heads(qkv, num_heads)
+    x = qkv.reshape(B, N, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    gh = g.reshape(B, N, num_heads, dh).permute(0, 2, 1, 3).float()
+    s = torch.matmul(x[0].float(), x[1].float().transpose(-1, -2)) * (dh ** -0.5)
+    return x, gh, torch.softmax(s, dim=-1), (B, N, C, dh)  # p in f32 (B, H, N, N)
+
+
+def _merge_heads(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(k, B, H, N, dh) f32 -> (B, N, k * H * dh) of `dtype`."""
+    t = t.to(dtype)
+    k, B, H, N, dh = t.shape
+    return t.permute(1, 3, 0, 2, 4).reshape(B, N, k * H * dh)
+
+
+def reference_attention_bwd_dv(qkv: torch.Tensor, g: torch.Tensor,
+                               num_heads: int) -> torch.Tensor:
+    """dv (B, N, C) line for line as the TPU dv kernel computes it: f32 p
+    rounded to qkv's dtype, then p^T g accumulated in f32."""
+    _, gh, p, _ = _bwd_operands(qkv, g, num_heads)
+    pb = p.to(qkv.dtype).float()
+    return _merge_heads(torch.matmul(pb.transpose(-1, -2), gh)[None], qkv.dtype)
+
+
+def reference_attention_bwd_dqdk(qkv: torch.Tensor, g: torch.Tensor,
+                                 num_heads: int) -> torch.Tensor:
+    """[dq | dk] (B, N, 2C) line for line as the TPU dq/dk kernel computes
+    them: f32 p, f32 dp, ds rounded to v's dtype, products in f32."""
+    x, gh, p, (_, _, _, dh) = _bwd_operands(qkv, g, num_heads)
+    q, k, v = x[0].float(), x[1].float(), x[2]
+    dp = torch.matmul(gh, v.float().transpose(-1, -2))
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    ds = (ds * dh ** -0.5).to(v.dtype).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    return _merge_heads(torch.stack([dq, dk]), qkv.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signatures declared."""
@@ -94,7 +138,11 @@ def _library() -> ctypes.CDLL:
     lib.devit_fused_attention.restype = i
     lib.devit_attention_bwd.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     lib.devit_attention_bwd.restype = i
-    for fn in (lib.devit_attention_smem_bytes, lib.devit_attention_bwd_smem_bytes):
+    for fn in (lib.devit_attention_bwd_dv, lib.devit_attention_bwd_dqdk):
+        fn.argtypes = [vp, vp, vp, ll, i, i, i, i, i, vp]
+        fn.restype = i
+    for fn in (lib.devit_attention_smem_bytes, lib.devit_attention_bwd_smem_bytes,
+               lib.devit_attention_bwd_dv_smem_bytes, lib.devit_attention_bwd_dqdk_smem_bytes):
         fn.argtypes = [i, i, i]
         fn.restype = ll
     lib.devit_max_smem_optin.argtypes = [i]
@@ -104,13 +152,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+_SMEM_QUERIES = {"fwd": "devit_attention_smem_bytes", "bwd": "devit_attention_bwd_smem_bytes",
+                 "dv": "devit_attention_bwd_dv_smem_bytes",
+                 "dqdk": "devit_attention_bwd_dqdk_smem_bytes"}
+
+
 @functools.lru_cache(maxsize=None)
 def _check_smem(kernel: str, N: int, dh: int, elem: int, device: int) -> None:
-    """Raise if one block of `kernel` ("fwd" or "bwd") at sequence length N
-    does not fit shared memory."""
+    """Raise if one block of `kernel` (a key of _SMEM_QUERIES) at sequence
+    length N does not fit shared memory."""
     lib = _library()
-    need = (lib.devit_attention_smem_bytes if kernel == "fwd"
-            else lib.devit_attention_bwd_smem_bytes)(N, dh, elem)
+    need = getattr(lib, _SMEM_QUERIES[kernel])(N, dh, elem)
     if need < 0:
         raise ValueError(f"sequence length N={N} is past what the {kernel} kernel takes "
                          f"(its shared memory and registers hold N <= 256)")
@@ -175,12 +227,16 @@ def fused_attention(qkv: torch.Tensor, head_gate: Optional[torch.Tensor] = None,
 fused_attention.launches = 0
 
 
-def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
-    B, N, C, dh = _check_kernel_input(qkv, num_heads, "bwd")
+def _check_bwd_input(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, kernel: str):
+    B, N, C, dh = _check_kernel_input(qkv, num_heads, kernel)
     if g.shape != (B, N, C) or g.dtype != qkv.dtype or g.device != qkv.device:
         raise ValueError(f"g must be {(B, N, C)} {qkv.dtype} on {qkv.device}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
-    qkv, g = qkv.contiguous(), g.contiguous()
+    return qkv.contiguous(), g.contiguous(), (B, N, C, dh)
+
+
+def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    qkv, g, (B, N, C, dh) = _check_bwd_input(qkv, g, num_heads, "bwd")
     dqkv = torch.empty_like(qkv)
     if B == 0:
         return dqkv
@@ -210,33 +266,112 @@ def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.T
 attention_bwd.launches = 0
 
 
+def _launch_half(kernel: str, qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
+                 out: torch.Tensor, offset: int) -> None:
+    """Launch the split kernel `kernel` ("dv" or "dqdk") on contiguous,
+    checked qkv and g, writing token rows of `out` (contiguous, last dim its
+    row stride) from element `offset` of each row on."""
+    B, N, C, dh = _split_heads(qkv, num_heads)
+    if B == 0:
+        return
+    lib = _library()
+    fn = lib.devit_attention_bwd_dv if kernel == "dv" else lib.devit_attention_bwd_dqdk
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(qkv.data_ptr(), g.data_ptr(), out.data_ptr() + offset * out.element_size(),
+                 out.shape[-1], B, N, num_heads, dh, _DTYPE_CODES[qkv.dtype], stream)
+    wrapper = attention_bwd_dv if kernel == "dv" else attention_bwd_dqdk
+    _raise_on(err, wrapper.__name__)
+    wrapper.launches += 1
+
+
+def _split_half(kernel: str, plain, qkv: torch.Tensor, g: torch.Tensor,
+                num_heads: int) -> torch.Tensor:
+    if qkv.device.type == "cpu":
+        return plain(qkv, g, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_bwd_{kernel} runs on cuda (kernel) or cpu (plain "
+                         f"version), not {qkv.device}")
+    qkv, g, (B, N, C, _) = _check_bwd_input(qkv, g, num_heads, kernel)
+    width = C if kernel == "dv" else 2 * C
+    out = torch.empty((B, N, width), dtype=qkv.dtype, device=qkv.device)
+    _launch_half(kernel, qkv, g, num_heads, out, 0)
+    return out
+
+
+def attention_bwd_dv(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """dv (B, N, C) of `fused_attention` (no gate) at qkv for the output
+    gradient g. CUDA tensor: the kernel in csrc/attention_bwd_split.cu
+    (counted in `attention_bwd_dv.launches`); CPU tensor:
+    `reference_attention_bwd_dv`."""
+    return _split_half("dv", reference_attention_bwd_dv, qkv, g, num_heads)
+
+
+def attention_bwd_dqdk(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[dq | dk] (B, N, 2C), as attention_bwd_dv (counted in
+    `attention_bwd_dqdk.launches`; plain version
+    `reference_attention_bwd_dqdk`)."""
+    return _split_half("dqdk", reference_attention_bwd_dqdk, qkv, g, num_heads)
+
+
+attention_bwd_dv.launches = 0
+attention_bwd_dqdk.launches = 0
+
+
+def attention_bwd_split(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """dqkv of `fused_attention` (no gate) through the two split kernels,
+    [dq | dk | dv] as the JAX package's _attention_bwd_split_impl
+    concatenates them. CUDA tensor: the dqdk kernel, then the dv kernel,
+    each writing its slice of one dqkv buffer (one launch each, counted on
+    attention_bwd_dqdk and attention_bwd_dv). CPU tensor: the plain
+    versions, concatenated."""
+    if qkv.device.type == "cpu":
+        return torch.cat([reference_attention_bwd_dqdk(qkv, g, num_heads),
+                          reference_attention_bwd_dv(qkv, g, num_heads)], dim=-1)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_bwd_split runs on cuda (kernels) or cpu (plain "
+                         f"versions), not {qkv.device}")
+    qkv, g, (_, _, C, _) = _check_bwd_input(qkv, g, num_heads, "dqdk")
+    _check_smem("dv", qkv.shape[1], C // num_heads, qkv.element_size(), qkv.device.index)
+    dqkv = torch.empty_like(qkv)
+    _launch_half("dqdk", qkv, g, num_heads, dqkv, 0)
+    _launch_half("dv", qkv, g, num_heads, dqkv, 2 * C)
+    return dqkv
+
+
+_BWD = {"monolithic": attention_bwd, "split": attention_bwd_split}
+
+
 class _TrainableAttention(torch.autograd.Function):
-    """fused_attention with attention_bwd as its gradient; saves only qkv."""
+    """fused_attention with the backward of `bwd_mode` as its gradient;
+    saves only qkv."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, bwd_mode: str) -> torch.Tensor:
         qkv = qkv.contiguous()
         ctx.num_heads = num_heads
+        ctx.bwd_mode = bwd_mode
         ctx.save_for_backward(qkv)
         return fused_attention(qkv, None, num_heads=num_heads)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (qkv,) = ctx.saved_tensors
-        return attention_bwd(qkv, g, ctx.num_heads), None
+        return _BWD[ctx.bwd_mode](qkv, g, ctx.num_heads), None, None
 
 
-def make_trainable_attention(num_heads: int, bwd_mode: str = "monolithic"):
+def make_trainable_attention(num_heads: int, bwd_mode: Optional[str] = None):
     """Differentiable fused attention (no gate, no dropout): qkv (B, N, 3C)
-    -> (B, N, C). Only the monolithic backward is ported; "split" (two
-    kernels in the JAX package) is still to port."""
-    if bwd_mode == "split":
-        raise ValueError("bwd_mode='split' is still to port (the JAX package's "
-                         "_attention_bwd_split_impl); use 'monolithic'")
-    if bwd_mode != "monolithic":
+    -> (B, N, C). bwd_mode "monolithic" (one backward kernel) or "split" (a
+    dq/dk kernel and a dv kernel); None takes DEVIT_ATTN_BWD, default
+    "monolithic", as the JAX package's make_trainable_attention does."""
+    if bwd_mode is None:
+        bwd_mode = os.environ.get("DEVIT_ATTN_BWD", "monolithic")
+    if bwd_mode not in _BWD:
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
 
     def attention(qkv: torch.Tensor) -> torch.Tensor:
-        return _TrainableAttention.apply(qkv, num_heads)  # some torch versions take no keywords
+        # some torch versions take no keywords in Function.apply
+        return _TrainableAttention.apply(qkv, num_heads, bwd_mode)
 
     return attention

@@ -1,0 +1,238 @@
+// Split backward of the fused multi-head self-attention: dv in one kernel,
+// dq and dk in another, from qkv and the output's gradient g.
+//
+// Replaces devit_tpu/kernels/attention.py:_attn_bwd_dv_kernel and
+// _attn_bwd_dqdk_kernel (the pair _attention_bwd_split_impl launches when
+// DEVIT_ATTN_BWD=split). Same contract: qkv is the raw (B, N, 3C) input,
+// ordered [q | k | v] and head-major inside each third, g is (B, N, C); the
+// dv kernel writes dv (C wide a token), the dqdk kernel [dq | dk] (2C wide).
+// Each writes through a row stride, so the two can fill their slices of one
+// (B, N, 3C) dqkv buffer: the same function as the TPU code's
+// concatenate([dqk, dv], -1).
+//
+// Numerics follow the two TPU kernels: s = (q . k^T) * dh^-0.5 and p =
+// softmax(s) in f32; dv = round(p)^T g with p rounded to qkv's dtype; dp =
+// g v^T in f32, ds = round((p * (dp - rowsum(dp * p))) * scale) over the
+// unrounded p, dq = ds k, dk = ds^T q. Every product accumulates in f32 and
+// is rounded once, when it is written. That is the monolithic kernel's
+// arithmetic in the same order, so the two backwards agree bit for bit.
+//
+// What bounds them on an H100: the dv kernel reads q, k (2C) and g (C) and
+// writes dv (C) a token, 4 * B * N * C elements, against 4 * B * N^2 * C
+// FLOPs (s, dv); the dqdk kernel reads qkv and g (4C) and writes dq, dk (2C),
+// 6 * B * N * C elements, against 8 * B * N^2 * C FLOPs (s, dp, dq, dk). Both
+// are under the ~295 FLOP per byte at which bf16 tensor cores would be the
+// limit, so memory bandwidth bounds them. This first version computes every
+// product with f32 FMAs on the CUDA cores from shared memory (the steps of
+// bwd_common.cuh), far above that bound; chip_smoke.py prints both.
+//
+// Design: each output has one writer and nothing is summed with atomics, so
+// the results are the same on every run.
+// - dv sums over all queries. A dv block owns (batch row, head, 64-key tile)
+//   and loops over the 32-query tiles, recomputing each tile's full score
+//   rows (the softmax needs all N columns) and summing its 64 keys' dv in
+//   registers (4 rows a warp). That gives B * H * ceil(N / 64) blocks, four
+//   times the monolithic kernel's B * H at N = 198, and needs only K, not V,
+//   in shared memory (~60 KB bf16, ~92 KB f32 at N = 198); s is recomputed
+//   once per key tile.
+// - dq sums over keys and dk over queries, so no single tiling owns both.
+//   A dqdk block owns a whole (batch row, head), as the monolithic kernel
+//   does: it is that kernel's second pass alone (dq written per query tile,
+//   dk summed in registers, N <= 256).
+
+#include "bwd_common.cuh"
+
+namespace {
+
+using namespace devit::bwd;
+
+constexpr int kKeyTile = 64;                   // key rows of dv a dv block owns
+constexpr int kDvRowsPerWarp = kKeyTile / kWarps;
+constexpr int kMaxCPerWarp = 16;               // key rows of dk a warp holds
+constexpr int kMaxN = kWarps * kMaxCPerWarp;   // dqdk: N <= 256
+static_assert(kKeyTile % kWarps == 0, "a key tile splits evenly over the warps");
+
+// P [kBQ][SP] f32 | K [N][kv_stride] T | Q, G [kBQ][dh] T
+template <typename T>
+size_t dv_smem_bytes(int n, int dh) {
+  return sizeof(float) * (size_t)kBQ * devit::score_stride(n) +
+         sizeof(T) * ((size_t)n * kv_stride<T>(dh) + 2 * (size_t)kBQ * dh);
+}
+
+// dv rows [c0, c0 + kKeyTile) of one (batch row, head), summed over all N
+// queries: dv[c] = sum_r round(p[r][c]) g[r].
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dv_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dv,
+                   long long out_stride, int N, int H, int n_key_tiles, float scale) {
+  static_assert(DH == 64, "a lane owns dims l and l + 32");
+  constexpr int KS = kv_stride<T>(DH);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int SP = devit::score_stride(N);
+  float* P = reinterpret_cast<float*>(smem);  // p of the tile (f32)
+  T* Ks = reinterpret_cast<T*>(P + kBQ * SP);
+  T* Qs = Ks + N * KS;    // the tile's q rows, zero past N
+  T* Gs = Qs + kBQ * DH;  // the tile's g rows, zero past N
+
+  // blocks of one (batch row, head) are neighbours, so their K reads meet in L2
+  const int kt = blockIdx.x % n_key_tiles;
+  const int bh = blockIdx.x / n_key_tiles;
+  const int b = bh / H, h = bh % H;
+  const int C = H * DH;
+  const int64_t row3 = 3LL * C;
+  const T* base = qkv + (int64_t)b * N * row3 + h * DH;
+  const T* gbase = g + (int64_t)b * N * C + h * DH;
+  T* obase = dv + (int64_t)b * N * out_stride + h * DH;
+  const int c0 = kt * kKeyTile, c_end = min(N, c0 + kKeyTile);
+  const int warp = threadIdx.x / 32;
+
+  load_keys<T, DH>(base, Ks, nullptr, N, row3, C);
+  float acc[kDvRowsPerWarp][2];
+#pragma unroll
+  for (int i = 0; i < kDvRowsPerWarp; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int q0 = 0; q0 < N; q0 += kBQ) {
+    const int rows = min(kBQ, N - q0);
+    __syncthreads();  // the previous tile's readers of Q, G and P are done
+    load_query_tile<T, DH>(base, gbase, Qs, Gs, q0, rows, row3, C);
+    __syncthreads();
+    rows_times_keys<T, DH>(Qs, Ks, P, N, SP, scale);
+    // each warp finishes its own two rows; a lane reads only the columns it
+    // wrote, so no barrier is needed between the product and this step
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 2 * warp + i;
+      if (r < rows) softmax_row(P + r * SP, N);  // rows past N: never read
+    }
+    __syncthreads();
+    accumulate_keys<T, DH, true, kDvRowsPerWarp>(acc, P, Gs, c0, c_end, SP, rows);
+  }
+  store_keys<T, kDvRowsPerWarp>(acc, obase, out_stride, c0, c_end);
+}
+
+// dq and dk of one (batch row, head): each tile's dq rows are written as the
+// tile finishes; dk, summed over all N queries, at the end.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dqdk_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dqk,
+                     long long out_stride, int N, int H, float scale) {
+  static_assert(DH == 64, "a lane owns dims l and l + 32");
+  constexpr int KS = kv_stride<T>(DH);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int SP = devit::score_stride(N);
+  float* P = reinterpret_cast<float*>(smem);  // p of the tile (f32)
+  float* D = P + kBQ * SP;                    // dp, then ds, of the tile
+  T* Ks = reinterpret_cast<T*>(D + kBQ * SP);
+  T* Vs = Ks + N * KS;
+  T* Qs = Vs + N * KS;
+  T* Gs = Qs + kBQ * DH;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int C = H * DH;
+  const int64_t row3 = 3LL * C;
+  const T* base = qkv + (int64_t)b * N * row3 + h * DH;
+  const T* gbase = g + (int64_t)b * N * C + h * DH;
+  T* obase = dqk + (int64_t)b * N * out_stride + h * DH;  // dq here, dk C further
+  const int warp = threadIdx.x / 32;
+
+  load_keys<T, DH>(base, Ks, Vs, N, row3, C);
+  float acc[kMaxCPerWarp][2];
+#pragma unroll
+  for (int i = 0; i < kMaxCPerWarp; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int q0 = 0; q0 < N; q0 += kBQ) {
+    const int rows = min(kBQ, N - q0);
+    __syncthreads();  // the previous tile's readers of Q, G, P and D are done
+    load_query_tile<T, DH>(base, gbase, Qs, Gs, q0, rows, row3, C);
+    __syncthreads();
+    rows_times_keys<T, DH>(Qs, Ks, P, N, SP, scale);
+    rows_times_keys<T, DH>(Gs, Vs, D, N, SP, 1.f);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 2 * warp + i;
+      if (r >= rows) continue;
+      softmax_row(P + r * SP, N);
+      ds_row<T>(P + r * SP, D + r * SP, N, scale);
+    }
+    __syncthreads();
+    accumulate_keys<T, DH, false, kMaxCPerWarp>(acc, D, Qs, 0, N, SP, rows);  // dk += ds^T q
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 2 * warp + i;
+      if (r < rows) dq_row<T, DH>(D + r * SP, Ks, obase + (int64_t)(q0 + r) * out_stride, N);
+    }
+  }
+  store_keys<T, kMaxCPerWarp>(acc, obase + C, out_stride, 0, N);
+}
+
+template <typename T, int DH>
+cudaError_t launch_dv(const void* qkv, const void* g, void* dv, long long out_stride, int B,
+                      int N, int H, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_dv_kernel<T, DH>, opted_in);
+  if (err != cudaSuccess) return err;
+  const int n_key_tiles = (N + kKeyTile - 1) / kKeyTile;
+  attn_bwd_dv_kernel<T, DH><<<(unsigned)B * H * n_key_tiles, kThreads, dv_smem_bytes<T>(N, DH),
+                              stream>>>(static_cast<const T*>(qkv), static_cast<const T*>(g),
+                                        static_cast<T*>(dv), out_stride, N, H, n_key_tiles,
+                                        1.0f / sqrtf((float)DH));
+  return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_dqdk(const void* qkv, const void* g, void* dqk, long long out_stride, int B,
+                        int N, int H, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_dqdk_kernel<T, DH>, opted_in);
+  if (err != cudaSuccess) return err;
+  if (N > kMaxN) return cudaErrorInvalidValue;
+  attn_bwd_dqdk_kernel<T, DH><<<(unsigned)B * H, kThreads, dqdk_smem_bytes<T>(N, DH), stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(dqk), out_stride, N,
+      H, 1.0f / sqrtf((float)DH));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one dv block needs at sequence length n.
+long long devit_attention_bwd_dv_smem_bytes(int n, int head_dim, int elem_bytes) {
+  return (long long)(elem_bytes == 2 ? dv_smem_bytes<__nv_bfloat16>(n, head_dim)
+                                     : dv_smem_bytes<float>(n, head_dim));
+}
+
+// Dynamic shared memory one dqdk block needs at sequence length n; -1 past
+// the N its registers hold.
+long long devit_attention_bwd_dqdk_smem_bytes(int n, int head_dim, int elem_bytes) {
+  if (n > kMaxN) return -1;
+  return (long long)(elem_bytes == 2 ? dqdk_smem_bytes<__nv_bfloat16>(n, head_dim)
+                                     : dqdk_smem_bytes<float>(n, head_dim));
+}
+
+// qkv: (B, N, 3*H*head_dim), g: (B, N, H*head_dim), contiguous, one dtype
+// (0 = float32, 1 = bfloat16). dv: token n of batch row b starts at
+// dv + (b * N + n) * out_stride and takes H*head_dim elements. Returns a
+// cudaError_t (0 = launched).
+int devit_attention_bwd_dv(const void* qkv, const void* g, void* dv, long long out_stride, int B,
+                           int N, int H, int head_dim, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_dv<float, 64>(qkv, g, dv, out_stride, B, N, H, s);
+  if (dtype == 1) return (int)launch_dv<__nv_bfloat16, 64>(qkv, g, dv, out_stride, B, N, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As devit_attention_bwd_dv, writing [dq | dk] (2*H*head_dim elements from
+// dqk + (b * N + n) * out_stride).
+int devit_attention_bwd_dqdk(const void* qkv, const void* g, void* dqk, long long out_stride,
+                             int B, int N, int H, int head_dim, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_dqdk<float, 64>(qkv, g, dqk, out_stride, B, N, H, s);
+  if (dtype == 1)
+    return (int)launch_dqdk<__nv_bfloat16, 64>(qkv, g, dqk, out_stride, B, N, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

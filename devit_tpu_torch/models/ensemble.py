@@ -1,40 +1,49 @@
-"""Token-fusion head of the collaborative ensemble (counterpart of
-devit_tpu/models/ensemble.py:102-168).
+"""Collaborative-inference ensemble: stacked division backbones and the
+token-fusion head (counterpart of devit_tpu/models/ensemble.py:35-168 and
+:235-253).
 
-Division tokens (D, B, C) are concatenated division-major per batch element,
-optionally projected to `teacher_size`, then classified over the full label
-set; the deit family averages separate cls/dist classifiers. Submodule names
-are the flax ones (cls_mlp, cls_classifier, dist_mlp, dist_classifier), so
-the weights carry across by name.
+The D divisions keep the JAX layout: one {parameter name: (D, ...) tensor}
+dict, the port's names with a leading division axis (`stack_division_params`,
+`init_multivit`). `multivit_features` runs each division through
+torch.func.functional_call on its slice {k: v[d]}, in a loop over D that
+takes the place of the JAX package's jax.vmap; gradients land on the stacked
+leaves, so one optimizer state spans every division.
+
+`EnsMLP` concatenates the division tokens (D, B, C) division-major per batch
+element, optionally projects them to `teacher_size`, then classifies over
+the full label set; the deit family averages separate cls/dist classifiers.
+Submodule names are the flax ones (cls_mlp, cls_classifier, dist_mlp,
+dist_classifier), so the weights carry across by name.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import copy
+from typing import Any, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
+
+from devit_tpu_torch.models import vit
+from devit_tpu_torch.models.vit import Gates, VisionTransformer, _trunc_normal_, full_gates
+
+# parameters a features_only forward never reaches; the JAX package's
+# features_only init never creates them
+_HEAD_MODULES = ("head", "head_dist")
 
 
 class EnsOutput(NamedTuple):
     logits: torch.Tensor
     cls_logits: Optional[torch.Tensor] = None
     dist_logits: Optional[torch.Tensor] = None
+    ens_tokens: Optional[Any] = None  # fused token(s) for the EnsLoss token matching
 
 
-class Dense(nn.Module):
-    """flax `nn.Dense(features, dtype=...)` at inference: input, kernel and
-    bias are cast to the compute dtype, and the product and the bias add
-    each round to it. Kernel in (in, out) layout."""
-
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(in_features, out_features), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(out_features), requires_grad=False)
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return torch.matmul(x.to(dtype), self.kernel.to(dtype)) + self.bias.to(dtype)
+class Dense(vit.Dense):
+    """flax `nn.Dense(features, dtype=...)` (models/vit.py's Dense, with a
+    bias), loadable from a flax Dense `params` dict."""
 
     def load(self, params: dict) -> "Dense":
         with torch.no_grad():
@@ -49,7 +58,7 @@ class Dense(nn.Module):
 
 
 class EnsMLP(nn.Module):
-    """Fusion head over division tokens; serving forward only."""
+    """Fusion head over division tokens (ensemble_models.py:43-90)."""
 
     def __init__(self, num_classes: int = 100, sub_size: int = 384,
                  num_divisions: int = 4, teacher_size: Optional[int] = None,
@@ -71,24 +80,41 @@ class EnsMLP(nn.Module):
                 self.add_module(f"{b}_mlp", Dense(fused, teacher_size))
             self.add_module(f"{b}_classifier", Dense(width, num_classes))
 
-    def _branch(self, name: str, tokens: torch.Tensor) -> torch.Tensor:
+    def reset_parameters(self, generator: torch.Generator) -> "EnsMLP":
+        """The JAX package's initializers: clip(0.02 normal, -2, 2) kernels
+        and zero biases, drawn in parameter order from a CPU generator."""
+        for name, p in self.named_parameters():
+            if name.endswith("bias"):
+                with torch.no_grad():
+                    p.zero_()
+            else:
+                _trunc_normal_(p, generator)
+        return self
+
+    def _branch(self, name: str, tokens: torch.Tensor):
         D, B, C = tokens.shape
         # (D, B, C) -> (B, D*C), division-major
         x = tokens.transpose(0, 1).reshape(B, D * C).to(self.dtype)
         if self.teacher_size is not None:
             x = getattr(self, f"{name}_mlp")(x, self.dtype)
-        return getattr(self, f"{name}_classifier")(x, self.dtype).float()
+        return x, getattr(self, f"{name}_classifier")(x, self.dtype).float()
 
-    def forward(self, cls_tokens: torch.Tensor,
-                dist_tokens: Optional[torch.Tensor] = None) -> EnsOutput:
-        cls_logits = self._branch("cls", cls_tokens)
+    def forward(self, cls_tokens: torch.Tensor, dist_tokens: Optional[torch.Tensor] = None, *,
+                distill: bool = False, train: bool = False) -> EnsOutput:
+        """ens_tokens (the fused, projected tokens the EnsLoss matches with the
+        teacher's) is set exactly when distill and train and teacher_size."""
+        ens_cls, cls_logits = self._branch("cls", cls_tokens)
         if self.family == "deit":
             if dist_tokens is None:
                 raise ValueError("the deit family needs dist tokens")
-            dist_logits = self._branch("dist", dist_tokens)
-            return EnsOutput(logits=(cls_logits + dist_logits) / 2.0,
-                             cls_logits=cls_logits, dist_logits=dist_logits)
-        return EnsOutput(logits=cls_logits, cls_logits=cls_logits)
+            ens_dist, dist_logits = self._branch("dist", dist_tokens)
+            logits = (cls_logits + dist_logits) / 2.0
+            ens_tokens = (ens_cls, ens_dist)
+        else:
+            logits, dist_logits, ens_tokens = cls_logits, None, ens_cls
+        want_tokens = distill and train and self.teacher_size is not None
+        return EnsOutput(logits=logits, cls_logits=cls_logits, dist_logits=dist_logits,
+                         ens_tokens=ens_tokens if want_tokens else None)
 
     def load_params(self, params: dict) -> "EnsMLP":
         """Load a flax EnsMLP `params` tree (nested dict of arrays)."""
@@ -99,3 +125,75 @@ class EnsMLP(nn.Module):
         for name in expected:
             getattr(self, name).load(params[name])
         return self
+
+
+def features_param_names(model: VisionTransformer) -> list:
+    """Names of the parameters a features_only forward uses: every one but
+    the classifier heads."""
+    return [k for k, _ in model.named_parameters() if k.split(".")[0] not in _HEAD_MODULES]
+
+
+def stack_division_params(params_list: Sequence[Mapping[str, torch.Tensor]]) -> dict:
+    """Per-division {name: tensor} dicts -> one {name: (D, ...)} dict of
+    trainable f32 leaves."""
+    return {k: nn.Parameter(torch.stack([p[k].detach() for p in params_list]))
+            for k in params_list[0]}
+
+
+def stack_division_gates(gates_list: Sequence[Gates]) -> Gates:
+    return Gates(head=torch.stack([torch.as_tensor(g.head) for g in gates_list]),
+                 neuron=torch.stack([torch.as_tensor(g.neuron) for g in gates_list]))
+
+
+def init_multivit(model: VisionTransformer, generators: Sequence[torch.Generator]) -> dict:
+    """One division per generator, each drawn with the model's initializers
+    (VisionTransformer.reset_parameters) -> the stacked features-only
+    parameters, on the model's device. The model itself is left as it was."""
+    names = features_param_names(model)
+    divisions = []
+    for gen in generators:
+        params = dict(copy.deepcopy(model).reset_parameters(gen).named_parameters())
+        divisions.append({k: params[k] for k in names})
+    return stack_division_params(divisions)
+
+
+def multivit_features(model: VisionTransformer, stacked_params: Mapping[str, torch.Tensor],
+                      x: torch.Tensor, stacked_gates: Optional[Gates] = None, *,
+                      train: bool = False, generator: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """All-division forward on the same batch (ensemble_models.py:32-40):
+    division d runs `model` on stacked_params[k][d] with stacked_gates[d]
+    (full gates if None). train=True enables the backbones' drop-path and
+    dropout, drawn from `generator` one division after the other.
+
+    Returns (cls_tokens (D, B, C), dist_tokens (D, B, C) or None)."""
+    if train and generator is None:
+        raise ValueError("multivit_features(train=True) needs generator= for the backbones' "
+                         "dropout/drop-path draws")
+    D = next(iter(stacked_params.values())).shape[0]
+    cls_t, dist_t = [], []
+    for d in range(D):
+        gates = (full_gates(model.cfg, device=x.device) if stacked_gates is None
+                 else Gates(head=stacked_gates.head[d], neuron=stacked_gates.neuron[d]))
+        out = functional_call(model, {k: v[d] for k, v in stacked_params.items()}, (x,),
+                              dict(gates=gates, features_only=True, train=train,
+                                   generator=generator))
+        cls_t.append(out.cls_feat)
+        dist_t.append(out.dist_feat)
+    return torch.stack(cls_t), (None if dist_t[0] is None else torch.stack(dist_t))
+
+
+def ensemble_forward(model: VisionTransformer, ens_model: EnsMLP,
+                     stacked_params: Mapping[str, torch.Tensor],
+                     ens_params: Optional[Mapping[str, torch.Tensor]], x: torch.Tensor,
+                     stacked_gates: Optional[Gates] = None, *, distill: bool = False,
+                     train: bool = False, generator: Optional[torch.Generator] = None
+                     ) -> EnsOutput:
+    """The full collaborative path: MultiViT -> EnsMLP (engine.py:213-242).
+    ens_params None runs ens_model's own parameters."""
+    cls_t, dist_t = multivit_features(model, stacked_params, x, stacked_gates, train=train,
+                                      generator=generator)
+    kw = dict(distill=distill, train=train)
+    if ens_params is None:
+        return ens_model(cls_t, dist_t, **kw)
+    return functional_call(ens_model, dict(ens_params), (cls_t, dist_t), kw)

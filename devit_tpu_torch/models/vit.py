@@ -15,7 +15,9 @@ LayerNorm statistics) applies only when train=False.
 Randomness (drop-path, dropout) comes from an explicit `torch.Generator`.
 Each layer's drop-path keep masks are drawn before the layer runs and passed
 in as tensors, so a rematerialized block recomputes with the same masks, as
-nn.remat replays the same key.
+nn.remat replays the same key. Its parameters are passed in too, so a model
+run through torch.func.functional_call (the stacked ensemble divisions)
+recomputes with the tensors it ran with, not the module's own.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from devit_tpu_torch.configs import ViTConfig, get_vit_config
@@ -308,6 +311,13 @@ class Block(nn.Module):
         return x, outs
 
 
+def _block_call(blk: Block, params: dict, *args, **kw):
+    """blk(*args, **kw) with `params` bound: what a checkpointed block runs,
+    and recomputes in the backward pass, when the caller's functional_call
+    has long restored the module's own parameters."""
+    return functional_call(blk, params, args, kw)
+
+
 class VisionTransformer(nn.Module):
     """Functional (De)ViT/DeiT with multi-output forward.
 
@@ -426,7 +436,8 @@ class VisionTransformer(nn.Module):
             args = (t, gates.head[i], gates.neuron[i], dp_rates[i],
                     None if masks is None else masks[i], seeds[i + 1])
             if remat:
-                t, outs = checkpoint(blk, *args, use_reentrant=False, **kw)
+                t, outs = checkpoint(_block_call, blk, dict(blk.named_parameters()), *args,
+                                     use_reentrant=False, **kw)
             else:
                 t, outs = blk(*args, **kw)
             if capture_block_outputs:

@@ -8,7 +8,7 @@ EMA in place, so no second copy of the weights is made per step.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import torch
 
@@ -27,10 +27,13 @@ class TrainState:
         self.ema_decay = ema_decay
 
     @classmethod
-    def create(cls, model: torch.nn.Module, tx: Optimizer, *, use_ema: bool = False,
-               ema_decay: float = 0.99996) -> "TrainState":
-        """State over `model`'s parameters (by their names)."""
-        params = dict(model.named_parameters())
+    def create(cls, model: Union[torch.nn.Module, Mapping[str, torch.Tensor]], tx: Optimizer, *,
+               use_ema: bool = False, ema_decay: float = 0.99996) -> "TrainState":
+        """State over `model`'s parameters (by their names), or over a
+        {name: trainable tensor} dict such as the ensemble's stacked
+        divisions."""
+        params = (dict(model.named_parameters()) if isinstance(model, torch.nn.Module)
+                  else dict(model))
         ema = ({k: p.detach().clone() for k, p in params.items()} if use_ema else None)
         return cls(params, tx, ema_params=ema, ema_decay=ema_decay)
 

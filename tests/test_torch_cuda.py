@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: fused_attention and attention_bwd
-(the hand-written kernels in devit_tpu_torch/kernels/csrc/attention.cu and
-attention_bwd.cu) vs their plain PyTorch versions, their launch counters
-and what their wrappers reject.
+"""The port's CUDA kernels on the card: fused_attention, attention_bwd and
+the split pair attention_bwd_dv / attention_bwd_dqdk (the hand-written
+kernels in devit_tpu_torch/kernels/csrc/attention.cu, attention_bwd.cu and
+attention_bwd_split.cu) vs their plain PyTorch versions, their launch
+counters and what their wrappers reject.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); elsewhere every test skips. The
 machine with the card has no JAX, so run without the repo's conftest:
@@ -13,8 +14,9 @@ import pytest
 import torch
 
 from devit_tpu_torch.kernels.attention import (
-    attention_bwd, fused_attention, make_trainable_attention, reference_attention,
-    reference_attention_bwd,
+    attention_bwd, attention_bwd_dqdk, attention_bwd_dv, attention_bwd_split, fused_attention,
+    make_trainable_attention, reference_attention, reference_attention_bwd,
+    reference_attention_bwd_dqdk, reference_attention_bwd_dv,
 )
 
 pytestmark = pytest.mark.cuda
@@ -160,3 +162,93 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="shared"):
         attention_bwd(torch.zeros((1, 1024, 3 * DH), device="cuda"),
                       torch.zeros((1, 1024, DH), device="cuda"), 1)
+
+
+# ---- the split backward: attention_bwd_dv, attention_bwd_dqdk (csrc/attention_bwd_split.cu)
+
+
+def _split_errs(x, g, kh):
+    """max-abs over max-ref of dq, dk (the dqdk kernel) and dv (the dv
+    kernel), each against its plain version."""
+    C = kh * DH
+    dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
+    torch.cuda.synchronize()
+    want_qk, want_v = reference_attention_bwd_dqdk(x, g, kh), reference_attention_bwd_dv(x, g, kh)
+    return [_rel(dqdk[..., :C], want_qk[..., :C]), _rel(dqdk[..., C:], want_qk[..., C:]),
+            _rel(dv, want_v)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kh", [1, 3, 6, 12])
+def test_split_kernels_match_plain(gen, kh, dtype):
+    for n in (197, 198):
+        for B in (1, 7):
+            x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
+            g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").to(dtype)
+            assert max(_split_errs(x, g, kh)) <= TOL[dtype], (n, B)
+
+
+def test_split_randomized_shape_sweep(gen):
+    """Sequence lengths around the 32-row query tile and the 64-row key tile
+    of a dv block, up to the 256 the dqdk kernel takes: the kernels' own
+    index arithmetic, which no fixed shape covers."""
+    rng = torch.Generator().manual_seed(8)
+    lengths = [1, 31, 33, 63, 64, 65, 129, 256] + torch.randint(2, 257, (5,), generator=rng).tolist()
+    for trial, n in enumerate(lengths):
+        B = int(torch.randint(1, 6, (1,), generator=rng))
+        kh = int(torch.randint(1, 7, (1,), generator=rng))
+        dtype = (torch.float32, torch.bfloat16)[trial % 2]
+        x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").to(dtype)
+        errs = _split_errs(x, g, kh)
+        assert max(errs) <= TOL[dtype], f"trial {trial}: B{B} N{n} kh{kh} {dtype}: {errs}"
+
+
+def test_split_matches_monolithic_is_deterministic_and_counted(gen):
+    x = torch.randn((5, N, 3 * 6 * DH), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((5, N, 6 * DH), generator=gen, device="cuda").bfloat16()
+    before = (attention_bwd.launches, attention_bwd_dv.launches, attention_bwd_dqdk.launches)
+    a, b = attention_bwd_split(x, g, 6), attention_bwd_split(x, g, 6)
+    assert (attention_bwd.launches, attention_bwd_dv.launches,
+            attention_bwd_dqdk.launches) == (before[0], before[1] + 2, before[2] + 2)
+    assert torch.equal(a, b)  # no atomics: the same bits on every run
+    mono = attention_bwd(x, g, 6)
+    torch.cuda.synchronize()
+    assert max(_bwd_errs(a, mono, 6 * DH)) <= TOL[torch.bfloat16]
+    # the slices of one buffer equal the kernels' standalone outputs
+    C = 6 * DH
+    assert torch.equal(a[..., :2 * C], attention_bwd_dqdk(x, g, 6))
+    assert torch.equal(a[..., 2 * C:], attention_bwd_dv(x, g, 6))
+
+
+def test_split_function_gradient_matches_autograd_through_plain(gen, monkeypatch):
+    monkeypatch.setenv("DEVIT_ATTN_BWD", "split")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, N, 3 * 6 * DH), generator=gen, device="cuda").to(dtype)
+        cot = torch.randn((2, N, 6 * DH), generator=gen, device="cuda")
+        x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+        before = (attention_bwd.launches, attention_bwd_dv.launches)
+        (g1,) = torch.autograd.grad((make_trainable_attention(6)(x1).float() * cot).sum(), x1)
+        assert attention_bwd.launches == before[0]  # the environment chose the split pair
+        assert attention_bwd_dv.launches == before[1] + 1
+        (g2,) = torch.autograd.grad(
+            (reference_attention(x2, num_heads=6).float() * cot).sum(), x2)
+        assert max(_bwd_errs(g1, g2, 6 * DH)) <= TOL[dtype]
+
+
+def test_split_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x = torch.randn((1, N, 3 * 4 * 32), generator=gen, device="cuda")
+    for fn in (attention_bwd_dv, attention_bwd_dqdk, attention_bwd_split):
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(x, torch.zeros((1, N, 4 * 32), device="cuda"), 4)
+        with pytest.raises(TypeError, match="bfloat16"):
+            fn(x.half(), torch.zeros((1, N, 2 * 64), device="cuda").half(), 2)
+        with pytest.raises(ValueError, match="g must be"):
+            fn(x, torch.zeros((1, N, 2 * 64), device="cuda").bfloat16(), 2)
+    for fn in (attention_bwd_dqdk, attention_bwd_split):
+        with pytest.raises(ValueError, match="256"):
+            fn(torch.zeros((1, 300, 3 * DH), device="cuda"), torch.zeros((1, 300, DH),
+                                                                          device="cuda"), 1)
+    with pytest.raises(ValueError, match="shared"):
+        attention_bwd_dv(torch.zeros((1, 4096, 3 * DH), device="cuda"),
+                         torch.zeros((1, 4096, DH), device="cuda"), 1)

@@ -34,7 +34,9 @@ def test_ensmlp_matches_flax(family, teacher_size, dtype):
     port = ensmlp_from_jax_params(params, num_divisions=D, dtype=td, device="cpu")
     assert (port.num_classes, port.teacher_size, port.family, port.sub_size) == (
         K, teacher_size, family, C)
-    got = port(torch.from_numpy(cls_t), torch.from_numpy(dist_t) if family == "deit" else None)
+    with torch.no_grad():  # the head's parameters are trainable
+        got = port(torch.from_numpy(cls_t),
+                   torch.from_numpy(dist_t) if family == "deit" else None)
     assert got.logits.dtype == torch.float32
     for name in ("logits", "cls_logits", "dist_logits"):
         w, g = getattr(want, name), getattr(got, name)

@@ -37,16 +37,13 @@ def _top_level_modules_after_import(*modules):
 
 
 def test_every_port_module_is_listed():
-    mods = _port_modules()
-    for name in ("devit_tpu_torch.kernels.attention", "devit_tpu_torch.models.compact_vit",
-                 "devit_tpu_torch.serving.daemon", "devit_tpu_torch.io.bridge",
-                 "devit_tpu_torch.deploy", "devit_tpu_torch.device",
-                 "devit_tpu_torch.models.vit", "devit_tpu_torch.data.mixup",
-                 "devit_tpu_torch.data.datasets", "devit_tpu_torch.train.losses",
-                 "devit_tpu_torch.train.optim", "devit_tpu_torch.train.state",
-                 "devit_tpu_torch.train.meters", "devit_tpu_torch.train.steps",
-                 "devit_tpu_torch.train.loop"):
-        assert name in mods
+    assert _port_modules() == [f"devit_tpu_torch.{m}" for m in (
+        "configs", "core", "core.metrics", "core.rank", "core.shrink", "data",
+        "data.datasets", "data.mixup", "data.pipeline", "deploy", "device", "io",
+        "io.bridge", "kernels", "kernels._build", "kernels.attention", "models",
+        "models.compact_vit", "models.ensemble", "models.vit", "serving", "serving.daemon",
+        "train", "train.loop", "train.losses", "train.meters", "train.optim", "train.state",
+        "train.steps")]
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])

@@ -87,8 +87,8 @@ def test_function_takes_a_non_contiguous_gradient_and_saves_only_qkv():
 
 
 def test_bwd_modes_and_devices():
-    with pytest.raises(ValueError, match="still to port"):
-        tattn.make_trainable_attention(2, bwd_mode="split")
+    for mode in ("monolithic", "split"):  # both backwards are ported
+        assert callable(tattn.make_trainable_attention(2, bwd_mode=mode))
     with pytest.raises(ValueError, match="unknown"):
         tattn.make_trainable_attention(2, bwd_mode="fast")
     meta = torch.empty((1, 4, 3 * 8), device="meta")
@@ -99,8 +99,9 @@ def test_bwd_modes_and_devices():
 
 
 def test_library_hash_covers_every_source_and_header(monkeypatch, tmp_path):
-    assert {f.name for f in _build.SOURCES} >= {"attention.cu", "attention_bwd.cu"}
-    assert "common.cuh" in {f.name for f in _build.HEADERS}
+    assert {f.name for f in _build.SOURCES} >= {"attention.cu", "attention_bwd.cu",
+                                                "attention_bwd_split.cu"}
+    assert {"common.cuh", "bwd_common.cuh"} <= {f.name for f in _build.HEADERS}
     path = _build._lib_path()
     header = tmp_path / "common.cuh"
     header.write_bytes(_build.HEADERS[0].read_bytes() + b"\n// edited\n")
