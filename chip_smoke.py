@@ -7,15 +7,22 @@ Run from the root of a checkout. It builds the CUDA kernels from the
 sources in the checkout, holds each kernel against its plain PyTorch version
 on the card, runs the deployed 4-division dedeit ensemble at full width,
 serves it over HTTP to concurrent clients, times the kernels and the
-forward, and runs the stage-2 training step of full-width dedeit at bs256
-(remat, mixup/cutmix, AdamW, EMA) through train_epoch, with the attention
-forward and backward kernels, against the same step with the plain
-attention. Then the stage-5 ensemble step (four gated dedeit divisions, a
-deit-base teacher, EnsMLP, two optimizers) at bs64 with the monolithic
-backward kernel, with the split pair (DEVIT_ATTN_BWD=split) and with the
-plain attention, and the stage-4 DEKD step in both distillation_inter modes.
-Any failure raises and exits non-zero; so does a machine without CUDA, or a
-directory that holds this script without the package.
+forward. Then the deployment artifacts: the int8 matmul kernel against its
+plain version at every deployed weight shape, the block-attention kernel at
+every deployed layer, the divisions and the fusion head written to disk in
+the JAX package's format, loaded back into a server whose replies equal the
+in-memory engine's, a fusion head hot-swapped over POST /reload, and the
+int8 forward of the loaded divisions (192 int8 kernel launches), timed
+against the bf16 forward. Then the stage-2 training step of full-width
+dedeit at bs256 (remat, mixup/cutmix, AdamW, EMA) through train_epoch, with
+the attention forward and backward kernels, against the same step with the
+plain attention. Then the stage-5 ensemble step (four gated dedeit
+divisions, a deit-base teacher, EnsMLP, two optimizers) at bs64 with the
+monolithic backward kernel, with the split pair (DEVIT_ATTN_BWD=split) and
+with the plain attention, and the stage-4 DEKD step in both
+distillation_inter modes. Any failure raises and exits non-zero; so does a
+machine without CUDA, or a directory that holds this script without the
+package.
 
 The last lines of standard output are the card's name and power limit (as
 nvidia-smi gives them), one JSON line with the kernels' record, and
@@ -30,8 +37,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -43,15 +52,24 @@ from devit_tpu_torch import deploy
 from devit_tpu_torch.data.mixup import MixupConfig
 from devit_tpu_torch.data.pipeline import normalize
 from devit_tpu_torch.kernels import _build
+from devit_tpu_torch.io.bridge import ensmlp_to_jax_params
+from devit_tpu_torch.io.checkpoint import save_pytree
 from devit_tpu_torch.kernels.attention import (
     attention_bwd, attention_bwd_dqdk, attention_bwd_dv, attention_bwd_split, fused_attention,
-    make_trainable_attention, reference_attention, reference_attention_bwd,
-    reference_attention_bwd_dqdk, reference_attention_bwd_dv,
+    fused_block_attention, make_trainable_attention, reference_attention,
+    reference_attention_bwd, reference_attention_bwd_dqdk, reference_attention_bwd_dv,
+    reference_block_attention,
 )
-from devit_tpu_torch.models.compact_vit import stack_division_features
+from devit_tpu_torch.kernels.quant import dynamic_int8_matmul, fused_int8_matmul, quantize_weight
+from devit_tpu_torch.models.compact_vit import (
+    attention_half, embed_patches, mlp_half, quantize_compact, save_compact,
+    stack_division_features,
+)
 from devit_tpu_torch.models.ensemble import EnsMLP, init_multivit, stack_division_gates
 from devit_tpu_torch.models.vit import Gates, create_vit
-from devit_tpu_torch.serving.daemon import InferenceEngine, ServeConfig, build_server
+from devit_tpu_torch.serving.daemon import (
+    InferenceEngine, ServeConfig, build_engine_from_artifacts, build_server,
+)
 from devit_tpu_torch.train.loop import train_epoch
 from devit_tpu_torch.train.optim import OptimConfig, make_optimizer
 from devit_tpu_torch.train.state import TrainState
@@ -61,6 +79,7 @@ from devit_tpu_torch.train.steps import (
 
 ROOT = Path(__file__).resolve().parent
 N, DH = 198, 64  # tokens (196 patches + cls + dist) and head width of dedeit
+PX = 224  # image side of the deployed divisions
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -222,9 +241,10 @@ def phase_split_checks() -> dict:
     return max_abs
 
 
-def _forward(cms, ens, x, *, dtype, use_kernel, fast_math):
+def _forward(cms, ens, x, *, dtype, use_kernel, fast_math, int8=False):
     cls_s, dist_s = stack_division_features(cms, x, patch_size=16, dtype=dtype,
-                                            use_kernel=use_kernel, fast_math=fast_math)
+                                            use_kernel=use_kernel, fast_math=fast_math,
+                                            int8=int8)
     return ens(cls_s, dist_s).logits
 
 
@@ -346,40 +366,58 @@ def _forward_flops(cms, ens) -> float:
 INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
 
 
-def unported_bounds(cms, B: int = 256) -> dict:
-    """Least time of the two TPU kernels still to port, at the deployed
-    ensemble's layer shapes (each division's ragged layers, batch B, N 198),
-    summed over one forward, counted from the code of each:
-    - fused_block_attention (t + proj(attn(qkv(LN1(t)))) in one kernel): reads
-      t (B, N, C) and the layer's LN, qkv (C, 3K) and proj (K, C) weights and
-      biases in bf16, writes (B, N, C) bf16; 2 B N C 3K + 4 B N^2 K + 2 B N K C
-      bf16 operations.
-    - fused_int8_matmul in place of each of the int8 branch's four
-      dynamic_int8_matmul calls a layer (qkv, proj, fc1, fc2): reads x (M, K)
-      bf16, the (K, N) int8 weight and its f32 scales and bias, writes (M, N)
-      bf16, M = B N; 2 M K N int8 operations (the row quantization's few
-      operations an element are left out).
-    Each is the larger of bytes over 3.35 TB/s and operations over the
-    dtype's peak, per call, summed."""
+def _int8_bound(M: int, K: int, Nn: int, elem: int = 2):
+    """Least time of one fused_int8_matmul call: read x (M, K) and the (K, N)
+    int8 weight with its f32 scales and bias, write (M, N), against 2 M K N
+    int8 operations (the row quantization's few operations an element left
+    out). Returns (ms, bytes ms)."""
+    nbytes = elem * M * K + K * Nn + 8 * Nn + elem * M * Nn
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, 2 * M * K * Nn / INT8_OPS) * 1e3, t_bytes * 1e3
+
+
+def _block_bound(B: int, C: int, K: int, elem: int = 2):
+    """Least time of one fused_block_attention call: read t (B, N, C) and the
+    layer's LN, qkv (C, 3K) and proj (K, C) weights and biases, write (B, N,
+    C), against 2 B N C 3K + 4 B N^2 K + 2 B N K C operations at the bf16
+    peak. Returns (ms, bytes ms)."""
     M = B * N
+    nbytes = elem * (2 * M * C + 4 * C + C * 3 * K + 3 * K + K * C + C)
+    flops = 2 * M * C * 3 * K + 4 * B * N * N * K + 2 * M * K * C
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, flops / BF16_FLOPS) * 1e3, t_bytes * 1e3
+
+
+def _int8_shapes(cm):
+    """The (K, N) of a compact division's four weight products a layer, in
+    the order the int8 forward runs them: qkv, proj, fc1, fc2."""
+    C = cm.patch_kernel.shape[1]
+    for lp in cm.layers:
+        K, hidden = lp.num_heads * DH, lp.fc1_kernel.shape[1]
+        yield from ((C, 3 * K), (K, C), (C, hidden), (hidden, C))
+
+
+def layer_bounds(cms, B: int = 256) -> dict:
+    """Least time of fused_block_attention (one call a layer) and
+    fused_int8_matmul (in place of each of the int8 branch's four
+    dynamic_int8_matmul calls a layer) at the deployed ensemble's layer
+    shapes (each division's ragged layers, batch B, N 198, bf16), summed over
+    one forward: each call's larger of bytes over 3.35 TB/s and operations
+    over the dtype's peak (_block_bound, _int8_bound)."""
     block = {"ms": 0.0, "bytes_ms": 0.0, "calls": 0}
     int8 = {"ms": 0.0, "bytes_ms": 0.0, "calls": 0}
     for cm in cms:
         C = cm.patch_kernel.shape[1]
         for lp in cm.layers:
-            K = lp.num_heads * DH
-            hidden = lp.fc1_kernel.shape[1]
-            nbytes = 2 * (2 * M * C + 4 * C + C * 3 * K + 3 * K + K * C + C)
-            flops = 2 * M * C * 3 * K + 4 * B * N * N * K + 2 * M * K * C
-            block["ms"] += max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-            block["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+            ms, bytes_ms = _block_bound(B, C, lp.num_heads * DH)
+            block["ms"] += ms
+            block["bytes_ms"] += bytes_ms
             block["calls"] += 1
-            for k_in, n_out in ((C, 3 * K), (K, C), (C, hidden), (hidden, C)):
-                nbytes = 2 * M * k_in + k_in * n_out + 8 * n_out + 2 * M * n_out
-                ops = 2 * M * k_in * n_out
-                int8["ms"] += max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS) * 1e3
-                int8["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-                int8["calls"] += 1
+        for k_in, n_out in _int8_shapes(cm):
+            ms, bytes_ms = _int8_bound(B * N, k_in, n_out)
+            int8["ms"] += ms
+            int8["bytes_ms"] += bytes_ms
+            int8["calls"] += 1
     for r in (block, int8):
         r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ms"] * (1 - 1e-9) else "operations"
     return {"fused_block_attention": block, "fused_int8_matmul": int8}
@@ -420,11 +458,11 @@ def phase_times(cms, ens, card: str) -> dict:
 
     flops_img = _forward_flops(cms, ens)
     print(f"[time] one image's forward: {flops_img / 1e9:.3f} GFLOP (counted from the shapes)")
-    unported = unported_bounds(cms)
-    for name, r in unported.items():
-        print(f"[time] still to port: {name}, bound over one bs256 deployed forward "
-              f"({r['calls']} calls): {r['ms']:.4f} ms ({r['bound_by']}; the bytes alone "
-              f"{r['bytes_ms']:.4f} ms), counted from the shapes")
+    bounds = layer_bounds(cms)
+    for name, r in bounds.items():
+        print(f"[time] {name}, bound over one bs256 deployed forward ({r['calls']} calls): "
+              f"{r['ms']:.4f} ms ({r['bound_by']}; the bytes alone {r['bytes_ms']:.4f} ms), "
+              f"counted from the shapes")
     rng = np.random.default_rng(4)
     e2e = {}
     for bs in (64, 128, 256):
@@ -457,10 +495,12 @@ def phase_times(cms, ens, card: str) -> dict:
               f"plain attention; runs {runs}; logits kernel vs plain rel err {rel:.3e} "
               f"(tol 2e-2); peak memory {peak:.2f} GiB [{card}]")
     return dict(per_kh=per_kh, forward_attention=total, forward=e2e, mix=mix,
-                gflop_per_img=flops_img / 1e9, unported_bounds=unported)
+                gflop_per_img=flops_img / 1e9, layer_bounds=bounds)
 
 
 def _kind(kernel_name: str) -> str:
+    if "quant_matmul_kernel" in kernel_name:
+        return "int8 matmul (fused_int8_matmul)"
     if "attn_kernel" in kernel_name:
         return "attention (fused_attention)"
     if any(s in kernel_name for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90")):
@@ -469,16 +509,18 @@ def _kind(kernel_name: str) -> str:
 
 
 @torch.inference_mode()
-def phase_profile(cms, ens, card: str) -> dict:
-    """Device time by kernel over one bs256 forward (torch.profiler), and
-    the device's busy share of the forward's wall time."""
+def phase_profile(cms, ens, card: str, int8: bool = False) -> dict:
+    """Device time by kernel over one bs256 forward (torch.profiler; the int8
+    forward of quantize_compact divisions with int8), and the device's busy
+    share of the forward's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x = normalize(torch.from_numpy(np.random.default_rng(5).integers(
-        0, 256, (256, 224, 224, 3), dtype=np.uint8)).cuda(), torch.float32)
-    fwd = lambda: _forward(cms, ens, x, dtype=torch.bfloat16, use_kernel=True, fast_math=True)
-    before = fused_attention.launches
+    tag = "[int8-profile]" if int8 else "[profile]"
+    x = _images(256, seed=5)
+    fwd = lambda: _forward(cms, ens, x, dtype=torch.bfloat16, use_kernel=True, fast_math=True,
+                           int8=int8)
+    before = (fused_attention.launches, fused_int8_matmul.launches)
     fwd()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -486,7 +528,7 @@ def phase_profile(cms, ens, card: str) -> dict:
         fwd()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fused_attention.launches = before
+    fused_attention.launches, fused_int8_matmul.launches = before
     # device-side activities only: a CPU op also reports its kernels' time
     kernels = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -496,16 +538,383 @@ def phase_profile(cms, ens, card: str) -> dict:
         acc = by_kind.setdefault(_kind(name), [0.0, 0])
         acc[0] += ms
         acc[1] += count
-    print(f"[profile] bs256 forward: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+    print(f"{tag} bs256 forward: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"(idle share {1 - busy_ms / wall_ms:.3f}), "
           f"{sum(c for _, c, _ in kernels)} kernel launches [{card}]")
     for kind, (ms, count) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile]   {kind}: {ms:.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of device "
+        print(f"{tag}   {kind}: {ms:.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of device "
               f"time), {count} launches")
     for name, count, ms in sorted(kernels, key=lambda k: -k[2])[:12]:
-        print(f"[profile]   {ms:8.3f} ms  x{count:<4d} {name[:100]}")
+        print(f"{tag}   {ms:8.3f} ms  x{count:<4d} {name[:100]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, by_kind=by_kind,
                 top=sorted(kernels, key=lambda k: -k[2])[:25])
+
+
+# ---- the deployment artifacts, the int8 path and the block-attention kernel
+
+
+def _images(B: int, seed: int) -> torch.Tensor:
+    return normalize(torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (B, PX, PX, 3), dtype=np.uint8)).cuda(), torch.float32)
+
+
+def _deployed_weights(cms) -> dict:
+    """(K, N) -> (kernel, bias) of the first deployed weight product of each
+    distinct shape (qkv, proj, fc1, fc2 of every layer)."""
+    out = {}
+    for cm in cms:
+        for lp in cm.layers:
+            for name in ("qkv", "proj", "fc1", "fc2"):
+                kern = getattr(lp, f"{name}_kernel")
+                out.setdefault(tuple(kern.shape), (kern, getattr(lp, f"{name}_bias")))
+    return dict(sorted(out.items()))
+
+
+@torch.inference_mode()
+def phase_int8_checks(cms) -> float:
+    """fused_int8_matmul (the kernel) vs dynamic_int8_matmul on the card at
+    every distinct (K, N) of the deployed divisions' weight products (the
+    layer's own weights, quantized, with its bias and without), M 1, 7, 198
+    and 50688 (bs256 x 198 tokens), bf16 and f32 input and output. Both
+    compute exact int32 sums and round every f32 step alike, so they are
+    expected to agree bit for bit; the limit is 2e-2 of max |plain|.
+    Returns the largest max-abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    before = fused_int8_matmul.launches
+    worst = max_abs = 0.0
+    identical = n = 0
+    weights = _deployed_weights(cms)
+    for (K, Nn), (kern, bias) in weights.items():
+        for b in (bias, None):
+            q = quantize_weight(kern, b)
+            for M in (1, 7, N, 256 * N):
+                x32 = torch.randn((M, K), generator=gen, device="cuda")
+                for dtype in (torch.bfloat16, torch.float32):
+                    x = x32.to(dtype)
+                    got = fused_int8_matmul(x, q, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    want = dynamic_int8_matmul(x, q, dtype)
+                    rel = _rel(got, want)
+                    if rel > 2e-2:
+                        raise AssertionError(f"fused_int8_matmul {dtype} M={M} K={K} N={Nn} "
+                                             f"bias={b is not None}: rel err {rel:.3e} > 2e-2")
+                    worst = max(worst, rel)
+                    max_abs = max(max_abs, float((got.float() - want.float()).abs().max()))
+                    identical += int(torch.equal(got, want))
+                    n += 1
+    fused_int8_matmul.launches = before
+    print(f"[int8-kernel] fused_int8_matmul vs dynamic_int8_matmul: {n} cases pass ({len(weights)} "
+          f"distinct (K, N) of the deployed divisions {list(weights)}, M 1/7/198/50688, bf16 and "
+          f"f32, with and without bias); bit-identical in {identical} of {n}; worst max-abs/"
+          f"max-ref {worst:.3e} (tol 2e-2), max abs err {max_abs:.3e}")
+    return max_abs
+
+
+def _block_args(lp, t: torch.Tensor):
+    """fused_block_attention's arguments for compact layer lp on tokens t:
+    the two kernels in t's dtype, the vectors as they are (f32)."""
+    return (t, lp.norm1_scale, lp.norm1_bias, lp.qkv_kernel.to(t.dtype).contiguous(),
+            lp.qkv_bias, lp.proj_kernel.to(t.dtype).contiguous(), lp.proj_bias)
+
+
+def _block_forward(cms, ens, x):
+    """The deployed forward (bf16, fast_math) with each layer's attention
+    half through fused_block_attention and its MLP half as compact_forward
+    runs it."""
+    from devit_tpu_torch.models.vit import layer_norm
+
+    cls_t, dist_t = [], []
+    for cm in cms:
+        t = embed_patches(cm, x, patch_size=16, dtype=torch.bfloat16)
+        for lp in cm.layers:
+            t = fused_block_attention(*_block_args(lp, t), num_heads=lp.num_heads, eps=cm.eps)
+            t = mlp_half(lp, t, eps=cm.eps, dtype=torch.bfloat16)
+        t = layer_norm(t, cm.norm_scale, cm.norm_bias, cm.eps, torch.bfloat16)
+        cls_t.append(t[:, 0])
+        dist_t.append(t[:, 1])
+    return ens(torch.stack(cls_t), torch.stack(dist_t)).logits
+
+
+@torch.inference_mode()
+def phase_block_attention(cms, ens, card: str) -> dict:
+    """fused_block_attention (the kernel) vs reference_block_attention on the
+    card at each of the 48 deployed layers, on the t that compact_forward
+    (with the attention kernel) feeds the layer, for images at B 1, 7 and
+    256: bf16 with fast_math (the serving numerics, tol 2e-2) and f32 with
+    strict numerics (tol 1e-4, and within the JAX test's 2e-4 of the split
+    sequence, attention_half); every case launched twice, bit for bit. Then
+    the deployed bs256 forward with every attention half through the kernel
+    (its 48 launches, counted from 0), logits against compact_forward's."""
+    fa_before, before = fused_attention.launches, fused_block_attention.launches
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    vs_split = max_abs = 0.0
+    n = 0
+    for dtype, fast in ((torch.bfloat16, True), (torch.float32, False)):
+        for B in (1, 7, 256):
+            x = _images(B, seed=61 + B)
+            for cm in cms:
+                t = embed_patches(cm, x, patch_size=16, dtype=dtype)
+                for lp in cm.layers:
+                    args = _block_args(lp, t)
+                    got = fused_block_attention(*args, num_heads=lp.num_heads, eps=cm.eps)
+                    again = fused_block_attention(*args, num_heads=lp.num_heads, eps=cm.eps)
+                    torch.cuda.synchronize()
+                    want = reference_block_attention(*args, num_heads=lp.num_heads, eps=cm.eps)
+                    rel = _rel(got, want)
+                    split = attention_half(lp, t, eps=cm.eps, dtype=dtype, fast_math=fast)
+                    rel_split = _rel(got, split) if dtype == torch.float32 else 0.0
+                    if rel > TOL[dtype] or rel_split > 2e-4 or not torch.equal(got, again):
+                        raise AssertionError(
+                            f"fused_block_attention {dtype} B={B} kh={lp.num_heads}: rel err "
+                            f"{rel:.3e} (tol {TOL[dtype]:.0e}), vs the split sequence "
+                            f"{rel_split:.3e} (tol 2e-4), repeat identical "
+                            f"{torch.equal(got, again)}")
+                    worst[dtype] = max(worst[dtype], rel)
+                    vs_split = max(vs_split, rel_split)
+                    if dtype == torch.bfloat16:
+                        max_abs = max(max_abs, float((got.float() - want.float()).abs().max()))
+                    n += 1
+                    t = mlp_half(lp, split, eps=cm.eps, dtype=dtype, fast_math=fast)
+    print(f"[block-attn] fused_block_attention vs plain: {n} cases pass (each of the "
+          f"{n // 6} deployed layers at B 1/7/256, bf16 and f32, on the layer's own input); "
+          f"worst max-abs/max-ref bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 "
+          f"{worst[torch.float32]:.3e} (tol 1e-4); f32 vs the split sequence "
+          f"{vs_split:.3e} (tol 2e-4); max abs err bf16 {max_abs:.3e}; repeat launches "
+          f"bit-identical")
+
+    x = _images(256, seed=69)
+    layers = sum(len(cm.layers) for cm in cms)
+    fused_block_attention.launches = 0
+    got = _block_forward(cms, ens, x)
+    torch.cuda.synchronize()
+    launches = fused_block_attention.launches
+    want = _forward(cms, ens, x, dtype=torch.bfloat16, use_kernel=True, fast_math=True)
+    rel = _rel(got, want)
+    if launches != layers or rel > 2e-2:
+        raise AssertionError(f"bs256 forward through fused_block_attention: {launches} "
+                             f"launches (expected {layers}), logits vs compact_forward rel "
+                             f"{rel:.3e}")
+    print(f"[block-attn] deployed bs256 forward with every attention half through the kernel: "
+          f"{launches} launches, logits vs compact_forward's rel err {rel:.3e} (tol 2e-2) [{card}]")
+    fused_attention.launches = fa_before
+    fused_block_attention.launches = before + launches
+    return dict(max_abs_err=max_abs, worst={str(k)[6:]: v for k, v in worst.items()},
+                vs_split=vs_split, cases=n,
+                launches=launches, forward_rel=rel)
+
+
+def _reload(url: str, path: str) -> int:
+    req = urllib.request.Request(url + "/reload", data=json.dumps({"ens_path": path}).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+@torch.inference_mode()
+def phase_artifacts(cms, ens, card: str) -> dict:
+    """The deployed divisions written with save_compact and the fusion head
+    with save_pytree ({"ens_params": ...}, the stage-5 layout), in the JAX
+    package's format; build_engine_from_artifacts from that directory, whose
+    predictions at bs 1/8/256 equal the in-memory engine's bit for bit;
+    served over HTTP, a second head hot-swapped by POST /reload changes the
+    replies, a wrong-geometry head gets a 400, and the first head restores
+    them. Returns the loaded divisions and the kernel launches of the HTTP
+    requests."""
+    scfg = ServeConfig()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as root:
+        t0 = time.perf_counter()
+        for i, cm in enumerate(cms):
+            save_compact(os.path.join(root, f"sub-dataset{i}", "compact.msgpack"), cm)
+        ens_path = os.path.join(root, "ens.msgpack")
+        save_pytree(ens_path, {"ens_params": ensmlp_to_jax_params(ens)})
+        save_s = time.perf_counter() - t0
+        sizes = [os.path.getsize(os.path.join(root, f"sub-dataset{i}", "compact.msgpack"))
+                 for i in range(len(cms))]
+        t0 = time.perf_counter()
+        loaded = build_engine_from_artifacts(root, ens_path, cfg=scfg,
+                                             log=lambda m: print(f"[artifacts] {m}"))
+        load_s = time.perf_counter() - t0
+        memory = InferenceEngine(cms, ens, scfg, device="cuda")
+        rng = np.random.default_rng(90)
+        for bs in (1, 8, 256):
+            imgs = rng.integers(0, 256, (bs, PX, PX, 3), dtype=np.uint8)
+            a, b = loaded.predict(imgs), memory.predict(imgs)
+            if not np.array_equal(a, b):
+                raise AssertionError(f"engine from artifacts vs in-memory engine at bs{bs}: max "
+                                     f"abs diff {np.abs(a - b).max():.3e}, expected equal bits")
+        geometry = dict(sub_size=ens.sub_size, num_divisions=len(cms),
+                        teacher_size=ens.teacher_size, family=ens.family)
+        alt = deploy.init_ensmlp(EnsMLP(num_classes=ens.num_classes, **geometry),
+                                 deploy.ENS_SEED + 1)
+        bad = deploy.init_ensmlp(EnsMLP(num_classes=ens.num_classes + 1, **geometry),
+                                 deploy.ENS_SEED + 2)
+        alt_path, bad_path = os.path.join(root, "alt.msgpack"), os.path.join(root, "bad.msgpack")
+        save_pytree(alt_path, {"ens_params": ensmlp_to_jax_params(alt)})
+        save_pytree(bad_path, {"ens_params": ensmlp_to_jax_params(bad)})
+
+        httpd, batcher = build_server(loaded, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = "http://%s:%d" % httpd.server_address[:2]
+        imgs = rng.integers(0, 256, (3, PX, PX, 3), dtype=np.uint8)
+        try:
+            before = fused_attention.launches
+            first = _post(url, imgs)["predictions"]
+            codes = [_reload(url, alt_path)]
+            swapped = _post(url, imgs)["predictions"]
+            swapped_logits = loaded.predict(imgs)
+            codes += [_reload(url, bad_path), _reload(url, os.path.join(root, "none.msgpack"))]
+            after_bad = _post(url, imgs)["predictions"]
+            codes.append(_reload(url, ens_path))
+            restored = _post(url, imgs)["predictions"]
+            launches = fused_attention.launches - before
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.stop()
+            thread.join(timeout=30)
+    want_alt = InferenceEngine(cms, alt, scfg, device="cuda").predict(imgs)
+    if codes != [200, 400, 400, 200]:
+        raise AssertionError(f"POST /reload answered {codes}, expected [200, 400, 400, 200]")
+    if swapped == first or after_bad != swapped or restored != first:
+        raise AssertionError("POST /reload: the replies did not follow the fusion head")
+    if not np.array_equal(swapped_logits, want_alt):
+        raise AssertionError("after /reload the engine's logits differ from an engine built "
+                             "with the second head")
+    layers = sum(len(cm.layers) for cm in cms)
+    if launches % layers or launches == 0:
+        raise AssertionError(f"{launches} attention launches while serving the loaded artifacts")
+    print(f"[artifacts] {len(cms)} divisions ({[round(b / 2**20, 2) for b in sizes]} MiB) + "
+          f"fusion head written in {save_s:.2f} s, engine built from them in {load_s:.2f} s; "
+          f"predict at bs 1/8/256 equals the in-memory engine's bit for bit; POST /reload: "
+          f"second head 200 (replies changed, logits equal a fresh engine's), wrong geometry "
+          f"400, missing file 400, first head 200 (replies restored); {launches} attention "
+          f"launches over HTTP [{card}]")
+    return dict(cms=loaded.cms, save_s=save_s, load_s=load_s, sizes=sizes, launches=launches)
+
+
+@torch.inference_mode()
+def phase_int8(cms, ens, card: str) -> dict:
+    """The int8 serving path: quantize_compact of the loaded divisions, the
+    int8 forward + EnsMLP at bs256 in bf16 (fast_math). Its main-path run
+    (counts from 0) must launch the int8 kernel 192 times; its logits against
+    the same forward through dynamic_int8_matmul (tol 2e-2) and against the
+    bf16 forward (mean relative deviation within the JAX test's 0.1)."""
+    qcms = [quantize_compact(cm) for cm in cms]
+    x = _images(256, seed=70)
+    fused_int8_matmul.launches = 0
+    got = _forward(qcms, ens, x, dtype=torch.bfloat16, use_kernel=True, fast_math=True, int8=True)
+    torch.cuda.synchronize()
+    launches = fused_int8_matmul.launches
+    plain = _forward(qcms, ens, x, dtype=torch.bfloat16, use_kernel=False, fast_math=True,
+                     int8=True)
+    expect = 4 * sum(len(cm.layers) for cm in cms)  # qkv, proj, fc1, fc2 a layer
+    if launches != expect or fused_int8_matmul.launches != expect:
+        raise AssertionError(f"int8 forward: {launches} kernel launches (expected {expect}); the "
+                             f"plain int8 forward launched {fused_int8_matmul.launches - launches}")
+    rel = _rel(got, plain)
+    bf16 = _forward(cms, ens, x, dtype=torch.bfloat16, use_kernel=True, fast_math=True)
+    dev = float((got - bf16).abs().mean() / bf16.abs().mean())
+    if got.shape != (256, ens.num_classes) or rel > 2e-2 or dev > 0.1:
+        raise AssertionError(f"int8 forward {tuple(got.shape)}: kernel vs plain rel {rel:.3e} "
+                             f"(tol 2e-2), vs bf16 mean rel deviation {dev:.3e} (tol 0.1)")
+    print(f"[int8] int8 forward of the {len(qcms)} loaded divisions + EnsMLP, bs256, bf16: "
+          f"{launches} fused_int8_matmul launches; logits kernel vs plain int8 rel err {rel:.3e} "
+          f"(tol 2e-2, bit-identical {torch.equal(got, plain)}); vs the bf16 forward mean "
+          f"relative deviation {dev:.3e} (tol 0.1) [{card}]")
+    return dict(qcms=qcms, launches=launches, rel=rel, dev_bf16=dev,
+                identical=bool(torch.equal(got, plain)))
+
+
+@torch.inference_mode()
+def phase_int8_times(cms, qcms, ens, card: str) -> dict:
+    """CUDA events: the int8 and the bf16 forward at bs 64/128/256 in turns
+    (int8, bf16, bf16, int8); fused_int8_matmul at each distinct deployed
+    (K, N) at M = 256 x 198 beside its plain version, its bound, the dot
+    alone through torch._int_mm (cuBLASLt int8) and the bf16 product
+    (torch.matmul), summed over one forward's 192 calls; and
+    fused_block_attention at each of the 48 deployed layers at B 256 (bf16,
+    on the layer's own input) beside its plain version, its bound and the
+    split sequence it replaces (attention_half with the attention kernel).
+    Timing launches are not the main path's: the counts are restored."""
+    counts = (fused_attention.launches, fused_int8_matmul.launches,
+              fused_block_attention.launches)
+    e2e = {}
+    for bs in (64, 128, 256):
+        x = _images(bs, seed=80 + bs)
+        runs = {"int8": [], "bf16": []}
+        for mode in ("int8", "bf16", "bf16", "int8"):
+            m = qcms if mode == "int8" else cms
+            runs[mode].append(_time_ms(lambda: _forward(
+                m, ens, x, dtype=torch.bfloat16, use_kernel=True, fast_math=True,
+                int8=mode == "int8"), iters=5, warmup=1))
+        ms = {k: sum(v) / len(v) for k, v in runs.items()}
+        e2e[bs] = dict(int8_ms=ms["int8"], bf16_ms=ms["bf16"], int8_img_s=bs / ms["int8"] * 1e3,
+                       bf16_img_s=bs / ms["bf16"] * 1e3, runs_ms=runs)
+        print(f"[int8-time] forward bs{bs}, bf16 fast_math: int8 {ms['int8']:.3f} ms = "
+              f"{bs / ms['int8'] * 1e3:.1f} img/s, bf16 {ms['bf16']:.3f} ms = "
+              f"{bs / ms['bf16'] * 1e3:.1f} img/s; turns {runs} [{card}]")
+
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    M = 256 * N
+    calls = {}
+    for cm in cms:
+        for shape in _int8_shapes(cm):
+            calls[shape] = calls.get(shape, 0) + 1
+    per_shape = {}
+    for (K, Nn), (kern, bias) in _deployed_weights(cms).items():
+        q = quantize_weight(kern, bias)
+        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+        wq_cm = q.w_q.t().contiguous().t()  # cuBLASLt's int8 layout: the weight column-major
+        wb = kern.bfloat16()
+        bound, _ = _int8_bound(M, K, Nn)
+        per_shape[(K, Nn)] = dict(
+            ms=_time_ms(lambda: fused_int8_matmul(x, q), iters=10, warmup=2),
+            plain_ms=_time_ms(lambda: dynamic_int8_matmul(x, q), iters=3, warmup=1),
+            library_ms=_time_ms(lambda: torch._int_mm(xq, wq_cm), iters=10, warmup=2),
+            bf16_ms=_time_ms(lambda: torch.matmul(x, wb), iters=10, warmup=2),
+            bound_ms=bound, calls=calls[(K, Nn)])
+        r = per_shape[(K, Nn)]
+        print(f"[int8-time] fused_int8_matmul M={M} K={K} N={Nn} (x{r['calls']} a forward): "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, torch._int_mm (dot alone) "
+              f"{r['library_ms']:.4f}, bf16 matmul {r['bf16_ms']:.4f}, bound {bound:.4f} [{card}]")
+    int8_fwd = {k: sum(r["calls"] * r[k] for r in per_shape.values())
+                for k in ("ms", "plain_ms", "library_ms", "bf16_ms", "bound_ms")}
+    int8_fwd["calls"] = sum(r["calls"] for r in per_shape.values())
+    bytes_ms = sum(r["calls"] * _int8_bound(M, K, Nn)[1] for (K, Nn), r in per_shape.items())
+    int8_fwd["bound_by"] = ("bytes" if bytes_ms >= int8_fwd["bound_ms"] * (1 - 1e-9)
+                            else "operations")
+    print(f"[int8-time] fused_int8_matmul over one bs256 forward ({int8_fwd['calls']} calls): "
+          f"kernel {int8_fwd['ms']:.3f} ms, plain {int8_fwd['plain_ms']:.3f}, torch._int_mm "
+          f"{int8_fwd['library_ms']:.3f}, bf16 matmul {int8_fwd['bf16_ms']:.3f}, bound "
+          f"{int8_fwd['bound_ms']:.3f} ({int8_fwd['bound_by']}) [{card}]")
+
+    x = _images(256, seed=82)
+    block = {"ms": 0.0, "plain_ms": 0.0, "split_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0}
+    for cm in cms:
+        t = embed_patches(cm, x, patch_size=16, dtype=torch.bfloat16)
+        for lp in cm.layers:
+            args, kw = _block_args(lp, t), dict(num_heads=lp.num_heads, eps=cm.eps)
+            block["ms"] += _time_ms(lambda: fused_block_attention(*args, **kw), iters=3, warmup=1)
+            block["plain_ms"] += _time_ms(lambda: reference_block_attention(*args, **kw),
+                                          iters=3, warmup=1)
+            block["split_ms"] += _time_ms(lambda: attention_half(lp, t, eps=cm.eps), iters=3,
+                                          warmup=1)
+            bound, bytes_ms = _block_bound(256, t.shape[-1], lp.num_heads * DH)
+            block["bound_ms"] += bound
+            block["bytes_ms"] += bytes_ms
+            t = mlp_half(lp, attention_half(lp, t, eps=cm.eps), eps=cm.eps)
+    block["bound_by"] = "bytes" if block["bytes_ms"] >= block["bound_ms"] * (1 - 1e-9) else \
+        "operations"
+    print(f"[int8-time] fused_block_attention over one bs256 forward's {sum(len(cm.layers) for cm in cms)} layers (bf16): kernel "
+          f"{block['ms']:.3f} ms, plain {block['plain_ms']:.3f}, the split sequence it replaces "
+          f"{block['split_ms']:.3f}, bound {block['bound_ms']:.3f} ({block['bound_by']}) [{card}]")
+    fused_attention.launches, fused_int8_matmul.launches, fused_block_attention.launches = counts
+    return dict(forward=e2e, int8_per_shape={f"{k}x{n}": r for (k, n), r in per_shape.items()},
+                int8_forward=int8_fwd, block_forward=block)
 
 
 def _bwd_errs(got: torch.Tensor, want: torch.Tensor, C: int):
@@ -1227,7 +1636,16 @@ def main() -> int:
     launches = phase_serving(cms, ens)
     times = phase_times(cms, ens, card)
     times["profile"] = phase_profile(cms, ens, card)
-    del cms, ens
+    int8_max_abs_err = phase_int8_checks(cms)
+    block = phase_block_attention(cms, ens, card)
+    art = phase_artifacts(cms, ens, card)
+    int8 = phase_int8(art.pop("cms"), ens, card)
+    qcms = int8.pop("qcms")
+    times["int8"] = phase_int8_times(cms, qcms, ens, card)
+    times["int8"]["profile"] = phase_profile(qcms, ens, card, int8=True)
+    times.update(block_attention=block, artifacts=art, int8_path=int8)
+    del cms, ens, qcms
+    torch.cuda.empty_cache()
 
     bwd_max_abs_err = phase_bwd_checks()
     split_max_abs_err = phase_split_checks()
@@ -1276,6 +1694,24 @@ def main() -> int:
         "ms": es[k]["ms"], "plain_ms": es[k]["plain_ms"], "bound_ms": es[k]["bound_ms"],
         "bound_by": es[k]["bound_by"], "library_ms": es[k]["library_ms"]}
         for k, line in (("dv", 306), ("dqdk", 324))]}
+    i8, bl = times["int8"]["int8_forward"], times["int8"]["block_forward"]
+    record["kernels"] += [{
+        # per bs256 deployed int8 forward (192 calls); the library yardstick
+        # is torch._int_mm, the int8 dot alone (cuBLASLt)
+        "name": "fused_int8_matmul", "route": "cuda",
+        "source": "devit_tpu_torch/kernels/csrc/quant_matmul.cu",
+        "replaces": "devit_tpu/kernels/quant.py:64",
+        "launches": int8["launches"], "max_abs_err": int8_max_abs_err,
+        "ms": i8["ms"], "plain_ms": i8["plain_ms"], "bound_ms": i8["bound_ms"],
+        "bound_by": i8["bound_by"], "library_ms": i8["library_ms"]}, {
+        # per bs256 deployed forward (48 calls); no one PyTorch call computes
+        # LayerNorm + qkv + attention + proj + residual
+        "name": "fused_block_attention", "route": "cuda",
+        "source": "devit_tpu_torch/kernels/csrc/block_attention.cu",
+        "replaces": "devit_tpu/kernels/attention.py:133",
+        "launches": block["launches"], "max_abs_err": block["max_abs_err"],
+        "ms": bl["ms"], "plain_ms": bl["plain_ms"], "bound_ms": bl["bound_ms"],
+        "bound_by": bl["bound_by"], "library_ms": None}]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(

@@ -1,8 +1,8 @@
 """Carry parameters of the JAX package into the port's modules.
 
 Inputs are the flax parameter trees as nested dicts of arrays (numpy, or
-anything np.asarray takes); the port copies them as float32, bit for bit.
-Reading the JAX package's .msgpack artifacts waits for a later slice.
+anything np.asarray takes, or the torch tensors io/checkpoint.py reads for
+bfloat16 leaves); the port copies them as float32, bit for bit.
 
 A VisionTransformer's tree is scan-stacked: every `blocks/*` leaf carries a
 leading depth axis, which the port's `blocks.<i>.*` parameters split. The
@@ -146,8 +146,8 @@ def ensmlp_from_jax_params(ens_params_np: dict, *, num_divisions: int, dtype=Non
     """A flax EnsMLP `params` tree -> the port's EnsMLP. The fusion geometry
     (classes, teacher width, family) is read from the tree's own shapes."""
     dev = resolve_device(device)
-    kc = np.asarray(ens_params_np["cls_classifier"]["kernel"])
-    fused = (np.asarray(ens_params_np["cls_mlp"]["kernel"]).shape[0]
+    kc = ens_params_np["cls_classifier"]["kernel"]
+    fused = (ens_params_np["cls_mlp"]["kernel"].shape[0]
              if "cls_mlp" in ens_params_np else kc.shape[0])
     if fused % num_divisions:
         raise ValueError(f"fused width {fused} is not a multiple of "

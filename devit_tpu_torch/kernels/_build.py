@@ -5,11 +5,17 @@ with a plain C interface (no PyTorch headers, so a build takes seconds), for
 sm_90a, into build/devit_tpu_torch_kernels/ at the root of the checkout, at
 first use. The library is named by the hash of every source and header in
 csrc/ and of the flags, so an edited file is never served by a stale build.
+
+`library()` loads it once with every kernel's C signature declared; the
+kernel modules (attention.py, quant.py) launch through it and raise through
+`check_launch`. No flag relaxes IEEE arithmetic: the int8 kernel's
+quantization divides and rounds as its plain version does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,6 +31,29 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "devit_tpu_torch_ker
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points of the library: name -> (argument types, result type)
+SIGNATURES = {
+    "devit_fused_attention": ([_VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
+    "devit_attention_bwd": ([_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
+    "devit_attention_bwd_dv": ([_VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _VP], _I),
+    "devit_attention_bwd_dqdk": ([_VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _VP], _I),
+    # x, w_q, w_scale, bias (or NULL), out, M, K, N, x dtype, out dtype, stream
+    "devit_quant_matmul": ([_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _VP], _I),
+    # t, norm scale, norm bias, qkv kernel, qkv bias (or NULL), proj kernel,
+    # proj bias, LN'd-row scratch, f32 accumulator, out, B, N, C, H,
+    # head_dim, eps, dtype, stream
+    "devit_block_attention": ([_VP] * 10 + [_I] * 5 + [ctypes.c_float, _I, _VP], _I),
+    "devit_attention_smem_bytes": ([_I, _I, _I], _LL),
+    "devit_attention_bwd_smem_bytes": ([_I, _I, _I], _LL),
+    "devit_attention_bwd_dv_smem_bytes": ([_I, _I, _I], _LL),
+    "devit_attention_bwd_dqdk_smem_bytes": ([_I, _I, _I], _LL),
+    "devit_block_attention_smem_bytes": ([_I, _I, _I], _LL),
+    "devit_quant_matmul_smem_bytes": ([_I], _LL),
+    "devit_max_smem_optin": ([_I], _LL),
+    "devit_error_string": ([_I], ctypes.c_char_p),
+}
+
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
@@ -34,8 +63,8 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and PATH); the CUDA kernel "
-                           "is built from source at first use")
+                           "/usr/local/cuda/bin and PATH); the CUDA kernels "
+                           "are built from source at first use")
     return found
 
 
@@ -43,7 +72,7 @@ def _lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in SOURCES + HEADERS:
         h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
-    return BUILD_DIR / f"attention-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Tuple[float, str]:
@@ -63,8 +92,29 @@ def build() -> Tuple[float, str]:
     return time.perf_counter() - t0, proc.stdout
 
 
-def load() -> ctypes.CDLL:
-    """The loaded library, built first if needed. The kernel module loads it
-    once and declares its C signatures on it."""
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded library, built first if needed, with every C signature in
+    SIGNATURES declared."""
     build()
-    return ctypes.CDLL(str(_lib_path()))
+    lib = ctypes.CDLL(str(_lib_path()))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error (0 = launched)."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + library().devit_error_string(err).decode())
+
+
+def check_smem(need: int, what: str, device: int) -> None:
+    """Raise if `need` bytes of shared memory per block (a *_smem_bytes
+    answer for `what`) exceed what `device` lets a block opt in to."""
+    limit = library().devit_max_smem_optin(device)
+    if need > limit:
+        raise ValueError(f"{what} needs {need} bytes of shared memory per block; "
+                         f"the device allows {limit}")

@@ -25,12 +25,13 @@ kernels' numerics) on a CPU tensor.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import os
 from typing import Optional
 
 import torch
+
+from devit_tpu_torch.kernels import _build
 
 HEAD_DIMS = (64,)  # head_dim values the CUDA kernel is instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -127,49 +128,21 @@ def reference_attention_bwd_dqdk(qkv: torch.Tensor, g: torch.Tensor,
     return _merge_heads(torch.stack([dq, dk]), qkv.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The built kernel library, with its C signatures declared."""
-    from devit_tpu_torch.kernels import _build
-
-    lib = _build.load()
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.devit_fused_attention.argtypes = [vp, vp, i, i, i, i, i, vp]
-    lib.devit_fused_attention.restype = i
-    lib.devit_attention_bwd.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
-    lib.devit_attention_bwd.restype = i
-    for fn in (lib.devit_attention_bwd_dv, lib.devit_attention_bwd_dqdk):
-        fn.argtypes = [vp, vp, vp, ll, i, i, i, i, i, vp]
-        fn.restype = i
-    for fn in (lib.devit_attention_smem_bytes, lib.devit_attention_bwd_smem_bytes,
-               lib.devit_attention_bwd_dv_smem_bytes, lib.devit_attention_bwd_dqdk_smem_bytes):
-        fn.argtypes = [i, i, i]
-        fn.restype = ll
-    lib.devit_max_smem_optin.argtypes = [i]
-    lib.devit_max_smem_optin.restype = ll
-    lib.devit_error_string.argtypes = [i]
-    lib.devit_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 _SMEM_QUERIES = {"fwd": "devit_attention_smem_bytes", "bwd": "devit_attention_bwd_smem_bytes",
                  "dv": "devit_attention_bwd_dv_smem_bytes",
-                 "dqdk": "devit_attention_bwd_dqdk_smem_bytes"}
+                 "dqdk": "devit_attention_bwd_dqdk_smem_bytes",
+                 "block": "devit_block_attention_smem_bytes"}
 
 
 @functools.lru_cache(maxsize=None)
 def _check_smem(kernel: str, N: int, dh: int, elem: int, device: int) -> None:
     """Raise if one block of `kernel` (a key of _SMEM_QUERIES) at sequence
     length N does not fit shared memory."""
-    lib = _library()
-    need = getattr(lib, _SMEM_QUERIES[kernel])(N, dh, elem)
+    need = getattr(_build.library(), _SMEM_QUERIES[kernel])(N, dh, elem)
     if need < 0:
         raise ValueError(f"sequence length N={N} is past what the {kernel} kernel takes "
                          f"(its shared memory and registers hold N <= 256)")
-    limit = lib.devit_max_smem_optin(device)
-    if need > limit:
-        raise ValueError(f"sequence length N={N} needs {need} bytes of shared "
-                         f"memory per {kernel} block; the device allows {limit}")
+    _build.check_smem(need, f"sequence length N={N} in the {kernel} kernel", device)
 
 
 def _check_kernel_input(qkv: torch.Tensor, num_heads: int, kernel: str):
@@ -184,17 +157,11 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int, kernel: str):
     return B, N, C, dh
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + _library().devit_error_string(err).decode())
-
-
 def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if not qkv.is_contiguous():
         raise ValueError("the CUDA attention kernel needs a contiguous qkv")
     B, N, C, dh = _check_kernel_input(qkv, num_heads, "fwd")
-    lib = _library()
+    lib = _build.library()
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
         return out
@@ -203,7 +170,7 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         err = lib.devit_fused_attention(qkv.data_ptr(), out.data_ptr(), B, N,
                                         num_heads, dh, _DTYPE_CODES[qkv.dtype],
                                         stream)
-    _raise_on(err, "fused_attention")
+    _build.check_launch(err, "fused_attention")
     fused_attention.launches += 1
     return out
 
@@ -240,12 +207,12 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
     dqkv = torch.empty_like(qkv)
     if B == 0:
         return dqkv
-    lib = _library()
+    lib = _build.library()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.devit_attention_bwd(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B, N,
                                       num_heads, dh, _DTYPE_CODES[qkv.dtype], stream)
-    _raise_on(err, "attention_bwd")
+    _build.check_launch(err, "attention_bwd")
     attention_bwd.launches += 1
     return dqkv
 
@@ -274,14 +241,14 @@ def _launch_half(kernel: str, qkv: torch.Tensor, g: torch.Tensor, num_heads: int
     B, N, C, dh = _split_heads(qkv, num_heads)
     if B == 0:
         return
-    lib = _library()
+    lib = _build.library()
     fn = lib.devit_attention_bwd_dv if kernel == "dv" else lib.devit_attention_bwd_dqdk
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), g.data_ptr(), out.data_ptr() + offset * out.element_size(),
                  out.shape[-1], B, N, num_heads, dh, _DTYPE_CODES[qkv.dtype], stream)
     wrapper = attention_bwd_dv if kernel == "dv" else attention_bwd_dqdk
-    _raise_on(err, wrapper.__name__)
+    _build.check_launch(err, wrapper.__name__)
     wrapper.launches += 1
 
 
@@ -375,3 +342,114 @@ def make_trainable_attention(num_heads: int, bwd_mode: Optional[str] = None):
         return _TrainableAttention.apply(qkv, num_heads, bwd_mode)
 
     return attention
+
+
+# ---- the attention half of a compact layer in one kernel (csrc/block_attention.cu)
+
+
+def reference_block_attention(t: torch.Tensor, norm_scale: torch.Tensor,
+                              norm_bias: torch.Tensor, qkv_kernel: torch.Tensor,
+                              qkv_bias: Optional[torch.Tensor], proj_kernel: torch.Tensor,
+                              proj_bias: torch.Tensor, *, num_heads: int,
+                              eps: float = 1e-6) -> torch.Tensor:
+    """t + proj(attention(qkv(LayerNorm(t)))), line for line as the TPU
+    kernel (devit_tpu/kernels/attention.py:_block_attn_kernel) computes it:
+    LayerNorm statistics in f32 whatever t's dtype; h rounded to t's dtype;
+    qkv in f32 plus the bias, rounded; the per-head f32 softmax with p and o
+    rounded to v's dtype; each head's o . proj[head rows] added in f32 onto
+    an f32 copy of t, then proj_bias and one rounding. Not compact_forward's
+    split arithmetic, which rounds after each product."""
+    B, N, C = t.shape
+    K = qkv_kernel.shape[1] // 3
+    dh = K // num_heads
+    tf = t.float()
+    mu = tf.mean(dim=-1, keepdim=True)
+    var = (tf - mu).square().mean(dim=-1, keepdim=True)
+    h = (tf - mu) * torch.rsqrt(var + eps)
+    h = (h * norm_scale.float() + norm_bias.float()).to(t.dtype)
+    qkv = torch.matmul(h.float(), qkv_kernel.float())
+    if qkv_bias is not None:
+        qkv = qkv + qkv_bias.float()
+    q, k, v = qkv.to(t.dtype).reshape(B, N, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (dh ** -0.5)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.matmul(p.float(), v.float()).to(v.dtype)  # (B, H, N, dh)
+    pw = proj_kernel.float().reshape(num_heads, dh, C)
+    acc = tf
+    for hd in range(num_heads):
+        acc = acc + torch.matmul(o[:, hd].float(), pw[hd])
+    return (acc + proj_bias.float()).to(t.dtype)
+
+
+def _launch_block(t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
+                  num_heads: int, eps: float) -> torch.Tensor:
+    B, N, C = t.shape
+    threeK = qkv_kernel.shape[-1]
+    if threeK % (3 * num_heads):
+        raise ValueError(f"num_heads={num_heads} must divide K={threeK // 3}")
+    K = threeK // 3
+    dh = K // num_heads
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA block-attention kernel takes head_dim in {HEAD_DIMS}, got {dh}")
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA block-attention kernel takes float32 or bfloat16, got {t.dtype}")
+    if qkv_kernel.dtype != t.dtype or proj_kernel.dtype != t.dtype:
+        raise TypeError(f"the CUDA block-attention kernel takes qkv and proj kernels of t's "
+                        f"dtype {t.dtype}, got {qkv_kernel.dtype} and {proj_kernel.dtype}")
+    if tuple(qkv_kernel.shape) != (C, threeK) or tuple(proj_kernel.shape) != (K, C):
+        raise ValueError(f"qkv_kernel {tuple(qkv_kernel.shape)} and proj_kernel "
+                         f"{tuple(proj_kernel.shape)} do not fit t {tuple(t.shape)}")
+    if C % 32:
+        raise ValueError(f"the CUDA block-attention kernel takes a width C that is a multiple "
+                         f"of 32, got {C}")
+    if not (t.is_contiguous() and qkv_kernel.is_contiguous() and proj_kernel.is_contiguous()):
+        raise ValueError("the CUDA block-attention kernel needs contiguous t, qkv and proj "
+                         "kernels")
+    vecs = [norm_scale, norm_bias, qkv_bias, proj_bias]
+    for v, n in zip(vecs, (C, C, threeK, C)):
+        if v is not None and v.numel() != n:
+            raise ValueError(f"a bias or LayerNorm vector has {v.numel()} values, expected {n}")
+    if any(x is not None and x.device != t.device
+           for x in [qkv_kernel, proj_kernel] + vecs):
+        raise ValueError(f"every operand must be on {t.device}")
+    _check_smem("block", N, dh, t.element_size(), t.device.index)
+    ns, nb, qb, pb = (None if v is None else v.float().contiguous() for v in vecs)
+    out = torch.empty_like(t)
+    if B == 0:
+        return out
+    hbuf = torch.empty_like(t)
+    acc = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = _build.library().devit_block_attention(
+            t.data_ptr(), ns.data_ptr(), nb.data_ptr(), qkv_kernel.data_ptr(),
+            None if qb is None else qb.data_ptr(), proj_kernel.data_ptr(), pb.data_ptr(),
+            hbuf.data_ptr(), acc.data_ptr(), out.data_ptr(), B, N, C, num_heads, dh, eps,
+            _DTYPE_CODES[t.dtype], stream)
+    _build.check_launch(err, "fused_block_attention")
+    fused_block_attention.launches += 1
+    return out
+
+
+def fused_block_attention(t: torch.Tensor, norm_scale: torch.Tensor, norm_bias: torch.Tensor,
+                          qkv_kernel: torch.Tensor, qkv_bias: Optional[torch.Tensor],
+                          proj_kernel: torch.Tensor, proj_bias: torch.Tensor, *,
+                          num_heads: int, eps: float = 1e-6) -> torch.Tensor:
+    """t + proj(attention(qkv(LayerNorm(t)))) in one kernel: t (B, N, C),
+    qkv_kernel (C, 3K) and proj_kernel (K, C) in the compact ragged layout
+    (K = num_heads * head_dim). Replaces compact_forward's LN1 -> qkv ->
+    attention -> proj -> residual sequence, with the TPU kernel's numerics
+    (see reference_block_attention). CUDA tensor: the kernel in
+    csrc/block_attention.cu (counted in `fused_block_attention.launches`),
+    which takes the two kernels in t's dtype. CPU tensor:
+    `reference_block_attention`."""
+    args = (t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias)
+    if t.device.type == "cpu":
+        return reference_block_attention(*args, num_heads=num_heads, eps=eps)
+    if t.device.type != "cuda":
+        raise ValueError(f"fused_block_attention runs on cuda (kernel) or cpu (plain version), "
+                         f"not {t.device}")
+    return _launch_block(*args, num_heads, eps)
+
+
+fused_block_attention.launches = 0

@@ -1,5 +1,5 @@
 """Ragged-compact ViT: per-layer exact-width inference forward (counterpart
-of devit_tpu/models/compact_vit.py:41-136, :159-254, :309-326).
+of devit_tpu/models/compact_vit.py).
 
 Each layer keeps exactly its kept heads and kept MLP neurons (the MLP width
 zero-padded to a multiple of `neuron_multiple`), so the forward runs the
@@ -9,10 +9,19 @@ so x @ kernel is the same product as jnp.dot(x, kernel).
 fast_math (the serving default) deviates from the strict numerics in two
 ways, as in the JAX package: the tanh GELU, and LayerNorm statistics in the
 compute dtype. Attention softmax is f32 under every flag.
+
+The int8 serving variant (`quantize_compact`, then `compact_forward(...,
+int8=True)`) runs each layer's four weight products through
+`fused_int8_matmul` (the CUDA kernel on a CUDA tensor; the plain
+`dynamic_int8_matmul` with use_kernel=False) and its attention through the
+plain `reference_attention`, as the JAX package's int8 branch does.
+`save_compact` / `load_compact` write and read the deploy stage's
+`compact.msgpack` in the JAX package's format; quantize after loading.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -21,8 +30,12 @@ from torch import nn
 
 from devit_tpu_torch.configs import ViTConfig
 from devit_tpu_torch.device import DeviceLike, resolve_device
+from devit_tpu_torch.io.checkpoint import restore_pytree, save_pytree
 from devit_tpu_torch.kernels.attention import fused_attention, reference_attention
+from devit_tpu_torch.kernels.quant import dynamic_int8_matmul, fused_int8_matmul, quantize_weight
 from devit_tpu_torch.models.vit import Gates, fast_gelu, gelu_tanh, layer_norm
+
+_QUANTIZED = ("qkv", "proj", "fc1", "fc2")  # the weight products quantize_compact replaces
 
 
 def _round_up(x: int, m: int) -> int:
@@ -30,11 +43,18 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _frozen(a) -> nn.Parameter:
-    return nn.Parameter(torch.tensor(np.asarray(a, np.float32)), requires_grad=False)
+    """A frozen f32 parameter from a numpy array or a torch tensor (a loaded
+    artifact's bfloat16 leaves are tensors)."""
+    t = (a.detach().float().contiguous().clone() if isinstance(a, torch.Tensor)
+         else torch.tensor(np.ascontiguousarray(a, np.float32)))
+    return nn.Parameter(t, requires_grad=False)
 
 
 class CompactLayer(nn.Module):
-    """One ragged block: `num_heads` kept heads, exact MLP width."""
+    """One ragged block: `num_heads` kept heads, exact MLP width. After
+    quantize_compact its four weight products are QuantizedLinear
+    submodules (qkv_q, proj_q, fc1_q, fc2_q) in place of the float kernels
+    and biases."""
 
     def __init__(self, lp: dict, num_heads: int):
         super().__init__()
@@ -79,20 +99,26 @@ class CompactViT(nn.Module):
     def num_heads(self) -> List[int]:
         return [lp.num_heads for lp in self.layers]
 
+    @property
+    def quantized(self) -> bool:
+        return any(hasattr(lp, "qkv_q") for lp in self.layers)
+
 
 def compact_vit_ragged(
     params: dict,
     gates: Gates,
     cfg: ViTConfig,
     *,
+    head_multiple: int = 1,
     neuron_multiple: int = 128,
     device: DeviceLike = None,
 ) -> CompactViT:
     """Gather kept heads/neurons per layer into exact-width weights.
 
     params: the flax parameter tree of a gated VisionTransformer as a nested
-    dict of numpy arrays; gates: binary (0/1) head and neuron masks. The MLP
-    width is zero-padded to a multiple of `neuron_multiple`.
+    dict of numpy arrays; gates: binary (0/1) head and neuron masks. The kept
+    heads are zero-padded to a multiple of `head_multiple` and the MLP width
+    to a multiple of `neuron_multiple`, each capped at the full width.
     """
     dev = resolve_device(device)
     head = np.asarray(gates.head)
@@ -123,7 +149,7 @@ def compact_vit_ragged(
         hi = np.nonzero(head[l])[0]
         ni = np.nonzero(neuron[l])[0]
         # a layer with no kept head keeps one all-zero dummy head
-        kh = max(len(hi), 1)
+        kh = max(min(_round_up(len(hi), head_multiple), H), 1)
         kn = max(min(_round_up(len(ni), neuron_multiple), hidden), 1)
         # pad with arbitrary extra indices but zero their weights
         hi_pad = np.concatenate([hi, np.zeros(kh - len(hi), np.int64)])
@@ -162,27 +188,26 @@ def compact_vit_ragged(
     return model.to(dev)
 
 
-def compact_forward(
-    model: CompactViT,
-    x: torch.Tensor,  # (B, H, W, 3)
-    *,
-    patch_size: int,
-    dtype: torch.dtype = torch.bfloat16,
-    use_kernel: bool = True,
-    fast_math: bool = True,
-    features_only: bool = False,
-):
-    """Inference forward over ragged layers. Returns logits, or the
-    (cls, dist) features with features_only (dist is None if undistilled).
 
-    use_kernel: attention through `fused_attention` (the CUDA kernel on a
-    CUDA tensor); False takes `reference_attention`.
-    """
-    stat = dtype if fast_math else torch.float32
-    attention = fused_attention if use_kernel else reference_attention
-    gelu = gelu_tanh if fast_math else fast_gelu
+
+def quantize_compact(model: CompactViT) -> CompactViT:
+    """Int8 serving variant: a copy of `model` whose layers carry their four
+    weight products as QuantizedLinear (per-channel scales) in place of the
+    float kernels and biases. Use with compact_forward(..., int8=True)."""
+    qm = copy.deepcopy(model)
+    for lp in qm.layers:
+        for name in _QUANTIZED:
+            kernel, bias = getattr(lp, f"{name}_kernel"), getattr(lp, f"{name}_bias")
+            setattr(lp, f"{name}_q", quantize_weight(kernel, bias))
+            delattr(lp, f"{name}_kernel")
+            delattr(lp, f"{name}_bias")
+    return qm
+
+
+def embed_patches(model: CompactViT, x: torch.Tensor, *, patch_size: int,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Images (B, H, W, 3) -> the first layer's tokens (B, N, C) in dtype."""
     w = lambda p: p.to(dtype)
-
     B, Hh, Ww, Cin = x.shape
     g = Hh // patch_size
     xp = x.reshape(B, g, patch_size, g, patch_size, Cin)
@@ -192,22 +217,72 @@ def compact_forward(
     toks = [w(model.cls_token).expand(B, 1, C)]
     if model.distilled:
         toks.append(w(model.dist_token).expand(B, 1, C))
-    t = torch.cat(toks + [t], dim=1) + w(model.pos_embed)
+    return torch.cat(toks + [t], dim=1) + w(model.pos_embed)
 
+
+def attention_half(lp: CompactLayer, t: torch.Tensor, *, eps: float,
+                   dtype: torch.dtype = torch.bfloat16, use_kernel: bool = True,
+                   fast_math: bool = True, int8: bool = False) -> torch.Tensor:
+    """t + proj(attention(qkv(LN1(t)))), split: each product rounded to
+    dtype on its own (the sequence fused_block_attention replaces)."""
+    stat = dtype if fast_math else torch.float32
+    h = layer_norm(t, lp.norm1_scale, lp.norm1_bias, eps, stat)
+    if int8:
+        mm = fused_int8_matmul if use_kernel else dynamic_int8_matmul
+        # the JAX package's int8 branch takes the plain attention
+        att = reference_attention(mm(h, lp.qkv_q, out_dtype=dtype), None, num_heads=lp.num_heads)
+        return t + mm(att, lp.proj_q, out_dtype=dtype)
+    qkv = torch.matmul(h, lp.qkv_kernel.to(dtype))
+    if lp.qkv_bias is not None:
+        qkv = qkv + lp.qkv_bias.to(dtype)
+    attention = fused_attention if use_kernel else reference_attention
+    att = attention(qkv, None, num_heads=lp.num_heads)
+    return t + (torch.matmul(att, lp.proj_kernel.to(dtype)) + lp.proj_bias.to(dtype))
+
+
+def mlp_half(lp: CompactLayer, t: torch.Tensor, *, eps: float,
+             dtype: torch.dtype = torch.bfloat16, use_kernel: bool = True,
+             fast_math: bool = True, int8: bool = False) -> torch.Tensor:
+    """t + fc2(gelu(fc1(LN2(t))))."""
+    stat = dtype if fast_math else torch.float32
+    gelu = gelu_tanh if fast_math else fast_gelu
+    h = layer_norm(t, lp.norm2_scale, lp.norm2_bias, eps, stat)
+    if int8:
+        mm = fused_int8_matmul if use_kernel else dynamic_int8_matmul
+        return t + mm(gelu(mm(h, lp.fc1_q, out_dtype=dtype)), lp.fc2_q, out_dtype=dtype)
+    h = gelu(torch.matmul(h, lp.fc1_kernel.to(dtype)) + lp.fc1_bias.to(dtype))
+    return t + (torch.matmul(h, lp.fc2_kernel.to(dtype)) + lp.fc2_bias.to(dtype))
+
+
+def compact_forward(
+    model: CompactViT,
+    x: torch.Tensor,  # (B, H, W, 3)
+    *,
+    patch_size: int,
+    dtype: torch.dtype = torch.bfloat16,
+    use_kernel: bool = True,
+    fast_math: bool = True,
+    features_only: bool = False,
+    int8: bool = False,
+):
+    """Inference forward over ragged layers. Returns logits, or the
+    (cls, dist) features with features_only (dist is None if undistilled).
+
+    use_kernel: attention through `fused_attention` (the CUDA kernel on a
+    CUDA tensor), or with int8 the four weight products through
+    `fused_int8_matmul`; False takes the plain versions. int8 needs a
+    quantize_compact model.
+    """
+    if int8 != model.quantized:
+        raise ValueError("compact_forward(int8=True) takes a quantize_compact model and "
+                         "int8=False a float one")
+    kw = dict(eps=model.eps, dtype=dtype, use_kernel=use_kernel, fast_math=fast_math, int8=int8)
+    t = embed_patches(model, x, patch_size=patch_size, dtype=dtype)
     for lp in model.layers:
-        h = layer_norm(t, lp.norm1_scale, lp.norm1_bias, model.eps, stat)
-        qkv = torch.matmul(h, w(lp.qkv_kernel))
-        if lp.qkv_bias is not None:
-            qkv = qkv + w(lp.qkv_bias)
-        att = attention(qkv, None, num_heads=lp.num_heads)
-        att = torch.matmul(att, w(lp.proj_kernel)) + w(lp.proj_bias)
-        t = t + att
-        h = layer_norm(t, lp.norm2_scale, lp.norm2_bias, model.eps, stat)
-        h = torch.matmul(h, w(lp.fc1_kernel)) + w(lp.fc1_bias)
-        h = gelu(h)
-        h = torch.matmul(h, w(lp.fc2_kernel)) + w(lp.fc2_bias)
-        t = t + h
+        t = mlp_half(lp, attention_half(lp, t, **kw), **kw)
 
+    w = lambda p: p.to(dtype)
+    stat = dtype if fast_math else torch.float32
     t = layer_norm(t, model.norm_scale, model.norm_bias, model.eps, stat)
     cls_feat = t[:, 0]
     dist_feat = t[:, 1] if model.distilled else None
@@ -224,14 +299,67 @@ def compact_forward(
 
 def stack_division_features(cms: Sequence[CompactViT], images: torch.Tensor, *,
                             patch_size: int, dtype: torch.dtype = torch.bfloat16,
-                            use_kernel: bool = True, fast_math: bool = True
-                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                            use_kernel: bool = True, fast_math: bool = True,
+                            int8: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run every compact division on the same batch and stack the token
     features division-major: (cls (D, B, C), dist (D, B, C) or None)."""
     feats = [compact_forward(cm, images, patch_size=patch_size, dtype=dtype,
                              use_kernel=use_kernel, fast_math=fast_math,
-                             features_only=True) for cm in cms]
+                             features_only=True, int8=int8) for cm in cms]
     cls_stack = torch.stack([c for c, _ in feats])
     dist_stack = (None if feats[0][1] is None
                   else torch.stack([d for _, d in feats]))
     return cls_stack, dist_stack
+
+
+def _np(p: torch.Tensor) -> np.ndarray:
+    return p.detach().float().cpu().numpy()
+
+
+def save_compact(path: str, model: CompactViT) -> None:
+    """Write the deployment artifact as the JAX package's save_compact does
+    (the same tree, key order and dtypes: f32 arrays, the static meta beside
+    them). Float models only: quantize after load_compact."""
+    if model.quantized:
+        raise ValueError("save_compact cannot serialize a quantize_compact model; "
+                         "save the bf16 artifact and quantize after load_compact")
+    embed = {"patch_kernel": _np(model.patch_kernel), "patch_bias": _np(model.patch_bias),
+             "cls_token": _np(model.cls_token), "pos_embed": _np(model.pos_embed),
+             "norm": {"scale": _np(model.norm_scale), "bias": _np(model.norm_bias)}}
+    if model.distilled:
+        embed["dist_token"] = _np(model.dist_token)
+    layers = {}
+    for i, lp in enumerate(model.layers):
+        layer = {"norm1": {"bias": _np(lp.norm1_bias), "scale": _np(lp.norm1_scale)},
+                 "norm2": {"bias": _np(lp.norm2_bias), "scale": _np(lp.norm2_scale)}}
+        for name in ("fc1_bias", "fc1_kernel", "fc2_bias", "fc2_kernel", "proj_bias",
+                     "proj_kernel", "qkv_bias", "qkv_kernel"):
+            if getattr(lp, name) is not None:
+                layer[name] = _np(getattr(lp, name))
+        layers[str(i)] = dict(sorted(layer.items()))  # the JAX tree's sorted order
+    head = {name: {k: _np(model.head[f"{name}_{k}"]) for k in ("bias", "kernel")}
+            for name in ("head", "head_dist") if f"{name}_kernel" in model.head}
+    save_pytree(path, {
+        "embed": embed,
+        "layers": layers,
+        "head": head,
+        "meta": {
+            "num_heads": np.asarray(model.num_heads, np.int32),
+            "head_dim": np.int32(model.head_dim),
+            "distilled": np.int32(model.distilled),
+            "eps": np.float32(model.eps),
+        },
+    })
+
+
+def load_compact(path: str, device: DeviceLike = None) -> CompactViT:
+    """Read a `compact.msgpack` that either package's save_compact wrote,
+    onto `device` (cuda by default)."""
+    tree = restore_pytree(path)
+    meta = tree["meta"]
+    heads = [int(h) for h in np.asarray(meta["num_heads"]).reshape(-1)]
+    layers = [(tree["layers"][str(i)], kh) for i, kh in enumerate(heads)]
+    model = CompactViT(tree["embed"], layers, tree.get("head", {}),
+                       head_dim=int(meta["head_dim"]), distilled=bool(int(meta["distilled"])),
+                       eps=float(meta["eps"]))
+    return model.to(resolve_device(device))

@@ -43,12 +43,14 @@ class EnsOutput(NamedTuple):
 
 class Dense(vit.Dense):
     """flax `nn.Dense(features, dtype=...)` (models/vit.py's Dense, with a
-    bias), loadable from a flax Dense `params` dict."""
+    bias), loadable from a flax Dense `params` dict (numpy or torch leaves)."""
 
     def load(self, params: dict) -> "Dense":
         with torch.no_grad():
             for name in ("kernel", "bias"):
-                src = torch.tensor(np.asarray(params[name], np.float32))
+                src = params[name]
+                src = (src.detach().float() if isinstance(src, torch.Tensor)
+                       else torch.tensor(np.asarray(src, np.float32)))
                 dst = getattr(self, name)
                 if src.shape != dst.shape:
                     raise ValueError(f"{name} shape {tuple(src.shape)} != "

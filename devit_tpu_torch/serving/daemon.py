@@ -1,5 +1,5 @@
 """Serving daemon for the deployed collaborative ensemble (counterpart of
-devit_tpu/serving/daemon.py:79-283, :312-417, :499-611).
+devit_tpu/serving/daemon.py:79-611, all but serve_main).
 
 One batcher thread owns the device: requests land in a queue, the batcher
 coalesces everything that arrives within `max_wait_ms` of the oldest waiting
@@ -14,26 +14,32 @@ Protocol (stdlib http.server; one POST = one or more images):
       query:   ?topk=5 (optional, default ServeConfig.topk)
       reply:   {"predictions": [{"topk": [...], "probs": [...]}, ...],
                 "latency_ms": float}
+    POST /reload
+      body:    {"ens_path": "<stage-5 checkpoint>"}: hot-swap the fusion head
+               (same geometry only; 400 otherwise)
     GET /healthz   -> model/device info (also the readiness probe)
     GET /stats     -> request/image/batch counters + latency percentiles
 
-Images are scaled by 1/255 once, as on the offline eval path. (The JAX
-daemon divides by 255 twice; the port does not reproduce that defect.)
-This slice serves one device; the multi-device topology, `/reload` and
-loading artifacts from disk wait for later slices.
+`build_engine_from_artifacts` serves what the deploy stage wrote
+(`sub-dataset{i}/compact.msgpack`) with a stage-5 fusion checkpoint, both
+in the JAX package's msgpack format. Images are scaled by 1/255 once, as on
+the offline eval path. (The JAX daemon divides by 255 twice; the port does
+not reproduce that defect.) One device; the multi-device topology and the
+`serve` command line wait for later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import queue
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -41,7 +47,9 @@ import torch
 
 from devit_tpu_torch.data.pipeline import normalize
 from devit_tpu_torch.device import DeviceLike, resolve_device
-from devit_tpu_torch.models.compact_vit import CompactViT, stack_division_features
+from devit_tpu_torch.io.bridge import ensmlp_from_jax_params
+from devit_tpu_torch.io.checkpoint import restore_pytree
+from devit_tpu_torch.models.compact_vit import CompactViT, load_compact, stack_division_features
 from devit_tpu_torch.models.ensemble import EnsMLP
 
 
@@ -74,6 +82,7 @@ class InferenceEngine:
         self.ens = ens.to(self.device)
         self.num_divisions = len(self.cms)
         self.num_classes = ens.num_classes
+        self._ens_avals = _avals({k.replace(".", "/"): p for k, p in ens.named_parameters()})
         self._lock = threading.Lock()
 
     @torch.inference_mode()
@@ -108,6 +117,26 @@ class InferenceEngine:
                     for i in range(0, images_u8.shape[0], cap)]
         return np.concatenate(outs, axis=0)
 
+    def reload_fusion(self, ens_path: str) -> None:
+        """Hot-swap the fusion head from a (newer) stage-5 checkpoint: the
+        head retrains far more often than the frozen divisions. Structure,
+        shapes and dtypes must match the serving head's (f32) parameters
+        exactly; another geometry needs a new engine."""
+        ckpt = restore_pytree(ens_path)
+        if not isinstance(ckpt, dict):  # a valid msgpack of the wrong thing
+            raise ValueError(f"{ens_path!r} is not a checkpoint dict "
+                             f"(restored {type(ckpt).__name__})")
+        params = ckpt.get("ens_params", ckpt.get("params", ckpt))
+        new = _avals(_flat(params)) if isinstance(params, dict) else type(params).__name__
+        if new != self._ens_avals:
+            raise ValueError(f"reload checkpoint geometry (shape/dtype) differs from the "
+                             f"serving fusion head: {new} vs {self._ens_avals} - restart to "
+                             f"change geometry")
+        ens = ensmlp_from_jax_params(params, num_divisions=self.num_divisions,
+                                     dtype=self.ens.dtype, device=self.device)
+        with self._lock:  # never swap mid-forward
+            self.ens = ens
+
     def warm_up(self) -> float:
         """Run every bucket once before traffic (builds the kernel and lets
         the allocator and cuBLAS settle). Returns the seconds it took."""
@@ -116,6 +145,26 @@ class InferenceEngine:
         for b in sorted(self.cfg.buckets):
             self.predict(np.zeros((b, s, s, 3), np.uint8))
         return time.perf_counter() - t0
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    """A nested dict -> {"a/b/c": leaf}."""
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}/"))
+    return out
+
+
+def _avals(flat: dict) -> dict:
+    """{path: leaf} -> {path: (shape, dtype name)} for numpy and torch leaves."""
+    def aval(x):
+        if isinstance(x, torch.Tensor):
+            return tuple(x.shape), str(x.dtype).replace("torch.", "")
+        x = np.asarray(x)
+        return x.shape, x.dtype.name
+    return {k: aval(v) for k, v in sorted(flat.items())}
 
 
 def _host_resize(img: np.ndarray, size: int) -> np.ndarray:
@@ -238,6 +287,72 @@ class MicroBatcher:
         return out
 
 
+def build_engine_from_artifacts(
+    compact_path: str,
+    ens_path: Optional[str] = None,
+    *,
+    num_divisions: Optional[int] = None,
+    teacher_size: Optional[int] = 768,
+    cfg: Optional[ServeConfig] = None,
+    log: Optional[Callable[[str], None]] = print,
+    device: DeviceLike = None,
+) -> InferenceEngine:
+    """Load the deploy stage's artifacts (`sub-dataset{i}/compact.msgpack`
+    under compact_path) and the stage-5 fusion checkpoint, inferring the
+    fusion geometry (classes, teacher width, family) from the checkpoint's
+    own shapes, so serving needs no dataset. Without ens_path the head is
+    random (smoke mode, drawn from seed 0: the JAX package draws its own
+    with jax.random), with a warning."""
+    cfg = cfg or ServeConfig()
+    dev = resolve_device(device)
+    if num_divisions is None:  # auto-discover contiguous sub-dataset{i}
+        num_divisions = 0
+        while os.path.exists(os.path.join(
+                compact_path, f"sub-dataset{num_divisions}", "compact.msgpack")):
+            num_divisions += 1
+        if num_divisions == 0:
+            raise FileNotFoundError(
+                f"no sub-dataset0/compact.msgpack under {compact_path!r} - "
+                "run `devit deploy` first")
+    cms = [load_compact(os.path.join(compact_path, f"sub-dataset{i}", "compact.msgpack"),
+                        device=dev) for i in range(num_divisions)]
+    sub_size = cms[0].pos_embed.shape[-1]
+    family = "deit" if cms[0].distilled else "vit"
+
+    if ens_path:
+        ckpt = restore_pytree(ens_path)
+        ens_params = ckpt.get("ens_params", ckpt.get("params", ckpt))
+        if "cls_mlp" in ens_params:
+            km = ens_params["cls_mlp"]["kernel"]
+            if km.shape[0] != num_divisions * sub_size:
+                raise ValueError(
+                    f"fusion checkpoint fuses {km.shape[0]} features but the "
+                    f"compact artifacts provide {num_divisions}x{sub_size} - "
+                    "wrong --ens-path / --compact-path pairing")
+        ck_family = "deit" if "dist_classifier" in ens_params else "vit"
+        if ck_family != family:
+            raise ValueError(f"fusion checkpoint is {ck_family!r} but compact backbones "
+                             f"are {family!r}")
+        ens = ensmlp_from_jax_params(ens_params, num_divisions=num_divisions,
+                                     dtype=cfg.dtype, device=dev)
+    else:
+        # smoke mode only: a random fusion head, predictions are meaningless
+        if log:
+            log("WARNING: no --ens-path; serving with a RANDOM fusion head "
+                "(smoke mode, predictions are meaningless)")
+        num_classes = (int(cms[0].head["head_kernel"].shape[-1])
+                       if "head_kernel" in cms[0].head else 100)
+        ens = EnsMLP(num_classes=num_classes, sub_size=sub_size, num_divisions=num_divisions,
+                     teacher_size=teacher_size, family=family, dtype=cfg.dtype)
+        ens = ens.reset_parameters(torch.Generator().manual_seed(0))
+
+    engine = InferenceEngine(cms, ens, cfg, device=dev)
+    if log:
+        log(f"engine: {num_divisions} divisions (sub_size {sub_size}, {family}), "
+            f"{engine.num_classes} classes, buckets {sorted(cfg.buckets)}, on {engine.device}")
+    return engine
+
+
 class _Handler(BaseHTTPRequestHandler):
     # set per server by build_server
     batcher: MicroBatcher = None
@@ -275,6 +390,19 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         url = urlparse(self.path)
+        if url.path == "/reload":
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n) or b"{}")
+                path = body.get("ens_path") if isinstance(body, dict) else None
+                if not isinstance(path, str):
+                    raise ValueError("body must be a JSON object with string 'ens_path'")
+                self.engine.reload_fusion(path)
+            except json.JSONDecodeError as e:
+                return self._json(400, {"error": f"invalid JSON body: {e}"})
+            except (ValueError, OSError) as e:  # FileNotFoundError is an OSError
+                return self._json(400, {"error": str(e)})
+            return self._json(200, {"status": "reloaded", "ens_path": path})
         if url.path != "/predict":
             return self._json(404, {"error": f"unknown path {url.path!r}"})
         t0 = time.time()

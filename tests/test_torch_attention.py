@@ -103,7 +103,7 @@ def test_kernel_library_is_named_by_source_and_flags(monkeypatch):
     from devit_tpu_torch.kernels import _build
 
     path = _build._lib_path()
-    assert path.parent == _build.BUILD_DIR and path.name.startswith("attention-")
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("kernels-")
     assert path == _build._lib_path()  # stable for unchanged source and flags
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build._lib_path() != path  # other flags never load a stale build

@@ -1,8 +1,10 @@
-"""The port's CUDA kernels on the card: fused_attention, attention_bwd and
-the split pair attention_bwd_dv / attention_bwd_dqdk (the hand-written
-kernels in devit_tpu_torch/kernels/csrc/attention.cu, attention_bwd.cu and
-attention_bwd_split.cu) vs their plain PyTorch versions, their launch
-counters and what their wrappers reject.
+"""The port's CUDA kernels on the card: fused_attention, attention_bwd, the
+split pair attention_bwd_dv / attention_bwd_dqdk, fused_int8_matmul and
+fused_block_attention (the hand-written kernels in
+devit_tpu_torch/kernels/csrc/attention.cu, attention_bwd.cu,
+attention_bwd_split.cu, quant_matmul.cu and block_attention.cu) vs their
+plain PyTorch versions, their launch counters and what their wrappers
+reject.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); elsewhere every test skips. The
 machine with the card has no JAX, so run without the repo's conftest:
@@ -14,10 +16,13 @@ import pytest
 import torch
 
 from devit_tpu_torch.kernels.attention import (
-    attention_bwd, attention_bwd_dqdk, attention_bwd_dv, attention_bwd_split, fused_attention,
-    make_trainable_attention, reference_attention, reference_attention_bwd,
-    reference_attention_bwd_dqdk, reference_attention_bwd_dv,
+    attention_bwd, attention_bwd_dqdk, attention_bwd_dv, attention_bwd_split,
+    fused_attention, fused_block_attention, make_trainable_attention, reference_attention,
+    reference_attention_bwd, reference_attention_bwd_dqdk, reference_attention_bwd_dv,
+    reference_block_attention,
 )
+from devit_tpu_torch.kernels.quant import (QuantizedLinear, dynamic_int8_matmul,
+                                           fused_int8_matmul, quantize_weight)
 
 pytestmark = pytest.mark.cuda
 
@@ -252,3 +257,141 @@ def test_split_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="shared"):
         attention_bwd_dv(torch.zeros((1, 4096, 3 * DH), device="cuda"),
                          torch.zeros((1, 4096, DH), device="cuda"), 1)
+
+
+# ---- the int8 matmul: fused_int8_matmul (csrc/quant_matmul.cu)
+
+
+def _int8_case(gen, M, K, N, x_dtype, with_bias):
+    w = torch.randn((K, N), generator=gen, device="cuda")
+    b = torch.randn((N,), generator=gen, device="cuda") if with_bias else None
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    x = (x * torch.rand((M, 1), generator=gen, device="cuda") * 10).to(x_dtype)
+    return x, quantize_weight(w, b)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_int8_kernel_bit_equal_to_plain(gen, x_dtype, out_dtype, with_bias):
+    """The int32 sums are exact and every f32 step is rounded as the plain
+    version rounds it: the same bits. Deployed shapes, an M and an N tail."""
+    for M, K, N in ((1, 384, 1152), (7, 320, 384), (198, 384, 1536), (1000, 1536, 384),
+                    (67, 64, 40), (130, 388, 200)):
+        x, q = _int8_case(gen, M, K, N, x_dtype, with_bias)
+        got = fused_int8_matmul(x, q, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        want = dynamic_int8_matmul(x, q, out_dtype)
+        assert got.dtype == out_dtype and got.shape == (M, N)
+        assert torch.equal(got, want), (M, K, N, float((got.float() - want.float()).abs().max()))
+
+
+def test_int8_quantization_on_the_card_equals_the_cpu(gen):
+    """quantize_weight and the row codes divide as IEEE on every device, so
+    the card's scales and codes are the CPU's (and so the JAX package's)."""
+    x, q = _int8_case(gen, 300, 384, 1152, torch.float32, True)
+    w = torch.randn((384, 1152), generator=gen, device="cuda")
+    a, b = quantize_weight(w), quantize_weight(w.cpu())
+    assert torch.equal(a.w_q.cpu(), b.w_q) and torch.equal(a.w_scale.cpu(), b.w_scale)
+    from devit_tpu_torch.kernels.quant import _quantize_rows
+
+    (qa, sa), (qb, sb) = _quantize_rows(x), _quantize_rows(x.cpu())
+    assert torch.equal(qa.cpu(), qb) and torch.equal(sa.cpu(), sb)
+    cpu_q = QuantizedLinear(q.w_q.cpu(), q.w_scale.cpu(), q.bias.cpu())
+    assert torch.equal(fused_int8_matmul(x, q).cpu(), dynamic_int8_matmul(x.cpu(), cpu_q))
+
+
+def test_int8_kernel_is_deterministic_counted_and_reshapes(gen):
+    x, q = _int8_case(gen, 2 * 7 * 198, 384, 576, torch.bfloat16, True)
+    x = x.view(2, 7, 198, 384)
+    before = fused_int8_matmul.launches
+    a, b = fused_int8_matmul(x, q), fused_int8_matmul(x, q)
+    dynamic_int8_matmul(x, q)
+    assert fused_int8_matmul.launches == before + 2
+    assert a.shape == (2, 7, 198, 576) and torch.equal(a, b)
+
+
+def test_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    x, q = _int8_case(gen, 4, 64, 32, torch.float32, True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_int8_matmul(x.half(), q)
+    with pytest.raises(ValueError, match="depth"):
+        fused_int8_matmul(x[:, :32], q)
+    x6, q6 = _int8_case(gen, 4, 6, 8, torch.float32, True)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_int8_matmul(x6, q6)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_int8_matmul(x, quantize_weight(torch.randn(64, 32), None))  # weights on the CPU
+    with pytest.raises(ValueError, match="shared"):
+        big = quantize_weight(torch.randn((64000, 8), device="cuda"), None)
+        fused_int8_matmul(torch.zeros((1, 64000), device="cuda"), big)
+
+
+# ---- the attention half of a layer: fused_block_attention (csrc/block_attention.cu)
+
+
+def _block_case(gen, B, n, kh, dtype, C=384, with_bias=True):
+    K = kh * DH
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    t = r(B, n, C).to(dtype)
+    w = dict(norm_scale=1 + 0.1 * r(C), norm_bias=0.1 * r(C), qkv_kernel=(0.05 * r(C, 3 * K)).to(dtype),
+             qkv_bias=0.1 * r(3 * K) if with_bias else None, proj_kernel=(0.05 * r(K, C)).to(dtype),
+             proj_bias=0.1 * r(C))
+    return t, w
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kh", [1, 3, 5, 6])
+def test_block_kernel_matches_plain(gen, kh, dtype):
+    for B in (1, 7):
+        for with_bias in (True, False):
+            t, w = _block_case(gen, B, N, kh, dtype, with_bias=with_bias)
+            got = fused_block_attention(t, **w, num_heads=kh)
+            torch.cuda.synchronize()
+            want = reference_block_attention(t, **w, num_heads=kh)
+            assert _rel(got, want) <= TOL[dtype], (B, with_bias)
+
+
+def test_block_randomized_shape_sweep(gen):
+    """Sequence lengths around the 64-row tiles, widths that are not a
+    multiple of the 128-column proj chunk, odd batches and head counts."""
+    rng = torch.Generator().manual_seed(12)
+    cases = [(1, 1, 32), (3, 63, 96), (2, 65, 160), (1, 129, 64)] + [
+        (int(torch.randint(1, 5, (1,), generator=rng)), int(torch.randint(2, 227, (1,), generator=rng)),
+         32 * int(torch.randint(1, 14, (1,), generator=rng))) for _ in range(5)]
+    for trial, (B, n, C) in enumerate(cases):
+        kh = int(torch.randint(1, 7, (1,), generator=rng))
+        dtype = (torch.float32, torch.bfloat16)[trial % 2]
+        t, w = _block_case(gen, B, n, kh, dtype, C=C, with_bias=trial % 3 != 0)
+        got = fused_block_attention(t, **w, num_heads=kh)
+        torch.cuda.synchronize()
+        rel = _rel(got, reference_block_attention(t, **w, num_heads=kh))
+        assert rel <= TOL[dtype], f"trial {trial}: B{B} N{n} C{C} kh{kh} {dtype}: {rel:.3e}"
+
+
+def test_block_kernel_is_deterministic_and_counted(gen):
+    t, w = _block_case(gen, 3, N, 4, torch.bfloat16)
+    before = fused_block_attention.launches
+    a, b = fused_block_attention(t, **w, num_heads=4), fused_block_attention(t, **w, num_heads=4)
+    reference_block_attention(t, **w, num_heads=4)
+    assert fused_block_attention.launches == before + 2
+    assert torch.equal(a, b)  # one writer per output: the same bits on every run
+
+
+def test_block_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    t, w = _block_case(gen, 1, N, 2, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_block_attention(t.half(), **w, num_heads=2)
+    with pytest.raises(TypeError, match="dtype"):
+        fused_block_attention(t, **{**w, "qkv_kernel": w["qkv_kernel"].bfloat16()}, num_heads=2)
+    with pytest.raises(ValueError, match="head_dim"):
+        fused_block_attention(t, **w, num_heads=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_block_attention(t, **{**w, "proj_kernel": w["proj_kernel"].t().contiguous().t()},
+                              num_heads=2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        t2, w2 = _block_case(gen, 1, 8, 1, torch.float32, C=48)
+        fused_block_attention(t2, **w2, num_heads=1)
+    with pytest.raises(ValueError, match="shared"):
+        t3, w3 = _block_case(gen, 1, 2048, 1, torch.float32, C=64)
+        fused_block_attention(t3, **w3, num_heads=1)

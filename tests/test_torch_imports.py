@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of devit_tpu_torch, and
-chip_smoke.py's import graph, loads neither JAX (jax, flax, optax) nor
-anything of the JAX package. Checked in a fresh interpreter, since this
-test process has imported both."""
+chip_smoke.py's import graph, loads neither JAX (jax, flax, optax), nor the
+msgpack package (the machine with the card has none; the port carries its
+own codec), nor anything of the JAX package. Checked in a fresh
+interpreter, since this test process has imported all of them."""
 
 import json
 import pkgutil
@@ -14,7 +15,7 @@ import pytest
 import devit_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "devit_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "devit_tpu")
 
 _PROBE = """
 import importlib, json, sys
@@ -40,7 +41,8 @@ def test_every_port_module_is_listed():
     assert _port_modules() == [f"devit_tpu_torch.{m}" for m in (
         "configs", "core", "core.metrics", "core.rank", "core.shrink", "data",
         "data.datasets", "data.mixup", "data.pipeline", "deploy", "device", "io",
-        "io.bridge", "kernels", "kernels._build", "kernels.attention", "models",
+        "io.bridge", "io.checkpoint", "io.msgpack", "kernels", "kernels._build",
+        "kernels.attention", "kernels.quant", "models",
         "models.compact_vit", "models.ensemble", "models.vit", "serving", "serving.daemon",
         "train", "train.loop", "train.losses", "train.meters", "train.optim", "train.state",
         "train.steps")]

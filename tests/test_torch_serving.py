@@ -239,7 +239,8 @@ def test_http_error_paths(server):
     imgs = _imgs(1)
     assert _post(server, imgs.tobytes()[:-7], imgs.shape)[0] == 400  # short body
     assert _post(server, b"xx", (2, 2))[0] == 400  # bad shape header
-    assert _post(server, imgs.tobytes(), imgs.shape, "/reload")[0] == 404  # not in this slice
+    # /reload takes a JSON body naming a fusion checkpoint: image bytes are a 400
+    assert _post(server, imgs.tobytes(), imgs.shape, "/reload")[0] == 400
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(server + "/nope", timeout=60)
     assert e.value.code == 404
