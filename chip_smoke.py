@@ -4,10 +4,12 @@
     python3 chip_smoke.py [--out results.json]
 
 Run from the root of a checkout. It builds the CUDA kernels from the
-sources in the checkout, holds each kernel against its plain PyTorch version
-on the card, runs the deployed 4-division dedeit ensemble at full width,
-serves it over HTTP to concurrent clients, times the kernels and the
-forward. Then the deployment artifacts: the int8 matmul kernel against its
+sources in the checkout, counts the tensor-core (HMMA) instructions of the
+bf16 attention kernels in the built library, holds each kernel against its
+plain PyTorch version on the card, runs the deployed 4-division dedeit
+ensemble at full width, serves it over HTTP to concurrent clients, times
+the kernels and the forward. Then the deployment artifacts: the int8 matmul
+kernel against its
 plain version at every deployed weight shape, the block-attention kernel at
 every deployed layer, the divisions and the fusion head written to disk in
 the JAX package's format, loaded back into a server whose replies equal the
@@ -20,9 +22,11 @@ plain attention. Then the stage-5 ensemble step (four gated dedeit
 divisions, a deit-base teacher, EnsMLP, two optimizers) at bs64 with the
 monolithic backward kernel, with the split pair (DEVIT_ATTN_BWD=split) and
 with the plain attention, and the stage-4 DEKD step in both
-distillation_inter modes. Any failure raises and exits non-zero; so does a
-machine without CUDA, or a directory that holds this script without the
-package.
+distillation_inter modes. Their one-step checks hold the students' kernel
+attention to the plain attention with the teacher on the kernel in both
+steps, and the teacher's logits to its plain attention's. Any failure
+raises and exits non-zero; so does a machine without CUDA, or a directory
+that holds this script without the package.
 
 The last lines of standard output are the card's name and power limit (as
 nvidia-smi gives them), one JSON line with the kernels' record, and
@@ -124,11 +128,39 @@ def _qkv(B: int, kh: int, dtype, gen, zero_head: bool = False) -> torch.Tensor:
     return x.to(dtype)
 
 
-def phase_build() -> float:
+MMA_KERNELS = ("attn_kernel_mma", "attn_bwd_kernel_mma")  # the bf16 tensor-core kernels
+
+
+def _hmma_counts() -> dict:
+    """HMMA (tensor-core mma) instructions in the SASS of each bf16 kernel of
+    MMA_KERNELS (every instantiation), from cuobjdump -sass of the built
+    library. Raises if cuobjdump is missing or a kernel has none."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    sass = subprocess.run([str(tool), "-sass", str(_build._lib_path())], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = dict.fromkeys(MMA_KERNELS, 0)
+    fn = ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif "HMMA" in line:
+            for k in MMA_KERNELS:
+                counts[k] += k in fn
+    if not all(counts.values()):
+        raise AssertionError(f"a bf16 attention kernel has no HMMA instruction: {counts}")
+    return counts
+
+
+def phase_build() -> tuple:
     secs, log = _build.build()
     print(f"[build] nvcc {[f.name for f in _build.SOURCES]}:\n{log.strip()}")
     print(f"[build] kernel built in {secs:.2f} s")
-    return secs
+    hmma = _hmma_counts()
+    print(f"[build] HMMA instructions in the bf16 kernels (cuobjdump -sass): "
+          f"{', '.join(f'{k} {n}' for k, n in hmma.items())}")
+    return secs, hmma
 
 
 def phase_kernel_checks() -> float:
@@ -1223,6 +1255,34 @@ def _teacher(num_classes: int):
                       generator=torch.Generator().manual_seed(5))
 
 
+def _teacher_logits_check(teacher, images: torch.Tensor, tag: str, card: str) -> dict:
+    """The teacher's logits with the attention kernel against the plain
+    attention on the same images, at the bf16 limit, and the images whose
+    argmax the two give differently. Hard distillation trains against that
+    argmax, and its bf16 logits tie within an ulp for some images, so the
+    one-step checks hold the teacher on the kernel in both steps and this
+    check holds the teacher itself."""
+    with torch.no_grad():
+        teacher.use_kernel = False
+        plain = teacher(images, distill_token=True).logits.float()
+        teacher.use_kernel = True
+        before = _counts()
+        kern = teacher(images, distill_token=True).logits.float()
+        torch.cuda.synchronize()
+        _set_counts(before)  # the check's launches are not the main path's
+    rel = _rel(kern, plain)
+    top2 = plain.topk(2, dim=-1).values
+    flips = (kern.argmax(-1) != plain.argmax(-1)).nonzero().flatten().tolist()
+    if rel > 2e-2:
+        raise AssertionError(f"{tag} teacher logits kernel vs plain: rel err {rel:.3e} > 2e-2")
+    print(f"{tag} teacher logits, attention kernel vs plain (bs{images.shape[0]}): rel err "
+          f"{rel:.3e} (tol 2e-2), max abs {float((kern - plain).abs().max()):.3e}; argmax differs "
+          f"for images {flips} (plain top-2 gaps "
+          f"{[float(top2[i, 0] - top2[i, 1]) for i in flips]}), so the one-step check keeps the "
+          f"teacher on the kernel in both steps [{card}]")
+    return dict(rel=rel, argmax_flips=flips)
+
+
 def _division_gates() -> Gates:
     """The canonical shrink policies of the deployed divisions
     (deploy.build_inputs: screen(0.3 x 9.19 GMACs, seed 42+i) -> build_gates)."""
@@ -1259,6 +1319,7 @@ def _ens_setup(card: str) -> dict:
     if _delta(before) != (Lt, 0, 0, 0):
         raise AssertionError(f"teacher forward launches {_delta(before)}, expected {Lt}")
     _set_counts(before)
+    teacher_check = _teacher_logits_check(teacher, images, "[ens-train]", card)
     gates = _division_gates()
     # per step: each division's layers forward and again in the remat
     # re-forward, the teacher's once; one backward (or dv + dqdk) a layer
@@ -1270,7 +1331,7 @@ def _ens_setup(card: str) -> dict:
           f"{ENS_D}x{backbone.cfg.embed_dim} -> {teacher.cfg.embed_dim} -> {ENS_CLASSES}, "
           f"bs{ENS_B}; launches per step (fused, bwd, dv, dqdk) {expect} [{card}]")
     return dict(backbone=backbone, stacked=stacked, teacher=teacher, ens=ens, gates=gates,
-                batch=(images, labels), expect=expect)
+                batch=(images, labels), expect=expect, teacher_check=teacher_check)
 
 
 def _ens_states(setup: dict):
@@ -1302,6 +1363,10 @@ def phase_ens_train(card: str) -> dict:
     models = (setup["backbone"], setup["teacher"])
     batch, gates, expect = setup["batch"], setup["gates"], setup["expect"]
 
+    # the one-step check: the divisions' attention in each mode, the
+    # teacher's on the kernel in all three (_teacher_logits_check)
+    teacher = setup["teacher"]
+    check_expect = {**expect, "plain": (teacher.cfg.depth, 0, 0, 0)}
     one = {}
     for mode in ENS_MODES:
         bb, en, step = _ens_states(setup)
@@ -1311,17 +1376,19 @@ def phase_ens_train(card: str) -> dict:
             st.tx.update = (lambda sink, upd: lambda g, s_, p_: (sink.update(g), upd(g, s_, p_))[1]
                             )(seen[key], update)
         _set_mode(models, mode)
+        teacher.use_kernel = True
         before = _counts()
         _, _, metrics = step(bb, en, None, gates, *batch, torch.Generator().manual_seed(1))
         torch.cuda.synchronize()
         launches = _delta(before)
         _set_counts(before)  # the comparison's launches are not the main path's
-        if launches != expect[mode]:
-            raise AssertionError(f"stage-5 {mode} step launches {launches}, expected {expect[mode]}")
+        if launches != check_expect[mode]:
+            raise AssertionError(f"stage-5 {mode} step launches {launches}, expected "
+                                 f"{check_expect[mode]}")
         one[mode] = (float(metrics["loss"]), seen)
         del bb, en, step
     loss_p, seen_p = one["plain"]
-    checks = {}
+    checks = {"teacher_logits": setup["teacher_check"]}
     for mode in ("monolithic", "split"):
         loss_k, seen_k = one[mode]
         rel = {**{f"bb/{k}": v for k, v in _grad_rel(seen_k["bb"], seen_p["bb"]).items()},
@@ -1333,8 +1400,9 @@ def phase_ens_train(card: str) -> dict:
                                  f"{loss_rel:.3e}), worst gradient {worst} rel {rel[worst]:.3e}")
         checks[mode] = dict(loss=loss_k, loss_rel=loss_rel, worst_leaf=worst,
                             grad_rel_worst=rel[worst], leaves=len(rel))
-        print(f"[ens-train] one step, {mode} kernels vs plain attention (same state, batch and "
-              f"draws): loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}); gradients of "
+        print(f"[ens-train] one step, {mode} kernels vs plain attention in the divisions (same "
+              f"state, batch, draws and teacher): loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+              f"{loss_rel:.3e}); gradients of "
               f"both states: worst leaf {worst} ||diff||/||plain|| {rel[worst]:.3e} (tol 2e-2, "
               f"{len(rel)} leaves); launches per step {expect[mode]} (fused, bwd, dv, dqdk)")
 
@@ -1540,7 +1608,10 @@ def phase_dekd(card: str) -> dict:
                               distillation_inter=inter)
         return student, state, step
 
-    # distillation_inter=False: kernels vs plain attention, one step from one state
+    # distillation_inter=False: the student's attention kernels vs plain, one
+    # step from one state, the teacher's on the kernel in both
+    # (_teacher_logits_check)
+    teacher_check = _teacher_logits_check(teacher, batch[0], "[dekd]", card)
     one = {}
     for mode in ("monolithic", "plain"):
         student, state, step = fresh(False)
@@ -1548,6 +1619,7 @@ def phase_dekd(card: str) -> dict:
         update = state.tx.update
         state.tx.update = lambda g_, s_, p_: (seen.update(g_), update(g_, s_, p_))[1]
         _set_mode((student, teacher), mode)
+        teacher.use_kernel = True
         before = _counts()
         _, metrics = step(state, None, gates, *batch, torch.Generator().manual_seed(2))
         torch.cuda.synchronize()
@@ -1560,13 +1632,15 @@ def phase_dekd(card: str) -> dict:
     if not (np.isfinite(loss_k) and loss_rel <= 2e-2 and rel[worst] <= 2e-2):
         raise AssertionError(f"DEKD (inter=False) kernels vs plain: loss {loss_k} vs {loss_p} "
                              f"(rel {loss_rel:.3e}), worst gradient {worst} rel {rel[worst]:.3e}")
-    print(f"[dekd] one step, distillation_inter=False, kernels vs plain attention: loss "
+    print(f"[dekd] one step, distillation_inter=False, the student's kernels vs plain attention "
+          f"(same teacher): loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}); worst gradient leaf {worst} "
           f"||diff||/||plain|| {rel[worst]:.3e} (tol 2e-2, {len(rel)} leaves)")
 
     L = student0.cfg.depth  # inter=False: student forward + re-forward, teacher, backward
     expect = {True: (0, 0, 0, 0), False: (2 * L + teacher.cfg.depth, L, 0, 0)}
-    res = dict(loss_rel=loss_rel, grad_rel_worst=rel[worst], worst_leaf=worst)
+    res = dict(loss_rel=loss_rel, grad_rel_worst=rel[worst], worst_leaf=worst,
+               teacher_check=teacher_check)
     _set_counts((0, 0, 0, 0))  # the main path: both modes, the kernels on
     for inter in (True, False):
         student, state, step = fresh(inter)
@@ -1626,7 +1700,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    build_s = phase_build()
+    build_s, hmma = phase_build()
     max_abs_err = phase_kernel_checks()
     t0 = time.perf_counter()
     _, cms, ens = deploy.build_artifacts(device="cuda")
@@ -1715,7 +1789,7 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
-            card=card, build_s=build_s, kernels=record["kernels"], **times,
+            card=card, build_s=build_s, hmma=hmma, kernels=record["kernels"], **times,
             seconds=time.perf_counter() - t_start), indent=1, default=str))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -11,6 +11,9 @@ falls back.
 
 The head gate is applied outside the kernel, as in the JAX package.
 
+At bf16 both kernels compute every product on the tensor cores (mma.sync);
+at f32 they run f32 FMAs on the CUDA cores (see the sources' notes).
+
 `make_trainable_attention` is the differentiable form the training path
 uses: its forward is `fused_attention`, it saves only qkv, and its backward
 recomputes the probabilities. The backward mode comes from DEVIT_ATTN_BWD
@@ -157,10 +160,17 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int, kernel: str):
     return B, N, C, dh
 
 
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    """The bf16 kernels stage head rows with 16-byte copies."""
+    if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bf16 CUDA attention kernels need 16-byte aligned operands")
+
+
 def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if not qkv.is_contiguous():
         raise ValueError("the CUDA attention kernel needs a contiguous qkv")
     B, N, C, dh = _check_kernel_input(qkv, num_heads, "fwd")
+    _check_aligned(qkv)
     lib = _build.library()
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
@@ -204,6 +214,7 @@ def _check_bwd_input(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, kernel:
 
 def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
     qkv, g, (B, N, C, dh) = _check_bwd_input(qkv, g, num_heads, "bwd")
+    _check_aligned(qkv, g)
     dqkv = torch.empty_like(qkv)
     if B == 0:
         return dqkv

@@ -17,24 +17,52 @@
 // one launch reads each qkv byte once and writes each output byte once, about
 // 4 * B * N * C * 2 bytes, against 4 * B * N^2 * C FLOPs (two products):
 // N/2 = 99 FLOP per byte, under the ~295 FLOP/byte at which the tensor cores, not
-// HBM, would be the limit. So the bound is memory bandwidth (B = 256, 5 heads:
-// ~130 MB, ~39 us at 3.35 TB/s). This first version computes both products
-// with f32 FMAs on the CUDA cores (no mma/wgmma) and reads its operands from
-// shared memory, so its time is set by that arithmetic and those shared-memory
-// reads, far above the memory bound; chip_smoke.py prints both.
+// HBM, would be the limit. So the bound is memory bandwidth (B = 256, 6 heads:
+// ~156 MB, ~47 us at 3.35 TB/s).
 //
-// Design: the whole N-wide score row fits in shared memory, as it fits in
-// VMEM on the TPU. Each block owns (batch row, head, 64-query tile), stages
-// that head's K (transposed, so a warp reads consecutive keys) and V and its
-// Q tile in shared memory once, and keeps the 64 x N f32 score tile there
-// between the two products, so no score or probability reaches device
-// memory. At N = 198 a bf16 block takes ~107 KB (two blocks per SM), an f32
-// block ~165 KB.
+// bf16 (attn_kernel_mma): both products on the tensor cores, as
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulators, which is what
+// the TPU's MXU computes here (exact bf16 products summed in f32). A block
+// owns (batch row, head, a run of 64-query tiles) and has 4 warps, each
+// owning 16 query rows of a tile, so no two blocks write the same output. It
+// stages the head's K and V once, and its q tiles, with 16-byte cp.async into
+// XOR-swizzled shared memory (rows zero-filled to a multiple of 16), so
+// ldmatrix reads them without bank conflicts; the next tile's q arrives
+// while the current one computes. The launcher gives a block all of a
+// head's tiles when the heads alone make four blocks an SM (0.177 against
+// 0.199 ms for one tile a block at B 256, kh 6, on the H100), and shorter
+// runs at small batches. S = Q K^T takes A from ldmatrix of Q (held in
+// registers) and B from ldmatrix of K's rows; the 16 x N f32 score rows stay
+// in registers (at most 128 a lane, N <= 256) and the row max and sum reduce
+// over the 4 lanes of a quad. p = e / sum is the IEEE quotient from one
+// reciprocal a row and an FMA correction (div_rn), a third of the
+// instructions of `/`, which took 38% of the kernel's time. O = P V takes V
+// through ldmatrix.trans, and p never leaves registers: the rounded, packed
+// accumulators of two adjacent key tiles are the A fragment of the next mma.
+// o goes out through shared memory as 16-byte stores. Past N = 256 the keys
+// come in 256-key chunks and S is recomputed per chunk: once for the row
+// max, once for the sum, once for p . v (the exact two-pass softmax without
+// a score tile in shared memory). What bounds it: the f32 softmax (expf, the
+// divisions) on 8 warps an SM (the score registers allow two blocks), and
+// the padding of N = 198 to 208 keys and 256 query rows.
+//
+// f32 (attn_kernel): f32 FMAs on the CUDA cores, reading its operands from
+// shared memory. It stays off the tensor cores because the f32 tolerance is
+// 1e-4 and a TF32 mma keeps ~10 mantissa bits of each operand, too few. The
+// whole N-wide score row sits in shared memory, as it fits in VMEM on the
+// TPU: each block owns (batch row, head, 64-query tile), stages that head's
+// K (transposed, so a warp reads consecutive keys) and V and its Q tile in
+// shared memory once, and keeps the 64 x N f32 score tile there between the
+// two products, so no score or probability reaches device memory (~165 KB a
+// block at N = 198).
 
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -45,10 +73,13 @@ using devit::warp_max;
 using devit::warp_sum;
 
 constexpr int kBQ = 64;        // query rows per block
-constexpr int kThreads = 256;  // 8 warps: 16 column lanes x 16 row groups of 4
+constexpr int kThreads = 256;  // f32: 8 warps, 16 column lanes x 16 row groups of 4
+constexpr int kMmaThreads = 128;  // bf16: 4 warps, 16 query rows each
 
 size_t smem_bytes(int n, int head_dim, int elem) {
-  // S [kBQ][stride] f32 | K^T [dh][N] | V [N][dh] | Q^T [dh][kBQ]  (T = elem bytes)
+  if (elem == 2)  // bf16: Q [2][kBQ][dh] | K [NP][dh] | V [NP][dh], NP = N rounded up to 16
+    return (size_t)2 * head_dim * (2 * kBQ + 2 * (size_t)((n + 15) & ~15));
+  // f32: S [kBQ][stride] | K^T [dh][N] | V [N][dh] | Q^T [dh][kBQ]
   return (size_t)kBQ * score_stride(n) * sizeof(float) +
          (size_t)elem * (2 * (size_t)n * head_dim + (size_t)head_dim * kBQ);
 }
@@ -183,6 +214,258 @@ cudaError_t launch(const void* qkv, void* out, int B, int N, int H, cudaStream_t
   return cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores
+
+using devit::mma::bf16;
+using devit::mma::div_rn;
+using devit::mma::ldmatrix_x4;
+using devit::mma::ldmatrix_x4_trans;
+using devit::mma::mma_bf16;
+using devit::mma::pack_bf16;
+using devit::mma::swz;
+
+// s = (q . k^T) * scale for the warp's 16 query rows and the 16 * KC keys
+// from c0 on (n8 tile t holds keys c0 + 8t ..), keys at or past N set to
+// -inf. Key steps at or past NP are not computed (their keys are all masked).
+template <int KC>
+__device__ __forceinline__ void chunk_scores(float (&s)[2 * KC][4], const uint32_t (&qa)[4][4],
+                                             const bf16* Ks, int c0, int N, int NP, float scale,
+                                             int lane) {
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[2 * j][e] = s[2 * j + 1][e] = 0.f;
+    const int k0 = c0 + 16 * j;
+    if (k0 < NP) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t kb[4];  // n8 tile 2j: {kb0, kb1}; 2j + 1: {kb2, kb3}
+        ldmatrix_x4(kb, Ks + swz(k0 + (lane & 7) + ((lane >> 4) << 3), 2 * ks + ((lane >> 3) & 1)));
+        mma_bf16(s[2 * j], qa[ks], kb[0], kb[1]);
+        mma_bf16(s[2 * j + 1], qa[ks], kb[2], kb[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t) {
+    if (c0 + 8 * t + 8 <= N) {  // the whole n8 tile lies before N (warp-uniform)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] *= scale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + 8 * t + 2 * (lane & 3) + (e & 1);
+        s[t][e] = col < N ? s[t][e] * scale : -INFINITY;
+      }
+    }
+  }
+}
+
+// The lane's partial max of its two rows (row lane/4: e = 0, 1; row lane/4
+// + 8: e = 2, 3) over the chunk.
+template <int KC>
+__device__ __forceinline__ void chunk_max(const float (&s)[2 * KC][4], float (&m)[2]) {
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t) {
+    m[0] = fmaxf(m[0], fmaxf(s[t][0], s[t][1]));
+    m[1] = fmaxf(m[1], fmaxf(s[t][2], s[t][3]));
+  }
+}
+
+// s -> exp(s - m) in place, added to the lane's partial sums l.
+template <int KC>
+__device__ __forceinline__ void chunk_exp(float (&s)[2 * KC][4], const float (&m)[2],
+                                          float (&l)[2]) {
+#pragma unroll
+  for (int t = 0; t < 2 * KC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[t][e] = expf(s[t][e] - m[e >> 1]);
+      l[e >> 1] += s[t][e];
+    }
+}
+
+// o += round(e / l) . v over the chunk's keys: the rounded accumulators of
+// n8 tiles 2j and 2j + 1 are the A fragment of key step j; V comes through
+// ldmatrix.trans (keys are the k dimension).
+template <int KC>
+__device__ __forceinline__ void chunk_pv(float (&o)[8][4], const float (&s)[2 * KC][4],
+                                         const float (&l)[2], const bf16* Vs, int c0, int NP,
+                                         int lane) {
+  const float r0 = __frcp_rn(l[0]), r1 = __frcp_rn(l[1]);
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    const int k0 = c0 + 16 * j;
+    if (k0 >= NP) continue;
+    const uint32_t a[4] = {
+        pack_bf16(div_rn(s[2 * j][0], l[0], r0), div_rn(s[2 * j][1], l[0], r0)),
+        pack_bf16(div_rn(s[2 * j][2], l[1], r1), div_rn(s[2 * j][3], l[1], r1)),
+        pack_bf16(div_rn(s[2 * j + 1][0], l[0], r0), div_rn(s[2 * j + 1][1], l[0], r0)),
+        pack_bf16(div_rn(s[2 * j + 1][2], l[1], r1), div_rn(s[2 * j + 1][3], l[1], r1))};
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      uint32_t vb[4];  // dims 16d .. 16d + 7: {vb0, vb1}; 16d + 8 ..: {vb2, vb3}
+      ldmatrix_x4_trans(vb, Vs + swz(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                     2 * d + (lane >> 4)));
+      mma_bf16(o[2 * d], a, vb[0], vb[1]);
+      mma_bf16(o[2 * d + 1], a, vb[2], vb[3]);
+    }
+  }
+}
+
+// The warp's 16 rows of o for the q rows whose A fragments are qa.
+template <int KC>
+__device__ __forceinline__ void attend_rows(float (&o)[8][4], const uint32_t (&qa)[4][4],
+                                            const bf16* Ks, const bf16* Vs, int N, float scale,
+                                            int lane) {
+  const int NP = (N + 15) & ~15;
+  constexpr int kChunk = 16 * KC;
+  float s[2 * KC][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  if (NP <= kChunk) {
+    chunk_scores<KC>(s, qa, Ks, 0, N, NP, scale, lane);
+    chunk_max<KC>(s, m);
+    m[0] = devit::mma::quad_max(m[0]);
+    m[1] = devit::mma::quad_max(m[1]);
+    chunk_exp<KC>(s, m, l);
+    l[0] = devit::mma::quad_sum(l[0]);
+    l[1] = devit::mma::quad_sum(l[1]);
+    chunk_pv<KC>(o, s, l, Vs, 0, NP, lane);
+    return;
+  }
+  for (int c0 = 0; c0 < NP; c0 += kChunk) {
+    chunk_scores<KC>(s, qa, Ks, c0, N, NP, scale, lane);
+    chunk_max<KC>(s, m);
+  }
+  m[0] = devit::mma::quad_max(m[0]);
+  m[1] = devit::mma::quad_max(m[1]);
+  for (int c0 = 0; c0 < NP; c0 += kChunk) {
+    chunk_scores<KC>(s, qa, Ks, c0, N, NP, scale, lane);
+    chunk_exp<KC>(s, m, l);
+  }
+  l[0] = devit::mma::quad_sum(l[0]);
+  l[1] = devit::mma::quad_sum(l[1]);
+  for (int c0 = 0; c0 < NP; c0 += kChunk) {
+    chunk_scores<KC>(s, qa, Ks, c0, N, NP, scale, lane);
+    float unused[2] = {0.f, 0.f};
+    chunk_exp<KC>(s, m, unused);
+    chunk_pv<KC>(o, s, l, Vs, c0, NP, lane);
+  }
+}
+
+// One block: (batch row, head, a run of tpb 64-query tiles); 4 warps of 16
+// query rows. K and V of the head are staged once a block; the next tile's q
+// rows arrive (cp.async) while the current tile computes. KC key steps of 16 are
+// held in registers at once: N <= 16 * KC takes one chunk, a larger N
+// (KC = 16) walks 256-key chunks three times.
+template <int KC>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+attn_kernel_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
+                int n_tiles, int tpb, float scale) {
+  constexpr int DH = 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int NP = (N + 15) & ~15;
+  bf16* Qbuf = reinterpret_cast<bf16*>(smem);  // two [kBQ][dh] q tiles
+  bf16* Ks = Qbuf + 2 * kBQ * DH;
+  bf16* Vs = Ks + NP * DH;
+
+  const int C = H * DH;
+  const int n_runs = (n_tiles + tpb - 1) / tpb;
+  const int t0 = (blockIdx.x % n_runs) * tpb;
+  const int t1 = min(n_tiles, t0 + tpb);
+  const int b = blockIdx.x / n_runs;
+  const int h = blockIdx.y;
+  const int64_t row3 = 3LL * C;
+  const bf16* base = qkv + (int64_t)b * N * row3 + h * DH;
+  bf16* obase = out + (int64_t)b * N * C + h * DH;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp;  // the warp's first row in a tile
+
+  devit::mma::load_rows(Ks, base + C, row3, NP, N, tid, kMmaThreads);
+  devit::mma::load_rows(Vs, base + 2 * C, row3, NP, N, tid, kMmaThreads);
+  devit::mma::load_rows(Qbuf, base + (int64_t)t0 * kBQ * row3, row3, kBQ, N - t0 * kBQ, tid,
+                        kMmaThreads);
+  for (int tile = t0; tile < t1; ++tile) {
+    bf16* Qs = Qbuf + ((tile - t0) & 1) * kBQ * DH;
+    devit::mma::cp_async_wait_all();
+    __syncthreads();  // this tile's q (and K, V) landed; the other buffer is free
+    if (tile + 1 < t1)
+      devit::mma::load_rows(Qbuf + ((tile + 1 - t0) & 1) * kBQ * DH,
+                            base + (int64_t)(tile + 1) * kBQ * row3, row3, kBQ,
+                            N - (tile + 1) * kBQ, tid, kMmaThreads);
+    const int q0 = tile * kBQ;
+    if (q0 + r0 >= N) continue;  // all 16 rows past the sequence
+
+    uint32_t qa[4][4];  // A fragments of the warp's 16 q rows, one per 16 dims
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      ldmatrix_x4(qa[ks], Qs + swz(r0 + (lane & 15), 2 * ks + (lane >> 4)));
+    float o[8][4];
+    attend_rows<KC>(o, qa, Ks, Vs, N, scale, lane);
+
+    // o rounded once into the warp's own 16 rows of Qs, then 16-byte stores
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + (lane >> 2) + 8 * half;
+        *reinterpret_cast<uint32_t*>(Qs + swz(r, t) + 2 * (lane & 3)) =
+            pack_bf16(o[t][2 * half], o[t][2 * half + 1]);
+      }
+    __syncwarp();
+    for (int i = lane; i < 16 * 8; i += 32) {
+      const int r = i >> 3, c = i & 7;
+      const int n = q0 + r0 + r;
+      if (n < N)
+        *reinterpret_cast<uint4*>(obase + (int64_t)n * C + 8 * c) =
+            *reinterpret_cast<const uint4*>(Qs + swz(r0 + r, c));
+    }
+  }
+}
+
+template <int KC>
+cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)attn_kernel_mma<KC>, opted_in);
+  if (err != cudaSuccess) return err;
+  static std::atomic<int> sms[devit::kMaxDevices];
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (sms[dev].load(std::memory_order_relaxed) == 0) {
+    int v = 0;
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sms[dev].store(v, std::memory_order_relaxed);
+  }
+  // A block walks all of a head's query tiles (K and V staged once) when the
+  // heads alone give four blocks an SM; otherwise the tiles are split into
+  // runs until they do (at most one tile a block).
+  const int n_tiles = (N + kBQ - 1) / kBQ;
+  const long long heads = (long long)B * H, want = 4LL * sms[dev].load();
+  const int runs = (int)std::min<long long>(n_tiles, (want + heads - 1) / heads);
+  const int tpb = (n_tiles + runs - 1) / runs;
+  const dim3 grid((unsigned)(B * ((n_tiles + tpb - 1) / tpb)), (unsigned)H);
+  attn_kernel_mma<KC><<<grid, kMmaThreads, smem_bytes(N, 64, 2), stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, n_tiles, tpb,
+      1.0f / sqrtf(64.f));
+  return cudaGetLastError();
+}
+
+// The fewest score registers that hold the row: N <= 64, 128, 208 (the
+// deployed N = 198), 256; past 256, 256-key chunks.
+cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, cudaStream_t s) {
+  if (N <= 64) return launch_mma<4>(qkv, out, B, N, H, s);
+  if (N <= 128) return launch_mma<8>(qkv, out, B, N, H, s);
+  if (N <= 208) return launch_mma<13>(qkv, out, B, N, H, s);
+  return launch_mma<16>(qkv, out, B, N, H, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,7 +490,7 @@ int devit_fused_attention(const void* qkv, void* out, int B, int N, int H,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim != 64) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)launch<float, 64>(qkv, out, B, N, H, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16, 64>(qkv, out, B, N, H, s);
+  if (dtype == 1) return (int)launch_bf16(qkv, out, B, N, H, s);
   return (int)cudaErrorInvalidValue;
 }
 

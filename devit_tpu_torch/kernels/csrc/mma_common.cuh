@@ -1,0 +1,111 @@
+// Tensor-core building blocks shared by the bf16 attention kernels
+// (attention.cu, attention_bwd.cu): 16-byte cp.async staging into an
+// XOR-swizzled 64-wide bf16 tile, ldmatrix (plain and transposed) and the
+// m16n8k16 bf16 mma.sync with f32 accumulation.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane l holds, of the f32
+// accumulator, rows l/4 (c0, c1) and l/4 + 8 (c2, c3) at columns 2(l%4) and
+// 2(l%4) + 1; of A, registers {a0a1, a2a3, a4a5, a6a7} = (row l/4, k lo),
+// (row l/4 + 8, k lo), (row l/4, k hi), (row l/4 + 8, k hi); of B, {b0b1,
+// b2b3} = (k lo, column l/4), (k hi, column l/4), two consecutive k a
+// register. So the accumulators of two adjacent n8 tiles, rounded and packed
+// two bf16 a register, are the A fragment of the next product (pack_bf16).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace devit {
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Element offset of 16-byte chunk c (8 bf16) of row r in a [rows][64] bf16
+// tile whose rows are 128 bytes: chunk c sits at c ^ (r % 8), so the eight
+// rows of one ldmatrix 8x8 matrix hit eight different bank groups.
+__device__ __forceinline__ int swz(int r, int c) { return r * 64 + ((c ^ (r & 7)) << 3); }
+
+// 16 bytes from global to shared memory, asynchronously; zero-filled (no
+// global read) when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows [0, rows) of a 64-wide head slice (row r at src + r * stride, 128
+// bytes, 16-byte aligned) into the swizzled tile dst, rows at or past
+// `valid` zero-filled. Issued by threads tid, tid + nthreads, ...
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t stride, int rows,
+                                          int valid, int tid, int nthreads) {
+  for (int i = tid; i < rows * 8; i += nthreads) {
+    const int r = i >> 3, c = i & 7;
+    const bool ok = r < valid;
+    cp_async16(dst + swz(r, c), ok ? src + (int64_t)r * stride + c * 8 : src, ok);
+  }
+}
+
+// Four 8x8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Two matrices; lanes 0 .. 15 give the addresses (the others' are ignored).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b: m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// lo and hi rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a / b rounded to nearest, given rb = 1/b rounded to nearest (__frcp_rn):
+// q = a rb and one FMA correction (Markstein), which is the IEEE quotient
+// whenever it is a normal number; three instructions where `/` takes ~10.
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  const float q = a * rb;
+  return fmaf(fmaf(-b, q, a), rb, q);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+}  // namespace mma
+}  // namespace devit

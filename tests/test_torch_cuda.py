@@ -169,6 +169,67 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(gen):
                       torch.zeros((1, 1024, DH), device="cuda"), 1)
 
 
+# ---- the bf16 tensor-core paths of fused_attention and attention_bwd: the
+# m16/n8/k16 fragment edges, the zero-fill past N, the 64-query tile of the
+# forward, the 32-query tile and the 16-key warp stripes of the backward
+
+EDGE_N = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 197, 198, 255, 256]
+
+
+@pytest.mark.parametrize("n", EDGE_N)
+def test_bf16_forward_tile_edges(gen, n):
+    for kh in (1, 6, 12):
+        for B in (1, 7, 64):
+            x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").bfloat16()
+            got = fused_attention(x, num_heads=kh)
+            torch.cuda.synchronize()
+            rel = _rel(got, reference_attention(x, num_heads=kh))
+            assert rel <= TOL[torch.bfloat16], (n, kh, B, rel)
+
+
+@pytest.mark.parametrize("n", EDGE_N)
+def test_bf16_bwd_tile_edges(gen, n):
+    for kh in (1, 6, 12):
+        for B in (1, 7, 64):
+            x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").bfloat16()
+            g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").bfloat16()
+            got = attention_bwd(x, g, kh)
+            torch.cuda.synchronize()
+            errs = _bwd_errs(got, reference_attention_bwd(x, g, kh), kh * DH)
+            assert max(errs) <= TOL[torch.bfloat16], (n, kh, B, errs)
+
+
+@pytest.mark.parametrize("n", [257, 271, 279, 300, 384, 512, 700])
+def test_bf16_forward_past_256(gen, n):
+    """Past 256 keys the forward walks 256-key chunks of scores (max, sum,
+    then p . v), the path the deployed N never takes."""
+    for kh, B in ((1, 3), (6, 2), (12, 1)):
+        x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").bfloat16()
+        gate = torch.rand((kh,), generator=gen, device="cuda")
+        got = fused_attention(x, gate, num_heads=kh)
+        torch.cuda.synchronize()
+        rel = _rel(got, reference_attention(x, gate, num_heads=kh))
+        assert rel <= TOL[torch.bfloat16], (n, kh, B, rel)
+
+
+def test_bf16_kernels_repeat_bit_for_bit(gen):
+    for n in (198, 256, 300):
+        x = torch.randn((5, n, 3 * 6 * DH), generator=gen, device="cuda").bfloat16()
+        g = torch.randn((5, n, 6 * DH), generator=gen, device="cuda").bfloat16()
+        assert torch.equal(fused_attention(x, num_heads=6), fused_attention(x, num_heads=6))
+        if n <= 256:
+            assert torch.equal(attention_bwd(x, g, 6), attention_bwd(x, g, 6))
+
+
+def test_bf16_wrappers_reject_unaligned_operands(gen):
+    buf = torch.zeros(1 + 2 * N * 3 * DH, device="cuda").bfloat16()
+    x = buf[1:].view(2, N, 3 * DH)  # contiguous, 2 bytes past an aligned start
+    with pytest.raises(ValueError, match="aligned"):
+        fused_attention(x, num_heads=1)
+    with pytest.raises(ValueError, match="aligned"):
+        attention_bwd(x, torch.zeros((2, N, DH), device="cuda").bfloat16(), 1)
+
+
 # ---- the split backward: attention_bwd_dv, attention_bwd_dqdk (csrc/attention_bwd_split.cu)
 
 
