@@ -5,8 +5,11 @@
 
 Run from the root of a checkout. It builds the CUDA kernels from the
 sources in the checkout, counts the tensor-core (HMMA) instructions of the
-bf16 attention kernels in the built library, holds each kernel against its
-plain PyTorch version on the card, runs the deployed 4-division dedeit
+bf16 attention kernels in the built library (the forward, and the monolithic
+backward and the split pair, three instantiations of one template), holds
+each kernel against its plain PyTorch version on the card (the split pair
+also against the monolithic kernel, bit for bit; every backward past 256
+keys, [bwd-long]), runs the deployed 4-division dedeit
 ensemble at full width, serves it over HTTP to concurrent clients, times
 the kernels and the forward. Then the deployment artifacts: the int8 matmul
 kernel against its
@@ -87,6 +90,7 @@ PX = 224  # image side of the deployed divisions
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # f32 outside the tensor cores
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # max|got-want| / max|want|
 
 
@@ -128,13 +132,21 @@ def _qkv(B: int, kh: int, dtype, gen, zero_head: bool = False) -> torch.Tensor:
     return x.to(dtype)
 
 
-MMA_KERNELS = ("attn_kernel_mma", "attn_bwd_kernel_mma")  # the bf16 tensor-core kernels
+# the bf16 tensor-core kernels: name -> the mark of its functions' mangled
+# names in the SASS (every instantiation of the forward; the backward
+# template attn_bwd_kernel_mma<DQDK, DV> once per instantiation)
+MMA_KERNELS = {
+    "attn_kernel_mma": "attn_kernel_mma",
+    "attn_bwd_kernel_mma<true,true> (attention_bwd)": "attn_bwd_kernel_mmaILb1ELb1E",
+    "attn_bwd_kernel_mma<false,true> (attention_bwd_dv)": "attn_bwd_kernel_mmaILb0ELb1E",
+    "attn_bwd_kernel_mma<true,false> (attention_bwd_dqdk)": "attn_bwd_kernel_mmaILb1ELb0E",
+}
 
 
 def _hmma_counts() -> dict:
     """HMMA (tensor-core mma) instructions in the SASS of each bf16 kernel of
-    MMA_KERNELS (every instantiation), from cuobjdump -sass of the built
-    library. Raises if cuobjdump is missing or a kernel has none."""
+    MMA_KERNELS, from cuobjdump -sass of the built library. Raises if
+    cuobjdump is missing or a kernel has none."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.is_file():
         raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
@@ -146,8 +158,8 @@ def _hmma_counts() -> dict:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
         elif "HMMA" in line:
-            for k in MMA_KERNELS:
-                counts[k] += k in fn
+            for k, mark in MMA_KERNELS.items():
+                counts[k] += mark in fn
     if not all(counts.values()):
         raise AssertionError(f"a bf16 attention kernel has no HMMA instruction: {counts}")
     return counts
@@ -204,15 +216,16 @@ def phase_split_checks() -> dict:
     """The split backward on the card: attention_bwd_dqdk and
     attention_bwd_dv (the kernels) vs their plain versions, dq, dk and dv
     each on its own, at N 198, kh 1-6, B 1/7/64/256, bf16 and f32; the pair
-    (attention_bwd_split) vs the monolithic kernel on the same inputs; a
-    repeat launch bit for bit; and make_trainable_attention(6, "split")'s
-    gradient vs autograd through reference_attention.
-    Returns the largest bf16 max-abs error of each kernel."""
+    (attention_bwd_split) equal to the monolithic kernel bit for bit on the
+    same inputs (it runs the same steps: bwd_mma.cuh at bf16, bwd_common.cuh
+    at f32); a repeat launch bit for bit; and
+    make_trainable_attention(6, "split")'s gradient vs autograd through
+    reference_attention. Returns the largest bf16 max-abs error of each
+    kernel."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    worst_vs_mono = {torch.bfloat16: 0.0, torch.float32: 0.0}
     max_abs = {"dv": 0.0, "dqdk": 0.0}
-    equal_to_mono = 0
+    equal_to_mono = {torch.bfloat16: 0, torch.float32: 0}
     n_cases = 0
     for dtype in (torch.bfloat16, torch.float32):
         for kh in range(1, 7):
@@ -236,18 +249,16 @@ def phase_split_checks() -> dict:
                         and torch.equal(split[..., 2 * C:], dv)):
                     raise AssertionError(f"split kernels {dtype} kh={kh} B={B}: a repeat "
                                          "launch, or a slice of the dqkv buffer, differs")
-                vs_mono = max(_bwd_errs(split, mono, C))
-                if vs_mono > TOL[dtype]:
-                    raise AssertionError(f"split vs monolithic {dtype} kh={kh} B={B}: rel err "
-                                         f"{vs_mono:.3e}")
-                equal_to_mono += int(torch.equal(split, mono))
+                if not torch.equal(split, mono):
+                    raise AssertionError(f"split vs monolithic {dtype} kh={kh} B={B}: not bit "
+                                         f"for bit, rel err {max(_bwd_errs(split, mono, C)):.3e}")
+                equal_to_mono[dtype] += 1
                 if dtype == torch.bfloat16:
                     max_abs["dqdk"] = max(max_abs["dqdk"],
                                           float((dqdk.float() - want_qk.float()).abs().max()))
                     max_abs["dv"] = max(max_abs["dv"],
                                         float((dv.float() - want_v.float()).abs().max()))
                 worst[dtype] = max(worst[dtype], max(errs))
-                worst_vs_mono[dtype] = max(worst_vs_mono[dtype], vs_mono)
                 n_cases += 1
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn((7, N, 3 * 6 * DH), generator=gen, device="cuda").to(dtype)
@@ -267,9 +278,9 @@ def phase_split_checks() -> dict:
     print(f"[kernel] attention_bwd_dqdk + attention_bwd_dv vs plain: {n_cases} cases pass (dq, "
           f"dk, dv each); worst rel err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 "
           f"{worst[torch.float32]:.3e} (tol 1e-4); max abs err bf16 dqdk "
-          f"{max_abs['dqdk']:.3e}, dv {max_abs['dv']:.3e}; repeat launches bit-identical; vs "
-          f"the monolithic kernel worst rel err bf16 {worst_vs_mono[torch.bfloat16]:.3e}, f32 "
-          f"{worst_vs_mono[torch.float32]:.3e}, bit-identical in {equal_to_mono} of {n_cases}")
+          f"{max_abs['dqdk']:.3e}, dv {max_abs['dv']:.3e}; repeat launches bit-identical; equal "
+          f"to the monolithic kernel bit for bit in {equal_to_mono[torch.bfloat16]} of "
+          f"{n_cases // 2} bf16 and {equal_to_mono[torch.float32]} of {n_cases // 2} f32 cases")
     return max_abs
 
 
@@ -1001,6 +1012,99 @@ def phase_bwd_checks() -> float:
     return max_abs_bf16
 
 
+LONG_N = (258, 578, 1026)  # 256 px and 384 px (deit-base 384) at patch 16; 512 px
+LONG_TIME_N = 578
+
+
+def _split_plain(x, g, kh):
+    return torch.cat([reference_attention_bwd_dqdk(x, g, kh),
+                      reference_attention_bwd_dv(x, g, kh)], dim=-1)
+
+
+BWD_WRAPPERS = {  # name -> (the kernel's wrapper, its plain version)
+    "attention_bwd": (attention_bwd, reference_attention_bwd),
+    "attention_bwd_split": (attention_bwd_split, _split_plain),
+    "attention_bwd_dqdk": (attention_bwd_dqdk, reference_attention_bwd_dqdk),
+    "attention_bwd_dv": (attention_bwd_dv, reference_attention_bwd_dv),
+}
+
+
+def phase_bwd_long(card: str) -> dict:
+    """The four backward wrappers past 256 keys, where they walk 256-key
+    chunks (csrc/attention_bwd_long.cu): each vs its plain version, dq, dk
+    and dv each on its own, at N 258, 578 and 1026, kh 1/6/12, bf16 and f32,
+    every call repeated bit for bit; then one launch of each timed at B 64,
+    kh 6, N 578 in both dtypes beside its plain version, its bound and SDPA's
+    backward on the same inputs. These launches are not the main path's:
+    the counts are restored. Returns the largest bf16 max-abs error of each
+    wrapper and the times."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    before = _counts()
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    max_abs = dict.fromkeys(BWD_WRAPPERS, 0.0)
+    n_cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in LONG_N:
+            for kh, B in ((1, 3), (6, 2), (12, 1)):
+                C = kh * DH
+                x = torch.randn((B, n, 3 * C), generator=gen, device="cuda").to(dtype)
+                g = torch.randn((B, n, C), generator=gen, device="cuda").to(dtype)
+                for name, (fn, plain) in BWD_WRAPPERS.items():
+                    got, again = fn(x, g, kh), fn(x, g, kh)
+                    torch.cuda.synchronize()
+                    want = plain(x, g, kh)
+                    errs = [_rel(got[..., i * C:(i + 1) * C], want[..., i * C:(i + 1) * C])
+                            for i in range(got.shape[-1] // C)]
+                    if max(errs) > TOL[dtype] or not torch.equal(got, again):
+                        raise AssertionError(f"{name} {dtype} N={n} kh={kh} B={B}: rel err "
+                                             f"{errs} (tol {TOL[dtype]:.0e}), repeat identical "
+                                             f"{torch.equal(got, again)}")
+                    if dtype == torch.bfloat16:
+                        max_abs[name] = max(max_abs[name],
+                                            float((got.float() - want.float()).abs().max()))
+                    worst[dtype] = max(worst[dtype], max(errs))
+                    n_cases += 1
+    print(f"[bwd-long] attention_bwd, attention_bwd_split, attention_bwd_dqdk, attention_bwd_dv "
+          f"past 256 keys vs plain: {n_cases} cases pass (N {list(LONG_N)}, kh 1/6/12, bf16 and "
+          f"f32; dq, dk, dv each); worst rel err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), "
+          f"f32 {worst[torch.float32]:.3e} (tol 1e-4); max abs err bf16 "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())}; repeat launches "
+          f"bit-identical")
+
+    B, kh, n = ENS_B, 6, LONG_TIME_N
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, F32_FLOPS)):
+        x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").to(dtype)
+        q, k, v = (t.contiguous().requires_grad_() for t in
+                   x.view(B, n, 3, kh, DH).permute(2, 0, 3, 1, 4))
+        out = sdpa(q, k, v)
+        gh = g.view(B, n, kh, DH).transpose(1, 2)
+        library = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True),
+                           iters=5, warmup=1)
+        elem = x.element_size()
+        bwd_bound = _bwd_bound(B, kh, elem, peak, n)
+        split = _split_bounds(B, kh, elem, peak, n)
+        bounds = {"attention_bwd": bwd_bound, "attention_bwd_split": bwd_bound,
+                  "attention_bwd_dqdk": (split["dqdk"][0], split["dqdk"][1] == "bytes"),
+                  "attention_bwd_dv": (split["dv"][0], split["dv"][1] == "bytes")}
+        for name, (fn, plain) in BWD_WRAPPERS.items():
+            r = dict(ms=_time_ms(lambda: fn(x, g, kh), iters=5, warmup=1),
+                     plain_ms=_time_ms(lambda: plain(x, g, kh), iters=3, warmup=1),
+                     library_ms=library, bound_ms=bounds[name][0],
+                     bound_by="bytes" if bounds[name][1] else "operations")
+            times[f"{name} {str(dtype)[6:]}"] = r
+            print(f"[bwd-long] {name} {str(dtype)[6:]} B={B} N={n} kh={kh}: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA backward "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
+        del x, g, q, k, v, out
+    _set_counts(before)
+    torch.cuda.empty_cache()
+    return dict(max_abs=max_abs, worst={str(k)[6:]: v for k, v in worst.items()},
+                cases=n_cases, times=times)
+
+
 TRAIN_B, TRAIN_KH, TRAIN_CLASSES = 256, 6, 25
 
 
@@ -1035,12 +1139,17 @@ def _step_grads(model, batch, seed: int):
 
 
 def _step_kind(kernel_name: str) -> str:
+    # bf16: attn_bwd_kernel_mma<DQDK, DV>; f32: attn_bwd_kernel and the
+    # split pair's attn_bwd_dv_kernel / attn_bwd_dqdk_kernel
+    if "attn_bwd_dv_kernel" in kernel_name or "attn_bwd_kernel_mma<false, true>" in kernel_name:
+        return "attention backward, dv (attention_bwd_dv)"
+    if ("attn_bwd_dqdk_kernel" in kernel_name
+            or "attn_bwd_kernel_mma<true, false>" in kernel_name):
+        return "attention backward, dq/dk (attention_bwd_dqdk)"
     if "attn_bwd_kernel" in kernel_name:
         return "attention backward (attention_bwd)"
-    if "attn_bwd_dv_kernel" in kernel_name:
-        return "attention backward, dv (attention_bwd_dv)"
-    if "attn_bwd_dqdk_kernel" in kernel_name:
-        return "attention backward, dq/dk (attention_bwd_dqdk)"
+    if "attn_bwd_long" in kernel_name:
+        return "attention backward past 256 keys"
     return _kind(kernel_name)
 
 
@@ -1162,13 +1271,13 @@ def phase_train_profile(step, card: str) -> dict:
                 top=sorted(kernels, key=lambda k: -k[2])[:25])
 
 
-def _bwd_bound(B: int, kh: int, elem: int, flops_peak: float):
+def _bwd_bound(B: int, kh: int, elem: int, flops_peak: float, n: int = N):
     """Least time of one backward launch: qkv and g read once, dqkv written
     once (7 B N C elements), against recomputing s, then dv, dp, dq and dk
     (10 B N^2 C operations)."""
     C = kh * DH
-    nbytes = 7 * B * N * C * elem
-    flops = 10 * B * N * N * C
+    nbytes = 7 * B * n * C * elem
+    flops = 10 * B * n * n * C
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_peak
     return max(t_bytes, t_ops) * 1e3, t_bytes >= t_ops
 
@@ -1514,7 +1623,8 @@ def phase_ens_profile(ens: dict, card: str) -> dict:
     return out
 
 
-def _split_bounds(B: int, kh: int, elem: int) -> dict:
+def _split_bounds(B: int, kh: int, elem: int, flops_peak: float = BF16_FLOPS,
+                  n: int = N) -> dict:
     """Least time of one launch of each split kernel: the dv kernel reads q,
     k and g and writes dv (4 B N C elements) against s and dv (4 B N^2 C
     operations); the dqdk kernel reads qkv and g and writes dq and dk (6 B N
@@ -1522,8 +1632,8 @@ def _split_bounds(B: int, kh: int, elem: int) -> dict:
     C = kh * DH
     out = {}
     for name, elems, flops in (("dv", 4, 4), ("dqdk", 6, 8)):
-        t_bytes = elems * B * N * C * elem / HBM_BYTES_PER_S
-        t_ops = flops * B * N * N * C / BF16_FLOPS
+        t_bytes = elems * B * n * C * elem / HBM_BYTES_PER_S
+        t_ops = flops * B * n * n * C / flops_peak
         out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
     return out
 
@@ -1723,6 +1833,7 @@ def main() -> int:
 
     bwd_max_abs_err = phase_bwd_checks()
     split_max_abs_err = phase_split_checks()
+    times["bwd_long"] = phase_bwd_long(card)
     train = phase_train(card)
     step = train.pop("step")
     train["profile"] = phase_train_profile(step, card)

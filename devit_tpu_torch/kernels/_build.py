@@ -1,9 +1,9 @@
 """Build the port's CUDA kernel library with nvcc and load it with ctypes.
 
-Every kernels/csrc/*.cu compiles, in one nvcc call, into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds), for
-sm_90a, into build/devit_tpu_torch_kernels/ at the root of the checkout, at
-first use. The library is named by the hash of every source and header in
+Every kernels/csrc/*.cu compiles into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), for sm_90a, into
+build/devit_tpu_torch_kernels/ at the root of the checkout, at first use: one
+nvcc process a source, all started together, then one link. The library is named by the hash of every source and header in
 csrc/ and of the flags, so an edited file is never served by a stale build.
 
 `library()` loads it once with every kernel's C signature declared; the
@@ -28,16 +28,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "devit_tpu_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of the library: name -> (argument types, result type)
 SIGNATURES = {
     "devit_fused_attention": ([_VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
-    "devit_attention_bwd": ([_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
-    "devit_attention_bwd_dv": ([_VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _VP], _I),
-    "devit_attention_bwd_dqdk": ([_VP, _VP, _VP, _LL, _I, _I, _I, _I, _I, _VP], _I),
+    # the three backwards take a (B, H, N, 3) f32 scratch (or NULL) for N > 256
+    "devit_attention_bwd": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
+    "devit_attention_bwd_dv": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _VP], _I),
+    "devit_attention_bwd_dqdk": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _VP], _I),
     # x, w_q, w_scale, bias (or NULL), out, M, K, N, x dtype, out dtype, stream
     "devit_quant_matmul": ([_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _VP], _I),
     # t, norm scale, norm bias, qkv kernel, qkv bias (or NULL), proj kernel,
@@ -76,20 +77,34 @@ def _lib_path() -> Path:
 
 
 def build() -> Tuple[float, str]:
-    """Compile the library unless an up-to-date one exists. Returns the wall
-    seconds spent and nvcc's output (registers, shared memory, spills)."""
+    """Compile the library unless an up-to-date one exists: every source to
+    an object in parallel, then one link. Returns the wall seconds spent and
+    nvcc's output (registers, shared memory, spills)."""
     out = _lib_path()
     if out.exists():
         return 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {[f.name for f in SOURCES]}:\n{proc.stdout}")
+    try:
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f.name for f, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link {[o.name for o in objs]}:\n{link.stdout}")
     os.replace(tmp, out)
-    return time.perf_counter() - t0, proc.stdout
+    return time.perf_counter() - t0, "\n".join(logs + [link.stdout])
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,8 +11,11 @@ falls back.
 
 The head gate is applied outside the kernel, as in the JAX package.
 
-At bf16 both kernels compute every product on the tensor cores (mma.sync);
-at f32 they run f32 FMAs on the CUDA cores (see the sources' notes).
+At bf16 the forward and the backwards compute every product on the tensor
+cores (mma.sync); at f32 they run f32 FMAs on the CUDA cores (see the
+sources' notes). The backwards take any N: past 256 keys they walk 256-key
+chunks on the CUDA cores (csrc/attention_bwd_long.cu), with a (B, H, N, 3)
+f32 scratch of row statistics that the wrapper allocates.
 
 `make_trainable_attention` is the differentiable form the training path
 uses: its forward is `fused_attention`, it saves only qkv, and its backward
@@ -20,7 +23,8 @@ recomputes the probabilities. The backward mode comes from DEVIT_ATTN_BWD
 (default "monolithic"), as in the JAX package:
 - "monolithic": `attention_bwd`, the kernel in csrc/attention_bwd.cu;
 - "split": `attention_bwd_split`, two kernels in csrc/attention_bwd_split.cu,
-  `attention_bwd_dqdk` ([dq | dk]) and `attention_bwd_dv` (dv).
+  `attention_bwd_dqdk` ([dq | dk]) and `attention_bwd_dv` (dv), which equal
+  the monolithic kernel bit for bit.
 Each takes its plain version (`reference_attention_bwd`,
 `reference_attention_bwd_dqdk`, `reference_attention_bwd_dv`, the TPU
 kernels' numerics) on a CPU tensor.
@@ -142,9 +146,6 @@ def _check_smem(kernel: str, N: int, dh: int, elem: int, device: int) -> None:
     """Raise if one block of `kernel` (a key of _SMEM_QUERIES) at sequence
     length N does not fit shared memory."""
     need = getattr(_build.library(), _SMEM_QUERIES[kernel])(N, dh, elem)
-    if need < 0:
-        raise ValueError(f"sequence length N={N} is past what the {kernel} kernel takes "
-                         f"(its shared memory and registers hold N <= 256)")
     _build.check_smem(need, f"sequence length N={N} in the {kernel} kernel", device)
 
 
@@ -212,6 +213,20 @@ def _check_bwd_input(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, kernel:
     return qkv.contiguous(), g.contiguous(), (B, N, C, dh)
 
 
+# The backward kernels that give one block a whole (batch row, head) take N
+# up to this (csrc/bwd_common.cuh kShortN); past it they walk key chunks and
+# need each row's softmax max, sum and rowsum(dp * p) in a scratch buffer.
+_SHORT_N = 256
+
+
+def _bwd_stats(qkv: torch.Tensor, num_heads: int) -> Optional[torch.Tensor]:
+    """The long path's (B, H, N, 3) f32 scratch, or None at N <= 256."""
+    B, N = qkv.shape[:2]
+    if N <= _SHORT_N:
+        return None
+    return torch.empty((B, num_heads, N, 3), dtype=torch.float32, device=qkv.device)
+
+
 def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
     qkv, g, (B, N, C, dh) = _check_bwd_input(qkv, g, num_heads, "bwd")
     _check_aligned(qkv, g)
@@ -219,9 +234,11 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
     if B == 0:
         return dqkv
     lib = _build.library()
+    stats = _bwd_stats(qkv, num_heads)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.devit_attention_bwd(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B, N,
+        err = lib.devit_attention_bwd(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                                      None if stats is None else stats.data_ptr(), B, N,
                                       num_heads, dh, _DTYPE_CODES[qkv.dtype], stream)
     _build.check_launch(err, "attention_bwd")
     attention_bwd.launches += 1
@@ -245,19 +262,22 @@ attention_bwd.launches = 0
 
 
 def _launch_half(kernel: str, qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
-                 out: torch.Tensor, offset: int) -> None:
+                 out: torch.Tensor, offset: int, stats: Optional[torch.Tensor]) -> None:
     """Launch the split kernel `kernel` ("dv" or "dqdk") on contiguous,
     checked qkv and g, writing token rows of `out` (contiguous, last dim its
-    row stride) from element `offset` of each row on."""
+    row stride) from element `offset` of each row on; `stats` is
+    _bwd_stats(qkv)."""
     B, N, C, dh = _split_heads(qkv, num_heads)
     if B == 0:
         return
+    _check_aligned(qkv, g)
     lib = _build.library()
     fn = lib.devit_attention_bwd_dv if kernel == "dv" else lib.devit_attention_bwd_dqdk
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), g.data_ptr(), out.data_ptr() + offset * out.element_size(),
-                 out.shape[-1], B, N, num_heads, dh, _DTYPE_CODES[qkv.dtype], stream)
+                 out.shape[-1], None if stats is None else stats.data_ptr(), B, N, num_heads,
+                 dh, _DTYPE_CODES[qkv.dtype], stream)
     wrapper = attention_bwd_dv if kernel == "dv" else attention_bwd_dqdk
     _build.check_launch(err, wrapper.__name__)
     wrapper.launches += 1
@@ -273,7 +293,7 @@ def _split_half(kernel: str, plain, qkv: torch.Tensor, g: torch.Tensor,
     qkv, g, (B, N, C, _) = _check_bwd_input(qkv, g, num_heads, kernel)
     width = C if kernel == "dv" else 2 * C
     out = torch.empty((B, N, width), dtype=qkv.dtype, device=qkv.device)
-    _launch_half(kernel, qkv, g, num_heads, out, 0)
+    _launch_half(kernel, qkv, g, num_heads, out, 0, _bwd_stats(qkv, num_heads))
     return out
 
 
@@ -312,8 +332,9 @@ def attention_bwd_split(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> t
     qkv, g, (_, _, C, _) = _check_bwd_input(qkv, g, num_heads, "dqdk")
     _check_smem("dv", qkv.shape[1], C // num_heads, qkv.element_size(), qkv.device.index)
     dqkv = torch.empty_like(qkv)
-    _launch_half("dqdk", qkv, g, num_heads, dqkv, 0)
-    _launch_half("dv", qkv, g, num_heads, dqkv, 2 * C)
+    stats = _bwd_stats(qkv, num_heads)  # one scratch: the two launches share a stream
+    _launch_half("dqdk", qkv, g, num_heads, dqkv, 0, stats)
+    _launch_half("dv", qkv, g, num_heads, dqkv, 2 * C, stats)
     return dqkv
 
 

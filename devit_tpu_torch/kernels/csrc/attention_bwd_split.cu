@@ -14,42 +14,45 @@
 // softmax(s) in f32; dv = round(p)^T g with p rounded to qkv's dtype; dp =
 // g v^T in f32, ds = round((p * (dp - rowsum(dp * p))) * scale) over the
 // unrounded p, dq = ds k, dk = ds^T q. Every product accumulates in f32 and
-// is rounded once, when it is written. That is the monolithic kernel's
-// arithmetic in the same order, so the two backwards agree bit for bit.
+// is rounded once, when it is written. Each kernel runs the monolithic
+// kernel's (attention_bwd.cu) steps on the same operands in the same order,
+// at bf16 and at f32 alike, so the pair equals the monolithic kernel bit for
+// bit at both dtypes. As in the JAX design, s is computed in both kernels.
 //
 // What bounds them on an H100: the dv kernel reads q, k (2C) and g (C) and
 // writes dv (C) a token, 4 * B * N * C elements, against 4 * B * N^2 * C
 // FLOPs (s, dv); the dqdk kernel reads qkv and g (4C) and writes dq, dk (2C),
 // 6 * B * N * C elements, against 8 * B * N^2 * C FLOPs (s, dp, dq, dk). Both
 // are under the ~295 FLOP per byte at which bf16 tensor cores would be the
-// limit, so memory bandwidth bounds them. This first version computes every
-// product with f32 FMAs on the CUDA cores from shared memory (the steps of
-// bwd_common.cuh), far above that bound; chip_smoke.py prints both.
+// limit, so memory bandwidth bounds them; chip_smoke.py prints both.
 //
-// Design: each output has one writer and nothing is summed with atomics, so
-// the results are the same on every run.
-// - dv sums over all queries. A dv block owns (batch row, head, 64-key tile)
-//   and loops over the 32-query tiles, recomputing each tile's full score
-//   rows (the softmax needs all N columns) and summing its 64 keys' dv in
-//   registers (4 rows a warp). That gives B * H * ceil(N / 64) blocks, four
-//   times the monolithic kernel's B * H at N = 198, and needs only K, not V,
-//   in shared memory (~60 KB bf16, ~92 KB f32 at N = 198); s is recomputed
-//   once per key tile.
-// - dq sums over keys and dk over queries, so no single tiling owns both.
-//   A dqdk block owns a whole (batch row, head), as the monolithic kernel
-//   does: it is that kernel's second pass alone (dq written per query tile,
-//   dk summed in registers, N <= 256).
+// Each output has one writer and nothing is summed with atomics, so the
+// results are the same on every run. By dtype and length:
+// - bf16, N <= 256: attn_bwd_kernel_mma<false, true> (dv) and <true, false>
+//   (dq/dk) from bwd_mma.cuh, on the tensor cores, one block a (batch row,
+//   head): the dv kernel computes s by mma once and round(p) with the
+//   monolithic kernel's softmax row step, and sums dv in the warps'
+//   accumulators; it stages neither V nor dp nor ds. The dq/dk kernel is the
+//   monolithic kernel without the dv product and its accumulators.
+// - f32, N <= 256: the CUDA-core steps of bwd_common.cuh (the f32 tolerance
+//   is 1e-4, finer than TF32). A dv block owns (batch row, head, 64-key
+//   tile) and loops over the 32-query tiles, recomputing each tile's full
+//   score rows and summing its 64 keys' dv in registers (4 rows a warp); a
+//   dqdk block owns a whole (batch row, head): it is the f32 monolithic
+//   kernel's second pass alone (dq written per query tile, dk summed in
+//   registers).
+// - N > 256, both dtypes: the chunked long path (attention_bwd_long.cu).
 
 #include "bwd_common.cuh"
+#include "bwd_mma.cuh"
 
 namespace {
 
 using namespace devit::bwd;
 
-constexpr int kKeyTile = 64;                   // key rows of dv a dv block owns
+constexpr int kKeyTile = 64;                       // key rows of dv a dv block owns
 constexpr int kDvRowsPerWarp = kKeyTile / kWarps;
-constexpr int kMaxCPerWarp = 16;               // key rows of dk a warp holds
-constexpr int kMaxN = kWarps * kMaxCPerWarp;   // dqdk: N <= 256
+constexpr int kMaxCPerWarp = kShortN / kWarps;     // key rows of dk a warp holds
 static_assert(kKeyTile % kWarps == 0, "a key tile splits evenly over the warps");
 
 // P [kBQ][SP] f32 | K [N][kv_stride] T | Q, G [kBQ][dh] T
@@ -185,7 +188,7 @@ cudaError_t launch_dqdk(const void* qkv, const void* g, void* dqk, long long out
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_dqdk_kernel<T, DH>, opted_in);
   if (err != cudaSuccess) return err;
-  if (N > kMaxN) return cudaErrorInvalidValue;
+  if (N > kShortN) return cudaErrorInvalidValue;
   attn_bwd_dqdk_kernel<T, DH><<<(unsigned)B * H, kThreads, dqdk_smem_bytes<T>(N, DH), stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(dqk), out_stride, N,
       H, 1.0f / sqrtf((float)DH));
@@ -198,40 +201,48 @@ extern "C" {
 
 // Dynamic shared memory one dv block needs at sequence length n.
 long long devit_attention_bwd_dv_smem_bytes(int n, int head_dim, int elem_bytes) {
-  return (long long)(elem_bytes == 2 ? dv_smem_bytes<__nv_bfloat16>(n, head_dim)
+  if (n > kShortN) return (long long)long_smem_bytes(head_dim, elem_bytes);
+  return (long long)(elem_bytes == 2 ? mma_smem_bytes<false, true>(n)
                                      : dv_smem_bytes<float>(n, head_dim));
 }
 
-// Dynamic shared memory one dqdk block needs at sequence length n; -1 past
-// the N its registers hold.
+// Dynamic shared memory one dqdk block needs at sequence length n.
 long long devit_attention_bwd_dqdk_smem_bytes(int n, int head_dim, int elem_bytes) {
-  if (n > kMaxN) return -1;
-  return (long long)(elem_bytes == 2 ? dqdk_smem_bytes<__nv_bfloat16>(n, head_dim)
+  if (n > kShortN) return (long long)long_smem_bytes(head_dim, elem_bytes);
+  return (long long)(elem_bytes == 2 ? mma_smem_bytes<true, false>(n)
                                      : dqdk_smem_bytes<float>(n, head_dim));
 }
 
 // qkv: (B, N, 3*H*head_dim), g: (B, N, H*head_dim), contiguous, one dtype
 // (0 = float32, 1 = bfloat16). dv: token n of batch row b starts at
-// dv + (b * N + n) * out_stride and takes H*head_dim elements. Returns a
+// dv + (b * N + n) * out_stride and takes H*head_dim elements. stats:
+// B*H*N*3 floats of scratch, used (and needed) only when N > 256. Returns a
 // cudaError_t (0 = launched).
-int devit_attention_bwd_dv(const void* qkv, const void* g, void* dv, long long out_stride, int B,
-                           int N, int H, int head_dim, int dtype, void* stream) {
+int devit_attention_bwd_dv(const void* qkv, const void* g, void* dv, long long out_stride,
+                           void* stats, int B, int N, int H, int head_dim, int dtype,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  if (N > kShortN)
+    return (int)launch_long(qkv, g, dv, out_stride, static_cast<float*>(stats), B, N, H, dtype,
+                            false, true, s);
   if (dtype == 0) return (int)launch_dv<float, 64>(qkv, g, dv, out_stride, B, N, H, s);
-  if (dtype == 1) return (int)launch_dv<__nv_bfloat16, 64>(qkv, g, dv, out_stride, B, N, H, s);
+  if (dtype == 1) return (int)launch_bwd_mma<false, true>(qkv, g, dv, out_stride, B, N, H, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // As devit_attention_bwd_dv, writing [dq | dk] (2*H*head_dim elements from
 // dqk + (b * N + n) * out_stride).
 int devit_attention_bwd_dqdk(const void* qkv, const void* g, void* dqk, long long out_stride,
-                             int B, int N, int H, int head_dim, int dtype, void* stream) {
+                             void* stats, int B, int N, int H, int head_dim, int dtype,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  if (N > kShortN)
+    return (int)launch_long(qkv, g, dqk, out_stride, static_cast<float*>(stats), B, N, H, dtype,
+                            true, false, s);
   if (dtype == 0) return (int)launch_dqdk<float, 64>(qkv, g, dqk, out_stride, B, N, H, s);
-  if (dtype == 1)
-    return (int)launch_dqdk<__nv_bfloat16, 64>(qkv, g, dqk, out_stride, B, N, H, s);
+  if (dtype == 1) return (int)launch_bwd_mma<true, false>(qkv, g, dqk, out_stride, B, N, H, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,17 +1,17 @@
-// The steps of the attention backward, shared by the monolithic kernel
-// (attention_bwd.cu) and the split pair (attention_bwd_split.cu).
+// The CUDA-core steps of the attention backward, shared by the f32 monolithic
+// kernel (attention_bwd.cu), the f32 split pair (attention_bwd_split.cu) and
+// the path past kShortN keys at both dtypes (attention_bwd_long.cu).
 //
-// Every kernel that uses them runs kThreads threads over one (batch row,
-// head) and walks the head's queries in kBQ-row tiles: warp w owns the tile's
-// rows 2w and 2w + 1. K (and V) of the head sit in shared memory, padded by
-// one 32-bit word a row (kv_stride); the tile's f32 score rows P (and D) have
-// the odd stride score_stride(N). For each tile a kernel recomputes
-// s = q k^T * scale and p = softmax(s) in f32 (rows_times_keys,
-// softmax_row); dp = g v^T and ds = round((p * (dp - rowsum(dp * p))) *
-// scale) (rows_times_keys, ds_row); the tile's dq = ds k (dq_row); and adds
-// the tile to the key-side sums dv += round(p)^T g or dk += ds^T q
-// (accumulate_keys). Those sums live in registers: thread (warp w, lane l)
-// owns key rows c0 + w + kWarps * i (i < NC) of dims l and l + 32.
+// Every kernel that uses them runs kThreads threads and walks queries in
+// kBQ-row tiles: warp w owns the tile's rows 2w and 2w + 1. K (and V) sit in
+// shared memory, padded by one 32-bit word a row (kv_stride); the tile's f32
+// score rows P (and D) have the odd stride score_stride(N). For each tile a
+// kernel recomputes s = q k^T * scale and p = softmax(s) in f32
+// (rows_times_keys, softmax_row); dp = g v^T and ds = round((p * (dp -
+// rowsum(dp * p))) * scale) (rows_times_keys, ds_row); the tile's dq = ds k
+// (dq_row); and adds the tile to the key-side sums dv += round(p)^T g or
+// dk += ds^T q (accumulate_keys). Those sums live in registers: thread (warp
+// w, lane l) owns key rows c0 + w + kWarps * i (i < NC) of dims l and l + 32.
 
 #pragma once
 
@@ -27,6 +27,10 @@ constexpr int kBQ = 32;        // query rows per tile
 constexpr int kThreads = 512;  // 16 warps; warp w owns tile rows 2w and 2w+1
 constexpr int kWarps = kThreads / 32;
 static_assert(kBQ == 2 * kWarps, "each warp owns two rows of a tile");
+// The kernels that give one block a whole (batch row, head) hold dk and dv of
+// 16 key rows a warp in registers, so they take N <= kShortN; past it the
+// backward walks kShortN-key chunks (attention_bwd_long.cu).
+constexpr int kShortN = 16 * kWarps;
 
 // K and V rows are padded by one 32-bit word, so that the 32 lanes of a warp
 // reading one dim of 32 consecutive rows hit 32 different banks.
@@ -185,6 +189,20 @@ size_t dqdk_smem_bytes(int n, int dh) {
   return sizeof(float) * 2 * (size_t)kBQ * score_stride(n) +
          sizeof(T) * (2 * (size_t)n * kv_stride<T>(dh) + 2 * (size_t)kBQ * dh);
 }
+
+// ---- the path past kShortN keys (attention_bwd_long.cu), both dtypes
+
+// Shared memory of one block of the long path (the same at every N).
+size_t long_smem_bytes(int dh, int elem);
+
+// dq and dk (dqdk) and/or dv (dv) of (B, N, 3C) qkv and (B, N, C) g, any N,
+// dtype 0 = float32, 1 = bfloat16, head_dim 64. Token n of batch row b writes
+// from out + (b N + n) out_stride: dq there, dk C further, dv 2C further with
+// dqdk and at the start without. stats: B * H * N * 3 floats of scratch (each
+// row's softmax max, sum and rowsum(dp * p)).
+cudaError_t launch_long(const void* qkv, const void* g, void* out, long long out_stride,
+                        float* stats, int B, int N, int H, int dtype, bool dqdk, bool dv,
+                        cudaStream_t stream);
 
 }  // namespace bwd
 }  // namespace devit

@@ -4,7 +4,8 @@ fused_block_attention (the hand-written kernels in
 devit_tpu_torch/kernels/csrc/attention.cu, attention_bwd.cu,
 attention_bwd_split.cu, quant_matmul.cu and block_attention.cu) vs their
 plain PyTorch versions, their launch counters and what their wrappers
-reject.
+reject; the backwards past 256 keys (their chunked path), the split pair
+equal to the monolithic kernel bit for bit, and normalize on the card.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); elsewhere every test skips. The
 machine with the card has no JAX, so run without the repo's conftest:
@@ -15,6 +16,7 @@ machine with the card has no JAX, so run without the repo's conftest:
 import pytest
 import torch
 
+from devit_tpu_torch.data.pipeline import normalize
 from devit_tpu_torch.kernels.attention import (
     attention_bwd, attention_bwd_dqdk, attention_bwd_dv, attention_bwd_split,
     fused_attention, fused_block_attention, make_trainable_attention, reference_attention,
@@ -164,9 +166,6 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(gen):
         attention_bwd(x.half(), torch.zeros((1, N, 2 * 64), device="cuda").half(), 2)
     with pytest.raises(ValueError, match="must divide"):
         attention_bwd(x, torch.zeros((1, N, 4 * 32), device="cuda"), 5)
-    with pytest.raises(ValueError, match="shared"):
-        attention_bwd(torch.zeros((1, 1024, 3 * DH), device="cuda"),
-                      torch.zeros((1, 1024, DH), device="cuda"), 1)
 
 
 # ---- the bf16 tensor-core paths of fused_attention and attention_bwd: the
@@ -217,8 +216,8 @@ def test_bf16_kernels_repeat_bit_for_bit(gen):
         x = torch.randn((5, n, 3 * 6 * DH), generator=gen, device="cuda").bfloat16()
         g = torch.randn((5, n, 6 * DH), generator=gen, device="cuda").bfloat16()
         assert torch.equal(fused_attention(x, num_heads=6), fused_attention(x, num_heads=6))
-        if n <= 256:
-            assert torch.equal(attention_bwd(x, g, 6), attention_bwd(x, g, 6))
+        assert torch.equal(attention_bwd(x, g, 6), attention_bwd(x, g, 6))
+        assert torch.equal(attention_bwd_split(x, g, 6), attention_bwd_split(x, g, 6))
 
 
 def test_bf16_wrappers_reject_unaligned_operands(gen):
@@ -226,8 +225,9 @@ def test_bf16_wrappers_reject_unaligned_operands(gen):
     x = buf[1:].view(2, N, 3 * DH)  # contiguous, 2 bytes past an aligned start
     with pytest.raises(ValueError, match="aligned"):
         fused_attention(x, num_heads=1)
-    with pytest.raises(ValueError, match="aligned"):
-        attention_bwd(x, torch.zeros((2, N, DH), device="cuda").bfloat16(), 1)
+    for fn in (attention_bwd, attention_bwd_dv, attention_bwd_dqdk, attention_bwd_split):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(x, torch.zeros((2, N, DH), device="cuda").bfloat16(), 1)
 
 
 # ---- the split backward: attention_bwd_dv, attention_bwd_dqdk (csrc/attention_bwd_split.cu)
@@ -256,8 +256,9 @@ def test_split_kernels_match_plain(gen, kh, dtype):
 
 def test_split_randomized_shape_sweep(gen):
     """Sequence lengths around the 32-row query tile and the 64-row key tile
-    of a dv block, up to the 256 the dqdk kernel takes: the kernels' own
-    index arithmetic, which no fixed shape covers."""
+    of the f32 dv block and the 16-key warp stripes of the bf16 kernels, up
+    to the 256 where the chunked path takes over: the kernels' own index
+    arithmetic, which no fixed shape covers."""
     rng = torch.Generator().manual_seed(8)
     lengths = [1, 31, 33, 63, 64, 65, 129, 256] + torch.randint(2, 257, (5,), generator=rng).tolist()
     for trial, n in enumerate(lengths):
@@ -311,13 +312,82 @@ def test_split_wrappers_reject_what_the_kernels_do_not_take(gen):
             fn(x.half(), torch.zeros((1, N, 2 * 64), device="cuda").half(), 2)
         with pytest.raises(ValueError, match="g must be"):
             fn(x, torch.zeros((1, N, 2 * 64), device="cuda").bfloat16(), 2)
-    for fn in (attention_bwd_dqdk, attention_bwd_split):
-        with pytest.raises(ValueError, match="256"):
-            fn(torch.zeros((1, 300, 3 * DH), device="cuda"), torch.zeros((1, 300, DH),
-                                                                          device="cuda"), 1)
-    with pytest.raises(ValueError, match="shared"):
-        attention_bwd_dv(torch.zeros((1, 4096, 3 * DH), device="cuda"),
-                         torch.zeros((1, 4096, DH), device="cuda"), 1)
+    for fn in (attention_bwd_dv, attention_bwd_dqdk, attention_bwd_split):
+        with pytest.raises(ValueError, match="must divide"):
+            fn(x, torch.zeros((1, N, 4 * 32), device="cuda"), 5)
+
+
+@pytest.mark.parametrize("n", EDGE_N)
+def test_split_equals_monolithic_bit_for_bit(gen, n):
+    """The split pair runs the monolithic kernel's steps on the same
+    operands in the same order (bwd_mma.cuh at bf16, bwd_common.cuh at f32):
+    the same bits at every N the one-block-a-head kernels take."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for kh in (1, 6, 12):
+            for B in (1, 7):
+                x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
+                g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").to(dtype)
+                split, mono = attention_bwd_split(x, g, kh), attention_bwd(x, g, kh)
+                torch.cuda.synchronize()
+                assert torch.equal(split, mono), (dtype, kh, B, max(_bwd_errs(split, mono,
+                                                                              kh * DH)))
+
+
+# ---- past 256 keys: the chunked path of all four backward wrappers
+# (csrc/attention_bwd_long.cu)
+
+LONG_N = [257, 258, 300, 578, 700, 1026]  # 1026: 512 px at patch 16, two tokens
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", LONG_N)
+def test_bwd_past_256(gen, n, dtype):
+    """attention_bwd, attention_bwd_split, attention_bwd_dqdk and
+    attention_bwd_dv vs their plain versions, dq, dk and dv each on its own,
+    and a repeat launch of each bit for bit."""
+    for kh, B in ((1, 3), (6, 2), (12, 1)):
+        C = kh * DH
+        x = torch.randn((B, n, 3 * C), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, n, C), generator=gen, device="cuda").to(dtype)
+        want = reference_attention_bwd(x, g, kh)
+        want_split = torch.cat([reference_attention_bwd_dqdk(x, g, kh),
+                                reference_attention_bwd_dv(x, g, kh)], dim=-1)
+        for fn, ref in ((attention_bwd, want), (attention_bwd_split, want_split)):
+            got = fn(x, g, kh)
+            torch.cuda.synchronize()
+            errs = _bwd_errs(got, ref, C)
+            assert max(errs) <= TOL[dtype], (fn.__name__, kh, B, errs)
+            assert torch.equal(got, fn(x, g, kh)), fn.__name__
+        errs = _split_errs(x, g, kh)
+        assert max(errs) <= TOL[dtype], ("dqdk/dv", kh, B, errs)
+        dv, dqdk = attention_bwd_dv(x, g, kh), attention_bwd_dqdk(x, g, kh)
+        assert torch.equal(dv, attention_bwd_dv(x, g, kh))
+        assert torch.equal(dqdk, attention_bwd_dqdk(x, g, kh))
+
+
+@pytest.mark.parametrize("mode", ["monolithic", "split"])
+def test_trainable_attention_past_256(gen, mode):
+    """make_trainable_attention at N 258 (256 px at patch 16, two tokens):
+    its gradient vs autograd through reference_attention."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, 258, 3 * 6 * DH), generator=gen, device="cuda").to(dtype)
+        cot = torch.randn((2, 258, 6 * DH), generator=gen, device="cuda")
+        x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+        (g1,) = torch.autograd.grad((make_trainable_attention(6, mode)(x1).float() * cot).sum(),
+                                    x1)
+        (g2,) = torch.autograd.grad(
+            (reference_attention(x2, num_heads=6).float() * cot).sum(), x2)
+        errs = _bwd_errs(g1, g2, 6 * DH)
+        assert max(errs) <= TOL[dtype], (dtype, errs)
+
+
+def test_normalize_on_the_card_equals_the_cpu(gen):
+    """Every uint8 value in every channel: the division by 255 on the card is
+    the IEEE quotient the CPU (and JAX) compute, not a product with the
+    reciprocal."""
+    imgs = torch.arange(256, dtype=torch.uint8).reshape(1, 16, 16, 1).repeat(2, 1, 1, 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(normalize(imgs.cuda(), dtype).cpu(), normalize(imgs, dtype))
 
 
 # ---- the int8 matmul: fused_int8_matmul (csrc/quant_matmul.cu)

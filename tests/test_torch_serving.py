@@ -104,6 +104,16 @@ def test_normalize_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+def test_normalize_equals_jax_bit_for_bit_on_every_uint8_value():
+    """Every uint8 value in every channel: the division by 255 is the IEEE
+    quotient, as JAX computes it (a product with the reciprocal is an ulp off
+    for many values)."""
+    imgs = np.arange(256, dtype=np.uint8).reshape(1, 16, 16, 1).repeat(3, axis=-1)
+    got = normalize(torch.from_numpy(imgs), torch.float32).numpy()
+    want = np.asarray(jnormalize(jnp.asarray(imgs), jnp.float32))
+    assert np.array_equal(got, want)
+
+
 def test_engine_matches_jax_offline_forward(toy, engine):
     imgs = _imgs(4, seed=1)
     got = engine.predict(imgs)

@@ -31,7 +31,10 @@ def _inputs(B, N, H, dh, seed):
     return qkv, g
 
 
-@pytest.mark.parametrize("B,N,H,dh", [(3, 10, 2, 8), (2, 18, 4, 16), (1, 198, 6, 64)])
+# N 258 and 578: past the 256 keys where the CUDA backwards switch to their
+# chunked path; the plain versions are what the card holds that path to
+@pytest.mark.parametrize("B,N,H,dh", [(3, 10, 2, 8), (2, 18, 4, 16), (1, 198, 6, 64),
+                                      (1, 258, 2, 64), (1, 578, 1, 64)])
 def test_plain_split_matches_pallas_split(B, N, H, dh):
     qkv, g = _inputs(B, N, H, dh, seed=N + 1)
     want = np.asarray(jattn._attention_bwd_split_impl(jnp.asarray(qkv), jnp.asarray(g), H, 2,
@@ -119,3 +122,11 @@ def test_unknown_modes_and_devices_raise(monkeypatch):
             fn(meta, g, 1)
     with pytest.raises(ValueError, match="must divide"):
         tattn.reference_attention_bwd_dv(torch.zeros((1, 4, 3 * 8)), torch.zeros((1, 4, 8)), 3)
+
+
+def test_long_path_scratch():
+    """Past 256 keys the CUDA backwards take a (B, H, N, 3) f32 scratch of
+    row statistics from the wrapper; at 256 and below none."""
+    assert tattn._bwd_stats(torch.zeros((2, 256, 3 * 64)), 1) is None
+    stats = tattn._bwd_stats(torch.zeros((2, 257, 3 * 3 * 64)), 3)
+    assert stats.shape == (2, 3, 257, 3) and stats.dtype == torch.float32

@@ -26,7 +26,10 @@ def _inputs(B, N, H, dh, seed):
     return qkv, g
 
 
-@pytest.mark.parametrize("B,N,H,dh", [(3, 10, 2, 8), (2, 18, 4, 16), (1, 198, 6, 64)])
+# N 258 and 578: past the 256 keys where the CUDA backward switches to its
+# chunked path; the plain version is what the card holds that path to
+@pytest.mark.parametrize("B,N,H,dh", [(3, 10, 2, 8), (2, 18, 4, 16), (1, 198, 6, 64),
+                                      (1, 258, 2, 64), (1, 578, 1, 64)])
 def test_reference_bwd_matches_pallas_bwd(B, N, H, dh):
     qkv, g = _inputs(B, N, H, dh, seed=N)
     want = np.asarray(jattn._attention_bwd_impl(jnp.asarray(qkv), jnp.asarray(g), H, 2,
