@@ -39,18 +39,18 @@ SIGNATURES = {
     "devit_attention_bwd": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
     "devit_attention_bwd_dv": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _VP], _I),
     "devit_attention_bwd_dqdk": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _VP], _I),
-    # x, w_q, w_scale, bias (or NULL), out, M, K, N, x dtype, out dtype, stream
-    "devit_quant_matmul": ([_VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _VP], _I),
+    # x, w_nk, w_scale, bias (or NULL), x_q and x_scale scratch, out, M, K,
+    # Kp, N, x dtype, out dtype, stream
+    "devit_quant_matmul": ([_VP] * 7 + [_LL, _I, _I, _I, _I, _I, _VP], _I),
     # t, norm scale, norm bias, qkv kernel, qkv bias (or NULL), proj kernel,
-    # proj bias, LN'd-row scratch, f32 accumulator, out, B, N, C, H,
-    # head_dim, eps, dtype, stream
+    # proj bias, scratch (f32: the LN'd rows; bf16: o), f32 accumulator (or
+    # NULL at bf16), out, B, N, C, H, head_dim, eps, dtype, stream
     "devit_block_attention": ([_VP] * 10 + [_I] * 5 + [ctypes.c_float, _I, _VP], _I),
     "devit_attention_smem_bytes": ([_I, _I, _I], _LL),
     "devit_attention_bwd_smem_bytes": ([_I, _I, _I], _LL),
     "devit_attention_bwd_dv_smem_bytes": ([_I, _I, _I], _LL),
     "devit_attention_bwd_dqdk_smem_bytes": ([_I, _I, _I], _LL),
     "devit_block_attention_smem_bytes": ([_I, _I, _I], _LL),
-    "devit_quant_matmul_smem_bytes": ([_I], _LL),
     "devit_max_smem_optin": ([_I], _LL),
     "devit_error_string": ([_I], ctypes.c_char_p),
 }

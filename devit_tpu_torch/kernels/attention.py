@@ -11,9 +11,9 @@ falls back.
 
 The head gate is applied outside the kernel, as in the JAX package.
 
-At bf16 the forward and the backwards compute every product on the tensor
-cores (mma.sync); at f32 they run f32 FMAs on the CUDA cores (see the
-sources' notes). The backwards take any N: past 256 keys they walk 256-key
+At bf16 the forward, the backwards and `fused_block_attention` compute every
+product on the tensor cores (mma.sync); at f32 they run f32 FMAs on the CUDA
+cores (see the sources' notes). The backwards take any N: past 256 keys they walk 256-key
 chunks on the CUDA cores (csrc/attention_bwd_long.cu), with a (B, H, N, 3)
 f32 scratch of row statistics that the wrapper allocates.
 
@@ -376,7 +376,7 @@ def make_trainable_attention(num_heads: int, bwd_mode: Optional[str] = None):
     return attention
 
 
-# ---- the attention half of a compact layer in one kernel (csrc/block_attention.cu)
+# ---- the attention half of a compact layer (csrc/block_attention.cu)
 
 
 def reference_block_attention(t: torch.Tensor, norm_scale: torch.Tensor,
@@ -445,19 +445,23 @@ def _launch_block(t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, p
            for x in [qkv_kernel, proj_kernel] + vecs):
         raise ValueError(f"every operand must be on {t.device}")
     _check_smem("block", N, dh, t.element_size(), t.device.index)
+    _check_aligned(t, qkv_kernel, proj_kernel)
     ns, nb, qb, pb = (None if v is None else v.float().contiguous() for v in vecs)
     out = torch.empty_like(t)
     if B == 0:
         return out
-    hbuf = torch.empty_like(t)
-    acc = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    if t.dtype == torch.bfloat16:  # o of every head, for the proj kernel
+        scratch, acc = torch.empty((B, N, K), dtype=t.dtype, device=t.device), None
+    else:  # the LN'd rows and the f32 residual accumulator
+        scratch = torch.empty_like(t)
+        acc = torch.empty(t.shape, dtype=torch.float32, device=t.device)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = _build.library().devit_block_attention(
             t.data_ptr(), ns.data_ptr(), nb.data_ptr(), qkv_kernel.data_ptr(),
             None if qb is None else qb.data_ptr(), proj_kernel.data_ptr(), pb.data_ptr(),
-            hbuf.data_ptr(), acc.data_ptr(), out.data_ptr(), B, N, C, num_heads, dh, eps,
-            _DTYPE_CODES[t.dtype], stream)
+            scratch.data_ptr(), None if acc is None else acc.data_ptr(), out.data_ptr(), B, N,
+            C, num_heads, dh, eps, _DTYPE_CODES[t.dtype], stream)
     _build.check_launch(err, "fused_block_attention")
     fused_block_attention.launches += 1
     return out
@@ -471,9 +475,10 @@ def fused_block_attention(t: torch.Tensor, norm_scale: torch.Tensor, norm_bias: 
     qkv_kernel (C, 3K) and proj_kernel (K, C) in the compact ragged layout
     (K = num_heads * head_dim). Replaces compact_forward's LN1 -> qkv ->
     attention -> proj -> residual sequence, with the TPU kernel's numerics
-    (see reference_block_attention). CUDA tensor: the kernel in
-    csrc/block_attention.cu (counted in `fused_block_attention.launches`),
-    which takes the two kernels in t's dtype. CPU tensor:
+    (see reference_block_attention). CUDA tensor: the kernels in
+    csrc/block_attention.cu (one call counted once in
+    `fused_block_attention.launches`; bf16 on the tensor cores, two
+    launches), which take the two weight kernels in t's dtype. CPU tensor:
     `reference_block_attention`."""
     args = (t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias)
     if t.device.type == "cpu":

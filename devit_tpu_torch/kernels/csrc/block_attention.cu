@@ -1,4 +1,4 @@
-// The attention half of a compact ViT layer in one kernel:
+// The attention half of a compact ViT layer:
 // out = t + proj(attention(qkv(LayerNorm(t)))).
 //
 // Replaces devit_tpu/kernels/attention.py:_block_attn_kernel (the Pallas TPU
@@ -9,40 +9,66 @@
 // (or none) and (C,), and the LayerNorm's, in f32. Numerics follow the TPU
 // kernel step by step: LayerNorm statistics in f32 whatever the dtype, with
 // rsqrt(var + eps); h rounded to t's dtype; qkv = h . W in f32, plus the
-// bias, rounded; per head the f32 scores and two-pass softmax of
-// attention.cu, p rounded to v's dtype, o = p . v in f32 rounded to v's
-// dtype; each head's o . proj[head rows] (f32) added onto an f32 copy of t;
-// then + proj_bias and one rounding. Only the order of the f32 sums inside
-// each product differs from the TPU's.
+// bias, rounded; per head the f32 scores and two-pass softmax, p rounded to
+// v's dtype, o = p . v in f32 rounded to v's dtype; each head's
+// o . proj[head rows] (f32) added onto an f32 copy of t; then + proj_bias and
+// one rounding. Only the order of the f32 sums inside each product differs
+// from the TPU's.
 //
 // What bounds it on an H100: it must read t and the weights once and write
 // the output once (~4 B N C bytes in bf16, the weights are small), against
 // 2 B N C 3K + 4 B N^2 K + 2 B N K C operations: ~250 operations a byte at
 // the deployed shapes (C 384, N 198, K 64..320), so the bf16 tensor cores
-// and HBM set about the same bound. This first version runs every product
-// with f32 FMAs on the CUDA cores, reading its operands from shared memory,
-// so its time is set by that arithmetic, far above the bound; chip_smoke.py
-// prints both.
+// and HBM set about the same bound.
 //
-// Design: a block owns one batch row and loops over the heads; no other
-// block touches its rows, so nothing needs atomics and every run gives the
-// same bits. The LayerNorm'd rows (N x C) and the f32 residual accumulator
-// do not fit in shared memory beside the rest (at C 384, N 198: 152 KB in
-// bf16 and 304 KB in f32 for the rows alone), so the block writes them once
-// to global scratch that only it reads back (from L2, mostly). Per head it
-// makes that head's q, k and v (N x 64 each) from the rows in shared memory,
-// 64 token rows at a time with staged chunks of rows and weights; then for
-// each 64-query tile it runs attention.cu's steps (the f32 score tile in
-// shared memory, softmax, p rounded, p . v), writes o, rounded, over the
-// tile's q columns (no longer needed), and adds o . proj[head rows] onto the
-// accumulator with staged chunks of proj. At the end it adds proj_bias and
-// writes the output. At N 198 a block takes ~124 KB (bf16) or ~198 KB (f32)
-// of shared memory: one block an SM.
+// bf16: two kernels on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// f32 accumulators). The TPU kernel holds a batch block's rows, qkv and
+// residual in VMEM through one grid step; a block here has neither the room
+// nor the order for that, so the work is cut at the heads:
+// - block_qkv_attn_kernel: one block a (batch row, head), B H blocks, 4
+//   warps. It takes the LayerNorm statistics of its row's N tokens (8 lanes
+//   a token, 16 tokens in flight: a warp a token waited on each token's
+//   loads in turn, 32.5 against 26.5 ms a bs256 forward's 48 calls on the
+//   H100, scripts/kernel_variants.py), then forms that head's q, k and v (N x 64 each) 64 tokens at a
+//   time: per 64-column chunk of C, the head's 3 x 64 weight columns arrive
+//   by cp.async and the tokens are normalised and rounded on their way into
+//   shared memory; each warp owns 16 tokens and 192 f32 accumulators' worth
+//   of columns; the rounded q, k and v (plus the bias) go into XOR-swizzled
+//   tiles. The forward kernel's attention steps (attn_mma.cuh, the same
+//   source as attention.cu's) then give each warp's 16 rows of o, written
+//   rounded into a (B, N, K) bf16 scratch that the wrapper allocates. At N
+//   198 a block takes ~112 KB of shared memory: two blocks an SM. Tried on
+//   the H100 and not kept: 32-column chunks through two buffers, the next
+//   chunk loading while this one's mma ran (29.5 against 26.4 ms a bs256
+//   forward's 48 calls: twice the barriers, no overlap won).
+// - block_proj_kernel: out = round(t + o . proj + proj_bias) as a GEMM over
+//   128 x 128 output tiles (8 warps of 64 x 32), its f32 accumulators
+//   started from t and the heads' 64-row slices of proj taken in order
+//   through a two-stage cp.async ring (K = H * 64: one chunk a head).
+// Every output has one writer; no atomics, the same bits on every run.
+//
+// f32: f32 FMAs on the CUDA cores (block_attn_kernel): the f32 tolerance is
+// 1e-4, and a TF32 mma keeps ~10 mantissa bits of each operand, too few. A
+// block owns one batch row and loops over the heads; no other block touches
+// its rows, so nothing needs atomics and every run gives the same bits. The
+// LayerNorm'd rows (N x C) and the f32 residual accumulator do not fit in
+// shared memory beside the rest (at C 384, N 198: 304 KB in f32 for the rows
+// alone), so the block writes them once to global scratch that only it
+// reads back (from L2, mostly). Per head it makes that head's q, k and v (N
+// x 64 each) from the rows in shared memory, 64 token rows at a time with
+// staged chunks of rows and weights; then for each 64-query tile it runs
+// attention.cu's f32 steps (the f32 score tile in shared memory, softmax, p
+// rounded, p . v), writes o, rounded, over the tile's q columns (no longer
+// needed), and adds o . proj[head rows] onto the accumulator with staged
+// chunks of proj. At the end it adds proj_bias and writes the output. At N
+// 198 a block takes ~198 KB of shared memory: one block an SM.
 
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -317,34 +343,381 @@ cudaError_t launch(const void* t, const float* ns, const float* nb, const void* 
   return cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores
+
+using devit::mma::attend_rows;
+using devit::mma::bf16;
+using devit::mma::cp_async16;
+using devit::mma::ldmatrix_x4;
+using devit::mma::ldmatrix_x4_trans;
+using devit::mma::mma_bf16;
+using devit::mma::pack_bf16;
+using devit::mma::swz;
+
+constexpr int kDH = 64;
+constexpr int kAttnThreads = 128;  // block_qkv_attn_kernel: 4 warps
+constexpr int kRG = 64;            // tokens of one qkv pass, 16 a warp
+constexpr int kCC = 64;            // columns of C a staged chunk
+constexpr int kPM = 128, kPN = 128;  // block_proj_kernel's output tile
+constexpr int kProjThreads = 256;  // 8 warps: 2 (rows) x 4 (columns)
+constexpr int kProjStage = (kPM + kPN) * kDH * 2;  // bytes: o [128][64] | proj [2][64][64]
+
+size_t attn_smem_bytes(int n) {
+  // Q, K, V [NP][64] | W [3][kCC][64] | H [kRG][64] bf16 | mean, rstd [NP] f32
+  const size_t np = (size_t)((n + 15) & ~15);
+  return (3 * np + 3 * kCC + kRG) * kDH * 2 + 2 * np * sizeof(float);
+}
+
+size_t mma_smem_bytes(int n) {
+  const size_t a = attn_smem_bytes(n), p = 2 * (size_t)kProjStage;
+  return a > p ? a : p;
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kAttnThreads, 2)
+block_qkv_attn_kernel(const bf16* __restrict__ t, const float* __restrict__ ns,
+                      const float* __restrict__ nb, const bf16* __restrict__ qw,
+                      const float* __restrict__ qb, bf16* __restrict__ o, int N, int C, int H,
+                      float scale, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int NP = (N + 15) & ~15;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + NP * kDH;
+  bf16* Vs = Ks + NP * kDH;
+  bf16* Ws = Vs + NP * kDH;     // [3][kCC][64]: the head's q, k, v columns of a chunk
+  bf16* Hs = Ws + 3 * kCC * kDH;  // [kRG][64]: LN'd, rounded tokens of a chunk
+  float* mean = reinterpret_cast<float*>(Hs + kRG * kDH);
+  float* rstd = mean + NP;
+
+  const int K = H * kDH;
+  const int b = blockIdx.x / H, hd = blockIdx.x % H;  // a row's heads run together
+  const bf16* tb = t + (int64_t)b * N * C;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // ---- LayerNorm statistics (f32): 8 lanes a token, 16 tokens in flight a
+  // block; a lane sums 8 values a 16-byte load, loads unrolled
+  {
+    const int sub = lane & 7;
+    for (int n0 = 4 * warp; n0 < N; n0 += 4 * (kAttnThreads / 32)) {
+      const int n = n0 + (lane >> 3);
+      const bf16* tr = tb + (int64_t)min(n, N - 1) * C;
+      float s = 0.f;
+#pragma unroll 4
+      for (int c = 8 * sub; c < C; c += 64) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(tr + c);
+        const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s += __bfloat162float(v[j]);
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float mu = s / (float)C;
+      float var = 0.f;
+#pragma unroll 4
+      for (int c = 8 * sub; c < C; c += 64) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(tr + c);
+        const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float d = __bfloat162float(v[j]) - mu;
+          var = fmaf(d, d, var);
+        }
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
+      if (sub == 0 && n < N) {
+        mean[n] = mu;
+        rstd[n] = rsqrtf(var / (float)C + eps);
+      }
+    }
+  }
+
+  // ---- q, k, v of head hd, kRG tokens a pass; warp w owns tokens 16w ..
+  const int64_t w3 = 3LL * K;
+  const int m = 16 * warp;
+  for (int r0 = 0; r0 < NP; r0 += kRG) {
+    float acc[3][8][4];
+#pragma unroll
+    for (int sec = 0; sec < 3; ++sec)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[sec][j][e] = 0.f;
+    for (int c0 = 0; c0 < C; c0 += kCC) {
+      __syncthreads();  // the statistics are in; the last chunk's Ws and Hs are free
+      for (int i = tid; i < 3 * kCC * 8; i += kAttnThreads) {
+        const int sec = i / (kCC * 8), r = (i >> 3) % kCC, ch = i & 7;
+        const bool ok = c0 + r < C;
+        cp_async16(Ws + sec * kCC * kDH + swz(r, ch),
+                   qw + (int64_t)(ok ? c0 + r : 0) * w3 + sec * K + hd * kDH + 8 * ch, ok);
+      }
+      for (int i = tid; i < kRG * 8; i += kAttnThreads) {
+        const int r = i >> 3, ch = i & 7;
+        const int n = r0 + r, c = c0 + 8 * ch;
+        uint4 packed = make_uint4(0u, 0u, 0u, 0u);  // zero past N and past C
+        if (n < N && c < C) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(tb + (int64_t)n * C + c);
+          const bf16* v = reinterpret_cast<const bf16*>(&raw);
+          const float mu = mean[n], rs = rstd[n];
+          uint32_t* p = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c2 = c + 2 * j;
+            const float h0 = __fadd_rn(__fmul_rn(__fmul_rn(__bfloat162float(v[2 * j]) - mu, rs),
+                                                 ns[c2]), nb[c2]);
+            const float h1 = __fadd_rn(__fmul_rn(__fmul_rn(__bfloat162float(v[2 * j + 1]) - mu,
+                                                           rs), ns[c2 + 1]), nb[c2 + 1]);
+            p[j] = pack_bf16(h0, h1);
+          }
+        }
+        *reinterpret_cast<uint4*>(Hs + swz(r, ch)) = packed;
+      }
+      devit::mma::cp_async_wait_all();
+      __syncthreads();
+      if (r0 + m < NP) {
+#pragma unroll
+        for (int ks = 0; ks < kCC / 16; ++ks) {
+          uint32_t a[4];
+          ldmatrix_x4(a, Hs + swz(m + (lane & 15), 2 * ks + (lane >> 4)));
+#pragma unroll
+          for (int sec = 0; sec < 3; ++sec)
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              uint32_t wb[4];  // columns 16d ..: {wb0, wb1}; 16d + 8 ..: {wb2, wb3}
+              ldmatrix_x4_trans(wb, Ws + sec * kCC * kDH +
+                                        swz(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                            2 * d + (lane >> 4)));
+              mma_bf16(acc[sec][2 * d], a, wb[0], wb[1]);
+              mma_bf16(acc[sec][2 * d + 1], a, wb[2], wb[3]);
+            }
+        }
+      }
+    }
+    // + the bias, rounded once, into the warp's 16 rows of Q, K and V (rows
+    // past N hold the bias: finite, masked as keys, never written as queries)
+    if (r0 + m < NP) {
+#pragma unroll
+      for (int sec = 0; sec < 3; ++sec) {
+        bf16* dst = Qs + sec * NP * kDH;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * (lane & 3);
+          const float b0 = qb != nullptr ? qb[sec * K + hd * kDH + col] : 0.f;
+          const float b1 = qb != nullptr ? qb[sec * K + hd * kDH + col + 1] : 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = r0 + m + (lane >> 2) + 8 * half;
+            *reinterpret_cast<uint32_t*>(dst + swz(r, j) + 2 * (lane & 3)) =
+                pack_bf16(acc[sec][j][2 * half] + b0, acc[sec][j][2 * half + 1] + b1);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- attention: warp w takes the 16-row tiles w, w + 4, ...; o rounded
+  // into the tile's own rows of Q, then 16-byte stores into the scratch
+  bf16* ob = o + (int64_t)b * N * K + hd * kDH;
+  for (int q0 = m; q0 < NP; q0 += 16 * (kAttnThreads / 32)) {
+    uint32_t qa[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      ldmatrix_x4(qa[ks], Qs + swz(q0 + (lane & 15), 2 * ks + (lane >> 4)));
+    float ov[8][4];
+    attend_rows<KC>(ov, qa, Ks, Vs, N, scale, lane);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = q0 + (lane >> 2) + 8 * half;
+        *reinterpret_cast<uint32_t*>(Qs + swz(r, j) + 2 * (lane & 3)) =
+            pack_bf16(ov[j][2 * half], ov[j][2 * half + 1]);
+      }
+    __syncwarp();
+    for (int i = lane; i < 16 * 8; i += 32) {
+      const int r = i >> 3, c = i & 7;
+      const int n = q0 + r;
+      if (n < N)
+        *reinterpret_cast<uint4*>(ob + (int64_t)n * K + 8 * c) =
+            *reinterpret_cast<const uint4*>(Qs + swz(q0 + r, c));
+    }
+  }
+}
+
+// One stage of block_proj_kernel: o rows m0.., head kc's 64 columns; proj
+// rows 64 kc.., columns n0 .. n0 + 127 as two swizzled [64][64] tiles.
+__device__ __forceinline__ void proj_stage(bf16* st, const bf16* o, const bf16* pw, int64_t m0,
+                                           int n0, int kc, int64_t M, int C, int K, int tid) {
+  bf16* Os = st;
+  bf16* Ps = st + kPM * kDH;
+#pragma unroll
+  for (int j = 0; j < kPM * 8 / kProjThreads; ++j) {
+    const int i = tid + j * kProjThreads;
+    const int r = i >> 3, c = i & 7;
+    const bool ok = m0 + r < M;
+    cp_async16(Os + swz(r, c), o + (ok ? m0 + r : 0) * K + kc * kDH + 8 * c, ok);
+  }
+#pragma unroll
+  for (int j = 0; j < kDH * 16 / kProjThreads; ++j) {
+    const int i = tid + j * kProjThreads;
+    const int r = i >> 4, half = (i >> 3) & 1, c = i & 7;
+    const int col = n0 + 64 * half + 8 * c;
+    const bool ok = col < C;
+    cp_async16(Ps + half * kDH * kDH + swz(r, c),
+               pw + (int64_t)(kc * kDH + r) * C + (ok ? col : 0), ok);
+  }
+}
+
+__global__ void __launch_bounds__(kProjThreads, 2)
+block_proj_kernel(const bf16* __restrict__ t, const bf16* __restrict__ o,
+                  const bf16* __restrict__ pw, const float* __restrict__ pb,
+                  bf16* __restrict__ out, int64_t M, int C, int H) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* stages = reinterpret_cast<bf16*>(smem);
+  constexpr int kStageElems = kProjStage / 2;
+  const int K = H * kDH;
+  const int n_tiles = (C + kPN - 1) / kPN;  // a row tile's column tiles are adjacent blocks
+  const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * kPM;
+  const int n0 = (blockIdx.x % n_tiles) * kPN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;  // the warp's rows and columns
+
+  proj_stage(stages, o, pw, m0, n0, 0, M, C, K, tid);
+  devit::mma::cp_async_commit();
+
+  // the accumulators start from t (f32); C is a multiple of 32, so a pair
+  // of columns lies wholly before or past C
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + wn + 8 * j + 2 * (lane & 3);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int64_t row = m0 + wm + 16 * i + (lane >> 2) + 8 * half;
+        float2 v = make_float2(0.f, 0.f);
+        if (row < M && col < C)
+          v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t + row * C + col));
+        acc[i][j][2 * half] = v.x;
+        acc[i][j][2 * half + 1] = v.y;
+      }
+    }
+
+  for (int kc = 0; kc < H; ++kc) {
+    if (kc + 1 < H)
+      proj_stage(stages + ((kc + 1) & 1) * kStageElems, o, pw, m0, n0, kc + 1, M, C, K, tid);
+    devit::mma::cp_async_commit();
+    devit::mma::cp_async_wait<1>();
+    __syncthreads();  // head kc's stage landed
+    const bf16* Os = stages + (kc & 1) * kStageElems;
+    const bf16* Ps = Os + kPM * kDH + (wn >> 6) * kDH * kDH;  // the warp's 64-column tile
+#pragma unroll
+    for (int ks = 0; ks < kDH / 16; ++ks) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(a[i], Os + swz(wm + 16 * i + (lane & 15), 2 * ks + (lane >> 4)));
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        uint32_t pb4[4];  // columns wn + 16d ..: {pb0, pb1}; wn + 16d + 8 ..: {pb2, pb3}
+        ldmatrix_x4_trans(pb4, Ps + swz(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                        2 * ((wn & 63) / 16 + d) + (lane >> 4)));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_bf16(acc[i][2 * d], a[i], pb4[0], pb4[1]);
+          mma_bf16(acc[i][2 * d + 1], a[i], pb4[2], pb4[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // ---- + proj_bias, one rounding
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn + 8 * j + 2 * (lane & 3);
+    if (col >= C) continue;
+    const float b0 = pb[col], b1 = pb[col + 1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int64_t row = m0 + wm + 16 * i + (lane >> 2) + 8 * half;
+        if (row < M)
+          *reinterpret_cast<uint32_t*>(out + row * C + col) =
+              pack_bf16(__fadd_rn(acc[i][j][2 * half], b0), __fadd_rn(acc[i][j][2 * half + 1], b1));
+      }
+  }
+}
+
+template <int KC>
+cudaError_t launch_qkv_attn(const bf16* t, const float* ns, const float* nb, const bf16* qw,
+                            const float* qb, bf16* o, int B, int N, int C, int H, float eps,
+                            cudaStream_t stream) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)block_qkv_attn_kernel<KC>, opted_in);
+  if (err != cudaSuccess) return err;
+  block_qkv_attn_kernel<KC><<<(unsigned)(B * H), kAttnThreads, attn_smem_bytes(N), stream>>>(
+      t, ns, nb, qw, qb, o, N, C, H, 1.0f / sqrtf((float)kDH), eps);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* t, const float* ns, const float* nb, const void* qw,
+                        const float* qb, const void* pw, const float* pb, void* o, void* out,
+                        int B, int N, int C, int H, float eps, cudaStream_t s) {
+  const bf16* tt = static_cast<const bf16*>(t);
+  const bf16* w = static_cast<const bf16*>(qw);
+  bf16* ob = static_cast<bf16*>(o);
+  // the fewest score registers that hold a row, as attention.cu's launch_bf16
+  cudaError_t err =
+      N <= 64    ? launch_qkv_attn<4>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
+      : N <= 128 ? launch_qkv_attn<8>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
+      : N <= 208 ? launch_qkv_attn<13>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
+                 : launch_qkv_attn<16>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  err = devit::opt_in_smem((const void*)block_proj_kernel, opted_in);
+  if (err != cudaSuccess) return err;
+  const int64_t M = (int64_t)B * N;
+  const unsigned grid = (unsigned)(((M + kPM - 1) / kPM) * ((C + kPN - 1) / kPN));
+  block_proj_kernel<<<grid, kProjThreads, 2 * kProjStage, s>>>(
+      tt, ob, static_cast<const bf16*>(pw), pb, static_cast<bf16*>(out), M, C, H);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs at sequence length n.
+// Dynamic shared memory one block needs at sequence length n (bf16: the
+// larger of the two kernels' needs).
 long long devit_block_attention_smem_bytes(int n, int head_dim, int elem_bytes) {
-  return (long long)smem_bytes(n, head_dim, elem_bytes);
+  return (long long)(elem_bytes == 2 ? mma_smem_bytes(n) : smem_bytes(n, head_dim, elem_bytes));
 }
 
-// t, hbuf, out: (B, N, C) contiguous of the dtype; acc: (B, N, C) f32
-// scratch; qkv_kernel (C, 3 H head_dim) and proj_kernel (H head_dim, C)
-// contiguous of the dtype; norm scale/bias, proj bias (C,) and qkv bias
-// (3 H head_dim,) or NULL, f32. C must be a multiple of 32. dtype: 0 =
+// t, out: (B, N, C) contiguous of the dtype; qkv_kernel (C, 3 H head_dim)
+// and proj_kernel (H head_dim, C) contiguous of the dtype; norm scale/bias,
+// proj bias (C,) and qkv bias (3 H head_dim,) or NULL, f32. Scratch: f32,
+// `scratch` (B, N, C) f32 for the LN'd rows and `acc` (B, N, C) f32; bf16,
+// `scratch` (B, N, H head_dim) bf16 for o and `acc` unused. C must be a
+// multiple of 32, and the bf16 operands 16-byte aligned. dtype: 0 =
 // float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
 int devit_block_attention(const void* t, const void* ns, const void* nb, const void* qw,
-                          const void* qb, const void* pw, const void* pb, void* hbuf, void* acc,
-                          void* out, int B, int N, int C, int H, int head_dim, float eps,
-                          int dtype, void* stream) {
+                          const void* qb, const void* pw, const void* pb, void* scratch,
+                          void* acc, void* out, int B, int N, int C, int H, int head_dim,
+                          float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim != 64 || C % 32 != 0 || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const float* f[4] = {static_cast<const float*>(ns), static_cast<const float*>(nb),
                        static_cast<const float*>(qb), static_cast<const float*>(pb)};
-  float* a = static_cast<float*>(acc);
   if (dtype == 0)
-    return (int)launch<float>(t, f[0], f[1], qw, f[2], pw, f[3], hbuf, a, out, B, N, C, H, eps, s);
+    return (int)launch<float>(t, f[0], f[1], qw, f[2], pw, f[3], scratch,
+                              static_cast<float*>(acc), out, B, N, C, H, eps, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(t, f[0], f[1], qw, f[2], pw, f[3], hbuf, a, out, B, N, C,
-                                      H, eps, s);
+    return (int)launch_bf16(t, f[0], f[1], qw, f[2], pw, f[3], scratch, out, B, N, C, H, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,9 @@
-// Tensor-core building blocks shared by the bf16 attention kernels
-// (attention.cu, attention_bwd.cu): 16-byte cp.async staging into an
-// XOR-swizzled 64-wide bf16 tile, ldmatrix (plain and transposed) and the
-// m16n8k16 bf16 mma.sync with f32 accumulation.
+// Tensor-core building blocks shared by the bf16 kernels (attention.cu,
+// attention_bwd.cu, attention_bwd_split.cu, block_attention.cu) and the int8
+// matmul (quant_matmul.cu): 16-byte cp.async staging into an XOR-swizzled
+// tile of 128-byte rows (64 bf16 or 128 int8), ldmatrix (plain and
+// transposed), the m16n8k16 bf16 mma.sync with f32 accumulation and the
+// m16n8k32 s8 mma.sync with exact int32 accumulation.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane l holds, of the f32
 // accumulator, rows l/4 (c0, c1) and l/4 + 8 (c2, c3) at columns 2(l%4) and
@@ -105,6 +107,42 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- multi-stage cp.async rings
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `Pending` committed groups are still in flight.
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// ---- int8 (m16n8k32 .s8)
+//
+// An 8x8 b16 matrix of ldmatrix is 8 rows of 16 bytes: 16 int8 of K. Lane l
+// receives bytes 4(l%4) .. 4(l%4) + 3 of row l/4, which is the s8 fragment
+// layout: A {a0, a1, a2, a3} = (row l/4, k 4(l%4) ..), (row l/4 + 8, same
+// k), (row l/4, k 16 + 4(l%4) ..), (row l/4 + 8, k 16 + ..); B {b0, b1} =
+// (column l/4, k 4(l%4) ..), (column l/4, k 16 + 4(l%4) ..) from a tile whose
+// rows are the output columns (K contiguous); the int32 accumulators sit as
+// the f32 ones of mma_bf16.
+
+// Byte offset of 16-byte chunk c of row r in a [rows][128] int8 tile: swz's
+// XOR pattern in bytes.
+__device__ __forceinline__ int swz8(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// d += a b: m16n8k32, s8 operands, s32 accumulators (exact below 2^31).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace mma

@@ -1,178 +1,335 @@
-// Int8 matmul with dynamic per-row activation quantization, fused.
+// Int8 matmul with dynamic per-row activation quantization, on the int8
+// tensor cores.
 //
 // Replaces devit_tpu/kernels/quant.py:_quant_matmul_kernel (the Pallas TPU
 // kernel behind fused_int8_matmul). Same contract and the same arithmetic as
-// the plain dynamic_int8_matmul: x (M, K) f32 or bf16; w_q (K, N) int8 in the
-// JAX package's (in, out) layout; w_scale (N,) and bias (N,) f32 (bias may be
-// absent); out (M, N) f32 or bf16. Per row: amax = max |x| in f32,
-// xs = max(amax, 1e-8) / 127, x_q = clip(rint(x / xs), -127, 127) with an IEEE
-// division and round-half-even (the library is built without fast math);
-// acc = x_q . w_q in int32, exact; y = (float)acc * xs * w_scale[n] + bias[n]
-// in f32, each step rounded on its own (the intrinsics keep nvcc from
-// contracting the product and the add into an FMA), then rounded to the
-// output type. The int32 sums are exact, so the output is the plain
-// version's bit for bit.
+// the plain dynamic_int8_matmul: x (M, K) f32 or bf16; the (K, N) int8
+// weight, here in the layout the tensor cores take, w_nk (N, Kp): row n holds
+// column n of w_q, K bytes zero-padded to Kp (a multiple of 32), built once by
+// QuantizedLinear; w_scale (N,) and bias (N,) f32 (bias may be absent); out
+// (M, N) f32 or bf16. Per row: amax = max |x| in f32, xs = max(amax, 1e-8) /
+// 127, x_q = clip(rint(x / xs), -127, 127) with an IEEE division and
+// round-half-even (the library is built without fast math); acc = x_q . w_q
+// in int32, exact; y = (float)acc * xs * w_scale[n] + bias[n] in f32, each
+// step rounded on its own (the intrinsics keep nvcc from contracting the
+// product and the add into an FMA), then rounded to the output type. The
+// int32 sums are exact in any order, so the output is the plain version's
+// bit for bit.
 //
-// What bounds it on an H100: one launch must read x (2 M K bytes in bf16) and
+// What bounds it on an H100: one call must read x (2 M K bytes in bf16) and
 // w_q (K N), and write the output (2 M N); it does 2 M K N int8 operations.
 // At the serving shapes (M = B * 198, K and N of 64..1536) that is K N / (K +
-// N) operations a byte, ~100-380, near the ~590 at which the int8 tensor
-// cores (1979 TOP/s) rather than HBM would be the limit, so the bound is
-// memory at small K, N and the tensor cores at the largest. This first
-// version does the dot with __dp4a (four int8 products a lane per
-// instruction) on the CUDA cores, not the tensor cores, so its time is set
-// by that arithmetic and the shared-memory reads that feed it; chip_smoke.py
-// prints it beside its bound.
+// N) operations a byte, ~50-380, below the ~590 at which the int8 tensor
+// cores (1979 TOP/s) rather than HBM (3.35 TB/s) would be the limit: memory.
 //
-// Design: a block owns kTM rows. It reads each row once (a warp a row) for
-// its amax, then quantizes it into shared memory as int8, packed four along K
-// into one 32-bit word, K-major, so that __dp4a takes a word of x and a word
-// of w. It then walks the N columns kTN at a time; for each it stages w_q in
-// depth chunks of kKC, transposed into the same packed K-major words, and
-// each thread accumulates a 4 x 4 tile of outputs in int32 registers. Every
-// output has one writer and the sum runs in one fixed order: no atomics, the
-// same bits on every run. The M tail is masked (rows past M quantize to zero
-// and are never stored), and so is the N tail.
+// Design: two launches a call.
+// - quant_rows_kernel (a warp a row): amax, the scale, and the row's codes
+//   into an (M, Kp) int8 scratch (zero past K) and an (M,) f32 scale that
+//   the wrapper allocates. It reads x once and writes M Kp bytes, which the
+//   GEMM reads back: 2 M Kp bytes more than the bound counts, against
+//   re-quantizing x in every column block of the GEMM. x / xs is one
+//   reciprocal a row and an FMA correction (div_rn, the IEEE quotient for
+//   normal results; rint takes anything smaller to 0 either way): 7.26 ->
+//   6.73 ms over a bs256 int8 forward's 192 calls on the H100, every code
+//   the same (scripts/kernel_variants.py).
+// - quant_mma_kernel: one block a 128 x 128 output tile, the column tiles of
+//   a row tile adjacent in the launch order, so the blocks in flight share x
+//   rows in L2. Eight warps, each 64 rows x 32 columns (4 x 4 m16n8 tiles,
+//   64 int32 accumulators a lane, 128 registers: two blocks an SM). K comes
+//   in 128-byte chunks through a three-stage cp.async ring into XOR-swizzled
+//   tiles (codes [128][128], weight [128][128]); ldmatrix brings the
+//   fragments, mma.sync m16n8k32 s8 sums them exactly. Shared memory does
+//   not grow with K (96 KB a block). The epilogue loads every scale before
+//   its first store and goes out through a padded shared tile as 16-byte
+//   stores (per-element scale loads and 4-byte stores took 21.8 against 15.0
+//   ms of the forward's GEMM time, scripts/kernel_variants.py on the H100).
+//   Rows past M and columns past N are zero-filled on the way in and never
+//   stored. Every output has one writer: no atomics, the same bits on every
+//   run. Measured on the H100 and not kept: a persistent grid whose ring ran
+//   across tiles (2% faster but spilled), 256-row tiles (one block an SM; 4%
+//   slower), 16-byte row loads and a row held in registers (both slower).
+//   What holds it back: at K 384 a block runs three chunks, so the ring's
+//   first load and the epilogue are exposed; the GEMM does a bs256 int8
+//   forward's 5.4 T operations at ~366 T/s. wgmma with TMA is the next step.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
 using devit::from_f;
-using devit::to_f;
 using devit::warp_max;
+using devit::mma::cp_async16;
+using devit::mma::ldmatrix_x4;
+using devit::mma::mma_s8;
+using devit::mma::swz8;
 
-constexpr int kTM = 64;        // rows a block owns
-constexpr int kTN = 64;        // output columns per pass
-constexpr int kKC = 128;       // depth of one staged chunk of w_q
-constexpr int kXS = kTM + 4;   // word stride of the packed x: 16-byte aligned row groups
-constexpr int kThreads = 256;  // 16 column lanes x 16 row groups, a 4 x 4 tile each
+constexpr int kRowThreads = 256;   // quant_rows_kernel: a warp a row
+constexpr int kBM = 128;           // output rows of a GEMM tile
+constexpr int kBN = 128;           // output columns of a GEMM tile
+constexpr int kBK = 128;           // bytes of K a stage
+constexpr int kStages = 3;
+constexpr int kThreads = 256;      // 8 warps: 2 (rows) x 4 (columns) of 64 x 32
+constexpr int kStageBytes = (kBM + kBN) * kBK;
 
-size_t smem_bytes(int K) {
-  // row scales [kTM] f32 | Xq [K/4][kXS] words of 4 int8 | Wq [kKC/4][kTN] words
-  // of 4 int8 (all dynamic: opt_in_smem gives the kernel the whole opt-in
-  // size, which leaves no room for static shared memory)
-  return (size_t)kTM * 4 + (size_t)(K / 4) * kXS * 4 + (size_t)(kKC / 4) * kTN * 4;
+size_t smem_bytes() { return (size_t)kStages * kStageBytes; }
+
+// Four consecutive values of a row as f32 (8 bytes of bf16, 16 of f32).
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const float2 lo = __bfloat1622float2(h[0]), hi = __bfloat1622float2(h[1]);
+  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
 }
 
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(kThreads)
-quant_matmul_kernel(const TI* __restrict__ x, const int8_t* __restrict__ wq,
-                    const float* __restrict__ ws, const float* __restrict__ bias,
-                    TO* __restrict__ out, int64_t M, int K, int N) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int KW = K / 4;
-  float* row_scale = reinterpret_cast<float*>(smem);
-  int* Xq = reinterpret_cast<int*>(row_scale + kTM);
-  int* Wq = Xq + KW * kXS;
-
-  const int64_t m0 = (int64_t)blockIdx.x * kTM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // ---- each row once: amax, its scale, and the row quantized into Xq
-  for (int r = warp; r < kTM; r += kThreads / 32) {
-    const int64_t m = m0 + r;
-    if (m >= M) {
-      for (int kw = lane; kw < KW; kw += 32) Xq[kw * kXS + r] = 0;
-      continue;
-    }
-    const TI* row = x + m * K;
-    float amax = 0.f;
-    for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(to_f(row[k])));
-    amax = warp_max(amax);
-    const float xs = fmaxf(amax, 1e-8f) / 127.0f;
-    for (int kw = lane; kw < KW; kw += 32) {
-      unsigned packed = 0;
+// A warp a row: amax over the row's K values, four a lane a load (unrolled,
+// so several loads are in flight); the scale; then the codes (zero past K)
+// into the row of the (M, Kp) scratch.
+template <typename TI>
+__global__ void __launch_bounds__(kRowThreads)
+quant_rows_kernel(const TI* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ x_scale,
+                  int64_t M, int K, int Kp) {
+  const int64_t m = (int64_t)blockIdx.x * (kRowThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (m >= M) return;
+  const TI* row = x + m * K;
+  float amax = 0.f;
+#pragma unroll 4
+  for (int g = lane; g < K / 4; g += 32) {
+    float v[4];
+    load4(row + 4 * g, v);
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
+  }
+  const float xs = fmaxf(warp_max(amax), 1e-8f) / 127.0f;
+  const float rxs = __frcp_rn(xs);
+  uint32_t* qrow = reinterpret_cast<uint32_t*>(xq + m * Kp);
+#pragma unroll 4
+  for (int g = lane; g < Kp / 4; g += 32) {
+    uint32_t packed = 0;
+    if (g < K / 4) {
+      float v[4];
+      load4(row + 4 * g, v);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float q = fminf(fmaxf(rintf(to_f(row[4 * kw + j]) / xs), -127.f), 127.f);
-        packed |= ((unsigned)(int)q & 0xffu) << (8 * j);
+        const float q = fminf(fmaxf(rintf(devit::mma::div_rn(v[j], xs, rxs)), -127.f), 127.f);
+        packed |= ((uint32_t)(int)q & 0xffu) << (8 * j);
       }
-      Xq[kw * kXS + r] = (int)packed;
     }
-    if (lane == 0) row_scale[r] = xs;
+    qrow[g] = packed;
   }
-  __syncthreads();
+  if (lane == 0) x_scale[m] = xs;
+}
 
-  const int tx = threadIdx.x % 16;  // columns 4*tx .. 4*tx+3 of the pass
-  const int ty = threadIdx.x / 16;  // rows 4*ty .. 4*ty+3 of the block
-  for (int n0 = 0; n0 < N; n0 += kTN) {
-    int acc[4][4];
+// One stage: codes rows m0.. and weight rows n0.., bytes k0 .. k0 + 127 of
+// each, zero-filled past M, N and Kp.
+__device__ __forceinline__ void load_stage(unsigned char* st, const int8_t* xq, const int8_t* w,
+                                           int64_t m0, int n0, int k0, int64_t M, int N, int Kp,
+                                           int tid) {
+#pragma unroll
+  for (int j = 0; j < (kBM + kBN) * 8 / kThreads; ++j) {
+    const int i = tid + j * kThreads;
+    const int r = (i >> 3) % kBM, c = i & 7;  // i < kBM * 8: codes; then weight
+    const bool is_w = i >= kBM * 8;
+    const int k = k0 + 16 * c;
+    const bool ok = k < Kp && (is_w ? n0 + r < N : m0 + r < M);
+    const int8_t* src = is_w ? w + (int64_t)(n0 + r) * Kp + k : xq + (m0 + r) * Kp + k;
+    cp_async16(st + (is_w ? kBM * kBK : 0) + swz8(r, c), ok ? src : xq, ok);
+  }
+}
+
+// The epilogue of one output tile: (float)acc * xs * w_scale (+ bias),
+// rounded step by step, then to TO. With N a multiple of 16 bytes' worth of
+// TO, the tile goes through shared memory (rows padded by 16 bytes, so
+// neither side conflicts on banks) and out as 16-byte stores; otherwise
+// straight from the registers.
+template <typename TO>
+__device__ __forceinline__ void epilogue(const int (&acc)[4][4][4], unsigned char* smem,
+                                         const float* x_scale, const float* ws, const float* bias,
+                                         TO* out, int64_t m0, int n0, int64_t M, int N, int wm,
+                                         int wn, int tid, int lane) {
+  // every scale and bias the lane needs, loaded before the first store
+  float xs[4][2], sc[4][2], bi[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t m = m0 + wm + 16 * i + (lane >> 2) + 8 * half;
+      xs[i][half] = m < M ? x_scale[m] : 0.f;
+    }
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + wn + 8 * t + 2 * (lane & 3) + e;
+      sc[t][e] = n < N ? ws[n] : 0.f;
+      bi[t][e] = bias != nullptr && n < N ? bias[n] : 0.f;
+    }
+  // y of the accumulator element (i, t, e): row 16i + lane/4 + 8(e/2), column
+  // 8t + 2(lane%4) + e%2 of the warp's block
+  auto y = [&](int i, int t, int e) {
+    const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][t][e]), xs[i][e >> 1]),
+                              sc[t][e & 1]);
+    return bias != nullptr ? __fadd_rn(v, bi[t][e & 1]) : v;
+  };
+  constexpr int kVec = 16 / sizeof(TO);  // values a 16-byte store
+  constexpr int kLd = kBN + kVec;        // staged row stride in values
+  if (N % kVec == 0) {
+    devit::mma::cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring
+    TO* tile = reinterpret_cast<TO*>(smem);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-    for (int k0 = 0; k0 < K; k0 += kKC) {
-      const int kcw = min(kKC, K - k0) / 4;  // words of this chunk
-      // ---- stage w_q[k0 .., n0 .. n0+kTN) as packed K-major words
-      for (int i = threadIdx.x; i < kcw * kTN; i += kThreads) {
-        const int kw = i / kTN, c = i % kTN;
-        const int n = n0 + c;
-        unsigned packed = 0;
-        if (n < N) {
-          const int8_t* col = wq + (int64_t)(k0 + 4 * kw) * N + n;
+      for (int t = 0; t < 4; ++t)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            packed |= (unsigned)(uint8_t)col[(int64_t)j * N] << (8 * j);
+        for (int half = 0; half < 2; ++half) {
+          TO* dst = tile + (wm + 16 * i + (lane >> 2) + 8 * half) * kLd + wn + 8 * t +
+                    2 * (lane & 3);
+          if constexpr (sizeof(TO) == 4) {
+            *reinterpret_cast<float2*>(dst) = make_float2(y(i, t, 2 * half), y(i, t, 2 * half + 1));
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(dst) =
+                __floats2bfloat162_rn(y(i, t, 2 * half), y(i, t, 2 * half + 1));
+          }
         }
-        Wq[kw * kTN + c] = (int)packed;
-      }
-      __syncthreads();
-      const int kw0 = k0 / 4;
-#pragma unroll 4
-      for (int kw = 0; kw < kcw; ++kw) {
-        const int4 a = *reinterpret_cast<const int4*>(Xq + (kw0 + kw) * kXS + 4 * ty);
-        const int4 b = *reinterpret_cast<const int4*>(Wq + kw * kTN + 4 * tx);
-        const int av[4] = {a.x, a.y, a.z, a.w};
-        const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+    __syncthreads();
+    constexpr int kChunks = kBN / kVec;  // 16-byte chunks of a tile row
+    for (int idx = tid; idx < kBM * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      const int64_t m = m0 + r;
+      const int n = n0 + c * kVec;
+      if (m < M && n < N)
+        *reinterpret_cast<uint4*>(out + m * N + n) =
+            *reinterpret_cast<const uint4*>(tile + r * kLd + c * kVec);
     }
-
-    // ---- epilogue: (float)acc * xs * w_scale (+ bias), rounded step by step
+    return;
+  }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t m = m0 + 4 * ty + i;
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t m = m0 + wm + 16 * i + (lane >> 2) + 8 * half;
       if (m >= M) continue;
-      const float xs = row_scale[4 * ty + i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + 4 * tx + j;
-        if (n >= N) continue;
-        float y = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), xs), ws[n]);
-        if (bias != nullptr) y = __fadd_rn(y, bias[n]);
-        out[m * N + n] = from_f<TO>(y);
+      for (int t = 0; t < 4; ++t) {
+        const int n = n0 + wn + 8 * t + 2 * (lane & 3);
+        TO* dst = out + m * N + n;
+        const float y0 = y(i, t, 2 * half), y1 = y(i, t, 2 * half + 1);
+        if ((N & 1) == 0 && n < N) {  // two adjacent columns a store
+          if constexpr (sizeof(TO) == 4) {
+            *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(y0, y1);
+          }
+        } else {
+          if (n < N) dst[0] = from_f<TO>(y0);
+          if (n + 1 < N) dst[1] = from_f<TO>(y1);
+        }
       }
     }
+}
+
+// The 32-byte K steps of one staged chunk: A (codes) and B (weight) through
+// ldmatrix, 16 mma a step into the warp's 64 x 32 accumulators.
+__device__ __forceinline__ void chunk_mma(int (&acc)[4][4][4], const unsigned char* As,
+                                          const unsigned char* Bs, int steps, int wm, int wn,
+                                          int lane) {
+#pragma unroll
+  for (int ks = 0; ks < kBK / 32; ++ks) {
+    if (ks >= steps) break;
+    uint32_t a[4][4], b[2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ldmatrix_x4(a[i], As + swz8(wm + 16 * i + (lane & 15), 2 * ks + (lane >> 4)));
+#pragma unroll
+    for (int j = 0; j < 2; ++j)  // n8 tiles 2j: {b0, b1}; 2j + 1: {b2, b3}
+      ldmatrix_x4(b[j], Bs + swz8(wn + 16 * j + (lane & 7) + ((lane >> 4) << 3),
+                                  2 * ks + ((lane >> 3) & 1)));
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        mma_s8(acc[i][t], a[i], b[t >> 1][2 * (t & 1)], b[t >> 1][2 * (t & 1) + 1]);
   }
 }
 
+// One block a 128 x 128 output tile; the column tiles of a row tile are
+// adjacent blocks, so the blocks in flight share x rows.
+template <typename TO>
+__global__ void __launch_bounds__(kThreads, 2)
+quant_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ x_scale,
+                 const int8_t* __restrict__ w, const float* __restrict__ ws,
+                 const float* __restrict__ bias, TO* __restrict__ out, int64_t M, int Kp, int N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n_tiles = (N + kBN - 1) / kBN;
+  const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * kBM;
+  const int n0 = blockIdx.x % n_tiles * kBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;  // the warp's rows and columns
+  const int nk = (Kp + kBK - 1) / kBK;
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load_stage(smem + s * kStageBytes, xq, w, m0, n0, s * kBK, M, N, Kp, tid);
+    devit::mma::cp_async_commit();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    devit::mma::cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk kc landed; the stage chunk kc - 1 used is free
+    if (kc + kStages - 1 < nk)
+      load_stage(smem + (kc + kStages - 1) % kStages * kStageBytes, xq, w, m0, n0,
+                 (kc + kStages - 1) * kBK, M, N, Kp, tid);
+    devit::mma::cp_async_commit();
+    const unsigned char* As = smem + kc % kStages * kStageBytes;
+    const int steps = min(kBK, Kp - kc * kBK) / 32;
+    chunk_mma(acc, As, As + kBM * kBK, steps, wm, wn, lane);
+  }
+  epilogue<TO>(acc, smem, x_scale, ws, bias, out, m0, n0, M, N, wm, wn, tid, lane);
+}
+
 template <typename TI, typename TO>
-cudaError_t launch(const void* x, const void* wq, const void* ws, const void* bias, void* out,
-                   int64_t M, int K, int N, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, const void* ws, const void* bias, void* xq,
+                   void* xs, void* out, int64_t M, int K, int Kp, int N, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)quant_matmul_kernel<TI, TO>, opted_in);
+  cudaError_t err = devit::opt_in_smem((const void*)quant_mma_kernel<TO>, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((M + kTM - 1) / kTM));
-  quant_matmul_kernel<TI, TO><<<grid, kThreads, smem_bytes(K), stream>>>(
-      static_cast<const TI*>(x), static_cast<const int8_t*>(wq), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), static_cast<TO*>(out), M, K, N);
+  const unsigned row_blocks = (unsigned)((M + kRowThreads / 32 - 1) / (kRowThreads / 32));
+  quant_rows_kernel<TI><<<row_blocks, kRowThreads, 0, stream>>>(
+      static_cast<const TI*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), M, K, Kp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (M + kBM - 1) / kBM * ((N + kBN - 1) / kBN);
+  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)tiles;
+  quant_mma_kernel<TO><<<grid, kThreads, smem_bytes(), stream>>>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(w), static_cast<const float*>(ws),
+      static_cast<const float*>(bias), static_cast<TO*>(out), M, Kp, N);
   return cudaGetLastError();
 }
 
 template <typename TI>
-cudaError_t launch_out(const void* x, const void* wq, const void* ws, const void* bias, void* out,
-                       int64_t M, int K, int N, int out_dtype, cudaStream_t s) {
-  if (out_dtype == 0) return launch<TI, float>(x, wq, ws, bias, out, M, K, N, s);
-  if (out_dtype == 1) return launch<TI, __nv_bfloat16>(x, wq, ws, bias, out, M, K, N, s);
+cudaError_t launch_out(const void* x, const void* w, const void* ws, const void* bias, void* xq,
+                       void* xs, void* out, int64_t M, int K, int Kp, int N, int out_dtype,
+                       cudaStream_t s) {
+  if (out_dtype == 0) return launch<TI, float>(x, w, ws, bias, xq, xs, out, M, K, Kp, N, s);
+  if (out_dtype == 1)
+    return launch<TI, __nv_bfloat16>(x, w, ws, bias, xq, xs, out, M, K, Kp, N, s);
   return cudaErrorInvalidValue;
 }
 
@@ -180,19 +337,22 @@ cudaError_t launch_out(const void* x, const void* wq, const void* ws, const void
 
 extern "C" {
 
-// Dynamic shared memory one block needs at depth K.
-long long devit_quant_matmul_smem_bytes(int K) { return (long long)smem_bytes(K); }
-
-// x: (M, K) contiguous; w_q: (K, N) int8 contiguous; w_scale: (N,) f32;
-// bias: (N,) f32 or NULL; out: (M, N) contiguous. K must be a multiple of 4.
-// dtypes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
-int devit_quant_matmul(const void* x, const void* wq, const void* ws, const void* bias, void* out,
-                       long long M, int K, int N, int x_dtype, int out_dtype, void* stream) {
+// x: (M, K) contiguous, 4-value groups aligned; w_nk: (N, Kp) int8
+// contiguous, row n = column n of w_q zero-padded to Kp; w_scale: (N,) f32;
+// bias: (N,) f32 or NULL; x_q: (M, Kp) int8 and x_scale: (M,) f32 scratch;
+// out: (M, N) contiguous. K a multiple of 4, Kp of 32, K <= Kp. dtypes:
+// 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+int devit_quant_matmul(const void* x, const void* w_nk, const void* ws, const void* bias,
+                       void* x_q, void* x_scale, void* out, long long M, int K, int Kp, int N,
+                       int x_dtype, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K % 4 != 0 || K <= 0 || N <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
-  if (x_dtype == 0) return (int)launch_out<float>(x, wq, ws, bias, out, M, K, N, out_dtype, s);
+  if (K % 4 != 0 || Kp % 32 != 0 || K <= 0 || K > Kp || N <= 0 || M <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (x_dtype == 0)
+    return (int)launch_out<float>(x, w_nk, ws, bias, x_q, x_scale, out, M, K, Kp, N, out_dtype, s);
   if (x_dtype == 1)
-    return (int)launch_out<__nv_bfloat16>(x, wq, ws, bias, out, M, K, N, out_dtype, s);
+    return (int)launch_out<__nv_bfloat16>(x, w_nk, ws, bias, x_q, x_scale, out, M, K, Kp, N,
+                                          out_dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,9 +8,10 @@ CUDA torch has no int32 matmul, and |acc| <= K * 127^2 < 2^53 for any K the
 models use), rounded to f32 as the JAX package's int32 -> f32 cast rounds;
 then acc * x_scale * w_scale + bias in f32 in that order, and the cast.
 `fused_int8_matmul` computes the same function: on a CUDA tensor it launches
-the hand-written kernel in csrc/quant_matmul.cu (bit for bit the plain
-version's output), on a CPU tensor it takes `dynamic_int8_matmul`. Any other
-device raises; nothing falls back.
+the hand-written kernels in csrc/quant_matmul.cu (the row quantization, then
+the int8 tensor-core GEMM; bit for bit the plain version's output), on a CPU
+tensor it takes `dynamic_int8_matmul`. Any other device raises; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -27,7 +28,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 class QuantizedLinear(nn.Module):
     """w_q (K, N) int8, w_scale (N,) f32 per output channel, bias (N,) f32 or
-    None; buffers, so .to(device) carries them."""
+    None; buffers, so .to(device) carries them. w_nk (N, Kp) is the weight in
+    the layout the CUDA kernel's tensor cores take, made once here: row n is
+    column n of w_q, zero-padded to Kp, K rounded up to a multiple of 32 (a
+    buffer derived from w_q, left out of the state dict: to change the weight,
+    build a new QuantizedLinear)."""
 
     def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor,
                  bias: Optional[torch.Tensor] = None):
@@ -35,6 +40,10 @@ class QuantizedLinear(nn.Module):
         self.register_buffer("w_q", w_q)
         self.register_buffer("w_scale", w_scale)
         self.register_buffer("bias", bias)
+        K, N = w_q.shape
+        w_nk = torch.zeros((N, -(-K // 32) * 32), dtype=w_q.dtype, device=w_q.device)
+        w_nk[:, :K] = w_q.t()
+        self.register_buffer("w_nk", w_nk, persistent=False)
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -85,18 +94,17 @@ def _check(x: torch.Tensor, q: QuantizedLinear, out_dtype: torch.dtype) -> None:
     if q.w_q.dtype != torch.int8 or q.w_scale.dtype != torch.float32 or (
             q.bias is not None and q.bias.dtype != torch.float32):
         raise TypeError("the CUDA int8 kernel takes an int8 w_q and f32 scales and bias")
-    for name, t in (("w_q", q.w_q), ("w_scale", q.w_scale), ("bias", q.bias)):
+    for name, t in (("w_nk", q.w_nk), ("w_scale", q.w_scale), ("bias", q.bias)):
         if t is not None and (t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    _build.check_smem(_build.library().devit_quant_matmul_smem_bytes(K),
-                      f"depth K={K} in the int8 kernel", x.device.index)
 
 
 def fused_int8_matmul(x: torch.Tensor, q: QuantizedLinear, *,
                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """dynamic_int8_matmul's function, fused. CUDA tensor: the kernel in
-    csrc/quant_matmul.cu (counted in `fused_int8_matmul.launches`). CPU
-    tensor: `dynamic_int8_matmul`."""
+    """dynamic_int8_matmul's function, fused. CUDA tensor: the kernels in
+    csrc/quant_matmul.cu, the row quantization into an (M, Kp) int8 scratch
+    and the GEMM (one call, counted once in `fused_int8_matmul.launches`).
+    CPU tensor: `dynamic_int8_matmul`."""
     if x.device.type == "cpu":
         return dynamic_int8_matmul(x, q, out_dtype)
     if x.device.type != "cuda":
@@ -104,15 +112,21 @@ def fused_int8_matmul(x: torch.Tensor, q: QuantizedLinear, *,
                          f"not {x.device}")
     _check(x, q, out_dtype)
     K, N = q.w_q.shape
+    Kp = q.w_nk.shape[1]
     x2 = x.reshape(-1, K).contiguous()
+    if x2.data_ptr() % (4 * x2.element_size()):  # the kernel reads 4 values at a time
+        x2 = x2.clone()
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M:
+        # one scratch: the (M, Kp) int8 codes, then the (M,) f32 row scales
+        scratch = torch.empty((M * (Kp + 4),), dtype=torch.int8, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = _build.library().devit_quant_matmul(
-                x2.data_ptr(), q.w_q.data_ptr(), q.w_scale.data_ptr(),
-                None if q.bias is None else q.bias.data_ptr(), out.data_ptr(), M, K, N,
+                x2.data_ptr(), q.w_nk.data_ptr(), q.w_scale.data_ptr(),
+                None if q.bias is None else q.bias.data_ptr(), scratch.data_ptr(),
+                scratch.data_ptr() + M * Kp, out.data_ptr(), M, K, Kp, N,
                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], stream)
         _build.check_launch(err, "fused_int8_matmul")
         fused_int8_matmul.launches += 1

@@ -406,9 +406,16 @@ def _int8_case(gen, M, K, N, x_dtype, with_bias):
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_int8_kernel_bit_equal_to_plain(gen, x_dtype, out_dtype, with_bias):
     """The int32 sums are exact and every f32 step is rounded as the plain
-    version rounds it: the same bits. Deployed shapes, an M and an N tail."""
-    for M, K, N in ((1, 384, 1152), (7, 320, 384), (198, 384, 1536), (1000, 1536, 384),
-                    (67, 64, 40), (130, 388, 200)):
+    version rounds it: the same bits. Around the GEMM's 16-row mma tiles and
+    128-row blocks (M 1-129), K tails of the 32-byte mma step and the
+    128-byte stage (36, 388), N tails of the 8-column tiles and 128-column
+    blocks (8, 40, 200), the deployed depths and widths, and a bs256 serving
+    call (M 50688)."""
+    edges = [(M, K, N) for M in (1, 15, 16, 17, 127, 128, 129)
+             for K, N in ((36, 8), (388, 40), (384, 200))]
+    for M, K, N in edges + [(1, 384, 1152), (7, 320, 384), (198, 384, 1536),
+                            (1000, 1536, 384), (67, 64, 40), (130, 388, 200),
+                            (50688, 384, 1536), (50688, 1536, 384), (50688, 384, 1152)]:
         x, q = _int8_case(gen, M, K, N, x_dtype, with_bias)
         got = fused_int8_matmul(x, q, out_dtype=out_dtype)
         torch.cuda.synchronize()
@@ -453,9 +460,11 @@ def test_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
         fused_int8_matmul(x6, q6)
     with pytest.raises(ValueError, match="contiguous"):
         fused_int8_matmul(x, quantize_weight(torch.randn(64, 32), None))  # weights on the CPU
-    with pytest.raises(ValueError, match="shared"):
-        big = quantize_weight(torch.randn((64000, 8), device="cuda"), None)
-        fused_int8_matmul(torch.zeros((1, 64000), device="cuda"), big)
+    # no depth limit: shared memory does not grow with K, and the int32 sums
+    # stay exact (|acc| <= 64000 * 127^2 < 2^31)
+    big = quantize_weight(torch.randn((64000, 8), generator=gen, device="cuda"), None)
+    xb = torch.randn((3, 64000), generator=gen, device="cuda")
+    assert torch.equal(fused_int8_matmul(xb, big), dynamic_int8_matmul(xb, big))
 
 
 # ---- the attention half of a layer: fused_block_attention (csrc/block_attention.cu)
@@ -507,6 +516,22 @@ def test_block_kernel_is_deterministic_and_counted(gen):
     reference_block_attention(t, **w, num_heads=4)
     assert fused_block_attention.launches == before + 2
     assert torch.equal(a, b)  # one writer per output: the same bits on every run
+
+
+@pytest.mark.parametrize("kh", [1, 2, 3, 4, 5, 6])
+def test_block_kernel_bf16_tile_edges(gen, kh):
+    """The bf16 tensor-core pair at sequence lengths around its 16-row mma
+    tiles and 64-token qkv passes (and the attention steps' 64/128/208/256
+    score widths), B 1, 7 and 64: within 2e-2 of the plain version, and a
+    repeat launch gives the same bits."""
+    for n in (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 198, 208, 209, 255, 256):
+        for B in ((1, 7, 64) if n in (17, 198, 256) else (1, 7)):
+            t, w = _block_case(gen, B, n, kh, torch.bfloat16, with_bias=n % 2 == 0)
+            got = fused_block_attention(t, **w, num_heads=kh)
+            again = fused_block_attention(t, **w, num_heads=kh)
+            torch.cuda.synchronize()
+            rel = _rel(got, reference_block_attention(t, **w, num_heads=kh))
+            assert rel <= TOL[torch.bfloat16] and torch.equal(got, again), (n, B, rel)
 
 
 def test_block_wrapper_rejects_what_the_kernel_does_not_take(gen):

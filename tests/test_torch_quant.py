@@ -74,6 +74,24 @@ def test_quantize_weight_matches_jax():
     assert q_t.w_q.is_contiguous() and torch.equal(q_t.w_q, qt.w_q)
 
 
+@pytest.mark.parametrize("K", [32, 36, 96])
+def test_kernel_layout_of_the_weight(K):
+    """w_nk, the copy the CUDA kernel's tensor cores read, made once per
+    QuantizedLinear: row n is column n of JAX's w_q, zero-padded to a
+    multiple of 32 bytes; a derived buffer that .to() carries and the state
+    dict leaves out."""
+    w, b = _weights(K=K, N=40, seed=9)
+    qj, qt = _pair(w, b)
+    Kp = -(-K // 32) * 32
+    assert qt.w_nk.shape == (40, Kp) and qt.w_nk.dtype == torch.int8
+    assert qt.w_nk.is_contiguous()
+    np.testing.assert_array_equal(qt.w_nk[:, :K].numpy(), np.asarray(qj.w_q).T)
+    assert not qt.w_nk[:, K:].any()
+    assert set(qt.state_dict()) == {"w_q", "w_scale", "bias"}
+    moved = qt.to("meta")
+    assert moved.w_nk.device.type == "meta" and moved.w_q.device.type == "meta"
+
+
 def test_row_codes_match_jax():
     """The activations' int8 codes and scales, as jq.dynamic_int8_matmul
     forms them (quant.py:41-44)."""
@@ -218,7 +236,7 @@ def test_quantize_compact_layout_and_guards():
     for name in ("qkv", "proj", "fc1", "fc2"):
         ql = getattr(lp, f"{name}_q")
         assert ql.w_q.dtype == torch.int8 and not hasattr(lp, f"{name}_kernel")
-        assert set(dict(ql.named_buffers())) <= {"w_q", "w_scale", "bias"}
+        assert set(dict(ql.named_buffers())) <= {"w_q", "w_scale", "bias", "w_nk"}
     x = torch.zeros((1, 32, 32, 3))
     with pytest.raises(ValueError, match="quantize_compact"):
         compact_forward(tcm, x, patch_size=8, int8=True)
