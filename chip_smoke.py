@@ -28,7 +28,13 @@ monolithic backward kernel, with the split pair (DEVIT_ATTN_BWD=split) and
 with the plain attention, and the stage-4 DEKD step in both
 distillation_inter modes. Their one-step checks hold the students' kernel
 attention to the plain attention with the teacher on the kernel in both
-steps, and the teacher's logits to its plain attention's. Any failure
+steps, and the teacher's logits to its plain attention's. Then stage 3 of
+full-width dedeit on division 0 of the synthetic data at the CLI's
+defaults: the HSIC rank functions (their scores on the card held to the
+CPU's), one candidate chunk folded into 8 x 512 = 4096 rows through the
+attention kernel against the plain attention, the whole model_shrink
+search with its four .npy files, and the best policy's compacted model
+against the gated one. Any failure
 raises and exits non-zero; so does a machine without CUDA, or a directory
 that holds this script without the package.
 
@@ -57,6 +63,16 @@ import numpy as np
 import torch
 
 from devit_tpu_torch import deploy
+from devit_tpu_torch.core.compact import compact_vit_params
+from devit_tpu_torch.core.metrics import cal_shrink_macs, cal_shrink_paras, count_params_brute
+from devit_tpu_torch.core.rank import (
+    _head_scores, _neuron_scores, attn_head_rank, build_gates, mlp_neuron_rank,
+    neuron_rank_scores,
+)
+from devit_tpu_torch.core.shrink import (
+    fold_candidates, make_batched_policy_eval, model_shrink, policies_to_gates, screen,
+)
+from devit_tpu_torch.data.datasets import BatchIterator, synthetic_dataset
 from devit_tpu_torch.data.mixup import MixupConfig
 from devit_tpu_torch.data.pipeline import normalize
 from devit_tpu_torch.kernels import _build
@@ -74,7 +90,8 @@ from devit_tpu_torch.models.compact_vit import (
     stack_division_features,
 )
 from devit_tpu_torch.models.ensemble import EnsMLP, init_multivit, stack_division_gates
-from devit_tpu_torch.models.vit import Gates, create_vit
+from devit_tpu_torch.data.splitter import DivisionManifest
+from devit_tpu_torch.models.vit import Gates, VisionTransformer, create_vit
 from devit_tpu_torch.serving.daemon import (
     InferenceEngine, ServeConfig, build_engine_from_artifacts, build_server,
 )
@@ -562,13 +579,18 @@ def phase_profile(cms, ens, card: str, int8: bool = False) -> dict:
     """Device time by kernel over one bs256 forward (torch.profiler; the int8
     forward of quantize_compact divisions with int8), and the device's busy
     share of the forward's wall time."""
+    x = _images(256, seed=5)
+    return _profile(lambda: _forward(cms, ens, x, dtype=torch.bfloat16, use_kernel=True,
+                                     fast_math=True, int8=int8),
+                    "[int8-profile]" if int8 else "[profile]", "bs256 forward", card)
+
+
+def _profile(fwd, tag: str, what: str, card: str) -> dict:
+    """Device time by kernel class over one call of fwd (after a warm one),
+    and the device's busy share of its wall time. Launch counts restored."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tag = "[int8-profile]" if int8 else "[profile]"
-    x = _images(256, seed=5)
-    fwd = lambda: _forward(cms, ens, x, dtype=torch.bfloat16, use_kernel=True, fast_math=True,
-                           int8=int8)
     before = (fused_attention.launches, fused_int8_matmul.launches)
     fwd()
     torch.cuda.synchronize()
@@ -587,7 +609,7 @@ def phase_profile(cms, ens, card: str, int8: bool = False) -> dict:
         acc = by_kind.setdefault(_kind(name), [0.0, 0])
         acc[0] += ms
         acc[1] += count
-    print(f"{tag} bs256 forward: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+    print(f"{tag} {what}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"(idle share {1 - busy_ms / wall_ms:.3f}), "
           f"{sum(c for _, c, _ in kernels)} kernel launches [{card}]")
     for kind, (ms, count) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
@@ -1794,6 +1816,363 @@ def phase_dekd(card: str) -> dict:
     return res
 
 
+# ---- stage 3: HSIC ranking, the policy search, padded compaction
+
+# the CLI's defaults (devit_tpu/cli/__main__.py shrink, cli/common.py): rank
+# batch 64, eval batch 512, candidate chunk 8, population 50, shrink ratio
+# 0.3, lb 0, ub 0.9, seed 0; the canonical dedeit budget (9.19 GMACs anchor,
+# seq 197)
+S3 = dict(rank_batch=64, eval_batch=512, candidate_chunk=8, population=50, shrink_ratio=0.3,
+          lb=0.0, ub=0.9, seed=0)
+S3_SHRINK_KW = dict(layer=12, shrink_ratio=S3["shrink_ratio"], population=S3["population"],
+                    lb=S3["lb"], ub=S3["ub"], full_gmacs=9.19, emb=384, head=6, seq_length=197,
+                    mlp_ratio=4, candidate_chunk=S3["candidate_chunk"], seed=S3["seed"])
+
+
+def _stage3_setup() -> dict:
+    """Division 0 of a seed-42 4-way split of 100 synthetic classes (25
+    classes): the val set (4000 images, ~1000 in the division, a ragged last
+    batch at 512) and the train set (1024 images) at the model's input size,
+    and full-width dedeit with random weights from a seed, bf16, fast_math."""
+    t0 = time.perf_counter()
+    manifest = DivisionManifest.create(100, 4, seed=42)
+    train_ds = synthetic_dataset(100, 1024, PX, seed=0).division_view(manifest, 0)
+    val_ds = synthetic_dataset(100, 4000, PX, seed=1).division_view(manifest, 0)
+    data_s = time.perf_counter() - t0
+    model = create_vit("dedeit", num_classes=val_ds.num_classes, dtype=torch.bfloat16,
+                       fast_math=True, use_kernel=True, device="cuda",
+                       generator=torch.Generator().manual_seed(8))
+    cfg = model.cfg
+    n_batches = -(-len(val_ds) // S3["eval_batch"])
+    c_pad = -(-S3["population"] // S3["candidate_chunk"]) * S3["candidate_chunk"]
+    print(f"[shrink-cfg] dedeit {cfg.embed_dim} wide, {cfg.depth} layers, {cfg.num_heads} "
+          f"heads, dh {cfg.head_dim}, {cfg.img_size} px, N {cfg.seq_len}, {cfg.num_classes} "
+          f"classes (division 0 of 4), random weights (seed 8), bf16, fast_math; train "
+          f"{len(train_ds)} and val {len(val_ds)} images of synthetic_dataset(100, 1024/4000, "
+          f"{PX}) (made in {data_s:.1f} s); val {n_batches} batches of {S3['eval_batch']} (the "
+          f"last {len(val_ds) - (n_batches - 1) * S3['eval_batch']}); rank batch "
+          f"{S3['rank_batch']}; population {S3['population']} padded to {c_pad}, chunks of "
+          f"{S3['candidate_chunk']} ({S3['candidate_chunk'] * S3['eval_batch']} rows a "
+          f"forward); shrink_ratio {S3['shrink_ratio']}, lb {S3['lb']}, ub {S3['ub']}; "
+          f"cuts: none")
+    return dict(model=model, train_ds=train_ds, val_ds=val_ds, n_batches=n_batches,
+                c_pad=c_pad)
+
+
+# ranks are held exactly wherever neighbouring sorted scores differ by more
+# than this (relative to max|score|): the card's and the CPU's scores agree
+# to ~1e-6 (an H100 80GB HBM3 at 700 W read 2.980e-7 on the combined neuron
+# scores, 1.180e-6 on the heads'), and a swap needs a gap under twice their
+# difference
+TIE_TOL = 1e-5
+
+
+def _ranks_agree(got_rank: np.ndarray, scores: np.ndarray, tol: float = TIE_TOL) -> tuple:
+    """Raise unless got_rank equals argsort(scores) at every sorted position
+    whose neighbouring scores differ by more than tol * max|score|. Returns
+    (positions inside a tie, positions where the ranks differ)."""
+    want = np.argsort(scores, axis=-1)
+    s = np.take_along_axis(scores, want, axis=-1)
+    gap = np.diff(s, axis=-1) > tol * np.abs(scores).max()
+    clear = np.ones(s.shape, bool)
+    clear[:, 1:] &= gap
+    clear[:, :-1] &= gap
+    differ = got_rank != want
+    if (differ & clear).any():
+        raise AssertionError(f"ranks differ outside the tie tolerance at "
+                             f"{int((differ & clear).sum())} positions")
+    return int((~clear).sum()), int(differ.sum())
+
+
+def phase_shrink_rank(s3: dict, card: str) -> dict:
+    """mlp_neuron_rank and attn_head_rank on one train batch (the capture
+    forward takes the plain attention, as in JAX), timed; the HSIC scores on
+    the card held to the CPU's on the same captured activations, and the
+    ranks to the CPU scores' argsort outside TIE_TOL."""
+    model = s3["model"]
+    images, _ = next(iter(BatchIterator(s3["train_ds"], S3["rank_batch"], shuffle=True,
+                                        seed=S3["seed"], prefetch=0)))
+    x = normalize(torch.from_numpy(images).cuda())
+    secs = {}
+    for name, fn in (("mlp_neuron_rank", mlp_neuron_rank), ("attn_head_rank", attn_head_rank)):
+        fn(model, x)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        secs[name] = (fn(model, x), time.perf_counter() - t0)
+    (neuron_rank, neuron_s), (head_rank, head_s) = secs.values()
+    with torch.no_grad():
+        out = model(x, capture_rank_stats=True)
+        probs = torch.softmax(out.logits.float(), dim=-1)
+        card_scores = [*_neuron_scores(out.neuron_act, probs), _head_scores(out.head_out, probs)]
+        cpu_scores = [*_neuron_scores(out.neuron_act.cpu(), probs.cpu()),
+                      _head_scores(out.head_out.cpu(), probs.cpu())]
+    card_np = [t.cpu().numpy() for t in card_scores]
+    cpu_np = [t.numpy() for t in cpu_scores]
+    rels = {k: float(np.abs(g - w).max() / np.abs(w).max())
+            for k, g, w in zip(("hsic", "act_sum", "head"), card_np, cpu_np)}
+    tol = TOL[torch.float32]
+    neuron_card = neuron_rank_scores(*card_np[:2])
+    neuron_cpu = neuron_rank_scores(*cpu_np[:2])
+    rels["neuron_combined"] = float(np.abs(neuron_card - neuron_cpu).max()
+                                    / np.abs(neuron_cpu).max())
+    if not (np.array_equal(neuron_rank, np.argsort(neuron_card, axis=-1))
+            and np.array_equal(head_rank, np.argsort(card_np[2], axis=-1))):
+        raise AssertionError("a rank function differs from the argsort of its own scores")
+    print(f"[shrink-rank] mlp_neuron_rank {neuron_s:.3f} s, attn_head_rank {head_s:.3f} s on "
+          f"one batch of {S3['rank_batch']} (capture forward + HSIC on the card, argsort on the "
+          f"host); scores card vs CPU (f32, same activations): max-abs / max-ref "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in rels.items())} (tol {tol:.0e}) [{card}]")
+    if max(rels.values()) > tol:
+        raise AssertionError(f"HSIC scores on the card vs the CPU: {rels} > {tol}")
+    n_tied, n_diff = _ranks_agree(neuron_rank, neuron_cpu)
+    h_tied, h_diff = _ranks_agree(head_rank, cpu_np[2])
+    print(f"[shrink-rank] ranks card vs CPU scores, equal outside ties (neighbours within "
+          f"{TIE_TOL:.0e} x max|score|): neurons {neuron_rank.shape} {n_tied} positions tied "
+          f"({n_tied / neuron_rank.size:.2%} excused), {n_diff} differ; heads {head_rank.shape} "
+          f"{h_tied} tied ({h_tied / head_rank.size:.2%}), {h_diff} differ")
+    return dict(neuron_rank=neuron_rank, head_rank=head_rank, mlp_neuron_rank_s=neuron_s,
+                attn_head_rank_s=head_s, score_rel=rels, tie_tol=TIE_TOL, neuron_tied=n_tied,
+                neuron_differ=n_diff, head_tied=h_tied, head_differ=h_diff)
+
+
+def _chunk_inputs(s3: dict, ranks: dict):
+    """Candidates 0-7 of model_shrink's population (the same screen call)
+    on the division's first val batch: the gates on the card, the prepared
+    images and the labels."""
+    policies = screen(S3["shrink_ratio"] * 9.19, S3["population"], S3["lb"], S3["ub"], 12,
+                      emb=384, head=6, seq_length=197, seed=S3["seed"])
+    g = policies_to_gates(policies[:S3["candidate_chunk"]], ranks["neuron_rank"],
+                          ranks["head_rank"], 12)
+    images, labels = next(iter(BatchIterator(s3["val_ds"], S3["eval_batch"], shuffle=False,
+                                             drop_last=False, prefetch=0)))
+    return (Gates(torch.from_numpy(g.head).cuda(), torch.from_numpy(g.neuron).cuda()),
+            normalize(torch.from_numpy(images).cuda()), torch.from_numpy(labels).cuda())
+
+
+def phase_shrink_eval(s3: dict, ranks: dict, card: str) -> dict:
+    """One candidate chunk at the full C*B rows: the kernel against the plain
+    attention (logits, and counts that may differ only on near-tied rows),
+    and the folded forward against one forward per candidate."""
+    model = s3["model"]
+    gates, x, labels = _chunk_inputs(s3, ranks)
+    C, B = gates.head.shape[0], x.shape[0]
+    tol = TOL[torch.bfloat16]
+    before = _counts()
+    with torch.no_grad():
+        folded, xf = fold_candidates(gates, x)
+        got = model(xf, folded).logits.view(C, B, -1)
+        model.use_kernel = False
+        plain = model(xf, folded).logits.view(C, B, -1)
+        model.use_kernel = True
+        counts = make_batched_policy_eval(model)(gates, x, labels)
+        per = torch.stack([model(x, Gates(gates.head[c], gates.neuron[c])).logits
+                           for c in range(C)])
+    torch.cuda.synchronize()
+    _set_counts(before)  # comparison launches are not the main path's
+    del xf, folded
+    rel = max(_rel(got[c], plain[c]) for c in range(C))
+    rel_per = _rel(got, per)
+    pred_k, pred_p = got.argmax(-1), plain.argmax(-1)
+    top2 = plain.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < tol * plain.abs().amax(dim=(1, 2), keepdim=True)[..., 0]
+    flips = pred_k != pred_p
+    counts_k = (pred_k == labels[None]).sum(1)
+    counts_p = (pred_p == labels[None]).sum(1)
+    print(f"[shrink-eval] one chunk, {C} candidates x {B} images = {C * B} rows, bf16: logits "
+          f"kernel vs plain worst candidate rel {rel:.3e} (tol {tol:.0e}); folded vs {C} "
+          f"per-candidate forwards at B {B} through the kernel rel {rel_per:.3e}; correct counts "
+          f"kernel {counts_k.tolist()}, plain {counts_p.tolist()}; {int(flips.sum())} argmax "
+          f"flips, all among the {int(near.sum())} rows whose plain top-2 gap is under "
+          f"{tol:.0e} x max|logit| [{card}]")
+    if rel > tol or rel_per > tol:
+        raise AssertionError(f"[shrink-eval] rel {rel:.3e} / {rel_per:.3e} > {tol}")
+    if (flips & ~near).any():
+        raise AssertionError(f"[shrink-eval] {int((flips & ~near).sum())} argmax flips on rows "
+                             "that are not near-tied")
+    if not torch.equal(counts.cpu(), counts_k.cpu()):
+        raise AssertionError(f"make_batched_policy_eval counts {counts.tolist()} != the folded "
+                             f"forward's {counts_k.tolist()}")
+    del got, plain, per
+    torch.cuda.empty_cache()
+    return dict(rel=rel, rel_per_candidate=rel_per, near_tied=int(near.sum()),
+                flips=int(flips.sum()), counts=counts_k.tolist(), plain_counts=counts_p.tolist())
+
+
+def _val_batches(ds):
+    def batches():
+        # raw host batches: evaluate_policies pads the ragged tail, then
+        # prepares it on the card
+        for imgs, labels in BatchIterator(ds, S3["eval_batch"], shuffle=False, drop_last=False):
+            yield imgs, np.asarray(labels)
+    return batches
+
+
+def phase_shrink(s3: dict, ranks: dict, card: str) -> dict:
+    """model_shrink over the division's val set, as the shrink stage calls it;
+    the four .npy files; then the times of one chunk forward and of one
+    fused_attention launch at its shape."""
+    model = s3["model"]
+    torch.cuda.reset_peak_memory_stats()
+    before = fused_attention.launches
+    t0 = time.perf_counter()
+    result = model_shrink(model, ranks["neuron_rank"], ranks["head_rank"],
+                          _val_batches(s3["val_ds"]), prepare=normalize, **S3_SHRINK_KW)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fused_attention.launches - before
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunks = s3["c_pad"] // S3["candidate_chunk"]
+    expect = chunks * s3["n_batches"] * 12
+    n_val, P = len(s3["val_ds"]), len(result.policies)
+    acc = result.accuracies
+    if launches != expect or acc.shape != (P,) or not np.isfinite(acc).all():
+        raise AssertionError(f"model_shrink: {launches} launches (expected {expect}), "
+                             f"accuracies {acc}")
+    if not np.allclose(acc * n_val / 100, np.round(acc * n_val / 100)) or acc.max() > 100:
+        raise AssertionError(f"model_shrink accuracies are not counts of {n_val}: {acc}")
+    best = result.best
+    kw = dict(emb=384, head=6, seq_length=197, layer=12)
+    macs = cal_shrink_macs(best[:12], best[12:], **kw)
+    paras = cal_shrink_paras(best[:12], best[12:], num_class=model.cfg.num_classes, **kw)
+    if abs(macs - 0.3 * 9.19) > 0.02 * 0.3 * 9.19:
+        raise AssertionError(f"the best policy's MACs {macs} miss the budget")
+    with tempfile.TemporaryDirectory() as d:
+        files = dict(shrinked_policy=result.policies, shrinked_accuracy=acc,
+                     neuron_rank=ranks["neuron_rank"], head_rank=ranks["head_rank"])
+        for k, v in files.items():
+            np.save(os.path.join(d, f"{k}.npy"), v)
+        for k, v in files.items():
+            back = np.load(os.path.join(d, f"{k}.npy"))
+            if back.dtype != v.dtype or not np.array_equal(back, v):
+                raise AssertionError(f"{k}.npy did not read back")
+    print(f"[shrink] model_shrink: {P} candidates (padded to {s3['c_pad']}) x {n_val} val "
+          f"images in {secs:.3f} s = {P * n_val / secs:.1f} candidate-images/s; {launches} "
+          f"fused_attention launches ({chunks} chunks x {s3['n_batches']} batches x 12 layers, "
+          f"B {S3['candidate_chunk'] * S3['eval_batch']}); peak memory {peak:.2f} GiB; best "
+          f"policy acc {acc.max():.2f}% (mean {acc.mean():.2f}%), {macs:.4f} GMACs, {paras:.4f} "
+          f"M params; the four .npy files written and read back [{card}]")
+
+    # one chunk forward, kernel and plain attention in turns
+    gates, x, _ = _chunk_inputs(s3, ranks)
+    with torch.no_grad():
+        folded, xf = fold_candidates(gates, x)
+        runs = {True: [], False: []}
+        before = fused_attention.launches
+        for use_kernel in (True, False, False, True):
+            model.use_kernel = use_kernel
+            runs[use_kernel].append(_time_ms(lambda: model(xf, folded), iters=2, warmup=1))
+        model.use_kernel = True
+        fused_attention.launches = before
+        rows = S3["candidate_chunk"] * S3["eval_batch"]
+        prof = _profile(lambda: model(xf, folded), "[shrink-profile]",
+                        f"one chunk forward ({rows} rows)", card)
+    del xf, folded
+    torch.cuda.empty_cache()
+    fwd_ms, plain_ms = (sum(runs[k]) / 2 for k in (True, False))
+    n_fwd = chunks * s3["n_batches"]
+    print(f"[shrink] one chunk forward ({rows} rows, bf16, fast_math, gated): {fwd_ms:.3f} ms "
+          f"with the kernel, {plain_ms:.3f} ms with the plain attention; runs {runs}; the "
+          f"search's {n_fwd} chunk forwards at that time are {n_fwd * fwd_ms / 1e3 / secs:.1%} "
+          f"of its wall time [{card}]")
+
+    # fused_attention at the chunk's shape: held to its plain version (an
+    # all-zero head, a head gate, neither; each launch repeated bit for bit),
+    # then timed on the last case's input
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    before = fused_attention.launches
+    checks = {}
+    for case in ("zero_head", "gate", "plain"):
+        q = _qkv(rows, 6, torch.bfloat16, gen, zero_head=case == "zero_head")
+        gate = torch.rand((6,), generator=gen, device="cuda") if case == "gate" else None
+        got = fused_attention(q, gate, num_heads=6)
+        same = torch.equal(got, fused_attention(q, gate, num_heads=6))
+        want = reference_attention(q, gate, num_heads=6)
+        checks[case] = (_rel(got, want), float((got.float() - want.float()).abs().max()), same)
+        del got, want
+    torch.cuda.empty_cache()
+    print(f"[shrink] fused_attention bf16 B={rows} N={N} kh=6 vs plain: "
+          f"{', '.join(f'{k} rel {r:.3e} max-abs {a:.3e}' for k, (r, a, _) in checks.items())} "
+          f"(tol {TOL[torch.bfloat16]:.0e}); repeat launches bit for bit: "
+          f"{all(c[2] for c in checks.values())} [{card}]")
+    if any(r > TOL[torch.bfloat16] or not same for r, _, same in checks.values()):
+        raise AssertionError(f"fused_attention at B {rows}: {checks}")
+    qh, kh_, vh = q.view(rows, N, 3, 6, DH).permute(2, 0, 3, 1, 4)
+    att = dict(checks={k: dict(rel=r, max_abs=a) for k, (r, a, _) in checks.items()},
+               max_abs_err=max(a for _, a, _ in checks.values()),
+               ms=_time_ms(lambda: fused_attention(q, num_heads=6), iters=10),
+               plain_ms=_time_ms(lambda: reference_attention(q, num_heads=6), iters=3),
+               library_ms=_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qh, kh_, vh), iters=10))
+    fused_attention.launches = before
+    bound, by_bytes = _bound(rows, 6, 2, BF16_FLOPS)
+    att.update(bound_ms=bound, bound_by="bytes" if by_bytes else "operations")
+    del q, qh, kh_, vh
+    torch.cuda.empty_cache()
+    print(f"[shrink] fused_attention bf16 B={rows} N={N} kh=6: kernel {att['ms']:.4f} ms a "
+          f"launch, plain {att['plain_ms']:.4f} ms, sdpa {att['library_ms']:.4f} ms, bound "
+          f"{bound:.4f} ms ({att['bound_by']}) [{card}]")
+    return dict(result=result, seconds=secs, cand_img_s=P * n_val / secs, launches=launches,
+                peak_gib=peak, best_acc=float(acc.max()), best_gmacs=macs, best_mparams=paras,
+                chunk_ms=fwd_ms, chunk_plain_ms=plain_ms, chunk_runs=runs, attention=att,
+                profile=prof)
+
+
+def phase_compact(s3: dict, ranks: dict, result, card: str) -> dict:
+    """The best policy's gates compacted (padded to the widest layer), the
+    compacted VisionTransformer at bs64 through the kernel against the gated
+    model."""
+    model = s3["model"]
+    best = result.best
+    g = build_gates(ranks["neuron_rank"], ranks["head_rank"], best[:12], best[12:])
+    params, ccfg = compact_vit_params(model, g, model.cfg)
+    cm = VisionTransformer(ccfg, dtype=torch.bfloat16, fast_math=True, use_kernel=True)
+    cm.load_state_dict({k: v.cpu() for k, v in params.items()})
+    cm = cm.cuda()
+    images, _ = next(iter(BatchIterator(s3["val_ds"], 64, shuffle=False, prefetch=0)))
+    x = normalize(torch.from_numpy(images).cuda())
+    with torch.no_grad():
+        before = fused_attention.launches
+        got = cm(x).logits
+        torch.cuda.synchronize()
+        launches = fused_attention.launches - before
+        before = fused_attention.launches
+        want = model(x, Gates(torch.from_numpy(g.head).cuda(),
+                              torch.from_numpy(g.neuron).cuda())).logits
+        fused_attention.launches = before
+    rel = _rel(got, want)
+    n_params = count_params_brute(cm)
+    print(f"[compact] best policy compacted to {ccfg.num_heads} heads (kept per layer "
+          f"{g.head.sum(-1).astype(int).tolist()}) and MLP width {ccfg.hidden_dim} (kept "
+          f"{g.neuron.sum(-1).astype(int).tolist()}), {n_params / 1e6:.3f} M params; bs64 "
+          f"logits through the kernel (kh {ccfg.num_heads}, {launches} launches) vs the gated "
+          f"model rel {rel:.3e} (tol 2e-2) [{card}]")
+    if rel > TOL[torch.bfloat16] or launches != 12:
+        raise AssertionError(f"[compact] rel {rel:.3e}, {launches} launches")
+    return dict(num_heads=ccfg.num_heads, hidden=ccfg.hidden_dim, rel=rel, launches=launches,
+                mparams=n_params / 1e6)
+
+
+def phase_stage3(card: str) -> dict:
+    s3 = _stage3_setup()
+    _set_counts((0, 0, 0, 0))  # the main path: ranking, then the search
+    ranks = phase_shrink_rank(s3, card)
+    rank_counts = _counts()
+    if rank_counts != (0, 0, 0, 0):  # the capture forwards take the plain attention
+        raise AssertionError(f"the ranking launched kernels: {rank_counts}")
+    ev = phase_shrink_eval(s3, ranks, card)
+    shrink = phase_shrink(s3, ranks, card)
+    result = shrink.pop("result")
+    _set_counts((0, 0, 0, 0))
+    comp = phase_compact(s3, ranks, result, card)
+    # the main path is the ranking and model_shrink; [compact] is a check's
+    # own forward, its launches stand in its own line
+    res = dict(rank={k: v for k, v in ranks.items() if not k.endswith("_rank")}, eval=ev,
+               shrink=shrink, compact=comp, launches=shrink["launches"])
+    del s3
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1848,6 +2227,7 @@ def main() -> int:
     ens["kernel_times"] = phase_ens_kernel_times(card)
     times["ens_train"] = ens
     times["dekd"] = dekd = phase_dekd(card)
+    times["stage3"] = stage3 = phase_stage3(card)
 
     fa = times["forward_attention"]
     bw = train["kernel_times"]["bwd_step"]
@@ -1856,10 +2236,13 @@ def main() -> int:
         "name": "fused_attention", "route": "cuda",
         "source": "devit_tpu_torch/kernels/csrc/attention.cu",
         "replaces": "devit_tpu/kernels/attention.py:30",
-        # the launches of every main-path run: serving, stage 2, stage 5, DEKD
+        # the launches of every main-path run: serving, stage 2, stage 5, DEKD,
+        # stage 3 (the policy search's chunks)
         "launches": (launches + train["launches"]["fused_attention"]
-                     + ens["launches"]["fused_attention"] + dekd["launches"]["fused_attention"]),
-        "max_abs_err": max_abs_err,
+                     + ens["launches"]["fused_attention"] + dekd["launches"]["fused_attention"]
+                     + stage3["launches"]),
+        # every shape checked: [kernel]'s up to B 256 and stage 3's B 4096
+        "max_abs_err": max(max_abs_err, stage3["shrink"]["attention"]["max_abs_err"]),
         "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"]}, {
         "name": "attention_bwd", "route": "cuda",

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,10 +41,18 @@ class Gates(NamedTuple):
 
     `head`:   (depth, num_heads)
     `neuron`: (depth, hidden_dim)
+    or, one gate row per batch row (candidate gates folded into the batch,
+    core/shrink.py), (depth, B, num_heads) and (depth, B, hidden_dim).
     """
 
     head: Any
     neuron: Any
+
+    def numpy(self) -> "Gates":
+        """Both masks as host numpy arrays (tensors are copied off their
+        device)."""
+        return Gates(*(a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+                       for a in self))
 
 
 def full_gates(cfg: ViTConfig, dtype: torch.dtype = torch.float32,
@@ -241,8 +250,16 @@ class PatchEmbed(nn.Module):
         return torch.matmul(x.to(dtype), self.kernel.to(dtype)) + self.bias.to(dtype)
 
 
+def _rows(gate: torch.Tensor) -> torch.Tensor:
+    """A gate as (rows, W): one vector (W,) for the whole batch -> (1, W);
+    one gate row per batch row (B, W) stays as it is."""
+    return gate[None] if gate.dim() == 1 else gate
+
+
 class Block(nn.Module):
-    """One pre-norm transformer block with head and neuron gates."""
+    """One pre-norm transformer block with head and neuron gates. A gate is
+    one vector for the whole batch, or one row per batch row (candidate gates
+    folded into the batch, core/shrink.py)."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -274,7 +291,8 @@ class Block(nn.Module):
         needs_capture = capture_qkv or capture_rank_stats
         if use_kernel and not needs_capture and (not train or cfg.attn_drop_rate == 0):
             attn_out = make_trainable_attention(H)(qkv_raw)
-            attn_out = attn_out * head_gate.to(dtype).repeat_interleave(dh)[None, None, :]
+            gate = head_gate.to(dtype).repeat_interleave(dh, dim=-1)
+            attn_out = attn_out * _rows(gate)[:, None, :]
         else:
             qkv = qkv_raw.reshape(B, N, 3, H, dh).permute(2, 0, 3, 1, 4)
             q, k, v = qkv[0], qkv[1], qkv[2]
@@ -287,7 +305,7 @@ class Block(nn.Module):
                 outs["head_out"] = attn_out.transpose(1, 2)
             if capture_qkv:
                 outs["qkv"] = torch.stack([q, k, v])
-            attn_out = attn_out * head_gate.to(dtype)[None, :, None, None]
+            attn_out = attn_out * _rows(head_gate.to(dtype))[:, :, None, None]
             attn_out = attn_out.transpose(1, 2).reshape(B, N, A)
         attn_out = self.proj(attn_out, dtype)
         if train:
@@ -301,7 +319,7 @@ class Block(nn.Module):
             h = _dropout(h, cfg.drop_rate, gen)
         if capture_rank_stats:
             outs["neuron_act"] = h
-        h = h * neuron_gate.to(dtype)[None, None, :]
+        h = h * _rows(neuron_gate.to(dtype))[:, None, :]
         h = self.fc2(h, dtype)
         if train:
             h = _dropout(h, cfg.drop_rate, gen)

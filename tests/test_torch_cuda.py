@@ -13,6 +13,7 @@ machine with the card has no JAX, so run without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -218,6 +219,19 @@ def test_bf16_kernels_repeat_bit_for_bit(gen):
         assert torch.equal(fused_attention(x, num_heads=6), fused_attention(x, num_heads=6))
         assert torch.equal(attention_bwd(x, g, 6), attention_bwd(x, g, 6))
         assert torch.equal(attention_bwd_split(x, g, 6), attention_bwd_split(x, g, 6))
+
+
+def test_bf16_forward_at_the_candidate_chunk_rows(gen):
+    """B 4096 (stage 3's chunk of 8 candidates x 512 images folded into the
+    batch), kh 6, N 198: the row-tile walk past B*H 24576, gated and not,
+    each launch repeated bit for bit."""
+    x = torch.randn((4096, N, 3 * 6 * DH), generator=gen, device="cuda").bfloat16()
+    gate = torch.rand((6,), generator=gen, device="cuda")
+    for g in (None, gate):
+        got = fused_attention(x, g, num_heads=6)
+        assert torch.equal(got, fused_attention(x, g, num_heads=6))
+        rel = _rel(got, reference_attention(x, g, num_heads=6))
+        assert rel <= TOL[torch.bfloat16], (g is None, rel)
 
 
 def test_bf16_wrappers_reject_unaligned_operands(gen):
@@ -551,3 +565,114 @@ def test_block_wrapper_rejects_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="shared"):
         t3, w3 = _block_case(gen, 1, 2048, 1, torch.float32, C=64)
         fused_block_attention(t3, **w3, num_heads=1)
+
+
+# ---- stage 3: the folded candidate forward and the HSIC scores
+
+
+U32 = 2.0 ** -24  # f32's unit roundoff
+
+
+def ill_conditioned_heads(seed: int = 0):
+    """Head outputs (2 layers, B 16, N 198, 6 heads, dh 64, bf16, on the
+    CPU) whose channel means spread ~0.0025 about 0.5: every squared distance
+    is ~2.5e-3, so each Gaussian gram entry lies within ~1.3e-3 of 1 and the
+    centring cancels that 1. Made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    head_out = torch.from_numpy(0.5 + 0.02 * rng.standard_normal((2, 16, N, 6, DH))).bfloat16()
+    probs = torch.softmax(torch.from_numpy(rng.standard_normal((16, 25))).float(), dim=-1)
+    return head_out, probs
+
+
+def head_score_bound(head_out, probs):
+    """The head scores in f64, and the bound on an f32 computation's error
+    relative to their max|score|. One rounding of a gram entry is u max|K|;
+    the centring leaves a gram kappa = max|K| / max|centred K| times smaller,
+    so a centred entry carries u kappa of relative error, and the
+    redundancy's product of two such grams 2 u kappa. A score, relevance -
+    0.1 redundancy, carries that on both terms:
+    bound = 2 u kappa max(|relevance| + 0.1 |redundancy|) / max|score|."""
+    from devit_tpu_torch.core.hsic import (_center, hsic_redundancy_matrix,
+                                           hsic_relevance_many, multi_gaussian_gram)
+    from devit_tpu_torch.core.rank import _head_scores
+
+    head_out, probs = head_out.double(), probs.double()
+    kappa = terms = 0.0
+    for ho_l in head_out:
+        xs = ho_l.mean(dim=-1).permute(2, 0, 1)  # (H, B, N), as _head_scores takes it
+        K = multi_gaussian_gram(xs)  # mean_sub's shift leaves the distances as they are
+        kappa = max(kappa, float(K.abs().amax() / _center(K).abs().amax()))
+        red = hsic_redundancy_matrix(xs)
+        off = (red.sum(dim=1) - torch.diagonal(red)) / (xs.shape[0] - 1)
+        terms = max(terms, float((hsic_relevance_many(xs, probs).abs() + 0.1 * off.abs()).max()))
+    want = _head_scores(head_out, probs)
+    return want, 2 * U32 * kappa * terms / float(want.abs().max())
+
+
+def test_folded_candidate_forward_kernel_matches_plain(gen):
+    """Candidate gates folded into the batch (core/shrink.py), through the
+    attention kernel against the plain attention, and against one forward
+    per candidate through the kernel, bf16, dh 64."""
+    import numpy as np
+
+    from devit_tpu_torch.core.shrink import fold_candidates
+    from devit_tpu_torch.models.vit import Gates, create_vit
+
+    model = create_vit("dedeit", img_size=32, patch_size=8, embed_dim=256, depth=2,
+                       num_heads=4, num_classes=7, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    C, B = 3, 5
+    gates = Gates(torch.tensor((rng.random((C, 2, 4)) > 0.3).astype(np.float32)),
+                  torch.tensor((rng.random((C, 2, 1024)) > 0.3).astype(np.float32)))
+    x = torch.randn((B, 32, 32, 3), generator=gen, device="cuda")
+    folded, xf = fold_candidates(gates, x)
+    with torch.no_grad():
+        before = fused_attention.launches
+        got = model(xf, folded).logits
+        assert fused_attention.launches == before + 2
+        per = torch.cat([model(x, Gates(gates.head[c].cuda(), gates.neuron[c].cuda())).logits
+                         for c in range(C)])
+        model.use_kernel = False
+        plain = model(xf, folded).logits
+    assert _rel(got, plain) <= TOL[torch.bfloat16]
+    assert _rel(got, per) <= TOL[torch.bfloat16]
+
+
+def test_hsic_scores_on_the_card_equal_the_cpu(gen):
+    """_neuron_scores and _head_scores on the card against the CPU at f32,
+    on the captured activations of a two-layer full-width dedeit (random
+    weights), with TF32 switched on around them (the scores keep it off)."""
+    from devit_tpu_torch.core.rank import _head_scores, _neuron_scores
+    from devit_tpu_torch.models.vit import create_vit
+
+    model = create_vit("dedeit", depth=2, num_classes=25, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        out = model(torch.randn((32, 224, 224, 3), generator=gen, device="cuda"),
+                    capture_rank_stats=True)
+    act, head_out = out.neuron_act, out.head_out
+    probs = torch.softmax(out.logits.float(), dim=-1)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = [*_neuron_scores(act, probs), _head_scores(head_out, probs)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    want = [*_neuron_scores(act.cpu(), probs.cpu()), _head_scores(head_out.cpu(), probs.cpu())]
+    for g, w in zip(got, want):
+        assert _rel(g.cpu(), w) <= TOL[torch.float32]
+
+
+def test_ill_conditioned_head_scores_on_the_card_within_their_rounding_bound(gen):
+    """Head features spread tinily against every kernel width (exp near 1):
+    f32 loses digits there, on the card as on the CPU and in the reference's
+    formula; the card's scores stay within the bound that the grams'
+    conditioning gives against f64 (~3e-4 here; an H100 and the CPU differed
+    by 1.29e-4)."""
+    from devit_tpu_torch.core.rank import _head_scores
+
+    head_out, probs = ill_conditioned_heads()
+    want, bound = head_score_bound(head_out, probs)
+    got = _head_scores(head_out.cuda(), probs.cuda())
+    rel = _rel(got.cpu(), want)
+    print(f"ill-conditioned head scores, card vs f64: {rel:.3e} (bound {bound:.3e})")
+    assert got.dtype == torch.float32 and rel <= bound

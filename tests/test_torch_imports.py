@@ -39,8 +39,9 @@ def _top_level_modules_after_import(*modules):
 
 def test_every_port_module_is_listed():
     assert _port_modules() == [f"devit_tpu_torch.{m}" for m in (
-        "configs", "core", "core.metrics", "core.rank", "core.shrink", "data",
-        "data.datasets", "data.mixup", "data.pipeline", "deploy", "device", "io",
+        "configs", "core", "core.compact", "core.hsic", "core.metrics", "core.rank",
+        "core.shrink", "data", "data.datasets", "data.mixup", "data.pipeline",
+        "data.splitter", "deploy", "device", "io",
         "io.bridge", "io.checkpoint", "io.msgpack", "kernels", "kernels._build",
         "kernels.attention", "kernels.quant", "models",
         "models.compact_vit", "models.ensemble", "models.vit", "serving", "serving.daemon",
