@@ -5,9 +5,10 @@
 
 Run from the root of a checkout. It builds the CUDA kernels from the
 sources in the checkout, counts the tensor-core instructions in the built
-library (HMMA in the bf16 attention kernels: the forward, the monolithic
-backward and the split pair, three instantiations of one template, and the
-two block-attention kernels; IMMA in the int8 GEMM), holds
+library (HMMA in the bf16 attention kernels at each head width: the
+forward, the monolithic backward and the split pair, three instantiations
+of one template, and the two block-attention kernels; IMMA in the int8
+GEMM), holds
 each kernel against its plain PyTorch version on the card (the split pair
 also against the monolithic kernel, bit for bit; every backward past 256
 keys, [bwd-long]), runs the deployed 4-division dedeit
@@ -34,7 +35,15 @@ defaults: the HSIC rank functions (their scores on the card held to the
 CPU's), one candidate chunk folded into 8 x 512 = 4096 rows through the
 attention kernel against the plain attention, the whole model_shrink
 search with its four .npy files, and the best policy's compacted model
-against the gated one. Any failure
+against the gated one. Then every attention kernel at head widths 32, 64
+and 128 against its plain version, timed ([heads]); stage 2 from a
+CIFAR-100 pickle tree written from a seed: build_dataset, division 0, the
+C++ gather, train_transform on the card held to the CPU on the same host
+draws, fit for 2 epochs writing its checkpoints, eval through
+eval_transform ([data-train]); a run resumed from its
+checkpoint_temp.msgpack equal to the uninterrupted one bit for bit
+([ckpt]); an epoch under the profiler ([data-profile]); and, where PIL
+imports, an epoch with the host augment ([pil]). Any failure
 raises and exits non-zero; so does a machine without CUDA, or a directory
 that holds this script without the package.
 
@@ -49,6 +58,8 @@ import argparse
 import copy
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -58,6 +69,7 @@ import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -72,12 +84,19 @@ from devit_tpu_torch.core.rank import (
 from devit_tpu_torch.core.shrink import (
     fold_candidates, make_batched_policy_eval, model_shrink, policies_to_gates, screen,
 )
-from devit_tpu_torch.data.datasets import BatchIterator, synthetic_dataset
+from devit_tpu_torch.data.datasets import BatchIterator, build_dataset, synthetic_dataset
 from devit_tpu_torch.data.mixup import MixupConfig
-from devit_tpu_torch.data.pipeline import normalize
+from devit_tpu_torch.data.pipeline import (
+    AugmentConfig, apply_train, draw_train, eval_transform, finish_transform, normalize,
+    random_resized_crop, train_transform,
+)
+from devit_tpu_torch.data.randaugment import OP_NAMES as RA_OP_NAMES
+from devit_tpu_torch.data.randaugment import STEPPED_OPS as RA_STEPPED
+from devit_tpu_torch.data.randaugment import RandAugmentDraws, apply_rand_augment
 from devit_tpu_torch.kernels import _build
 from devit_tpu_torch.io.bridge import ensmlp_to_jax_params
-from devit_tpu_torch.io.checkpoint import save_pytree
+from devit_tpu_torch.io.checkpoint import restore_pytree, save_pytree
+from devit_tpu_torch.io.native import gather_rows
 from devit_tpu_torch.kernels.attention import (
     attention_bwd, attention_bwd_dqdk, attention_bwd_dv, attention_bwd_split, fused_attention,
     fused_block_attention, make_trainable_attention, reference_attention,
@@ -95,11 +114,11 @@ from devit_tpu_torch.models.vit import Gates, VisionTransformer, create_vit
 from devit_tpu_torch.serving.daemon import (
     InferenceEngine, ServeConfig, build_engine_from_artifacts, build_server,
 )
-from devit_tpu_torch.train.loop import train_epoch
+from devit_tpu_torch.train.loop import fit, run_eval, train_epoch
 from devit_tpu_torch.train.optim import OptimConfig, make_optimizer
-from devit_tpu_torch.train.state import TrainState
+from devit_tpu_torch.train.state import TrainState, restore_stage2_tree, stage2_tree
 from devit_tpu_torch.train.steps import (
-    make_dekd_step, make_ensemble_train_step, make_stage2_step,
+    make_dekd_step, make_ensemble_train_step, make_eval_step, make_stage2_step,
 )
 
 ROOT = Path(__file__).resolve().parent
@@ -150,18 +169,28 @@ def _qkv(B: int, kh: int, dtype, gen, zero_head: bool = False) -> torch.Tensor:
     return x.to(dtype)
 
 
-# the tensor-core kernels: name -> (the mark of its functions' mangled names
-# in the SASS, the mma opcode): every instantiation of the forward; the
-# backward template attn_bwd_kernel_mma<DQDK, DV> once per instantiation; the
-# bf16 block-attention pair; the int8 GEMM (m16n8k32 s8 is IMMA)
+# the tensor-core kernels: name -> (a regular expression for its function's
+# mangled name in the SASS, the mma opcode): every instantiation of the
+# forward attn_kernel_mma<KC, DH>, of the backward template
+# attn_bwd_kernel_mma<DQDK, DV, DH> and of the bf16 block-attention kernels
+# block_qkv_attn_kernel<KC, DH> and block_proj_kernel<Ragged>; the int8 GEMM
+# (m16n8k32 s8 is IMMA)
+HEAD_DIMS = (32, 64, 128)
+KEY_CHUNKS = (4, 8, 13, 16)  # KC: the score registers' key steps (launch_bf16)
 MMA_KERNELS = {
-    "attn_kernel_mma": ("attn_kernel_mma", "HMMA"),
-    "attn_bwd_kernel_mma<true,true> (attention_bwd)": ("attn_bwd_kernel_mmaILb1ELb1E", "HMMA"),
-    "attn_bwd_kernel_mma<false,true> (attention_bwd_dv)": ("attn_bwd_kernel_mmaILb0ELb1E", "HMMA"),
-    "attn_bwd_kernel_mma<true,false> (attention_bwd_dqdk)": ("attn_bwd_kernel_mmaILb1ELb0E",
-                                                             "HMMA"),
-    "block_qkv_attn_kernel (fused_block_attention)": ("block_qkv_attn_kernel", "HMMA"),
-    "block_proj_kernel (fused_block_attention)": ("block_proj_kernel", "HMMA"),
+    **{f"attn_kernel_mma<{kc},{dh}>": (rf"attn_kernel_mmaILi{kc}ELi{dh}EE", "HMMA")
+       for dh in HEAD_DIMS for kc in KEY_CHUNKS},
+    **{f"attn_bwd_kernel_mma<{a},{b},{dh}> ({w})": (rf"attn_bwd_kernel_mmaILb{ia}ELb{ib}ELi{dh}EE",
+                                                     "HMMA")
+       for dh in HEAD_DIMS
+       for a, b, ia, ib, w in (("true", "true", 1, 1, "attention_bwd"),
+                               ("false", "true", 0, 1, "attention_bwd_dv"),
+                               ("true", "false", 1, 0, "attention_bwd_dqdk"))},
+    **{f"block_qkv_attn_kernel<{kc},{dh}> (fused_block_attention)":
+       (rf"block_qkv_attn_kernelILi{kc}ELi{dh}EE", "HMMA")
+       for dh in HEAD_DIMS for kc in KEY_CHUNKS},
+    **{f"block_proj_kernel<{r}> (fused_block_attention)": (rf"block_proj_kernelILb{i}EE", "HMMA")
+       for r, i in (("false", 0), ("true", 1))},
     "quant_mma_kernel (fused_int8_matmul)": ("quant_mma_kernel", "IMMA"),
 }
 
@@ -170,19 +199,23 @@ def _mma_counts() -> dict:
     """Tensor-core mma instructions (HMMA for bf16, IMMA for int8) in the
     SASS of each kernel of MMA_KERNELS, from cuobjdump -sass of the built
     library. Raises if cuobjdump is missing or a kernel has none."""
+    import re
+
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.is_file():
         raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
     sass = subprocess.run([str(tool), "-sass", str(_build._lib_path())], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     counts = dict.fromkeys(MMA_KERNELS, 0)
-    fn = ""
+    marks = {k: re.compile(mark) for k, (mark, _) in MMA_KERNELS.items()}
+    owners = []
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
+            owners = [k for k, m in marks.items() if m.search(fn)]
             continue
-        for k, (mark, opcode) in MMA_KERNELS.items():
-            counts[k] += mark in fn and opcode in line
+        for k in owners:
+            counts[k] += MMA_KERNELS[k][1] in line
     if not all(counts.values()):
         raise AssertionError(f"a tensor-core kernel has no mma instruction: {counts}")
     return counts
@@ -585,9 +618,10 @@ def phase_profile(cms, ens, card: str, int8: bool = False) -> dict:
                     "[int8-profile]" if int8 else "[profile]", "bs256 forward", card)
 
 
-def _profile(fwd, tag: str, what: str, card: str) -> dict:
-    """Device time by kernel class over one call of fwd (after a warm one),
-    and the device's busy share of its wall time. Launch counts restored."""
+def _profile(fwd, tag: str, what: str, card: str, kind=_kind) -> dict:
+    """Device time by kernel class (`kind` of its name) over one call of fwd
+    (after a warm one), and the device's busy share of its wall time. Launch
+    counts restored."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -606,7 +640,7 @@ def _profile(fwd, tag: str, what: str, card: str) -> dict:
     busy_ms = sum(ms for _, _, ms in kernels)
     by_kind = {}  # kind -> [device ms, launches]
     for name, count, ms in kernels:
-        acc = by_kind.setdefault(_kind(name), [0.0, 0])
+        acc = by_kind.setdefault(kind(name), [0.0, 0])
         acc[0] += ms
         acc[1] += count
     print(f"{tag} {what}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
@@ -2173,6 +2207,460 @@ def phase_stage3(card: str) -> dict:
     return res
 
 
+# ---- head widths 32, 64 and 128 in every attention kernel
+
+HEAD_KH = {32: 12, 64: 6, 128: 6}  # heads at the timed shapes: C 384, 384 and 768
+BLOCK_KH = {32: 5, 64: 3, 128: 3}  # the block half: K 160 (not a multiple of 64), 192, 384
+
+
+def _sdpa_qkv(x: torch.Tensor, kh: int):
+    B, n, C3 = x.shape
+    dh = C3 // (3 * kh)
+    return (t.contiguous() for t in x.view(B, n, 3, kh, dh).permute(2, 0, 3, 1, 4))
+
+
+def phase_heads(card: str) -> dict:
+    """Each attention kernel at head widths 32, 64 and 128, bf16 and f32,
+    against its plain version (max-abs over max-ref: 2e-2 bf16, 1e-4 f32; dq,
+    dk and dv each on its own), every repeat launch bit for bit, the split
+    pair equal to the monolithic kernel bit for bit; then each timed at the
+    stage shapes (bf16): the forward at B 256, the backwards at B 64, the
+    block half at B 256, beside the plain version, SDPA (where it computes
+    the same function) and the bound. Launches here are checks, not counted."""
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    before, before_block = _counts(), fused_block_attention.launches
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {"max_abs": {"fwd": 0.0, "bwd": 0.0, "dv": 0.0, "dqdk": 0.0, "block": 0.0}}
+    for dh in HEAD_DIMS:
+        kh, kb = HEAD_KH[dh], BLOCK_KH[dh]
+        C = kh * dh
+        worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+        n_cases = 0
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in (1, 7, 64):
+                x = torch.randn((B, N, 3 * C), generator=gen, device="cuda").to(dtype)
+                g = torch.randn((B, N, C), generator=gen, device="cuda").to(dtype)
+                fwd, fwd2 = fused_attention(x, num_heads=kh), fused_attention(x, num_heads=kh)
+                mono, mono2 = attention_bwd(x, g, kh), attention_bwd(x, g, kh)
+                dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
+                split = attention_bwd_split(x, g, kh)
+                # f32 at dh 128 holds the block's head in shared memory to N 108
+                nb = 98 if dtype == torch.float32 and dh == 128 else N
+                t = torch.randn((B, nb, 384), generator=gen, device="cuda").to(dtype)
+                w = _block_weights(gen, 384, kb * dh, dtype)
+                blk = fused_block_attention(t, **w, num_heads=kb)
+                blk2 = fused_block_attention(t, **w, num_heads=kb)
+                torch.cuda.synchronize()
+                want_f = reference_attention(x, num_heads=kh)
+                want_b = reference_attention_bwd(x, g, kh)
+                want_qk = reference_attention_bwd_dqdk(x, g, kh)
+                want_v = reference_attention_bwd_dv(x, g, kh)
+                want_blk = reference_block_attention(t, **w, num_heads=kb)
+                errs = {"fwd": [_rel(fwd, want_f)], "bwd": _bwd_errs(mono, want_b, C),
+                        "dqdk": [_rel(dqdk[..., :C], want_qk[..., :C]),
+                                 _rel(dqdk[..., C:], want_qk[..., C:])],
+                        "dv": [_rel(dv, want_v)], "block": [_rel(blk, want_blk)]}
+                bad = {k: v for k, v in errs.items() if max(v) > TOL[dtype]}
+                if bad:
+                    raise AssertionError(f"[heads] dh {dh} {dtype} B {B}: rel err {bad} > "
+                                         f"{TOL[dtype]:.0e}")
+                same = (torch.equal(fwd, fwd2) and torch.equal(mono, mono2)
+                        and torch.equal(blk, blk2) and torch.equal(split, mono)
+                        and torch.equal(split[..., :2 * C], dqdk)
+                        and torch.equal(split[..., 2 * C:], dv))
+                if not same:
+                    raise AssertionError(f"[heads] dh {dh} {dtype} B {B}: a repeat launch, or "
+                                         "the split pair against the monolithic kernel, "
+                                         "differs in its bits")
+                if dtype == torch.bfloat16:
+                    for k, got, want in (("fwd", fwd, want_f), ("bwd", mono, want_b),
+                                         ("dqdk", dqdk, want_qk), ("dv", dv, want_v),
+                                         ("block", blk, want_blk)):
+                        res["max_abs"][k] = max(res["max_abs"][k], float(
+                            (got.float() - want.float()).abs().max()))
+                worst[dtype] = max(worst[dtype], max(max(v) for v in errs.values()))
+                n_cases += 1
+        # times (bf16): the forward and the block half at B 256, the backwards at B 64
+        x = torch.randn((256, N, 3 * C), generator=gen, device="cuda").bfloat16()
+        q, k, v = _sdpa_qkv(x, kh)
+        fwd_t = dict(ms=_time_ms(lambda: fused_attention(x, num_heads=kh)),
+                     plain_ms=_time_ms(lambda: reference_attention(x, num_heads=kh)),
+                     library_ms=_time_ms(lambda: sdpa(q, k, v)))
+        fb, by = _bound(256, C // DH, 2, BF16_FLOPS)
+        fwd_t.update(bound_ms=fb, bound_by="bytes" if by else "operations")
+        x = torch.randn((64, N, 3 * C), generator=gen, device="cuda").bfloat16()
+        g = torch.randn((64, N, C), generator=gen, device="cuda").bfloat16()
+        q, k, v = (t.requires_grad_() for t in _sdpa_qkv(x, kh))
+        out = sdpa(q, k, v)
+        gh = g.view(64, N, kh, dh).transpose(1, 2)
+        bb, by = _bwd_bound(64, C // DH, 2, BF16_FLOPS)
+        sb = _split_bounds(64, C // DH, 2)
+        bwd_t = dict(ms=_time_ms(lambda: attention_bwd(x, g, kh)),
+                     plain_ms=_time_ms(lambda: reference_attention_bwd(x, g, kh)),
+                     library_ms=_time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh,
+                                                                     retain_graph=True)),
+                     bound_ms=bb, bound_by="bytes" if by else "operations",
+                     dv_ms=_time_ms(lambda: attention_bwd_dv(x, g, kh)),
+                     dqdk_ms=_time_ms(lambda: attention_bwd_dqdk(x, g, kh)),
+                     dv_plain_ms=_time_ms(lambda: reference_attention_bwd_dv(x, g, kh)),
+                     dqdk_plain_ms=_time_ms(lambda: reference_attention_bwd_dqdk(x, g, kh)),
+                     dv_bound_ms=sb["dv"][0], dqdk_bound_ms=sb["dqdk"][0])
+        t = torch.randn((256, N, 384), generator=gen, device="cuda").bfloat16()
+        w = _block_weights(gen, 384, kb * dh, torch.bfloat16)
+        blb, blb_bytes = _block_bound(256, 384, kb * dh)
+        blk_t = dict(ms=_time_ms(lambda: fused_block_attention(t, **w, num_heads=kb)),
+                     plain_ms=_time_ms(lambda: reference_block_attention(t, **w, num_heads=kb)),
+                     library_ms=None, bound_ms=blb,
+                     bound_by="bytes" if blb_bytes >= blb else "operations")
+        res[dh] = dict(kh=kh, block_kh=kb, cases=n_cases, fwd=fwd_t, bwd=bwd_t, block=blk_t,
+                       worst_rel={"bf16": worst[torch.bfloat16], "f32": worst[torch.float32]})
+        print(f"[heads] dh {dh}: {n_cases} cases (B 1/7/64, bf16 and f32) of the forward, the "
+              f"monolithic backward, the split pair and the block half vs their plain versions "
+              f"pass; worst rel err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 "
+              f"{worst[torch.float32]:.3e} (tol 1e-4); repeats bit for bit; split == "
+              f"monolithic bit for bit")
+        print(f"[heads] dh {dh} times (bf16): forward B256 kh{kh} {fwd_t['ms']:.4f} ms (plain "
+              f"{fwd_t['plain_ms']:.4f}, SDPA {fwd_t['library_ms']:.4f}, bound "
+              f"{fwd_t['bound_ms']:.4f} {fwd_t['bound_by']}); backward B64 kh{kh} "
+              f"{bwd_t['ms']:.4f} ms (plain {bwd_t['plain_ms']:.4f}, SDPA backward "
+              f"{bwd_t['library_ms']:.4f}, bound {bwd_t['bound_ms']:.4f} {bwd_t['bound_by']}); "
+              f"split dv {bwd_t['dv_ms']:.4f} + dq/dk {bwd_t['dqdk_ms']:.4f} ms (plain "
+              f"{bwd_t['dv_plain_ms']:.4f}, {bwd_t['dqdk_plain_ms']:.4f}; bounds "
+              f"{bwd_t['dv_bound_ms']:.4f}, {bwd_t['dqdk_bound_ms']:.4f}); block B256 kh{kb} "
+              f"{blk_t['ms']:.4f} ms (plain {blk_t['plain_ms']:.4f}, bound "
+              f"{blk_t['bound_ms']:.4f} {blk_t['bound_by']}) [{card}]")
+    _set_counts(before)
+    fused_block_attention.launches = before_block
+    return res
+
+
+def _block_weights(gen, C: int, K: int, dtype) -> dict:
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    return dict(norm_scale=1 + 0.1 * r(C), norm_bias=0.1 * r(C),
+                qkv_kernel=(0.05 * r(C, 3 * K)).to(dtype), qkv_bias=0.1 * r(3 * K),
+                proj_kernel=(0.05 * r(K, C)).to(dtype), proj_bias=0.1 * r(C))
+
+
+# ---- stage 2 from a dataset on disk: loaders, device transforms, checkpoints
+
+DATA_B, DATA_EVAL_B, DATA_N, DATA_TEST_N, DATA_EPOCHS = 64, 512, 5000, 1000, 2
+DATA_AUG = AugmentConfig(img_size=224)  # the CLI's defaults: RRC bicubic, hflip,
+# rand-m9-mstd0.5-inc1, reprob 0.25 pixel
+
+
+def _write_cifar100(root: Path) -> None:
+    """A CIFAR-100 pickle tree (cifar-100-python/{train,test}) made from a
+    seed: the class-patterned images of synthetic_dataset, 100 classes."""
+    d = root / "cifar-100-python"
+    d.mkdir(parents=True)
+    for name, n, seed in (("train", DATA_N, 0), ("test", DATA_TEST_N, 1)):
+        ds = synthetic_dataset(100, n, img_size=32, seed=seed)
+        rows = ds.images.transpose(0, 3, 1, 2).reshape(n, 3 * 32 * 32)
+        with open(d / name, "wb") as f:
+            pickle.dump({b"data": rows, b"fine_labels": ds.labels.tolist()}, f)
+
+
+def _data_setup(root: Path) -> dict:
+    _write_cifar100(root)
+    manifest = DivisionManifest.create(100, 4, seed=42)
+    train = build_dataset("cifar100", str(root), True).division_view(manifest, 0)
+    val = build_dataset("cifar100", str(root), False).division_view(manifest, 0)
+    return dict(train=train, val=val, classes=train.num_classes)
+
+
+def _data_run(data: dict, host_tf=None):
+    """One stage-2 run as train_sub composes it: a fresh seed-0 dedeit with
+    the kernels, AdamW (lr 5e-4 scaled by batch / 512, 5 warm-up epochs,
+    cosine), EMA, mixup/cutmix, smoothing 0.1, repeated augmentation 3; the
+    train transform on the card, or with host_tf the host augment in the
+    prefetch thread and finish_transform on the card. Returns (state,
+    step_fn, train_batches_fn, eval_fn, trace)."""
+    classes = data["classes"]
+    model = create_vit("dedeit", num_classes=classes, drop_path_rate=0.1, dtype=torch.bfloat16,
+                       use_kernel=True, device="cuda", generator=torch.Generator().manual_seed(0))
+
+    def batches(epoch):
+        it = BatchIterator(data["train"], DATA_B, shuffle=True, seed=0, repeated_aug=3,
+                           host_transform=host_tf)
+        it.set_epoch(epoch)
+        return it
+
+    cfg = OptimConfig(lr=5e-4 * DATA_B / 512, warmup_lr=1e-6, min_lr=1e-5, warmup_epochs=5,
+                      cooldown_epochs=10, epochs=DATA_EPOCHS, weight_decay=0.0)
+    state = TrainState.create(model, make_optimizer(cfg, len(batches(0))), use_ema=True,
+                              ema_decay=0.99996)
+    step = make_stage2_step(model, None, mixup=_mixup(classes), smoothing=0.1,
+                            distillation_type="none")
+    trace = {"losses": [], "epoch_start": {}, "epoch_end": {}, "steps": {}}
+
+    def step_fn(state, images, labels, generator):
+        x = torch.from_numpy(images).cuda()
+        x = (train_transform(generator, x, DATA_AUG) if host_tf is None
+             else finish_transform(generator, x, DATA_AUG))
+        state, metrics = step(state, None, x, torch.from_numpy(labels).cuda(), generator)
+        trace["losses"].append(metrics["loss"])
+        return state, metrics
+
+    def train_batches(epoch):
+        trace["epoch_start"][epoch] = time.perf_counter()
+        trace["steps"][epoch] = len(batches(epoch))
+        return batches(epoch)
+
+    eval_step = make_eval_step(model)
+
+    def eval_fn(state):
+        it = BatchIterator(data["val"], DATA_EVAL_B, shuffle=False, drop_last=False)
+        return run_eval(eval_step, None, None, it,
+                        prepare=lambda im: eval_transform(torch.from_numpy(im).cuda(),
+                                                         DATA_AUG.img_size))
+
+    return state, step_fn, train_batches, eval_fn, trace
+
+
+def _fit(data: dict, out_dir: Path, epochs: int, *, resume: Optional[Path] = None,
+         start_epoch: int = 0):
+    state, step_fn, train_batches, eval_fn, trace = _data_run(data)
+    if resume is not None:
+        state, start = restore_stage2_tree(state, restore_pytree(str(resume)))
+        assert start == start_epoch, (start, start_epoch)
+    saved = {}
+
+    def save(path, state, epoch):
+        torch.cuda.synchronize()
+        trace["epoch_end"].setdefault(epoch, time.perf_counter())
+        tree = stage2_tree(state, epoch)
+        save_pytree(path, tree)
+        saved[Path(path).name] = (epoch, tree)
+
+    evals = []
+    state, best = fit(carry=state, step_fn=step_fn, train_batches_fn=train_batches,
+                      eval_fn=lambda s: evals.append(eval_fn(s)) or evals[-1], epochs=epochs,
+                      generator=torch.Generator().manual_seed(1), output_dir=str(out_dir),
+                      log_fn=lambda m: print(f"[data-train]   {m}"), save_state_fn=save,
+                      start_epoch=start_epoch)
+    return dict(state=state, best=best, evals=evals, saved=saved, trace=trace,
+                step_fn=step_fn, train_batches=train_batches)
+
+
+def _tree_diff(a, b, prefix="") -> dict:
+    """{leaf path: max |a - b|} over two nested trees of arrays (and ints)."""
+    if isinstance(a, dict):
+        out = {}
+        for k in a:
+            out.update(_tree_diff(a[k], b[k], f"{prefix}{k}/"))
+        return out
+    if a is None:
+        return {prefix: 0.0 if b is None else float("inf")}
+    x = np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float64)
+    y = np.asarray(b.float() if isinstance(b, torch.Tensor) else b, np.float64)
+    return {prefix: float(np.abs(x - y).max()) if x.size else 0.0}
+
+
+def _near_step(x: torch.Tensor) -> torch.Tensor:
+    """Pixels with a channel within 1e-3 of a step of the stepped RandAugment
+    ops (an integer or a half)."""
+    d = (x * 2 - torch.round(x * 2)).abs() / 2
+    return (d < 1e-3).any(dim=-1)
+
+
+def _transform_excuse(images: torch.Tensor, draws) -> torch.Tensor:
+    """The (B, H, W) pixels a stepped RandAugment op may flip between two
+    devices: its input (here on the CPU) within 1e-3 of a step; for the ops
+    on whole-image statistics (contrast, equalize, autocontrast) the whole
+    image once any pixel is."""
+    x = random_resized_crop(images, draws.crop, draws.cubic, DATA_AUG.img_size)
+    x = torch.where(draws.flip[:, None, None, None], x.flip(2), x)
+    ra = draws.ra
+    near = torch.zeros(x.shape[:3], dtype=torch.bool)
+    for s in range(ra.op.shape[1]):
+        for b in range(x.shape[0]):
+            name = RA_OP_NAMES[int(ra.op[b, s])]
+            if bool(ra.apply[b, s]) and name in RA_STEPPED:
+                m = _near_step(x[b])
+                near[b] |= m.any() if name in ("contrast", "equalize", "autocontrast") else m
+        one = RandAugmentDraws(ra.op[:, s:s + 1], ra.apply[:, s:s + 1], ra.mag[:, s:s + 1],
+                               ra.inc)
+        x = apply_rand_augment(x, one)
+    return near
+
+
+def phase_data_train(card: str) -> dict:
+    """Stage 2 from a CIFAR-100 pickle tree on disk: the transform on the
+    card against the CPU on the same host draws; the gather, transform and
+    step times; `fit` for 2 epochs (checkpoint_temp every epoch,
+    checkpoint at a new best, eval through eval_transform and the kernel);
+    its img/s and, over one more epoch under the profiler, the device's
+    idle share. Returns the measurements and the run ([ckpt] resumes it)."""
+    root = Path(tempfile.mkdtemp(prefix="devit_data_"))
+    t0 = time.perf_counter()
+    data = _data_setup(root)
+    print(f"[data-train] CIFAR-100 pickles ({DATA_N} train, {DATA_TEST_N} test, 32x32, seed 0/1) "
+          f"written and loaded by build_dataset in {time.perf_counter() - t0:.2f} s; division 0 "
+          f"of the 4-way seed-42 split: {len(data['train'])} train, {len(data['val'])} val, "
+          f"{data['classes']} classes")
+
+    # the gather: the C++ gather, counted
+    idx = np.random.default_rng(0).permutation(len(data["train"]))[:DATA_B]
+    rows = data["train"].rows(idx)
+    g0 = gather_rows.launches
+    t0 = time.perf_counter()
+    for _ in range(50):
+        gather_rows(data["train"].images, rows)
+    gather_ms = (time.perf_counter() - t0) * 1e3 / 50
+    if gather_rows.launches != g0 + 50:
+        raise AssertionError("the native gather did not run")
+
+    # the transform on the card vs the CPU, on the same host draws
+    images = torch.from_numpy(gather_rows(data["train"].images, rows))
+    draws = draw_train(torch.Generator().manual_seed(3), tuple(images.shape), DATA_AUG)
+    on_card = apply_train(images.cuda(), draws, DATA_AUG, torch.float32).cpu()
+    on_cpu = apply_train(images, draws, DATA_AUG, torch.float32)
+    std = torch.tensor((0.229, 0.224, 0.225)) * 255
+    diff = ((on_card - on_cpu).abs() * std).amax(dim=-1)  # pixel units
+    near = _transform_excuse(images.float(), draws)
+    tol = 1e-3 * 255
+    bad = (diff > tol) & ~near
+    excused = int(((diff > tol) & near).sum())
+    if bool(bad.any()) or not bool(torch.isfinite(on_card).all()):
+        raise AssertionError(f"[data-train] train_transform card vs CPU: {int(bad.sum())} pixels "
+                             f"off by more than {tol:.3f} (max {float(diff[bad].max()):.4f}) "
+                             f"outside the excused steps")
+    erased = {bx.b for bx in draws.erase}
+    print(f"[data-train] train_transform (RRC 32->224 bicubic, hflip, RandAugment m9/0.5/inc, "
+          f"random erasing {len(erased)} of {DATA_B}) on the card vs the CPU on the same host "
+          f"draws: max diff {float(diff[~near].max()):.3e} of 255 outside the steps (tol "
+          f"{tol:.3f}); {excused} of {diff.numel()} pixels excused (a stepped op's input "
+          f"within 1e-3 of a step), {int(near.sum())} near a step in all")
+
+    # transform and step times on a fixed batch (draws on the host included)
+    xg = images.cuda()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        draw_train(torch.Generator().manual_seed(4), tuple(images.shape), DATA_AUG)
+    draw_ms = (time.perf_counter() - t0) * 1e3 / 20
+    apply_ms = _time_ms(lambda: apply_train(xg, draws, DATA_AUG))
+    transform_ms = _time_ms(lambda: train_transform(torch.Generator().manual_seed(4), xg,
+                                                    DATA_AUG))
+
+    # the main path: fit for 2 epochs from the files, counts at 0
+    before = _counts()
+    _set_counts((0, 0, 0, 0))
+    run_a = _fit(data, root / "run_a", DATA_EPOCHS)
+    launches = {"fused_attention": fused_attention.launches,
+                "attention_bwd": attention_bwd.launches}
+    _set_counts(before)
+    trace = run_a["trace"]
+    losses = [float(l) for l in trace["losses"]]
+    n_steps = sum(trace["steps"].values())
+    if not (all(np.isfinite(losses)) and len(losses) == n_steps):
+        raise AssertionError(f"[data-train] losses {losses} ({n_steps} steps)")
+    if launches["fused_attention"] == 0 or launches["attention_bwd"] == 0:
+        raise AssertionError(f"[data-train] the kernels did not run: {launches}")
+    epoch_img_s = [trace["steps"][e] * DATA_B / (trace["epoch_end"][e] - trace["epoch_start"][e])
+                   for e in range(DATA_EPOCHS)]
+    files = sorted(run_a["saved"])
+    if "checkpoint_temp.msgpack" not in files or not (root / "run_a" / files[0]).exists():
+        raise AssertionError(f"[data-train] checkpoints written: {files}")
+    print(f"[data-train] fit {DATA_EPOCHS} epochs (bs{DATA_B}, {n_steps} steps, the C++ gather in "
+          f"BatchIterator's prefetch thread, the transform on the card, mixup/cutmix, AdamW + "
+          f"EMA, the kernels): losses all finite (first {losses[0]:.4f}, last {losses[-1]:.4f}); "
+          f"eval through eval_transform (Resize 256 + CenterCrop 224) and the kernel: acc1 "
+          f"{[round(e['acc1'], 2) for e in run_a['evals']]}; files {files}; launches "
+          f"{launches}")
+    print(f"[data-train] times: gather {gather_ms:.4f} ms/batch (host); transform "
+          f"{transform_ms:.3f} ms/batch ({draw_ms:.3f} ms of host draws, {apply_ms:.3f} ms on "
+          f"the card alone); epoch img/s {[round(v, 1) for v in epoch_img_s]} (epoch 0 holds "
+          f"the first calls' warm-up) [{card}]")
+    return dict(data=data, root=root, run_a=run_a, launches=launches, gather_ms=gather_ms,
+                transform_ms=transform_ms, draw_ms=draw_ms, apply_ms=apply_ms,
+                epoch_img_s=epoch_img_s, excused=excused, losses=losses,
+                acc1=[e["acc1"] for e in run_a["evals"]], images=images)
+
+
+def phase_ckpt(dt: dict, card: str) -> dict:
+    """Run B: fit for 1 epoch, then a fresh state restored from its
+    checkpoint_temp.msgpack fits epoch 1 (start_epoch 1). After epoch 1 its
+    params, EMA and optimizer state must equal run A's (2 uninterrupted
+    epochs) bit for bit; the file read back equals the state leaf for leaf."""
+    data, root, run_a = dt["data"], dt["root"], dt["run_a"]
+    before = _counts()
+    run_b = _fit(data, root / "run_b", 1)
+    path = root / "run_b" / "checkpoint_temp.msgpack"
+    back = restore_pytree(str(path))
+    readback = _tree_diff(back, run_b["saved"]["checkpoint_temp.msgpack"][1])
+    if max(readback.values()) != 0.0:
+        raise AssertionError(f"[ckpt] the file read back differs from the state: "
+                             f"{max(readback, key=readback.get)}")
+    run_c = _fit(data, root / "run_c", DATA_EPOCHS, resume=path, start_epoch=1)
+    _set_counts(before)
+    diff = _tree_diff(stage2_tree(run_c["state"], 1), stage2_tree(run_a["state"], 1))
+    worst = max(diff, key=diff.get)
+    print(f"[ckpt] resume: run A (2 epochs) vs run B (1 epoch, checkpoint_temp.msgpack restored "
+          f"into a fresh state, epoch 1): {len(diff)} leaves (params, EMA, Adam moments, "
+          f"counts), largest difference {diff[worst]:.3e} ({worst}); the file read back equals "
+          f"the state leaf for leaf ({len(readback)} leaves) [{card}]")
+    if diff[worst] != 0.0:
+        raise AssertionError(f"[ckpt] the resumed run is not bit for bit the uninterrupted one: "
+                             f"{sum(v > 0 for v in diff.values())} leaves differ, largest "
+                             f"{diff[worst]:.3e} at {worst}")
+    # the step's time on a fixed batch (transform included), from run C's state
+    st, step_fn = run_c["state"], run_c["step_fn"]
+    images, labels = dt["images"].numpy(), np.zeros(DATA_B, np.int64)
+    step_ms = _time_ms(lambda: step_fn(st, images, labels, torch.Generator().manual_seed(5)),
+                       iters=10)
+    _set_counts(before)
+    print(f"[ckpt] stage-2 step bs{DATA_B} with the transform on the card: {step_ms:.3f} ms "
+          f"(the transform alone {dt['transform_ms']:.3f} ms) [{card}]")
+    return dict(leaves=len(diff), max_diff=diff[worst], readback_leaves=len(readback),
+                step_ms=step_ms, state=st, step_fn=step_fn,
+                train_batches=run_c["train_batches"])
+
+
+def phase_data_profile(ck: dict, card: str) -> dict:
+    """One more epoch of the resumed run under torch.profiler (after a warm
+    one): the device's busy and idle share of the epoch's wall time."""
+    before = _counts()
+    out = _profile(lambda: train_epoch(ck["step_fn"], ck["state"], ck["train_batches"](2),
+                                       torch.Generator().manual_seed(9), epoch=2,
+                                       log_fn=lambda *_: None),
+                   "[data-profile]", f"one bs{DATA_B} real-data epoch", card, kind=_step_kind)
+    _set_counts(before)
+    return out
+
+
+def phase_pil(dt: dict, card: str) -> dict:
+    """Where PIL imports: an epoch with the host backend (host_augment in
+    BatchIterator's prefetch thread, then finish_transform on the card),
+    the JAX CLI's `auto` choice for this configuration."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        print("[pil] PIL does not import here: the host-augment backend is not run "
+              "(the device transform above is the path)")
+        return {"pil": False}
+    from devit_tpu_torch.data.host_augment import make_host_train_augment
+
+    data = dt["data"]
+    state, step_fn, train_batches, _, trace = _data_run(
+        data, host_tf=make_host_train_augment(DATA_AUG, seed=0))
+    it = train_batches(0)
+    before = _counts()
+    t0 = time.perf_counter()
+    train_epoch(step_fn, state, it, torch.Generator().manual_seed(1), epoch=0,
+                log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _set_counts(before)
+    losses = [float(l) for l in trace["losses"]]
+    if not (losses and all(np.isfinite(losses))):
+        raise AssertionError(f"[pil] losses {losses}")
+    img_s = len(it) * DATA_B / secs
+    print(f"[pil] PIL {PIL.__version__} imports: one epoch with the host backend (PIL RRC + "
+          f"hflip + RandAugment in the prefetch thread, finish_transform on the card): "
+          f"{len(it)} steps, {img_s:.1f} img/s, losses finite [{card}]")
+    return {"pil": True, "img_s": img_s}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2228,6 +2716,17 @@ def main() -> int:
     times["ens_train"] = ens
     times["dekd"] = dekd = phase_dekd(card)
     times["stage3"] = stage3 = phase_stage3(card)
+    times["heads"] = heads = phase_heads(card)
+    dt = phase_data_train(card)
+    ck = phase_ckpt(dt, card)
+    dt["profile"] = phase_data_profile(ck, card)
+    dt["ckpt"] = {k: ck[k] for k in ("leaves", "max_diff", "readback_leaves", "step_ms")}
+    dt["pil"] = phase_pil(dt, card)
+    times["data_train"] = {k: v for k, v in dt.items()
+                           if k not in ("data", "root", "run_a", "images")}
+    shutil.rmtree(dt["root"], ignore_errors=True)
+    del dt, ck
+    hm = heads["max_abs"]
 
     fa = times["forward_attention"]
     bw = train["kernel_times"]["bwd_step"]
@@ -2237,20 +2736,22 @@ def main() -> int:
         "source": "devit_tpu_torch/kernels/csrc/attention.cu",
         "replaces": "devit_tpu/kernels/attention.py:30",
         # the launches of every main-path run: serving, stage 2, stage 5, DEKD,
-        # stage 3 (the policy search's chunks)
+        # stage 3 (the policy search's chunks), stage 2 from the files
         "launches": (launches + train["launches"]["fused_attention"]
                      + ens["launches"]["fused_attention"] + dekd["launches"]["fused_attention"]
-                     + stage3["launches"]),
-        # every shape checked: [kernel]'s up to B 256 and stage 3's B 4096
-        "max_abs_err": max(max_abs_err, stage3["shrink"]["attention"]["max_abs_err"]),
+                     + stage3["launches"] + times["data_train"]["launches"]["fused_attention"]),
+        # every shape checked: [kernel]'s up to B 256, stage 3's B 4096, [heads]
+        "max_abs_err": max(max_abs_err, stage3["shrink"]["attention"]["max_abs_err"],
+                           hm["fwd"]),
         "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"]}, {
         "name": "attention_bwd", "route": "cuda",
         "source": "devit_tpu_torch/kernels/csrc/attention_bwd.cu",
         "replaces": "devit_tpu/kernels/attention.py:238",
         "launches": (train["launches"]["attention_bwd"] + ens["launches"]["attention_bwd"]
-                     + dekd["launches"]["attention_bwd"]),
-        "max_abs_err": bwd_max_abs_err,
+                     + dekd["launches"]["attention_bwd"]
+                     + times["data_train"]["launches"]["attention_bwd"]),
+        "max_abs_err": max(bwd_max_abs_err, hm["bwd"]),
         "ms": bw["ms"], "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
         "bound_by": bw["bound_by"], "library_ms": bw["library_ms"]}] + [{
         # per stage-5 step (48 launches at B 64, kh 6); the library yardstick
@@ -2258,7 +2759,8 @@ def main() -> int:
         "name": f"attention_bwd_{k}", "route": "cuda",
         "source": "devit_tpu_torch/kernels/csrc/attention_bwd_split.cu",
         "replaces": f"devit_tpu/kernels/attention.py:{line}",
-        "launches": ens["launches"][f"attention_bwd_{k}"], "max_abs_err": split_max_abs_err[k],
+        "launches": ens["launches"][f"attention_bwd_{k}"],
+        "max_abs_err": max(split_max_abs_err[k], hm[k]),
         "ms": es[k]["ms"], "plain_ms": es[k]["plain_ms"], "bound_ms": es[k]["bound_ms"],
         "bound_by": es[k]["bound_by"], "library_ms": es[k]["library_ms"]}
         for k, line in (("dv", 306), ("dqdk", 324))]}
@@ -2277,7 +2779,7 @@ def main() -> int:
         "name": "fused_block_attention", "route": "cuda",
         "source": "devit_tpu_torch/kernels/csrc/block_attention.cu",
         "replaces": "devit_tpu/kernels/attention.py:133",
-        "launches": block["launches"], "max_abs_err": block["max_abs_err"],
+        "launches": block["launches"], "max_abs_err": max(block["max_abs_err"], hm["block"]),
         "ms": bl["ms"], "plain_ms": bl["plain_ms"], "bound_ms": bl["bound_ms"],
         "bound_by": bl["bound_by"], "library_ms": None}]
     if args.out:

@@ -92,6 +92,20 @@ def _to_tree(values: Mapping[str, torch.Tensor], layer_axis: int) -> dict:
     return tree
 
 
+def vit_values_from_jax_params(params_np: dict, names) -> dict:
+    """The inverse of vit_to_jax_params for a {port name: tensor} dict: a
+    scan-stacked tree -> {name: f32 numpy array} for each of `names`."""
+    out = {}
+    for name in names:
+        path, layer = _flax_path(name)
+        node = params_np
+        for key in path:
+            node = node[key]
+        arr = np.asarray(node, np.float32)
+        out[name] = arr[layer] if layer is not None else arr
+    return out
+
+
 def stacked_vit_from_jax_params(stacked_np: dict, model: VisionTransformer, *,
                                 device: DeviceLike = None) -> dict:
     """A division-stacked flax VisionTransformer `params` tree (every leaf

@@ -35,7 +35,8 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of the library: name -> (argument types, result type)
 SIGNATURES = {
     "devit_fused_attention": ([_VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
-    # the three backwards take a (B, H, N, 3) f32 scratch (or NULL) for N > 256
+    # the three backwards take a (B, H, N, 3) f32 scratch where they walk key
+    # chunks (devit_attention_bwd_long_path), else NULL
     "devit_attention_bwd": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
     "devit_attention_bwd_dv": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _VP], _I),
     "devit_attention_bwd_dqdk": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _VP], _I),
@@ -47,9 +48,12 @@ SIGNATURES = {
     # NULL at bf16), out, B, N, C, H, head_dim, eps, dtype, stream
     "devit_block_attention": ([_VP] * 10 + [_I] * 5 + [ctypes.c_float, _I, _VP], _I),
     "devit_attention_smem_bytes": ([_I, _I, _I], _LL),
-    "devit_attention_bwd_smem_bytes": ([_I, _I, _I], _LL),
-    "devit_attention_bwd_dv_smem_bytes": ([_I, _I, _I], _LL),
-    "devit_attention_bwd_dqdk_smem_bytes": ([_I, _I, _I], _LL),
+    # the backwards' queries take the device: whether they walk key chunks
+    # depends on its opt-in shared memory
+    "devit_attention_bwd_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "devit_attention_bwd_dv_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "devit_attention_bwd_dqdk_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "devit_attention_bwd_long_path": ([_I, _I, _I, _I], _I),
     "devit_block_attention_smem_bytes": ([_I, _I, _I], _LL),
     "devit_max_smem_optin": ([_I], _LL),
     "devit_error_string": ([_I], ctypes.c_char_p),

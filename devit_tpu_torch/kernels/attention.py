@@ -13,9 +13,12 @@ The head gate is applied outside the kernel, as in the JAX package.
 
 At bf16 the forward, the backwards and `fused_block_attention` compute every
 product on the tensor cores (mma.sync); at f32 they run f32 FMAs on the CUDA
-cores (see the sources' notes). The backwards take any N: past 256 keys they walk 256-key
-chunks on the CUDA cores (csrc/attention_bwd_long.cu), with a (B, H, N, 3)
-f32 scratch of row statistics that the wrapper allocates.
+cores (see the sources' notes). Every kernel takes head_dim 32, 64 or 128
+(HEAD_DIMS) and raises a ValueError on any other. The backwards take any N:
+past 256 keys, or where a block of the monolithic kernel would not fit
+shared memory (head_dim 128 at the larger N), they walk key chunks on the
+CUDA cores (csrc/attention_bwd_long.cu), with a (B, H, N, 3) f32 scratch of
+row statistics that the wrapper allocates.
 
 `make_trainable_attention` is the differentiable form the training path
 uses: its forward is `fused_attention`, it saves only qkv, and its backward
@@ -40,7 +43,7 @@ import torch
 
 from devit_tpu_torch.kernels import _build
 
-HEAD_DIMS = (64,)  # head_dim values the CUDA kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)  # head_dim values the CUDA kernels are instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -141,12 +144,17 @@ _SMEM_QUERIES = {"fwd": "devit_attention_smem_bytes", "bwd": "devit_attention_bw
                  "block": "devit_block_attention_smem_bytes"}
 
 
+_BWD_KERNELS = ("bwd", "dv", "dqdk")  # their queries take the device
+
+
 @functools.lru_cache(maxsize=None)
 def _check_smem(kernel: str, N: int, dh: int, elem: int, device: int) -> None:
     """Raise if one block of `kernel` (a key of _SMEM_QUERIES) at sequence
-    length N does not fit shared memory."""
-    need = getattr(_build.library(), _SMEM_QUERIES[kernel])(N, dh, elem)
-    _build.check_smem(need, f"sequence length N={N} in the {kernel} kernel", device)
+    length N and head_dim dh does not fit shared memory."""
+    query = getattr(_build.library(), _SMEM_QUERIES[kernel])
+    need = query(N, dh, elem, device) if kernel in _BWD_KERNELS else query(N, dh, elem)
+    _build.check_smem(need, f"sequence length N={N} at head_dim {dh} in the {kernel} kernel",
+                      device)
 
 
 def _check_kernel_input(qkv: torch.Tensor, num_heads: int, kernel: str):
@@ -213,16 +221,24 @@ def _check_bwd_input(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, kernel:
     return qkv.contiguous(), g.contiguous(), (B, N, C, dh)
 
 
-# The backward kernels that give one block a whole (batch row, head) take N
-# up to this (csrc/bwd_common.cuh kShortN); past it they walk key chunks and
-# need each row's softmax max, sum and rowsum(dp * p) in a scratch buffer.
+@functools.lru_cache(maxsize=None)
+def _bwd_long_path(N: int, dh: int, elem: int, device: int) -> bool:
+    """Whether the backwards walk key chunks (csrc/bwd_mma.cuh use_long_path:
+    past 256 keys, or where the monolithic kernel's block does not fit)."""
+    return bool(_build.library().devit_attention_bwd_long_path(N, dh, elem, device))
+
+
+# Past this N the backwards always walk key chunks (csrc/bwd_common.cuh
+# kShortN); at or below it only where the monolithic block does not fit.
 _SHORT_N = 256
 
 
 def _bwd_stats(qkv: torch.Tensor, num_heads: int) -> Optional[torch.Tensor]:
-    """The long path's (B, H, N, 3) f32 scratch, or None at N <= 256."""
-    B, N = qkv.shape[:2]
-    if N <= _SHORT_N:
+    """The long path's (B, H, N, 3) f32 scratch of each row's softmax max,
+    sum and rowsum(dp * p), or None where one block owns a (row, head)."""
+    B, N, C3 = qkv.shape
+    if N <= _SHORT_N and not (qkv.is_cuda and _bwd_long_path(
+            N, C3 // (3 * num_heads), qkv.element_size(), qkv.device.index)):
         return None
     return torch.empty((B, num_heads, N, 3), dtype=torch.float32, device=qkv.device)
 

@@ -48,6 +48,11 @@
 // warp's rows (attend_rows and its chunk_* steps) live in attn_mma.cuh,
 // which block_attention.cu's bf16 kernel shares.
 //
+// Head widths: every kernel is instantiated for dh 32, 64 and 128 (the
+// wrapper raises on any other). At bf16 the swizzled tiles hold rows of dh
+// bf16 (swz_dh in mma_common.cuh); a warp's q fragments, o accumulators and
+// the key and value steps scale with dh.
+//
 // f32 (attn_kernel): f32 FMAs on the CUDA cores, reading its operands from
 // shared memory. It stays off the tensor cores because the f32 tolerance is
 // 1e-4 and a TF32 mma keeps ~10 mantissa bits of each operand, too few. The
@@ -56,7 +61,8 @@
 // K (transposed, so a warp reads consecutive keys) and V and its Q tile in
 // shared memory once, and keeps the 64 x N f32 score tile there between the
 // two products, so no score or probability reaches device memory (~165 KB a
-// block at N = 198).
+// block at N = 198). At dh 128, K^T and V of N 198 would not fit beside S
+// (280 KB), so V takes K^T's place once S is formed (~181 KB a block).
 
 #include <math.h>
 #include <stdint.h>
@@ -79,12 +85,16 @@ constexpr int kBQ = 64;        // query rows per block
 constexpr int kThreads = 256;  // f32: 8 warps, 16 column lanes x 16 row groups of 4
 constexpr int kMmaThreads = 128;  // bf16: 4 warps, 16 query rows each
 
+// f32 at dh > 64: V shares K^T's region (staged once S is formed).
+__host__ __device__ constexpr bool shares_kv(int head_dim) { return head_dim > 64; }
+
 size_t smem_bytes(int n, int head_dim, int elem) {
   if (elem == 2)  // bf16: Q [2][kBQ][dh] | K [NP][dh] | V [NP][dh], NP = N rounded up to 16
     return (size_t)2 * head_dim * (2 * kBQ + 2 * (size_t)((n + 15) & ~15));
-  // f32: S [kBQ][stride] | K^T [dh][N] | V [N][dh] | Q^T [dh][kBQ]
+  // f32: S [kBQ][stride] | K^T [dh][N] | V [N][dh] (or V over K^T) | Q^T [dh][kBQ]
+  const size_t kv = (shares_kv(head_dim) ? 1 : 2) * (size_t)n * head_dim;
   return (size_t)kBQ * score_stride(n) * sizeof(float) +
-         (size_t)elem * (2 * (size_t)n * head_dim + (size_t)head_dim * kBQ);
+         (size_t)elem * (kv + (size_t)head_dim * kBQ);
 }
 
 template <typename T, int DH>
@@ -97,8 +107,9 @@ attn_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H,
   extern __shared__ __align__(16) unsigned char smem[];
   const int SP = score_stride(N);
   float* S = reinterpret_cast<float*>(smem);
+  constexpr bool kShare = shares_kv(DH);
   T* Kt = reinterpret_cast<T*>(S + kBQ * SP);
-  T* Vs = Kt + DH * N;
+  T* Vs = kShare ? Kt : Kt + DH * N;
   T* Qt = Vs + N * DH;
 
   const int C = H * DH;
@@ -109,12 +120,13 @@ attn_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H,
   const int64_t row_stride = 3LL * C;
   const T* base = qkv + (int64_t)b * N * row_stride + h * DH;
 
-  // ---- stage K^T, V (whole sequence) and Q^T (this tile) in shared memory
+  // ---- stage K^T, V (whole sequence; V later where it shares K^T's place)
+  // and Q^T (this tile) in shared memory
   for (int i = threadIdx.x; i < N * DH; i += kThreads) {
     const int n = i / DH, d = i % DH;
     const T* row = base + (int64_t)n * row_stride;
     Kt[d * N + n] = row[C + d];
-    Vs[n * DH + d] = row[2 * C + d];
+    if (!kShare) Vs[n * DH + d] = row[2 * C + d];
   }
   for (int i = threadIdx.x; i < kBQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
@@ -155,6 +167,10 @@ attn_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H,
         if (col[j] < N) S[(4 * ty + i) * SP + col[j]] = acc[i][j] * scale;
   }
   __syncthreads();
+  if (kShare) {  // K^T is read no more: V takes its place
+    for (int i = threadIdx.x; i < N * DH; i += kThreads)
+      Vs[i] = base[(int64_t)(i / DH) * row_stride + 2 * C + i % DH];
+  }
 
   // ---- softmax over each row's N keys, f32; p rounded to T (v's dtype)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -223,18 +239,18 @@ using devit::mma::attend_rows;
 using devit::mma::bf16;
 using devit::mma::ldmatrix_x4;
 using devit::mma::pack_bf16;
-using devit::mma::swz;
+using devit::mma::swz_dh;
 
 // One block: (batch row, head, a run of tpb 64-query tiles); 4 warps of 16
 // query rows. K and V of the head are staged once a block; the next tile's q
 // rows arrive (cp.async) while the current tile computes. KC key steps of 16 are
 // held in registers at once: N <= 16 * KC takes one chunk, a larger N
-// (KC = 16) walks 256-key chunks three times.
-template <int KC>
+// (KC = 16) walks 256-key chunks three times. DH: the head width.
+template <int KC, int DH>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 attn_kernel_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
                 int n_tiles, int tpb, float scale) {
-  constexpr int DH = 64;
+  constexpr int kShift = devit::mma::chunk_shift<DH>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int NP = (N + 15) & ~15;
   bf16* Qbuf = reinterpret_cast<bf16*>(smem);  // two [kBQ][dh] q tiles
@@ -253,53 +269,53 @@ attn_kernel_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r0 = 16 * warp;  // the warp's first row in a tile
 
-  devit::mma::load_rows(Ks, base + C, row3, NP, N, tid, kMmaThreads);
-  devit::mma::load_rows(Vs, base + 2 * C, row3, NP, N, tid, kMmaThreads);
-  devit::mma::load_rows(Qbuf, base + (int64_t)t0 * kBQ * row3, row3, kBQ, N - t0 * kBQ, tid,
-                        kMmaThreads);
+  devit::mma::load_rows<DH>(Ks, base + C, row3, NP, N, tid, kMmaThreads);
+  devit::mma::load_rows<DH>(Vs, base + 2 * C, row3, NP, N, tid, kMmaThreads);
+  devit::mma::load_rows<DH>(Qbuf, base + (int64_t)t0 * kBQ * row3, row3, kBQ, N - t0 * kBQ, tid,
+                            kMmaThreads);
   for (int tile = t0; tile < t1; ++tile) {
     bf16* Qs = Qbuf + ((tile - t0) & 1) * kBQ * DH;
     devit::mma::cp_async_wait_all();
     __syncthreads();  // this tile's q (and K, V) landed; the other buffer is free
     if (tile + 1 < t1)
-      devit::mma::load_rows(Qbuf + ((tile + 1 - t0) & 1) * kBQ * DH,
+      devit::mma::load_rows<DH>(Qbuf + ((tile + 1 - t0) & 1) * kBQ * DH,
                             base + (int64_t)(tile + 1) * kBQ * row3, row3, kBQ,
                             N - (tile + 1) * kBQ, tid, kMmaThreads);
     const int q0 = tile * kBQ;
     if (q0 + r0 >= N) continue;  // all 16 rows past the sequence
 
-    uint32_t qa[4][4];  // A fragments of the warp's 16 q rows, one per 16 dims
+    uint32_t qa[DH / 16][4];  // A fragments of the warp's 16 q rows, one per 16 dims
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      ldmatrix_x4(qa[ks], Qs + swz(r0 + (lane & 15), 2 * ks + (lane >> 4)));
-    float o[8][4];
-    attend_rows<KC>(o, qa, Ks, Vs, N, scale, lane);
+    for (int ks = 0; ks < DH / 16; ++ks)
+      ldmatrix_x4(qa[ks], Qs + swz_dh<DH>(r0 + (lane & 15), 2 * ks + (lane >> 4)));
+    float o[DH / 8][4];
+    attend_rows<KC, DH>(o, qa, Ks, Vs, N, scale, lane);
 
     // o rounded once into the warp's own 16 rows of Qs, then 16-byte stores
     __syncwarp();
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
+    for (int t = 0; t < DH / 8; ++t)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = r0 + (lane >> 2) + 8 * half;
-        *reinterpret_cast<uint32_t*>(Qs + swz(r, t) + 2 * (lane & 3)) =
+        *reinterpret_cast<uint32_t*>(Qs + swz_dh<DH>(r, t) + 2 * (lane & 3)) =
             pack_bf16(o[t][2 * half], o[t][2 * half + 1]);
       }
     __syncwarp();
-    for (int i = lane; i < 16 * 8; i += 32) {
-      const int r = i >> 3, c = i & 7;
+    for (int i = lane; i < 16 * (DH / 8); i += 32) {
+      const int r = i >> kShift, c = i & (DH / 8 - 1);
       const int n = q0 + r0 + r;
       if (n < N)
         *reinterpret_cast<uint4*>(obase + (int64_t)n * C + 8 * c) =
-            *reinterpret_cast<const uint4*>(Qs + swz(r0 + r, c));
+            *reinterpret_cast<const uint4*>(Qs + swz_dh<DH>(r0 + r, c));
     }
   }
 }
 
-template <int KC>
+template <int KC, int DH>
 cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_kernel_mma<KC>, opted_in);
+  cudaError_t err = devit::opt_in_smem((const void*)attn_kernel_mma<KC, DH>, opted_in);
   if (err != cudaSuccess) return err;
   static std::atomic<int> sms[devit::kMaxDevices];
   int dev = 0;
@@ -319,19 +335,28 @@ cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, cudaStre
   const int runs = (int)std::min<long long>(n_tiles, (want + heads - 1) / heads);
   const int tpb = (n_tiles + runs - 1) / runs;
   const dim3 grid((unsigned)(B * ((n_tiles + tpb - 1) / tpb)), (unsigned)H);
-  attn_kernel_mma<KC><<<grid, kMmaThreads, smem_bytes(N, 64, 2), stream>>>(
+  attn_kernel_mma<KC, DH><<<grid, kMmaThreads, smem_bytes(N, DH, 2), stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, n_tiles, tpb,
-      1.0f / sqrtf(64.f));
+      1.0f / sqrtf((float)DH));
   return cudaGetLastError();
 }
 
 // The fewest score registers that hold the row: N <= 64, 128, 208 (the
 // deployed N = 198), 256; past 256, 256-key chunks.
+template <int DH>
 cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, cudaStream_t s) {
-  if (N <= 64) return launch_mma<4>(qkv, out, B, N, H, s);
-  if (N <= 128) return launch_mma<8>(qkv, out, B, N, H, s);
-  if (N <= 208) return launch_mma<13>(qkv, out, B, N, H, s);
-  return launch_mma<16>(qkv, out, B, N, H, s);
+  if (N <= 64) return launch_mma<4, DH>(qkv, out, B, N, H, s);
+  if (N <= 128) return launch_mma<8, DH>(qkv, out, B, N, H, s);
+  if (N <= 208) return launch_mma<13, DH>(qkv, out, B, N, H, s);
+  return launch_mma<16, DH>(qkv, out, B, N, H, s);
+}
+
+template <int DH>
+cudaError_t launch_dh(const void* qkv, void* out, int B, int N, int H, int dtype,
+                      cudaStream_t s) {
+  if (dtype == 0) return launch<float, DH>(qkv, out, B, N, H, s);
+  if (dtype == 1) return launch_bf16<DH>(qkv, out, B, N, H, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -352,13 +377,14 @@ long long devit_max_smem_optin(int device) {
 }
 
 // qkv: (B, N, 3*H*head_dim) contiguous; out: (B, N, H*head_dim) contiguous.
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64 or 128. Returns a
+// cudaError_t (0 = launched).
 int devit_fused_attention(const void* qkv, void* out, int B, int N, int H,
                           int head_dim, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 64) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch<float, 64>(qkv, out, B, N, H, s);
-  if (dtype == 1) return (int)launch_bf16(qkv, out, B, N, H, s);
+  if (head_dim == 32) return (int)launch_dh<32>(qkv, out, B, N, H, dtype, s);
+  if (head_dim == 64) return (int)launch_dh<64>(qkv, out, B, N, H, dtype, s);
+  if (head_dim == 128) return (int)launch_dh<128>(qkv, out, B, N, H, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

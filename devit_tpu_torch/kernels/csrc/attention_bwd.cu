@@ -26,8 +26,12 @@
 // the head stay in shared memory for the whole block; the tile's f32 s and dp
 // (32 x N each) sit beside them. Past 256 keys the warps' registers cannot
 // hold dk and dv of every key and a block cannot hold the rows, so the
-// backward walks 256-key chunks (attention_bwd_long.cu: a row-statistics and
-// dq kernel, then a dk/dv kernel).
+// backward walks key chunks (attention_bwd_long.cu: a row-statistics and
+// dq kernel, then a dk/dv kernel); so it does where the block would not fit
+// shared memory (use_long_path in bwd_mma.cuh: dh 128 at the larger N).
+//
+// Head widths 32, 64 and 128: the tensor-core kernel is templated on dh (see
+// bwd_mma.cuh); in the f32 kernel a lane owns dims l + 32 j, j < dh / 32.
 //
 // bf16: attn_bwd_kernel_mma<true, true> (bwd_mma.cuh), all five products on
 // the tensor cores in one pass, dk and dv in the warps' accumulators. The
@@ -61,18 +65,20 @@ using namespace devit::bwd;
 
 constexpr int kMaxCPerWarp = kShortN / kWarps;  // key rows of dk/dv a warp holds
 
-// Shared memory of one block at sequence length n.
-long long smem_bytes(int n, int dh, int elem) {
-  if (n > kShortN) return (long long)long_smem_bytes(dh, elem);
-  return (long long)(elem == 2 ? mma_smem_bytes<true, true>(n) : dqdk_smem_bytes<float>(n, dh));
+// Shared memory of one block at sequence length n on `device`.
+long long smem_bytes(int n, int dh, int elem, int device) {
+  if (use_long_path(n, dh, elem, devit::device_optin(device)))
+    return (long long)long_smem_bytes(dh, elem);
+  return (long long)(elem == 2 ? mma_smem_bytes<true, true>(n, dh)
+                               : dqdk_smem_bytes<float>(n, dh));
 }
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dqkv,
                 int N, int H, float scale) {
-  static_assert(DH == 64, "a lane owns dims l and l + 32");
   constexpr int KS = kv_stride<T>(DH);
+  constexpr int DJ = DH / 32;  // dims a lane owns
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int SP = devit::score_stride(N);
@@ -94,9 +100,11 @@ attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __restric
   load_keys<T, DH>(base, Ks, Vs, N, row3, C);
   const int warp = threadIdx.x / 32;
   for (int pass = 0; pass < 2; ++pass) {
-    float acc[kMaxCPerWarp][2];  // dv (pass 1), then dk (pass 2)
+    float acc[kMaxCPerWarp][DJ];  // dv (pass 1), then dk (pass 2)
 #pragma unroll
-    for (int i = 0; i < kMaxCPerWarp; ++i) acc[i][0] = acc[i][1] = 0.f;
+    for (int i = 0; i < kMaxCPerWarp; ++i)
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
     for (int q0 = 0; q0 < N; q0 += kBQ) {
       const int rows = min(kBQ, N - q0);
       __syncthreads();  // the previous tile's readers of Q, G, P, D are done
@@ -113,17 +121,17 @@ attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __restric
       }
       __syncthreads();
       if (pass == 0) {
-        accumulate_keys<T, DH, true, kMaxCPerWarp>(acc, P, Gs, 0, N, SP, rows);  // dv
+        accumulate_keys<T, DH, true, kMaxCPerWarp, DJ>(acc, P, Gs, 0, N, SP, rows);  // dv
         continue;
       }
-      accumulate_keys<T, DH, false, kMaxCPerWarp>(acc, D, Qs, 0, N, SP, rows);  // dk
+      accumulate_keys<T, DH, false, kMaxCPerWarp, DJ>(acc, D, Qs, 0, N, SP, rows);  // dk
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = 2 * warp + i;
         if (r < rows) dq_row<T, DH>(D + r * SP, Ks, obase + (int64_t)(q0 + r) * row3, N);
       }
     }
-    store_keys<T, kMaxCPerWarp>(acc, obase + (pass == 0 ? 2 : 1) * C, row3, 0, N);
+    store_keys<T, kMaxCPerWarp, DJ>(acc, obase + (pass == 0 ? 2 : 1) * C, row3, 0, N);
   }
 }
 
@@ -144,26 +152,44 @@ cudaError_t launch(const void* qkv, const void* g, void* dqkv, int B, int N, int
 
 extern "C" {
 
-// Dynamic shared memory one backward block needs at sequence length n.
-long long devit_attention_bwd_smem_bytes(int n, int head_dim, int elem_bytes) {
-  return smem_bytes(n, head_dim, elem_bytes);
+// Dynamic shared memory one backward block needs at sequence length n on
+// `device` (the path use_long_path picks).
+long long devit_attention_bwd_smem_bytes(int n, int head_dim, int elem_bytes, int device) {
+  return smem_bytes(n, head_dim, elem_bytes, device);
+}
+
+// 1 when the backwards (monolithic and split alike) walk key chunks at (n,
+// head_dim, elem_bytes) on `device` and so need the (B, H, N, 3) f32
+// scratch, 0 when one block owns a (batch row, head).
+int devit_attention_bwd_long_path(int n, int head_dim, int elem_bytes, int device) {
+  return use_long_path(n, head_dim, elem_bytes, devit::device_optin(device)) ? 1 : 0;
 }
 
 // qkv: (B, N, 3*H*head_dim), g: (B, N, H*head_dim), dqkv: like qkv; all
-// contiguous and of one dtype (0 = float32, 1 = bfloat16). stats: B*H*N*3
-// floats of scratch, used (and needed) only when N > 256. Returns a
-// cudaError_t (0 = launched).
+// contiguous and of one dtype (0 = float32, 1 = bfloat16); head_dim 32, 64
+// or 128. stats: B*H*N*3 floats of scratch, used (and needed) only where
+// devit_attention_bwd_long_path says so. Returns a cudaError_t (0 =
+// launched).
 int devit_attention_bwd(const void* qkv, const void* g, void* dqkv, void* stats, int B, int N,
                         int H, int head_dim, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  if (head_dim != 32 && head_dim != 64 && head_dim != 128) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
   const long long row3 = 3LL * H * head_dim;
-  if (N > kShortN)
-    return (int)launch_long(qkv, g, dqkv, row3, static_cast<float*>(stats), B, N, H, dtype, true,
-                            true, s);
-  if (dtype == 0) return (int)launch<float, 64>(qkv, g, dqkv, B, N, H, s);
-  if (dtype == 1) return (int)launch_bwd_mma<true, true>(qkv, g, dqkv, row3, B, N, H, s);
-  return (int)cudaErrorInvalidValue;
+  if (use_long_path(N, head_dim, dtype == 1 ? 2 : 4, devit::device_optin(dev)))
+    return (int)launch_long(qkv, g, dqkv, row3, static_cast<float*>(stats), B, N, H, head_dim,
+                            dtype, true, true, s);
+  if (dtype == 0) {
+    if (head_dim == 32) return (int)launch<float, 32>(qkv, g, dqkv, B, N, H, s);
+    if (head_dim == 64) return (int)launch<float, 64>(qkv, g, dqkv, B, N, H, s);
+    return (int)launch<float, 128>(qkv, g, dqkv, B, N, H, s);
+  }
+  if (head_dim == 32) return (int)launch_bwd_mma<true, true, 32>(qkv, g, dqkv, row3, B, N, H, s);
+  if (head_dim == 64) return (int)launch_bwd_mma<true, true, 64>(qkv, g, dqkv, row3, B, N, H, s);
+  return (int)launch_bwd_mma<true, true, 128>(qkv, g, dqkv, row3, B, N, H, s);
 }
 
 }  // extern "C"

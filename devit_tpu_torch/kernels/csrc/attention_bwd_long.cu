@@ -32,6 +32,11 @@
 // so at f32 this path computes what the one-block-a-head steps would if their
 // registers held the row.
 //
+// Head widths 32, 64 and 128: a lane owns dims l + 32 j, j < dh / 32. At dh
+// 128 the chunks are 128 keys (long_chunk), so that an f32 block's K and V
+// chunk fits beside the score rows; the monolithic wrapper also routes dh
+// 128 here where its short block would not fit shared memory.
+//
 // What bounds it: speed past 256 keys is not a target (no training
 // configuration runs there yet). It recomputes s four times (rows<DQ>) and
 // once more per key chunk, on the CUDA cores; chip_smoke.py times it at N 578.
@@ -45,9 +50,11 @@ using devit::from_f;
 using devit::round_to;
 using devit::to_f;
 
-constexpr int kChunk = kShortN;             // keys a chunk
-constexpr int kKeysPerWarp = kChunk / kWarps;  // key rows of a warp in the key-side sums
-constexpr int kSP = kChunk | 1;             // score_stride(kChunk)
+// Keys a chunk (long_chunk), the key rows of a warp in the key-side sums,
+// and the score rows' stride (score_stride of the chunk), by head width.
+template <int DH> constexpr int chunk_keys = long_chunk(DH);
+template <int DH> constexpr int chunk_keys_per_warp = chunk_keys<DH> / kWarps;
+template <int DH> constexpr int chunk_stride = chunk_keys<DH> | 1;
 
 // Walks the key chunks of one (batch row, head): for each chunk, stages its K
 // (and V, when Vs is not null) and computes the tile's scores into P (and
@@ -58,14 +65,15 @@ template <typename T, int DH, typename F>
 __device__ __forceinline__ void walk_chunks(const T* base, T* Ks, T* Vs, const T* Qs,
                                             const T* Gs, float* P, float* D, int N, int rows,
                                             int64_t row3, int C, float scale, F row_step) {
+  constexpr int kC = chunk_keys<DH>;
   const int warp = threadIdx.x / 32;
-  for (int c0 = 0; c0 < N; c0 += kChunk) {
-    const int len = min(kChunk, N - c0);
+  for (int c0 = 0; c0 < N; c0 += kC) {
+    const int len = min(kC, N - c0);
     __syncthreads();  // the previous chunk's readers of Ks, Vs are done
     load_keys<T, DH>(base + (int64_t)c0 * row3, Ks, Vs, len, row3, C);
     __syncthreads();
-    rows_times_keys<T, DH>(Qs, Ks, P, len, kSP, scale);
-    if (Vs != nullptr) rows_times_keys<T, DH>(Gs, Vs, D, len, kSP, 1.f);
+    rows_times_keys<T, DH>(Qs, Ks, P, len, chunk_stride<DH>, scale);
+    if (Vs != nullptr) rows_times_keys<T, DH>(Gs, Vs, D, len, chunk_stride<DH>, 1.f);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = 2 * warp + i;
@@ -81,15 +89,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_long_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dq,
                    long long out_stride, float* __restrict__ stats, int N, int H, int n_tiles,
                    float scale) {
-  static_assert(DH == 64, "a lane owns dims l and l + 32");
   constexpr int KS = kv_stride<T>(DH);
+  constexpr int DJ = DH / 32;  // dims a lane owns
+  constexpr int kSP = chunk_stride<DH>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* P = reinterpret_cast<float*>(smem);  // s of the tile and chunk (f32)
   float* D = P + kBQ * kSP;                   // dp, then ds
   T* Ks = reinterpret_cast<T*>(D + kBQ * kSP);
-  T* Vs = Ks + kChunk * KS;
-  T* Qs = Vs + kChunk * KS;  // the tile's q rows, zero past N
-  T* Gs = Qs + kBQ * DH;     // the tile's g rows, zero past N
+  T* Vs = Ks + chunk_keys<DH> * KS;
+  T* Qs = Vs + chunk_keys<DH> * KS;  // the tile's q rows, zero past N
+  T* Gs = Qs + kBQ * DH;         // the tile's g rows, zero past N
 
   const int tile = blockIdx.x % n_tiles, bh = blockIdx.x / n_tiles;
   const int b = bh / H, h = bh % H;
@@ -125,10 +134,10 @@ attn_bwd_long_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __rest
                        });
     rs[0] = devit::warp_sum(rs[0]);
     rs[1] = devit::warp_sum(rs[1]);
-    // dq = sum over the chunks of ds K: lane l sums dims l and l + 32 over
-    // all of the row's columns, so each row's ds is complete (warp barrier)
+    // dq = sum over the chunks of ds K: lane l sums dims l + 32 j over all
+    // of the row's columns, so each row's ds is complete (warp barrier)
     // before its lanes read it
-    float acc[2][2] = {};
+    float acc[2][DJ] = {};
     walk_chunks<T, DH>(base, Ks, Vs, Qs, Gs, P, D, N, rows, row3, C, scale,
                        [&](int r, int i, int, int len) {
                          float* drow = D + r * kSP;
@@ -138,8 +147,9 @@ attn_bwd_long_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __rest
                          }
                          __syncwarp();
                          for (int c = 0; c < len; ++c) {
-                           acc[i][0] = fmaf(drow[c], to_f(Ks[c * KS + lane]), acc[i][0]);
-                           acc[i][1] = fmaf(drow[c], to_f(Ks[c * KS + lane + 32]), acc[i][1]);
+#pragma unroll
+                           for (int j = 0; j < DJ; ++j)
+                             acc[i][j] = fmaf(drow[c], to_f(Ks[c * KS + lane + 32 * j]), acc[i][j]);
                          }
                        });
     T* obase = dq + ((int64_t)b * N + q0) * out_stride + h * DH;
@@ -147,8 +157,9 @@ attn_bwd_long_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __rest
     for (int i = 0; i < 2; ++i) {
       const int r = 2 * warp + i;
       if (r >= rows) continue;
-      obase[(int64_t)r * out_stride + lane] = from_f<T>(acc[i][0]);
-      obase[(int64_t)r * out_stride + lane + 32] = from_f<T>(acc[i][1]);
+#pragma unroll
+      for (int j = 0; j < DJ; ++j)
+        obase[(int64_t)r * out_stride + lane + 32 * j] = from_f<T>(acc[i][j]);
     }
   }
 #pragma unroll
@@ -170,14 +181,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_long_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ out,
                    long long out_stride, const float* __restrict__ stats, int N, int H,
                    int n_chunks, float scale) {
-  static_assert(DH == 64, "a lane owns dims l and l + 32");
   constexpr int KS = kv_stride<T>(DH);
+  constexpr int DJ = DH / 32;  // dims a lane owns
+  constexpr int kSP = chunk_stride<DH>;
+  constexpr int kKW = chunk_keys_per_warp<DH>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* P = reinterpret_cast<float*>(smem);  // p of the tile and chunk (f32)
   float* D = P + kBQ * kSP;                   // dp, then ds
   T* Ks = reinterpret_cast<T*>(D + kBQ * kSP);
-  T* Vs = Ks + kChunk * KS;
-  T* Qs = Vs + kChunk * KS;
+  T* Vs = Ks + chunk_keys<DH> * KS;
+  T* Qs = Vs + chunk_keys<DH> * KS;
   T* Gs = Qs + kBQ * DH;
 
   const int chunk = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks;
@@ -186,13 +199,15 @@ attn_bwd_long_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __rest
   const int64_t row3 = 3LL * C;
   const T* base = qkv + (int64_t)b * N * row3 + h * DH;
   const T* gbase = g + (int64_t)b * N * C + h * DH;
-  const int c0 = chunk * kChunk, len = min(kChunk, N - c0);
+  const int c0 = chunk * chunk_keys<DH>, len = min(chunk_keys<DH>, N - c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   load_keys<T, DH>(base + (int64_t)c0 * row3, Ks, DK ? Vs : nullptr, len, row3, C);
-  float dk[kKeysPerWarp][2], dv[kKeysPerWarp][2];
+  float dk[kKW][DJ], dv[kKW][DJ];
 #pragma unroll
-  for (int i = 0; i < kKeysPerWarp; ++i) dk[i][0] = dk[i][1] = dv[i][0] = dv[i][1] = 0.f;
+  for (int i = 0; i < kKW; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
   for (int q0 = 0; q0 < N; q0 += kBQ) {
     const int rows = min(kBQ, N - q0);
     __syncthreads();  // the previous tile's readers of Qs, Gs, P, D are done
@@ -213,52 +228,66 @@ attn_bwd_long_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __rest
       }
     }
     __syncthreads();
-    if (DV) accumulate_keys<T, DH, true, kKeysPerWarp>(dv, P, Gs, 0, len, kSP, rows);
-    if (DK) accumulate_keys<T, DH, false, kKeysPerWarp>(dk, D, Qs, 0, len, kSP, rows);
+    if (DV) accumulate_keys<T, DH, true, kKW, DJ>(dv, P, Gs, 0, len, kSP, rows);
+    if (DK) accumulate_keys<T, DH, false, kKW, DJ>(dk, D, Qs, 0, len, kSP, rows);
   }
   T* obase = out + ((int64_t)b * N + c0) * out_stride + h * DH;
-  if (DK) store_keys<T, kKeysPerWarp>(dk, obase + C, out_stride, 0, len);
-  if (DV) store_keys<T, kKeysPerWarp>(dv, obase + (DK ? 2 * C : 0), out_stride, 0, len);
+  if (DK) store_keys<T, kKW, DJ>(dk, obase + C, out_stride, 0, len);
+  if (DV) store_keys<T, kKW, DJ>(dv, obase + (DK ? 2 * C : 0), out_stride, 0, len);
 }
 
-template <typename T, bool DQ>
+template <typename T, int DH, bool DQ>
 cudaError_t launch_rows(const void* qkv, const void* g, void* out, long long out_stride,
                         float* stats, int B, int N, int H, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_long_rows<T, 64, DQ>, opted_in);
+  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_long_rows<T, DH, DQ>, opted_in);
   if (err != cudaSuccess) return err;
   const int n_tiles = (N + kBQ - 1) / kBQ;
-  attn_bwd_long_rows<T, 64, DQ><<<(unsigned)(B * H * n_tiles), kThreads,
-                                  dqdk_smem_bytes<T>(kChunk, 64), stream>>>(
+  attn_bwd_long_rows<T, DH, DQ><<<(unsigned)(B * H * n_tiles), kThreads,
+                                  dqdk_smem_bytes<T>(chunk_keys<DH>, DH), stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(out), out_stride,
-      stats, N, H, n_tiles, 1.0f / sqrtf(64.f));
+      stats, N, H, n_tiles, 1.0f / sqrtf((float)DH));
   return cudaGetLastError();
 }
 
-template <typename T, bool DK, bool DV>
+template <typename T, int DH, bool DK, bool DV>
 cudaError_t launch_keys(const void* qkv, const void* g, void* out, long long out_stride,
                         const float* stats, int B, int N, int H, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_long_keys<T, 64, DK, DV>, opted_in);
+  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_long_keys<T, DH, DK, DV>, opted_in);
   if (err != cudaSuccess) return err;
-  const int n_chunks = (N + kChunk - 1) / kChunk;
-  attn_bwd_long_keys<T, 64, DK, DV><<<(unsigned)(B * H * n_chunks), kThreads,
-                                      dqdk_smem_bytes<T>(kChunk, 64), stream>>>(
+  const int n_chunks = (N + chunk_keys<DH> - 1) / chunk_keys<DH>;
+  attn_bwd_long_keys<T, DH, DK, DV><<<(unsigned)(B * H * n_chunks), kThreads,
+                                      dqdk_smem_bytes<T>(chunk_keys<DH>, DH), stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(out), out_stride,
-      stats, N, H, n_chunks, 1.0f / sqrtf(64.f));
+      stats, N, H, n_chunks, 1.0f / sqrtf((float)DH));
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int DH>
 cudaError_t launch_long_t(const void* qkv, const void* g, void* out, long long out_stride,
                           float* stats, int B, int N, int H, bool dqdk, bool dv,
                           cudaStream_t s) {
-  cudaError_t err = dqdk ? launch_rows<T, true>(qkv, g, out, out_stride, stats, B, N, H, s)
-                         : launch_rows<T, false>(qkv, g, out, out_stride, stats, B, N, H, s);
+  cudaError_t err = dqdk ? launch_rows<T, DH, true>(qkv, g, out, out_stride, stats, B, N, H, s)
+                         : launch_rows<T, DH, false>(qkv, g, out, out_stride, stats, B, N, H, s);
   if (err != cudaSuccess) return err;
-  if (dqdk && dv) return launch_keys<T, true, true>(qkv, g, out, out_stride, stats, B, N, H, s);
-  if (dqdk) return launch_keys<T, true, false>(qkv, g, out, out_stride, stats, B, N, H, s);
-  return launch_keys<T, false, true>(qkv, g, out, out_stride, stats, B, N, H, s);
+  if (dqdk && dv)
+    return launch_keys<T, DH, true, true>(qkv, g, out, out_stride, stats, B, N, H, s);
+  if (dqdk) return launch_keys<T, DH, true, false>(qkv, g, out, out_stride, stats, B, N, H, s);
+  return launch_keys<T, DH, false, true>(qkv, g, out, out_stride, stats, B, N, H, s);
+}
+
+template <typename T>
+cudaError_t launch_long_dh(const void* qkv, const void* g, void* out, long long out_stride,
+                           float* stats, int B, int N, int H, int head_dim, bool dqdk, bool dv,
+                           cudaStream_t s) {
+  if (head_dim == 32)
+    return launch_long_t<T, 32>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, s);
+  if (head_dim == 64)
+    return launch_long_t<T, 64>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, s);
+  if (head_dim == 128)
+    return launch_long_t<T, 128>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -267,18 +296,20 @@ namespace devit {
 namespace bwd {
 
 size_t long_smem_bytes(int dh, int elem) {
-  return elem == 2 ? dqdk_smem_bytes<__nv_bfloat16>(kChunk, dh) : dqdk_smem_bytes<float>(kChunk, dh);
+  const int chunk = long_chunk(dh);
+  return elem == 2 ? dqdk_smem_bytes<__nv_bfloat16>(chunk, dh) : dqdk_smem_bytes<float>(chunk, dh);
 }
 
 cudaError_t launch_long(const void* qkv, const void* g, void* out, long long out_stride,
-                        float* stats, int B, int N, int H, int dtype, bool dqdk, bool dv,
-                        cudaStream_t stream) {
+                        float* stats, int B, int N, int H, int head_dim, int dtype, bool dqdk,
+                        bool dv, cudaStream_t stream) {
   if (stats == nullptr || !(dqdk || dv)) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_long_t<float>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, stream);
+    return launch_long_dh<float>(qkv, g, out, out_stride, stats, B, N, H, head_dim, dqdk, dv,
+                                 stream);
   if (dtype == 1)
-    return launch_long_t<__nv_bfloat16>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv,
-                                        stream);
+    return launch_long_dh<__nv_bfloat16>(qkv, g, out, out_stride, stats, B, N, H, head_dim,
+                                         dqdk, dv, stream);
   return cudaErrorInvalidValue;
 }
 

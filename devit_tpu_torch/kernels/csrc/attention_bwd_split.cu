@@ -41,7 +41,11 @@
 //   dqdk block owns a whole (batch row, head): it is the f32 monolithic
 //   kernel's second pass alone (dq written per query tile, dk summed in
 //   registers).
-// - N > 256, both dtypes: the chunked long path (attention_bwd_long.cu).
+// - N > 256, or where the monolithic kernel's block would not fit shared
+//   memory (use_long_path), both dtypes: the chunked long path
+//   (attention_bwd_long.cu), as the monolithic wrapper routes.
+// Head widths 32, 64 and 128, as the monolithic kernel (a lane owns dims l +
+// 32 j in the f32 kernels; bwd_mma.cuh's template at bf16).
 
 #include "bwd_common.cuh"
 #include "bwd_mma.cuh"
@@ -68,8 +72,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dv_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dv,
                    long long out_stride, int N, int H, int n_key_tiles, float scale) {
-  static_assert(DH == 64, "a lane owns dims l and l + 32");
   constexpr int KS = kv_stride<T>(DH);
+  constexpr int DJ = DH / 32;  // dims a lane owns
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int SP = devit::score_stride(N);
@@ -91,9 +95,11 @@ attn_bwd_dv_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __rest
   const int warp = threadIdx.x / 32;
 
   load_keys<T, DH>(base, Ks, nullptr, N, row3, C);
-  float acc[kDvRowsPerWarp][2];
+  float acc[kDvRowsPerWarp][DJ];
 #pragma unroll
-  for (int i = 0; i < kDvRowsPerWarp; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int i = 0; i < kDvRowsPerWarp; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   for (int q0 = 0; q0 < N; q0 += kBQ) {
     const int rows = min(kBQ, N - q0);
     __syncthreads();  // the previous tile's readers of Q, G and P are done
@@ -108,9 +114,9 @@ attn_bwd_dv_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __rest
       if (r < rows) softmax_row(P + r * SP, N);  // rows past N: never read
     }
     __syncthreads();
-    accumulate_keys<T, DH, true, kDvRowsPerWarp>(acc, P, Gs, c0, c_end, SP, rows);
+    accumulate_keys<T, DH, true, kDvRowsPerWarp, DJ>(acc, P, Gs, c0, c_end, SP, rows);
   }
-  store_keys<T, kDvRowsPerWarp>(acc, obase, out_stride, c0, c_end);
+  store_keys<T, kDvRowsPerWarp, DJ>(acc, obase, out_stride, c0, c_end);
 }
 
 // dq and dk of one (batch row, head): each tile's dq rows are written as the
@@ -119,8 +125,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dqdk_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dqk,
                      long long out_stride, int N, int H, float scale) {
-  static_assert(DH == 64, "a lane owns dims l and l + 32");
   constexpr int KS = kv_stride<T>(DH);
+  constexpr int DJ = DH / 32;  // dims a lane owns
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int SP = devit::score_stride(N);
@@ -140,9 +146,11 @@ attn_bwd_dqdk_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __re
   const int warp = threadIdx.x / 32;
 
   load_keys<T, DH>(base, Ks, Vs, N, row3, C);
-  float acc[kMaxCPerWarp][2];
+  float acc[kMaxCPerWarp][DJ];
 #pragma unroll
-  for (int i = 0; i < kMaxCPerWarp; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int i = 0; i < kMaxCPerWarp; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   for (int q0 = 0; q0 < N; q0 += kBQ) {
     const int rows = min(kBQ, N - q0);
     __syncthreads();  // the previous tile's readers of Q, G, P and D are done
@@ -158,14 +166,14 @@ attn_bwd_dqdk_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __re
       ds_row<T>(P + r * SP, D + r * SP, N, scale);
     }
     __syncthreads();
-    accumulate_keys<T, DH, false, kMaxCPerWarp>(acc, D, Qs, 0, N, SP, rows);  // dk += ds^T q
+    accumulate_keys<T, DH, false, kMaxCPerWarp, DJ>(acc, D, Qs, 0, N, SP, rows);  // dk += ds^T q
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = 2 * warp + i;
       if (r < rows) dq_row<T, DH>(D + r * SP, Ks, obase + (int64_t)(q0 + r) * out_stride, N);
     }
   }
-  store_keys<T, kMaxCPerWarp>(acc, obase + C, out_stride, 0, N);
+  store_keys<T, kMaxCPerWarp, DJ>(acc, obase + C, out_stride, 0, N);
 }
 
 template <typename T, int DH>
@@ -195,40 +203,68 @@ cudaError_t launch_dqdk(const void* qkv, const void* g, void* dqk, long long out
   return cudaGetLastError();
 }
 
+// The short-path launch of the dv (DV) or dq/dk kernel at one head width.
+template <bool DV, int DH>
+cudaError_t launch_short(const void* qkv, const void* g, void* out, long long out_stride, int B,
+                         int N, int H, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return DV ? launch_dv<float, DH>(qkv, g, out, out_stride, B, N, H, s)
+              : launch_dqdk<float, DH>(qkv, g, out, out_stride, B, N, H, s);
+  return launch_bwd_mma<!DV, DV, DH>(qkv, g, out, out_stride, B, N, H, s);
+}
+
+// The dv (DV) or dq/dk kernel: the long path where use_long_path says so.
+template <bool DV>
+int launch_half(const void* qkv, const void* g, void* out, long long out_stride, void* stats,
+                int B, int N, int H, int head_dim, int dtype, cudaStream_t s) {
+  if (head_dim != 32 && head_dim != 64 && head_dim != 128) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
+  if (use_long_path(N, head_dim, dtype == 1 ? 2 : 4, devit::device_optin(dev)))
+    return (int)launch_long(qkv, g, out, out_stride, static_cast<float*>(stats), B, N, H,
+                            head_dim, dtype, !DV, DV, s);
+  if (head_dim == 32) return (int)launch_short<DV, 32>(qkv, g, out, out_stride, B, N, H, dtype, s);
+  if (head_dim == 64) return (int)launch_short<DV, 64>(qkv, g, out, out_stride, B, N, H, dtype, s);
+  return (int)launch_short<DV, 128>(qkv, g, out, out_stride, B, N, H, dtype, s);
+}
+
+// Shared memory one block of the dv (DV) or dq/dk kernel needs on `device`.
+long long half_smem_bytes(bool dv, int n, int dh, int elem, int device) {
+  if (use_long_path(n, dh, elem, devit::device_optin(device)))
+    return (long long)long_smem_bytes(dh, elem);
+  if (elem == 2)
+    return (long long)(dv ? mma_smem_bytes<false, true>(n, dh)
+                          : mma_smem_bytes<true, false>(n, dh));
+  return (long long)(dv ? dv_smem_bytes<float>(n, dh) : dqdk_smem_bytes<float>(n, dh));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one dv block needs at sequence length n.
-long long devit_attention_bwd_dv_smem_bytes(int n, int head_dim, int elem_bytes) {
-  if (n > kShortN) return (long long)long_smem_bytes(head_dim, elem_bytes);
-  return (long long)(elem_bytes == 2 ? mma_smem_bytes<false, true>(n)
-                                     : dv_smem_bytes<float>(n, head_dim));
+// Dynamic shared memory one dv block needs at sequence length n on `device`.
+long long devit_attention_bwd_dv_smem_bytes(int n, int head_dim, int elem_bytes, int device) {
+  return half_smem_bytes(true, n, head_dim, elem_bytes, device);
 }
 
-// Dynamic shared memory one dqdk block needs at sequence length n.
-long long devit_attention_bwd_dqdk_smem_bytes(int n, int head_dim, int elem_bytes) {
-  if (n > kShortN) return (long long)long_smem_bytes(head_dim, elem_bytes);
-  return (long long)(elem_bytes == 2 ? mma_smem_bytes<true, false>(n)
-                                     : dqdk_smem_bytes<float>(n, head_dim));
+// Dynamic shared memory one dqdk block needs at sequence length n on `device`.
+long long devit_attention_bwd_dqdk_smem_bytes(int n, int head_dim, int elem_bytes, int device) {
+  return half_smem_bytes(false, n, head_dim, elem_bytes, device);
 }
 
 // qkv: (B, N, 3*H*head_dim), g: (B, N, H*head_dim), contiguous, one dtype
-// (0 = float32, 1 = bfloat16). dv: token n of batch row b starts at
-// dv + (b * N + n) * out_stride and takes H*head_dim elements. stats:
-// B*H*N*3 floats of scratch, used (and needed) only when N > 256. Returns a
-// cudaError_t (0 = launched).
+// (0 = float32, 1 = bfloat16), head_dim 32, 64 or 128. dv: token n of batch
+// row b starts at dv + (b * N + n) * out_stride and takes H*head_dim
+// elements. stats: B*H*N*3 floats of scratch, used (and needed) only where
+// devit_attention_bwd_long_path says so. Returns a cudaError_t (0 =
+// launched).
 int devit_attention_bwd_dv(const void* qkv, const void* g, void* dv, long long out_stride,
                            void* stats, int B, int N, int H, int head_dim, int dtype,
                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 64) return (int)cudaErrorInvalidValue;
-  if (N > kShortN)
-    return (int)launch_long(qkv, g, dv, out_stride, static_cast<float*>(stats), B, N, H, dtype,
-                            false, true, s);
-  if (dtype == 0) return (int)launch_dv<float, 64>(qkv, g, dv, out_stride, B, N, H, s);
-  if (dtype == 1) return (int)launch_bwd_mma<false, true>(qkv, g, dv, out_stride, B, N, H, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_half<true>(qkv, g, dv, out_stride, stats, B, N, H, head_dim, dtype,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // As devit_attention_bwd_dv, writing [dq | dk] (2*H*head_dim elements from
@@ -236,14 +272,8 @@ int devit_attention_bwd_dv(const void* qkv, const void* g, void* dv, long long o
 int devit_attention_bwd_dqdk(const void* qkv, const void* g, void* dqk, long long out_stride,
                              void* stats, int B, int N, int H, int head_dim, int dtype,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 64) return (int)cudaErrorInvalidValue;
-  if (N > kShortN)
-    return (int)launch_long(qkv, g, dqk, out_stride, static_cast<float*>(stats), B, N, H, dtype,
-                            true, false, s);
-  if (dtype == 0) return (int)launch_dqdk<float, 64>(qkv, g, dqk, out_stride, B, N, H, s);
-  if (dtype == 1) return (int)launch_bwd_mma<true, false>(qkv, g, dqk, out_stride, B, N, H, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_half<false>(qkv, g, dqk, out_stride, stats, B, N, H, head_dim, dtype,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -43,8 +43,8 @@
 //   forward's 48 calls: twice the barriers, no overlap won).
 // - block_proj_kernel: out = round(t + o . proj + proj_bias) as a GEMM over
 //   128 x 128 output tiles (8 warps of 64 x 32), its f32 accumulators
-//   started from t and the heads' 64-row slices of proj taken in order
-//   through a two-stage cp.async ring (K = H * 64: one chunk a head).
+//   started from t and proj's 64-row chunks of K = H dh taken in order
+//   through a two-stage cp.async ring (at dh 64 one chunk a head).
 // Every output has one writer; no atomics, the same bits on every run.
 //
 // f32: f32 FMAs on the CUDA cores (block_attn_kernel): the f32 tolerance is
@@ -62,6 +62,14 @@
 // needed), and adds o . proj[head rows] onto the accumulator with staged
 // chunks of proj. At the end it adds proj_bias and writes the output. At N
 // 198 a block takes ~198 KB of shared memory: one block an SM.
+//
+// Head widths 32, 64 and 128 (DH, a template parameter of every kernel). At
+// bf16 the head tiles hold rows of DH bf16 (swz_dh); at dh 128 the qkv
+// product makes q, k and v one after the other (a warp's 16 tokens x 3 x 128
+// f32 accumulators would not fit its registers), and the proj kernel takes
+// o and proj in 64-row chunks of K = H dh (at dh 32 and an odd H the last
+// chunk is zero-filled past K). At f32, dh 128 fits shared memory up to N
+// 108 (Qt, Kt and V of the head in f32); the wrapper raises past it.
 
 #include <math.h>
 #include <stdint.h>
@@ -106,7 +114,8 @@ block_attn_kernel(const T* __restrict__ t, const float* __restrict__ ns,
                   const float* __restrict__ pb, T* __restrict__ hbuf,
                   float* __restrict__ acc, T* __restrict__ out, int N, int C, int H,
                   float scale, float eps) {
-  static_assert(DH == 64, "the tiles below assume head_dim 64");
+  static_assert(DH % 16 == 0, "a thread owns dims tx + 16 j");
+  constexpr int DJ = DH / 16;  // dims of a head a thread owns
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qt = reinterpret_cast<T*>(smem);  // [DH][N]: q, then o over each finished tile
   T* Kt = Qt + DH * N;                 // [DH][N]
@@ -151,11 +160,11 @@ block_attn_kernel(const T* __restrict__ t, const float* __restrict__ ns,
   for (int hd = 0; hd < H; ++hd) {
     // ---- q, k, v of head hd: (64-row tile of h) . (C x [q | k | v] columns)
     for (int r0 = 0; r0 < N; r0 += kBQ) {
-      float a[4][12];  // rows 4*ty+i, columns tx + 16*j of the 3*DH = 192
+      float a[4][3 * DJ];  // rows 4*ty+i, columns tx + 16*j of the 3*DH
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 12; ++j) a[i][j] = 0.f;
+        for (int j = 0; j < 3 * DJ; ++j) a[i][j] = 0.f;
       for (int k0 = 0; k0 < C; k0 += kKC) {
         for (int i = threadIdx.x; i < kBQ * kKC; i += kThreads) {
           const int r = i / kKC, c = i % kKC;
@@ -169,15 +178,15 @@ block_attn_kernel(const T* __restrict__ t, const float* __restrict__ ns,
         __syncthreads();
 #pragma unroll 4
         for (int k = 0; k < kKC; ++k) {
-          float h[4], w[12];
+          float h[4], w[3 * DJ];
 #pragma unroll
           for (int i = 0; i < 4; ++i) h[i] = to_f(Hs[(4 * ty + i) * (kKC + 1) + k]);
 #pragma unroll
-          for (int j = 0; j < 12; ++j) w[j] = to_f(Ws[k * 3 * DH + tx + 16 * j]);
+          for (int j = 0; j < 3 * DJ; ++j) w[j] = to_f(Ws[k * 3 * DH + tx + 16 * j]);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 12; ++j) a[i][j] = fmaf(h[i], w[j], a[i][j]);
+            for (int j = 0; j < 3 * DJ; ++j) a[i][j] = fmaf(h[i], w[j], a[i][j]);
         }
         __syncthreads();
       }
@@ -186,8 +195,8 @@ block_attn_kernel(const T* __restrict__ t, const float* __restrict__ ns,
         const int n = r0 + 4 * ty + i;
         if (n >= N) continue;
 #pragma unroll
-        for (int j = 0; j < 12; ++j) {
-          const int sec = j / 4, d = tx + 16 * (j % 4);  // [q | k | v], dim
+        for (int j = 0; j < 3 * DJ; ++j) {
+          const int sec = j / DJ, d = tx + 16 * (j % DJ);  // [q | k | v], dim
           const float bias = qb != nullptr ? qb[sec * K + hd * DH + d] : 0.f;
           const T v = from_f<T>(a[i][j] + bias);
           if (sec == 0) Qt[d * N + n] = v;
@@ -252,29 +261,29 @@ block_attn_kernel(const T* __restrict__ t, const float* __restrict__ ns,
 
       // ---- o = p . v, f32, rounded to T, over this tile's q columns of Qt
       {
-        float o[4][4];
+        float o[4][DJ];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+          for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
 #pragma unroll 4
         for (int c = 0; c < N; ++c) {
-          float p[4], v[4];
+          float p[4], v[DJ];
 #pragma unroll
           for (int i = 0; i < 4; ++i) p[i] = S[(4 * ty + i) * SP + c];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = to_f(V[c * DH + tx + 16 * j]);
+          for (int j = 0; j < DJ; ++j) v[j] = to_f(V[c * DH + tx + 16 * j]);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) o[i][j] = fmaf(p[i], v[j], o[i][j]);
+            for (int j = 0; j < DJ; ++j) o[i][j] = fmaf(p[i], v[j], o[i][j]);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int n = q0 + 4 * ty + i;
           if (n >= N) continue;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) Qt[(tx + 16 * j) * N + n] = from_f<T>(o[i][j]);
+          for (int j = 0; j < DJ; ++j) Qt[(tx + 16 * j) * N + n] = from_f<T>(o[i][j]);
         }
       }
       __syncthreads();
@@ -329,17 +338,17 @@ block_attn_kernel(const T* __restrict__ t, const float* __restrict__ ns,
     out[row0 * C + i] = from_f<T>(__fadd_rn(ab[i], pb[i % C]));
 }
 
-template <typename T>
+template <typename T, int DH>
 cudaError_t launch(const void* t, const float* ns, const float* nb, const void* qw,
                    const float* qb, const void* pw, const float* pb, void* hbuf, float* acc,
                    void* out, int B, int N, int C, int H, float eps, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)block_attn_kernel<T, 64>, opted_in);
+  cudaError_t err = devit::opt_in_smem((const void*)block_attn_kernel<T, DH>, opted_in);
   if (err != cudaSuccess) return err;
-  block_attn_kernel<T, 64><<<B, kThreads, smem_bytes(N, 64, sizeof(T)), stream>>>(
+  block_attn_kernel<T, DH><<<B, kThreads, smem_bytes(N, DH, sizeof(T)), stream>>>(
       static_cast<const T*>(t), ns, nb, static_cast<const T*>(qw), qb,
       static_cast<const T*>(pw), pb, static_cast<T*>(hbuf), acc, static_cast<T*>(out), N, C, H,
-      1.0f / sqrtf(64.0f), eps);
+      1.0f / sqrtf((float)DH), eps);
   return cudaGetLastError();
 }
 
@@ -353,47 +362,55 @@ using devit::mma::ldmatrix_x4_trans;
 using devit::mma::mma_bf16;
 using devit::mma::pack_bf16;
 using devit::mma::swz;
+using devit::mma::swz_dh;
 
-constexpr int kDH = 64;
 constexpr int kAttnThreads = 128;  // block_qkv_attn_kernel: 4 warps
 constexpr int kRG = 64;            // tokens of one qkv pass, 16 a warp
 constexpr int kCC = 64;            // columns of C a staged chunk
+constexpr int kPK = 64;            // rows of K (o columns, proj rows) a proj stage
 constexpr int kPM = 128, kPN = 128;  // block_proj_kernel's output tile
 constexpr int kProjThreads = 256;  // 8 warps: 2 (rows) x 4 (columns)
-constexpr int kProjStage = (kPM + kPN) * kDH * 2;  // bytes: o [128][64] | proj [2][64][64]
+constexpr int kProjStage = (kPM + kPN) * kPK * 2;  // bytes: o [128][64] | proj [2][64][64]
 
-size_t attn_smem_bytes(int n) {
-  // Q, K, V [NP][64] | W [3][kCC][64] | H [kRG][64] bf16 | mean, rstd [NP] f32
+// Sections of [q | k | v] one qkv pass of block_qkv_attn_kernel forms: all
+// three at dh <= 64; one at a time at dh 128 (registers).
+__host__ __device__ constexpr int sections_a_pass(int dh) { return dh > 64 ? 1 : 3; }
+
+size_t attn_smem_bytes(int n, int dh) {
+  // Q, K, V [NP][dh] | W [sections a pass][kCC][dh] | H [kRG][64] bf16 | mean, rstd [NP] f32
   const size_t np = (size_t)((n + 15) & ~15);
-  return (3 * np + 3 * kCC + kRG) * kDH * 2 + 2 * np * sizeof(float);
+  return (3 * np * dh + (size_t)sections_a_pass(dh) * kCC * dh + kRG * 64) * 2 +
+         2 * np * sizeof(float);
 }
 
-size_t mma_smem_bytes(int n) {
-  const size_t a = attn_smem_bytes(n), p = 2 * (size_t)kProjStage;
+size_t mma_smem_bytes(int n, int dh) {
+  const size_t a = attn_smem_bytes(n, dh), p = 2 * (size_t)kProjStage;
   return a > p ? a : p;
 }
 
-template <int KC>
+template <int KC, int DH>
 __global__ void __launch_bounds__(kAttnThreads, 2)
 block_qkv_attn_kernel(const bf16* __restrict__ t, const float* __restrict__ ns,
                       const float* __restrict__ nb, const bf16* __restrict__ qw,
                       const float* __restrict__ qb, bf16* __restrict__ o, int N, int C, int H,
                       float scale, float eps) {
+  constexpr int kSec = sections_a_pass(DH);
+  constexpr int kCPR = DH / 8;  // 16-byte chunks of a head row
+  constexpr int kShift = devit::mma::chunk_shift<DH>();
   extern __shared__ __align__(128) unsigned char smem[];
   const int NP = (N + 15) & ~15;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + NP * kDH;
-  bf16* Vs = Ks + NP * kDH;
-  bf16* Ws = Vs + NP * kDH;     // [3][kCC][64]: the head's q, k, v columns of a chunk
-  bf16* Hs = Ws + 3 * kCC * kDH;  // [kRG][64]: LN'd, rounded tokens of a chunk
-  float* mean = reinterpret_cast<float*>(Hs + kRG * kDH);
+  bf16* Ks = Qs + NP * DH;
+  bf16* Vs = Ks + NP * DH;
+  bf16* Ws = Vs + NP * DH;        // [kSec][kCC][DH]: the head's columns of a chunk
+  bf16* Hs = Ws + kSec * kCC * DH;  // [kRG][64]: LN'd, rounded tokens of a chunk
+  float* mean = reinterpret_cast<float*>(Hs + kRG * 64);
   float* rstd = mean + NP;
 
-  const int K = H * kDH;
+  const int K = H * DH;
   const int b = blockIdx.x / H, hd = blockIdx.x % H;  // a row's heads run together
   const bf16* tb = t + (int64_t)b * N * C;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
   // ---- LayerNorm statistics (f32): 8 lanes a token, 16 tokens in flight a
   // block; a lane sums 8 values a 16-byte load, loads unrolled
   {
@@ -432,83 +449,85 @@ block_qkv_attn_kernel(const bf16* __restrict__ t, const float* __restrict__ ns,
     }
   }
 
-  // ---- q, k, v of head hd, kRG tokens a pass; warp w owns tokens 16w ..
+  // ---- q, k, v of head hd, kRG tokens a pass (kSec sections at once);
+  // warp w owns tokens 16w ..
   const int64_t w3 = 3LL * K;
   const int m = 16 * warp;
   for (int r0 = 0; r0 < NP; r0 += kRG) {
-    float acc[3][8][4];
+    for (int s0 = 0; s0 < 3; s0 += kSec) {
+      float acc[kSec][kCPR][4];
 #pragma unroll
-    for (int sec = 0; sec < 3; ++sec)
+      for (int sec = 0; sec < kSec; ++sec)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kCPR; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[sec][j][e] = 0.f;
-    for (int c0 = 0; c0 < C; c0 += kCC) {
-      __syncthreads();  // the statistics are in; the last chunk's Ws and Hs are free
-      for (int i = tid; i < 3 * kCC * 8; i += kAttnThreads) {
-        const int sec = i / (kCC * 8), r = (i >> 3) % kCC, ch = i & 7;
-        const bool ok = c0 + r < C;
-        cp_async16(Ws + sec * kCC * kDH + swz(r, ch),
-                   qw + (int64_t)(ok ? c0 + r : 0) * w3 + sec * K + hd * kDH + 8 * ch, ok);
-      }
-      for (int i = tid; i < kRG * 8; i += kAttnThreads) {
-        const int r = i >> 3, ch = i & 7;
-        const int n = r0 + r, c = c0 + 8 * ch;
-        uint4 packed = make_uint4(0u, 0u, 0u, 0u);  // zero past N and past C
-        if (n < N && c < C) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(tb + (int64_t)n * C + c);
-          const bf16* v = reinterpret_cast<const bf16*>(&raw);
-          const float mu = mean[n], rs = rstd[n];
-          uint32_t* p = reinterpret_cast<uint32_t*>(&packed);
+          for (int e = 0; e < 4; ++e) acc[sec][j][e] = 0.f;
+      for (int c0 = 0; c0 < C; c0 += kCC) {
+        __syncthreads();  // the statistics are in; the last chunk's Ws and Hs are free
+        for (int i = tid; i < kSec * kCC * kCPR; i += kAttnThreads) {
+          const int sec = i / (kCC * kCPR), r = (i >> kShift) % kCC, ch = i & (kCPR - 1);
+          const bool ok = c0 + r < C;
+          cp_async16(Ws + sec * kCC * DH + swz_dh<DH>(r, ch),
+                     qw + (int64_t)(ok ? c0 + r : 0) * w3 + (s0 + sec) * K + hd * DH + 8 * ch, ok);
+        }
+        for (int i = tid; i < kRG * 8; i += kAttnThreads) {
+          const int r = i >> 3, ch = i & 7;
+          const int n = r0 + r, c = c0 + 8 * ch;
+          uint4 packed = make_uint4(0u, 0u, 0u, 0u);  // zero past N and past C
+          if (n < N && c < C) {
+            const uint4 raw = *reinterpret_cast<const uint4*>(tb + (int64_t)n * C + c);
+            const bf16* v = reinterpret_cast<const bf16*>(&raw);
+            const float mu = mean[n], rs = rstd[n];
+            uint32_t* p = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c2 = c + 2 * j;
-            const float h0 = __fadd_rn(__fmul_rn(__fmul_rn(__bfloat162float(v[2 * j]) - mu, rs),
-                                                 ns[c2]), nb[c2]);
-            const float h1 = __fadd_rn(__fmul_rn(__fmul_rn(__bfloat162float(v[2 * j + 1]) - mu,
-                                                           rs), ns[c2 + 1]), nb[c2 + 1]);
-            p[j] = pack_bf16(h0, h1);
+            for (int j = 0; j < 4; ++j) {
+              const int c2 = c + 2 * j;
+              const float h0 = __fadd_rn(__fmul_rn(__fmul_rn(__bfloat162float(v[2 * j]) - mu, rs),
+                                                   ns[c2]), nb[c2]);
+              const float h1 = __fadd_rn(__fmul_rn(__fmul_rn(__bfloat162float(v[2 * j + 1]) - mu,
+                                                             rs), ns[c2 + 1]), nb[c2 + 1]);
+              p[j] = pack_bf16(h0, h1);
+            }
+          }
+          *reinterpret_cast<uint4*>(Hs + swz(r, ch)) = packed;
+        }
+        devit::mma::cp_async_wait_all();
+        __syncthreads();
+        if (r0 + m < NP) {
+#pragma unroll
+          for (int ks = 0; ks < kCC / 16; ++ks) {
+            uint32_t a[4];
+            ldmatrix_x4(a, Hs + swz(m + (lane & 15), 2 * ks + (lane >> 4)));
+#pragma unroll
+            for (int sec = 0; sec < kSec; ++sec)
+#pragma unroll
+              for (int d = 0; d < DH / 16; ++d) {
+                uint32_t wb[4];  // columns 16d ..: {wb0, wb1}; 16d + 8 ..: {wb2, wb3}
+                const int wr = 16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3);
+                ldmatrix_x4_trans(wb, Ws + sec * kCC * DH + swz_dh<DH>(wr, 2 * d + (lane >> 4)));
+                mma_bf16(acc[sec][2 * d], a, wb[0], wb[1]);
+                mma_bf16(acc[sec][2 * d + 1], a, wb[2], wb[3]);
+              }
           }
         }
-        *reinterpret_cast<uint4*>(Hs + swz(r, ch)) = packed;
       }
-      devit::mma::cp_async_wait_all();
-      __syncthreads();
+      // + the bias, rounded once, into the warp's 16 rows of Q, K and V (rows
+      // past N hold the bias: finite, masked as keys, never written as queries)
       if (r0 + m < NP) {
 #pragma unroll
-        for (int ks = 0; ks < kCC / 16; ++ks) {
-          uint32_t a[4];
-          ldmatrix_x4(a, Hs + swz(m + (lane & 15), 2 * ks + (lane >> 4)));
+        for (int sec = 0; sec < kSec; ++sec) {
+          bf16* dst = Qs + (s0 + sec) * NP * DH;
 #pragma unroll
-          for (int sec = 0; sec < 3; ++sec)
+          for (int j = 0; j < kCPR; ++j) {
+            const int col = 8 * j + 2 * (lane & 3);
+            const float b0 = qb != nullptr ? qb[(s0 + sec) * K + hd * DH + col] : 0.f;
+            const float b1 = qb != nullptr ? qb[(s0 + sec) * K + hd * DH + col + 1] : 0.f;
 #pragma unroll
-            for (int d = 0; d < 4; ++d) {
-              uint32_t wb[4];  // columns 16d ..: {wb0, wb1}; 16d + 8 ..: {wb2, wb3}
-              ldmatrix_x4_trans(wb, Ws + sec * kCC * kDH +
-                                        swz(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                            2 * d + (lane >> 4)));
-              mma_bf16(acc[sec][2 * d], a, wb[0], wb[1]);
-              mma_bf16(acc[sec][2 * d + 1], a, wb[2], wb[3]);
+            for (int half = 0; half < 2; ++half) {
+              const int r = r0 + m + (lane >> 2) + 8 * half;
+              *reinterpret_cast<uint32_t*>(dst + swz_dh<DH>(r, j) + 2 * (lane & 3)) =
+                  pack_bf16(acc[sec][j][2 * half] + b0, acc[sec][j][2 * half + 1] + b1);
             }
-        }
-      }
-    }
-    // + the bias, rounded once, into the warp's 16 rows of Q, K and V (rows
-    // past N hold the bias: finite, masked as keys, never written as queries)
-    if (r0 + m < NP) {
-#pragma unroll
-      for (int sec = 0; sec < 3; ++sec) {
-        bf16* dst = Qs + sec * NP * kDH;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = 8 * j + 2 * (lane & 3);
-          const float b0 = qb != nullptr ? qb[sec * K + hd * kDH + col] : 0.f;
-          const float b1 = qb != nullptr ? qb[sec * K + hd * kDH + col + 1] : 0.f;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = r0 + m + (lane >> 2) + 8 * half;
-            *reinterpret_cast<uint32_t*>(dst + swz(r, j) + 2 * (lane & 3)) =
-                pack_bf16(acc[sec][j][2 * half] + b0, acc[sec][j][2 * half + 1] + b1);
           }
         }
       }
@@ -518,75 +537,77 @@ block_qkv_attn_kernel(const bf16* __restrict__ t, const float* __restrict__ ns,
 
   // ---- attention: warp w takes the 16-row tiles w, w + 4, ...; o rounded
   // into the tile's own rows of Q, then 16-byte stores into the scratch
-  bf16* ob = o + (int64_t)b * N * K + hd * kDH;
+  bf16* ob = o + (int64_t)b * N * K + hd * DH;
   for (int q0 = m; q0 < NP; q0 += 16 * (kAttnThreads / 32)) {
-    uint32_t qa[4][4];
+    uint32_t qa[DH / 16][4];
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      ldmatrix_x4(qa[ks], Qs + swz(q0 + (lane & 15), 2 * ks + (lane >> 4)));
-    float ov[8][4];
-    attend_rows<KC>(ov, qa, Ks, Vs, N, scale, lane);
+    for (int ks = 0; ks < DH / 16; ++ks)
+      ldmatrix_x4(qa[ks], Qs + swz_dh<DH>(q0 + (lane & 15), 2 * ks + (lane >> 4)));
+    float ov[kCPR][4];
+    attend_rows<KC, DH>(ov, qa, Ks, Vs, N, scale, lane);
     __syncwarp();
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kCPR; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = q0 + (lane >> 2) + 8 * half;
-        *reinterpret_cast<uint32_t*>(Qs + swz(r, j) + 2 * (lane & 3)) =
+        *reinterpret_cast<uint32_t*>(Qs + swz_dh<DH>(r, j) + 2 * (lane & 3)) =
             pack_bf16(ov[j][2 * half], ov[j][2 * half + 1]);
       }
     __syncwarp();
-    for (int i = lane; i < 16 * 8; i += 32) {
-      const int r = i >> 3, c = i & 7;
+    for (int i = lane; i < 16 * kCPR; i += 32) {
+      const int r = i >> kShift, c = i & (kCPR - 1);
       const int n = q0 + r;
       if (n < N)
         *reinterpret_cast<uint4*>(ob + (int64_t)n * K + 8 * c) =
-            *reinterpret_cast<const uint4*>(Qs + swz(q0 + r, c));
+            *reinterpret_cast<const uint4*>(Qs + swz_dh<DH>(q0 + r, c));
     }
   }
 }
 
-// One stage of block_proj_kernel: o rows m0.., head kc's 64 columns; proj
-// rows 64 kc.., columns n0 .. n0 + 127 as two swizzled [64][64] tiles.
+// One stage of block_proj_kernel: o rows m0.., K columns 64 kc .. 64 kc +
+// 63; proj rows 64 kc.., columns n0 .. n0 + 127 as two swizzled [64][64]
+// tiles. Ragged (K not a multiple of 64: dh 32, odd H): zero past K.
+template <bool Ragged>
 __device__ __forceinline__ void proj_stage(bf16* st, const bf16* o, const bf16* pw, int64_t m0,
                                            int n0, int kc, int64_t M, int C, int K, int tid) {
   bf16* Os = st;
-  bf16* Ps = st + kPM * kDH;
+  bf16* Ps = st + kPM * kPK;
 #pragma unroll
   for (int j = 0; j < kPM * 8 / kProjThreads; ++j) {
     const int i = tid + j * kProjThreads;
     const int r = i >> 3, c = i & 7;
-    const bool ok = m0 + r < M;
-    cp_async16(Os + swz(r, c), o + (ok ? m0 + r : 0) * K + kc * kDH + 8 * c, ok);
+    const bool ok = m0 + r < M && (!Ragged || kc * kPK + 8 * c < K);
+    cp_async16(Os + swz(r, c), o + (ok ? m0 + r : 0) * K + (ok ? kc * kPK + 8 * c : 0), ok);
   }
 #pragma unroll
-  for (int j = 0; j < kDH * 16 / kProjThreads; ++j) {
+  for (int j = 0; j < kPK * 16 / kProjThreads; ++j) {
     const int i = tid + j * kProjThreads;
     const int r = i >> 4, half = (i >> 3) & 1, c = i & 7;
     const int col = n0 + 64 * half + 8 * c;
-    const bool ok = col < C;
-    cp_async16(Ps + half * kDH * kDH + swz(r, c),
-               pw + (int64_t)(kc * kDH + r) * C + (ok ? col : 0), ok);
+    const bool ok = col < C && (!Ragged || kc * kPK + r < K);
+    cp_async16(Ps + half * kPK * kPK + swz(r, c),
+               pw + (int64_t)(ok ? kc * kPK + r : 0) * C + (ok ? col : 0), ok);
   }
 }
 
+template <bool Ragged>
 __global__ void __launch_bounds__(kProjThreads, 2)
 block_proj_kernel(const bf16* __restrict__ t, const bf16* __restrict__ o,
                   const bf16* __restrict__ pw, const float* __restrict__ pb,
-                  bf16* __restrict__ out, int64_t M, int C, int H) {
+                  bf16* __restrict__ out, int64_t M, int C, int K) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* stages = reinterpret_cast<bf16*>(smem);
   constexpr int kStageElems = kProjStage / 2;
-  const int K = H * kDH;
+  const int n_kc = (K + kPK - 1) / kPK;     // 64-row chunks of K
   const int n_tiles = (C + kPN - 1) / kPN;  // a row tile's column tiles are adjacent blocks
   const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * kPM;
   const int n0 = (blockIdx.x % n_tiles) * kPN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;  // the warp's rows and columns
 
-  proj_stage(stages, o, pw, m0, n0, 0, M, C, K, tid);
+  proj_stage<Ragged>(stages, o, pw, m0, n0, 0, M, C, K, tid);
   devit::mma::cp_async_commit();
-
   // the accumulators start from t (f32); C is a multiple of 32, so a pair
   // of columns lies wholly before or past C
   float acc[4][4][4];
@@ -606,16 +627,17 @@ block_proj_kernel(const bf16* __restrict__ t, const bf16* __restrict__ o,
       }
     }
 
-  for (int kc = 0; kc < H; ++kc) {
-    if (kc + 1 < H)
-      proj_stage(stages + ((kc + 1) & 1) * kStageElems, o, pw, m0, n0, kc + 1, M, C, K, tid);
+  for (int kc = 0; kc < n_kc; ++kc) {
+    if (kc + 1 < n_kc)
+      proj_stage<Ragged>(stages + ((kc + 1) & 1) * kStageElems, o, pw, m0, n0, kc + 1, M, C, K,
+                         tid);
     devit::mma::cp_async_commit();
     devit::mma::cp_async_wait<1>();
     __syncthreads();  // head kc's stage landed
     const bf16* Os = stages + (kc & 1) * kStageElems;
-    const bf16* Ps = Os + kPM * kDH + (wn >> 6) * kDH * kDH;  // the warp's 64-column tile
+    const bf16* Ps = Os + kPM * kPK + (wn >> 6) * kPK * kPK;  // the warp's 64-column tile
 #pragma unroll
-    for (int ks = 0; ks < kDH / 16; ++ks) {
+    for (int ks = 0; ks < kPK / 16; ++ks) {
       uint32_t a[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -653,18 +675,32 @@ block_proj_kernel(const bf16* __restrict__ t, const bf16* __restrict__ o,
   }
 }
 
-template <int KC>
+template <int KC, int DH>
 cudaError_t launch_qkv_attn(const bf16* t, const float* ns, const float* nb, const bf16* qw,
                             const float* qb, bf16* o, int B, int N, int C, int H, float eps,
                             cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)block_qkv_attn_kernel<KC>, opted_in);
+  cudaError_t err = devit::opt_in_smem((const void*)block_qkv_attn_kernel<KC, DH>, opted_in);
   if (err != cudaSuccess) return err;
-  block_qkv_attn_kernel<KC><<<(unsigned)(B * H), kAttnThreads, attn_smem_bytes(N), stream>>>(
-      t, ns, nb, qw, qb, o, N, C, H, 1.0f / sqrtf((float)kDH), eps);
+  block_qkv_attn_kernel<KC, DH><<<(unsigned)(B * H), kAttnThreads, attn_smem_bytes(N, DH),
+                                  stream>>>(t, ns, nb, qw, qb, o, N, C, H,
+                                            1.0f / sqrtf((float)DH), eps);
   return cudaGetLastError();
 }
 
+template <bool Ragged>
+cudaError_t launch_proj(const bf16* t, const bf16* o, const bf16* pw, const float* pb,
+                        bf16* out, int64_t M, int C, int K, cudaStream_t s) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)block_proj_kernel<Ragged>, opted_in);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)(((M + kPM - 1) / kPM) * ((C + kPN - 1) / kPN));
+  block_proj_kernel<Ragged><<<grid, kProjThreads, 2 * kProjStage, s>>>(t, o, pw, pb, out, M, C,
+                                                                       K);
+  return cudaGetLastError();
+}
+
+template <int DH>
 cudaError_t launch_bf16(const void* t, const float* ns, const float* nb, const void* qw,
                         const float* qb, const void* pw, const float* pb, void* o, void* out,
                         int B, int N, int C, int H, float eps, cudaStream_t s) {
@@ -673,19 +709,29 @@ cudaError_t launch_bf16(const void* t, const float* ns, const float* nb, const v
   bf16* ob = static_cast<bf16*>(o);
   // the fewest score registers that hold a row, as attention.cu's launch_bf16
   cudaError_t err =
-      N <= 64    ? launch_qkv_attn<4>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
-      : N <= 128 ? launch_qkv_attn<8>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
-      : N <= 208 ? launch_qkv_attn<13>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
-                 : launch_qkv_attn<16>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s);
-  if (err != cudaSuccess) return err;
-  static std::atomic<bool> opted_in[devit::kMaxDevices];
-  err = devit::opt_in_smem((const void*)block_proj_kernel, opted_in);
+      N <= 64    ? launch_qkv_attn<4, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
+      : N <= 128 ? launch_qkv_attn<8, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
+      : N <= 208 ? launch_qkv_attn<13, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
+                 : launch_qkv_attn<16, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s);
   if (err != cudaSuccess) return err;
   const int64_t M = (int64_t)B * N;
-  const unsigned grid = (unsigned)(((M + kPM - 1) / kPM) * ((C + kPN - 1) / kPN));
-  block_proj_kernel<<<grid, kProjThreads, 2 * kProjStage, s>>>(
-      tt, ob, static_cast<const bf16*>(pw), pb, static_cast<bf16*>(out), M, C, H);
-  return cudaGetLastError();
+  const int K = H * DH;
+  const bf16* pwt = static_cast<const bf16*>(pw);
+  bf16* outt = static_cast<bf16*>(out);
+  if (K % kPK != 0) return launch_proj<true>(tt, ob, pwt, pb, outt, M, C, K, s);
+  return launch_proj<false>(tt, ob, pwt, pb, outt, M, C, K, s);
+}
+
+template <int DH>
+cudaError_t launch_dh(const void* t, const float* const (&f)[4], const void* qw, const void* pw,
+                      void* scratch, void* acc, void* out, int B, int N, int C, int H, float eps,
+                      int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return launch<float, DH>(t, f[0], f[1], qw, f[2], pw, f[3], scratch,
+                             static_cast<float*>(acc), out, B, N, C, H, eps, s);
+  if (dtype == 1)
+    return launch_bf16<DH>(t, f[0], f[1], qw, f[2], pw, f[3], scratch, out, B, N, C, H, eps, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -695,7 +741,8 @@ extern "C" {
 // Dynamic shared memory one block needs at sequence length n (bf16: the
 // larger of the two kernels' needs).
 long long devit_block_attention_smem_bytes(int n, int head_dim, int elem_bytes) {
-  return (long long)(elem_bytes == 2 ? mma_smem_bytes(n) : smem_bytes(n, head_dim, elem_bytes));
+  return (long long)(elem_bytes == 2 ? mma_smem_bytes(n, head_dim)
+                                     : smem_bytes(n, head_dim, elem_bytes));
 }
 
 // t, out: (B, N, C) contiguous of the dtype; qkv_kernel (C, 3 H head_dim)
@@ -703,21 +750,23 @@ long long devit_block_attention_smem_bytes(int n, int head_dim, int elem_bytes) 
 // proj bias (C,) and qkv bias (3 H head_dim,) or NULL, f32. Scratch: f32,
 // `scratch` (B, N, C) f32 for the LN'd rows and `acc` (B, N, C) f32; bf16,
 // `scratch` (B, N, H head_dim) bf16 for o and `acc` unused. C must be a
-// multiple of 32, and the bf16 operands 16-byte aligned. dtype: 0 =
-// float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// multiple of 32, and the bf16 operands 16-byte aligned; head_dim 32, 64 or
+// 128. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 =
+// launched).
 int devit_block_attention(const void* t, const void* ns, const void* nb, const void* qw,
                           const void* qb, const void* pw, const void* pb, void* scratch,
                           void* acc, void* out, int B, int N, int C, int H, int head_dim,
                           float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 64 || C % 32 != 0 || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const float* f[4] = {static_cast<const float*>(ns), static_cast<const float*>(nb),
-                       static_cast<const float*>(qb), static_cast<const float*>(pb)};
-  if (dtype == 0)
-    return (int)launch<float>(t, f[0], f[1], qw, f[2], pw, f[3], scratch,
-                              static_cast<float*>(acc), out, B, N, C, H, eps, s);
-  if (dtype == 1)
-    return (int)launch_bf16(t, f[0], f[1], qw, f[2], pw, f[3], scratch, out, B, N, C, H, eps, s);
+  if (C % 32 != 0 || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const float* const f[4] = {static_cast<const float*>(ns), static_cast<const float*>(nb),
+                             static_cast<const float*>(qb), static_cast<const float*>(pb)};
+  if (head_dim == 32)
+    return (int)launch_dh<32>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, s);
+  if (head_dim == 64)
+    return (int)launch_dh<64>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, s);
+  if (head_dim == 128)
+    return (int)launch_dh<128>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

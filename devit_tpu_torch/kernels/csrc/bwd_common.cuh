@@ -11,7 +11,8 @@
 // rowsum(dp * p))) * scale) (rows_times_keys, ds_row); the tile's dq = ds k
 // (dq_row); and adds the tile to the key-side sums dv += round(p)^T g or
 // dk += ds^T q (accumulate_keys). Those sums live in registers: thread (warp
-// w, lane l) owns key rows c0 + w + kWarps * i (i < NC) of dims l and l + 32.
+// w, lane l) owns key rows c0 + w + kWarps * i (i < NC) of dims l + 32 j (j <
+// DH / 32: one dim at dh 32, two at 64, four at 128).
 
 #pragma once
 
@@ -102,56 +103,63 @@ __device__ __forceinline__ void ds_row(const float* prow, float* drow, int N, fl
   for (int c = lane; c < N; c += 32) drow[c] = round_to<T>((prow[c] * (drow[c] - rs)) * scale);
 }
 
-// One query row of dq = ds k, dims lane and lane + 32, written to out.
+// One query row of dq = ds k, dims lane + 32 j, written to out.
 template <typename T, int DH>
 __device__ __forceinline__ void dq_row(const float* drow, const T* Ks, T* out, int N) {
+  static_assert(DH % 32 == 0, "a lane owns dims l + 32 j");
   constexpr int KS = kv_stride<T>(DH);
   const int lane = threadIdx.x % 32;
-  float s0 = 0.f, s1 = 0.f;
+  float acc[DH / 32];
+#pragma unroll
+  for (int j = 0; j < DH / 32; ++j) acc[j] = 0.f;
   for (int c = 0; c < N; ++c) {
     const float ds = drow[c];
-    s0 = fmaf(ds, to_f(Ks[c * KS + lane]), s0);
-    s1 = fmaf(ds, to_f(Ks[c * KS + lane + 32]), s1);
+#pragma unroll
+    for (int j = 0; j < DH / 32; ++j) acc[j] = fmaf(ds, to_f(Ks[c * KS + lane + 32 * j]), acc[j]);
   }
-  out[lane] = from_f<T>(s0);
-  out[lane + 32] = from_f<T>(s1);
+#pragma unroll
+  for (int j = 0; j < DH / 32; ++j) out[lane + 32 * j] = from_f<T>(acc[j]);
 }
 
 // acc[i][j] += sum_{r < rows} W[r][c] * X[r][d] for the thread's key rows
-// c = c0 + warp + kWarps i (c < c_end) and dims d = lane + 32 j (dv +=
-// round(p)^T g with W = P, X = G, rounding W to T; dk += ds^T q with W = D,
-// X = Q). A warp reads one W value per c (a broadcast) and two X values per r.
-template <typename T, int DH, bool kRoundW, int NC>
-__device__ __forceinline__ void accumulate_keys(float (&acc)[NC][2], const float* W,
+// c = c0 + warp + kWarps i (c < c_end) and dims d = lane + 32 j, j < DJ =
+// DH / 32 (dv += round(p)^T g with W = P, X = G, rounding W to T; dk += ds^T
+// q with W = D, X = Q). A warp reads one W value per c (a broadcast) and DJ X
+// values per r.
+template <typename T, int DH, bool kRoundW, int NC, int DJ>
+__device__ __forceinline__ void accumulate_keys(float (&acc)[NC][DJ], const float* W,
                                                 const T* X, int c0, int c_end, int SP,
                                                 int rows) {
+  static_assert(DJ * 32 == DH, "a lane owns dims l + 32 j");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = 0; r < rows; ++r) {
-    const float x0 = to_f(X[r * DH + lane]), x1 = to_f(X[r * DH + lane + 32]);
+    float x[DJ];
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) x[j] = to_f(X[r * DH + lane + 32 * j]);
     const float* wrow = W + r * SP;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = c0 + warp + kWarps * i;
       if (c < c_end) {
         const float w = kRoundW ? round_to<T>(wrow[c]) : wrow[c];
-        acc[i][0] = fmaf(w, x0, acc[i][0]);
-        acc[i][1] = fmaf(w, x1, acc[i][1]);
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(w, x[j], acc[i][j]);
       }
     }
   }
 }
 
 // Writes the thread's key rows of acc to out + c * stride, rounded once.
-template <typename T, int NC>
-__device__ __forceinline__ void store_keys(const float (&acc)[NC][2], T* out, int64_t stride,
+template <typename T, int NC, int DJ>
+__device__ __forceinline__ void store_keys(const float (&acc)[NC][DJ], T* out, int64_t stride,
                                            int c0, int c_end) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int c = c0 + warp + kWarps * i;
     if (c >= c_end) continue;
-    out[(int64_t)c * stride + lane] = from_f<T>(acc[i][0]);
-    out[(int64_t)c * stride + lane + 32] = from_f<T>(acc[i][1]);
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) out[(int64_t)c * stride + lane + 32 * j] = from_f<T>(acc[i][j]);
   }
 }
 
@@ -192,17 +200,21 @@ size_t dqdk_smem_bytes(int n, int dh) {
 
 // ---- the path past kShortN keys (attention_bwd_long.cu), both dtypes
 
+// Keys a chunk of the long path: kShortN, or 128 at dh 128 (so that an f32
+// block's K and V chunk fits beside the score rows).
+__host__ __device__ constexpr int long_chunk(int dh) { return dh > 64 ? 128 : kShortN; }
+
 // Shared memory of one block of the long path (the same at every N).
 size_t long_smem_bytes(int dh, int elem);
 
 // dq and dk (dqdk) and/or dv (dv) of (B, N, 3C) qkv and (B, N, C) g, any N,
-// dtype 0 = float32, 1 = bfloat16, head_dim 64. Token n of batch row b writes
+// dtype 0 = float32, 1 = bfloat16, head_dim 32, 64 or 128. Token n of batch row b writes
 // from out + (b N + n) out_stride: dq there, dk C further, dv 2C further with
 // dqdk and at the start without. stats: B * H * N * 3 floats of scratch (each
 // row's softmax max, sum and rowsum(dp * p)).
 cudaError_t launch_long(const void* qkv, const void* g, void* out, long long out_stride,
-                        float* stats, int B, int N, int H, int dtype, bool dqdk, bool dv,
-                        cudaStream_t stream);
+                        float* stats, int B, int N, int H, int head_dim, int dtype, bool dqdk,
+                        bool dv, cudaStream_t stream);
 
 }  // namespace bwd
 }  // namespace devit

@@ -30,6 +30,16 @@
 // round(p)^T G (and dk += ds^T Q) by mma with A through ldmatrix.trans of the
 // bf16 tiles.
 //
+// Head widths 32, 64 and 128 (DH). Warp w's dk and dv accumulators hold 16
+// keys x 64 dims (16 x 32 at dh 32); at dh 128 the 16 x 128 of both would
+// take 128 registers a lane, the whole budget of a 512-thread block, so the
+// block walks its queries twice, each pass summing dk and dv for one 64-dim
+// half (s, p, dp and ds recomputed; dq written in the first pass only).
+// Where the monolithic kernel's tiles do not fit shared memory (dh 128 past
+// N 208 at bf16, dh 128 at f32 from about N 150), every backward wrapper
+// takes the chunked path of attention_bwd_long.cu instead (use_long_path),
+// so the split pair still equals the monolithic kernel bit for bit.
+//
 // Every instantiation keeps one 512-thread block an SM: the dv kernel with
 // __launch_bounds__(512, 2) (two blocks, ~84 KB of shared memory each at N
 // 198) got 64 registers, spilled 144 bytes and ran no faster on the H100
@@ -42,6 +52,7 @@
 
 namespace {
 
+using devit::bwd::dqdk_smem_bytes;
 using devit::bwd::kBQ;
 using devit::bwd::kShortN;
 using devit::bwd::kThreads;
@@ -53,20 +64,32 @@ using devit::mma::ldmatrix_x4;
 using devit::mma::ldmatrix_x4_trans;
 using devit::mma::mma_bf16;
 using devit::mma::pack_bf16;
-using devit::mma::swz;
+using devit::mma::swz_dh;
 
 static_assert(kBQ == 32 && kWarps == 16, "the tile steps below deal 32-row tiles to 16 warps");
 constexpr int kCols = kShortN / 32;  // columns a lane holds of one row
 
-// s (and dp) f32 [kBQ][NP + 8] | K (and V) [NP][64] | two q, g buffers
-// [2][2][kBQ][64] | round(p) (DV) and ds (DQDK) bf16 [kBQ][NP + 8], NP = n
+// s (and dp) f32 [kBQ][NP + 8] | K (and V) [NP][dh] | two q, g buffers
+// [2][2][kBQ][dh] | round(p) (DV) and ds (DQDK) bf16 [kBQ][NP + 8], NP = n
 // rounded up to 16.
 template <bool DQDK, bool DV>
-size_t mma_smem_bytes(int n) {
+size_t mma_smem_bytes(int n, int dh) {
   const size_t np = (size_t)((n + 15) & ~15), row = np + 8;
   const size_t mats = DQDK ? 2 : 1, bf16_tiles = (DQDK ? 1 : 0) + (DV ? 1 : 0);
   return sizeof(float) * mats * kBQ * row +
-         2 * (mats * np * 64 + 4 * (size_t)kBQ * 64 + bf16_tiles * kBQ * row);
+         2 * (mats * np * dh + 4 * (size_t)kBQ * dh + bf16_tiles * kBQ * row);
+}
+
+// Whether every backward (the monolithic kernel and both split kernels) walks
+// key chunks (attention_bwd_long.cu) at (n, dh, elem bytes) on a device that
+// lets a block opt in to `optin` bytes of shared memory: past kShortN keys,
+// or where a block of the monolithic kernel would not fit. One rule for all
+// three keeps the split pair bit for bit equal to the monolithic kernel.
+inline bool use_long_path(int n, int dh, int elem, long long optin) {
+  if (n > kShortN) return true;
+  const size_t need = elem == 2 ? mma_smem_bytes<true, true>(n, dh)
+                                : dqdk_smem_bytes<float>(n, dh);
+  return (long long)need > optin;
 }
 
 // Writes the lane's two rows of an m16n8 accumulator (rows r0 + lane/4 and
@@ -167,17 +190,45 @@ __device__ __forceinline__ void softmax_ds_rows(const float* P, const float* D, 
   }
 }
 
+// dq rows 16 mi .. 16 mi + 15, dims 8 nt .. 8 nt + 7 of the tile = ds K, by
+// mma with K through ldmatrix.trans; two accumulators (even and odd key
+// steps) for independent mma chains; written rounded to out (the tile's first
+// row), rows before `rows`.
+template <int DH>
+__device__ __forceinline__ void dq_tile(const bf16* Sb, const bf16* Ks, bf16* out,
+                                        int64_t ostride, int mi, int nt, int rows, int NP,
+                                        int PB, int lane) {
+  float acc[2][4] = {};
+  const bf16* arow = Sb + (16 * mi + (lane & 15)) * PB + ((lane >> 4) << 3);
+  const int krow = (lane & 7) + (((lane >> 3) & 1) << 3);
+  for (int k0 = 0; k0 < NP; k0 += 32) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j == 1 && k0 + 16 >= NP) break;
+      uint32_t a[4], kb[2];
+      ldmatrix_x4(a, arow + k0 + 16 * j);
+      ldmatrix_x2_trans(kb, Ks + swz_dh<DH>(k0 + 16 * j + krow, nt));
+      mma_bf16(acc[j], a, kb[0], kb[1]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[0][e] += acc[1][e];
+  store_rows(acc[0], out, ostride, 16 * mi, rows, 8 * nt, lane);
+}
+
 // One block: (batch row, head), 16 warps, 32-query tiles, the next tile's q
 // and g rows arriving (cp.async) while the current tile computes. Warp w
-// keeps dk and/or dv of key rows 16w .. 16w + 15 in its accumulators. Token
-// n of batch row b writes from out + (b N + n) out_stride + h dh: dq there,
-// dk C further (DQDK), dv 2C further with DQDK and at the start without.
-template <bool DQDK, bool DV>
+// keeps dk and/or dv of key rows 16w .. 16w + 15 in its accumulators (at dh
+// 128 for one 64-dim half a pass). Token n of batch row b writes from out +
+// (b N + n) out_stride + h dh: dq there, dk C further (DQDK), dv 2C further
+// with DQDK and at the start without.
+template <bool DQDK, bool DV, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_kernel_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
                     bf16* __restrict__ out, long long out_stride, int N, int H, float scale) {
   static_assert(DQDK || DV, "an instantiation computes dq/dk, dv or both");
-  constexpr int DH = 64;
+  constexpr int kDA = DH < 64 ? DH : 64;     // dims of dk and dv a pass sums
+  constexpr int kPasses = DH / kDA;          // 2 at dh 128
   extern __shared__ __align__(16) unsigned char smem[];
   const int NP = (N + 15) & ~15;
   const int SP = NP + 8;  // f32 row: 8 mod 16 words, so float2 stores of 4 rows miss no bank
@@ -200,140 +251,157 @@ attn_bwd_kernel_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
   const bf16* gbase = g + (int64_t)b * N * C + h * DH;
   bf16* obase = out + (int64_t)b * N * ostride + h * DH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kr = 16 * warp;  // the warp's key rows of dk and dv
 
   auto load_tile = [&](int q0, bf16* dst) {
     const int rows = min(kBQ, N - q0);
-    devit::mma::load_rows(dst, base + (int64_t)q0 * row3, row3, kBQ, rows, tid, kThreads);
-    devit::mma::load_rows(dst + kBQ * DH, gbase + (int64_t)q0 * C, C, kBQ, rows, tid, kThreads);
+    devit::mma::load_rows<DH>(dst, base + (int64_t)q0 * row3, row3, kBQ, rows, tid, kThreads);
+    devit::mma::load_rows<DH>(dst + kBQ * DH, gbase + (int64_t)q0 * C, C, kBQ, rows, tid,
+                              kThreads);
   };
-  devit::mma::load_rows(Ks, base + C, row3, NP, N, tid, kThreads);
-  if (DQDK) devit::mma::load_rows(Vs, base + 2 * C, row3, NP, N, tid, kThreads);
+  devit::mma::load_rows<DH>(Ks, base + C, row3, NP, N, tid, kThreads);
+  if (DQDK) devit::mma::load_rows<DH>(Vs, base + 2 * C, row3, NP, N, tid, kThreads);
   load_tile(0, QG);
 
-  float dk[8][4], dv[8][4];
+  constexpr int kDT = DH / 8;                // n8 tiles of a head row (dq's jobs)
+  const int kr = 16 * warp;  // the warp's key rows of dk and dv
+  const int nb = NP / 16;    // 16-key blocks
+  const int n_tiles = (N + kBQ - 1) / kBQ;  // query tiles a pass (the q, g buffer in turn)
+  for (int pass = 0; pass < kPasses; ++pass) {
+    float dk[kDA / 8][4], dv[kDA / 8][4];
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
+    for (int t = 0; t < kDA / 8; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
+      for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
 
-  const int nb = NP / 16;  // 16-key blocks
-  for (int q0 = 0, it = 0; q0 < N; q0 += kBQ, ++it) {
-    const int rows = min(kBQ, N - q0);
-    bf16* Qs = QG + (it & 1) * 2 * kBQ * DH;
-    bf16* Gs = Qs + kBQ * DH;
-    devit::mma::cp_async_wait_all();
-    __syncthreads();  // this tile's q, g landed; the previous tile's readers are done
-    if (q0 + kBQ < N) load_tile(q0 + kBQ, QG + ((it + 1) & 1) * 2 * kBQ * DH);
+    for (int q0 = 0, it = pass * n_tiles; q0 < N; q0 += kBQ, ++it) {
+      const int rows = min(kBQ, N - q0);
+      bf16* Qs = QG + (it & 1) * 2 * kBQ * DH;
+      bf16* Gs = Qs + kBQ * DH;
+      devit::mma::cp_async_wait_all();
+      __syncthreads();  // this tile's q, g landed; the previous tile's readers are done
+      if (q0 + kBQ < N) load_tile(q0 + kBQ, QG + ((it + 1) & 1) * 2 * kBQ * DH);
+      else if (pass + 1 < kPasses) load_tile(0, QG + ((it + 1) & 1) * 2 * kBQ * DH);
 
-    // s = q k^T * scale into P (and dp = g v^T into D): 16 x 16 blocks
-    // (which, query half mi, key block nj) dealt to the warps
-    for (int job = warp; job < (DQDK ? 4 : 2) * nb; job += kWarps) {
-      const int which = job / (2 * nb), mi = (job / nb) & 1, nj = job % nb;
-      const bf16* A = which ? Gs : Qs;
-      const bf16* Bm = which ? Vs : Ks;
-      float* dst = which ? D : P;
-      const float sc = which ? 1.f : scale;
-      float acc[2][4] = {};
+      // s = q k^T * scale into P (and dp = g v^T into D): 16 x 16 blocks
+      // (which, query half mi, key block nj) dealt to the warps
+      for (int job = warp; job < (DQDK ? 4 : 2) * nb; job += kWarps) {
+        const int which = job / (2 * nb), mi = (job / nb) & 1, nj = job % nb;
+        const bf16* A = which ? Gs : Qs;
+        const bf16* Bm = which ? Vs : Ks;
+        float* dst = which ? D : P;
+        const float sc = which ? 1.f : scale;
+        float acc[2][4] = {};
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        uint32_t a[4], kb[4];
-        ldmatrix_x4(a, A + swz(16 * mi + (lane & 15), 2 * ks + (lane >> 4)));
-        ldmatrix_x4(kb, Bm + swz(16 * nj + (lane & 7) + ((lane >> 4) << 3),
-                                 2 * ks + ((lane >> 3) & 1)));
-        mma_bf16(acc[0], a, kb[0], kb[1]);
-        mma_bf16(acc[1], a, kb[2], kb[3]);
-      }
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = 16 * mi + (lane >> 2) + 8 * half;
-          const int c = 16 * nj + 8 * t + 2 * (lane & 3);
-          *reinterpret_cast<float2*>(dst + r * SP + c) =
-              make_float2(acc[t][2 * half] * sc, acc[t][2 * half + 1] * sc);
+        for (int ks = 0; ks < DH / 16; ++ks) {
+          uint32_t a[4], kb[4];
+          ldmatrix_x4(a, A + swz_dh<DH>(16 * mi + (lane & 15), 2 * ks + (lane >> 4)));
+          ldmatrix_x4(kb, Bm + swz_dh<DH>(16 * nj + (lane & 7) + ((lane >> 4) << 3),
+                                          2 * ks + ((lane >> 3) & 1)));
+          mma_bf16(acc[0], a, kb[0], kb[1]);
+          mma_bf16(acc[1], a, kb[2], kb[3]);
         }
-    }
-    __syncthreads();
-
-    // the f32 softmax (and ds) rows (warp w: rows 2w, 2w + 1) into bf16 tiles
-    softmax_ds_rows<2, DQDK, DV>(P, D, Pb, Sb, 2 * warp, rows, N, NP, SP, PB, scale, lane);
-    __syncthreads();
-
-    // the tile's dq = ds k: warp w owns rows 16 (w / 8) .., dims 8 (w % 8) ..;
-    // two accumulators (even and odd key steps) for independent mma chains
-    if (DQDK) {
-      const int mi = warp >> 3, nt = warp & 7;
-      float acc[2][4] = {};
-      const bf16* arow = Sb + (16 * mi + (lane & 15)) * PB + ((lane >> 4) << 3);
-      const int krow = (lane & 7) + (((lane >> 3) & 1) << 3);
-      for (int k0 = 0; k0 < NP; k0 += 32) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (j == 1 && k0 + 16 >= NP) break;
-          uint32_t a[4], kb[2];
-          ldmatrix_x4(a, arow + k0 + 16 * j);
-          ldmatrix_x2_trans(kb, Ks + swz(k0 + 16 * j + krow, nt));
-          mma_bf16(acc[j], a, kb[0], kb[1]);
-        }
-      }
+        for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[0][e] += acc[1][e];
-      store_rows(acc[0], obase + (int64_t)q0 * ostride, ostride, 16 * mi, rows, 8 * nt, lane);
-    }
-
-    // dv += round(p)^T g and dk += ds^T q for the warp's 16 keys: A through
-    // ldmatrix.trans of the bf16 tiles, B (g, q) through ldmatrix.trans
-    if (kr < NP) {
-#pragma unroll
-      for (int ks = 0; ks < kBQ / 16; ++ks) {
-        uint32_t ap[4], as[4];
-        const int qrow = 16 * ks + (lane & 7) + ((lane >> 4) << 3);
-        const int kcol = kr + (((lane >> 3) & 1) << 3);
-        if (DV) ldmatrix_x4_trans(ap, Pb + qrow * PB + kcol);
-        if (DQDK) ldmatrix_x4_trans(as, Sb + qrow * PB + kcol);
-#pragma unroll
-        for (int d = 0; d < 4; ++d) {
-          uint32_t gb[4], qb[4];
-          const int off = swz(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
-                              2 * d + (lane >> 4));
-          if (DV) ldmatrix_x4_trans(gb, Gs + off);
-          if (DQDK) ldmatrix_x4_trans(qb, Qs + off);
-          if (DV) {
-            mma_bf16(dv[2 * d], ap, gb[0], gb[1]);
-            mma_bf16(dv[2 * d + 1], ap, gb[2], gb[3]);
+          for (int half = 0; half < 2; ++half) {
+            const int r = 16 * mi + (lane >> 2) + 8 * half;
+            const int c = 16 * nj + 8 * t + 2 * (lane & 3);
+            *reinterpret_cast<float2*>(dst + r * SP + c) =
+                make_float2(acc[t][2 * half] * sc, acc[t][2 * half + 1] * sc);
           }
-          if (DQDK) {
-            mma_bf16(dk[2 * d], as, qb[0], qb[1]);
-            mma_bf16(dk[2 * d + 1], as, qb[2], qb[3]);
+      }
+      __syncthreads();
+
+      // the f32 softmax (and ds) rows (warp w: rows 2w, 2w + 1) into bf16 tiles
+      softmax_ds_rows<2, DQDK, DV>(P, D, Pb, Sb, 2 * warp, rows, N, NP, SP, PB, scale, lane);
+      __syncthreads();
+
+      // the tile's dq = ds k (first pass): dq_tile jobs of 16 rows x 8 dims
+      if (DQDK && pass == 0) {
+        if constexpr (2 * kDT == kWarps) {
+          // dh 64: one job a warp, written out here: through dq_tile the
+          // monolithic and dq/dk kernels compile to other SASS (the same bits)
+          const int mi = warp >> 3, nt = warp & 7;
+          float acc[2][4] = {};
+          const bf16* arow = Sb + (16 * mi + (lane & 15)) * PB + ((lane >> 4) << 3);
+          const int krow = (lane & 7) + (((lane >> 3) & 1) << 3);
+          for (int k0 = 0; k0 < NP; k0 += 32) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if (j == 1 && k0 + 16 >= NP) break;
+              uint32_t a[4], kb[2];
+              ldmatrix_x4(a, arow + k0 + 16 * j);
+              ldmatrix_x2_trans(kb, Ks + swz_dh<DH>(k0 + 16 * j + krow, nt));
+              mma_bf16(acc[j], a, kb[0], kb[1]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[0][e] += acc[1][e];
+          store_rows(acc[0], obase + (int64_t)q0 * ostride, ostride, 16 * mi, rows, 8 * nt, lane);
+        } else {
+          bf16* qout = obase + (int64_t)q0 * ostride;
+          for (int job = warp; job < 2 * kDT; job += kWarps)
+            dq_tile<DH>(Sb, Ks, qout, ostride, job / kDT, job % kDT, rows, NP, PB, lane);
+        }
+      }
+
+      // dv += round(p)^T g and dk += ds^T q for the warp's 16 keys and the
+      // pass's dims: A through ldmatrix.trans of the bf16 tiles, B (g, q)
+      // through ldmatrix.trans
+      if (kr < NP) {
+#pragma unroll
+        for (int ks = 0; ks < kBQ / 16; ++ks) {
+          uint32_t ap[4], as[4];
+          const int qrow = 16 * ks + (lane & 7) + ((lane >> 4) << 3);
+          const int kcol = kr + (((lane >> 3) & 1) << 3);
+          if (DV) ldmatrix_x4_trans(ap, Pb + qrow * PB + kcol);
+          if (DQDK) ldmatrix_x4_trans(as, Sb + qrow * PB + kcol);
+#pragma unroll
+          for (int d = 0; d < kDA / 16; ++d) {
+            uint32_t gb[4], qb[4];
+            const int off = swz_dh<DH>(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                       2 * (d + pass * (kDA / 16)) + (lane >> 4));
+            if (DV) ldmatrix_x4_trans(gb, Gs + off);
+            if (DQDK) ldmatrix_x4_trans(qb, Qs + off);
+            if (DV) {
+              mma_bf16(dv[2 * d], ap, gb[0], gb[1]);
+              mma_bf16(dv[2 * d + 1], ap, gb[2], gb[3]);
+            }
+            if (DQDK) {
+              mma_bf16(dk[2 * d], as, qb[0], qb[1]);
+              mma_bf16(dk[2 * d + 1], as, qb[2], qb[3]);
+            }
           }
         }
       }
     }
-  }
 
-  // dk and dv of the warp's keys, rounded once
+    // dk and dv of the warp's keys and the pass's dims, rounded once
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    if (DQDK) store_rows(dk[t], obase + C + kr * ostride, ostride, 0, N - kr, 8 * t, lane);
-    if (DV)
-      store_rows(dv[t], obase + (DQDK ? 2 * C : 0) + kr * ostride, ostride, 0, N - kr, 8 * t,
-                 lane);
+    for (int t = 0; t < kDA / 8; ++t) {
+      const int d0 = 8 * t + pass * kDA;
+      if (DQDK) store_rows(dk[t], obase + C + kr * ostride, ostride, 0, N - kr, d0, lane);
+      if (DV)
+        store_rows(dv[t], obase + (DQDK ? 2 * C : 0) + kr * ostride, ostride, 0, N - kr, d0,
+                   lane);
+    }
   }
 }
 
-// Launches attn_bwd_kernel_mma<DQDK, DV> over B x H blocks (N <= kShortN).
-template <bool DQDK, bool DV>
+// Launches attn_bwd_kernel_mma<DQDK, DV, DH> over B x H blocks (the short
+// path: use_long_path is false).
+template <bool DQDK, bool DV, int DH>
 cudaError_t launch_bwd_mma(const void* qkv, const void* g, void* out, long long out_stride,
                            int B, int N, int H, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_kernel_mma<DQDK, DV>, opted_in);
+  cudaError_t err =
+      devit::opt_in_smem((const void*)attn_bwd_kernel_mma<DQDK, DV, DH>, opted_in);
   if (err != cudaSuccess) return err;
   if (N > kShortN) return cudaErrorInvalidValue;
-  attn_bwd_kernel_mma<DQDK, DV><<<(unsigned)B * H, kThreads, mma_smem_bytes<DQDK, DV>(N),
-                                  stream>>>(
+  attn_bwd_kernel_mma<DQDK, DV, DH><<<(unsigned)B * H, kThreads,
+                                      mma_smem_bytes<DQDK, DV>(N, DH), stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(g), static_cast<bf16*>(out),
-      out_stride, N, H, 1.0f / sqrtf(64.f));
+      out_stride, N, H, 1.0f / sqrtf((float)DH));
   return cudaGetLastError();
 }
 

@@ -63,4 +63,18 @@ inline cudaError_t opt_in_smem(const void* kernel, std::atomic<bool>* opted) {
   return cudaSuccess;
 }
 
+// The most dynamic shared memory a block may opt in to on `dev` (cached per
+// device), or -1.
+inline long long device_optin(int dev) {
+  static std::atomic<long long> cache[kMaxDevices];
+  if (dev < 0 || dev >= kMaxDevices) return -1;
+  long long v = cache[dev].load(std::memory_order_relaxed);
+  if (v > 0) return v;
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return -1;
+  cache[dev].store(optin, std::memory_order_relaxed);
+  return optin;
+}
+
 }  // namespace devit

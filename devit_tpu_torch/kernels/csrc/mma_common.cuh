@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the bf16 kernels (attention.cu,
 // attention_bwd.cu, attention_bwd_split.cu, block_attention.cu) and the int8
 // matmul (quant_matmul.cu): 16-byte cp.async staging into an XOR-swizzled
-// tile of 128-byte rows (64 bf16 or 128 int8), ldmatrix (plain and
+// tile of head rows (DH = 32, 64 or 128 bf16: 64-, 128- or 256-byte rows) or
+// of 128-byte int8 rows, ldmatrix (plain and
 // transposed), the m16n8k16 bf16 mma.sync with f32 accumulation and the
 // m16n8k32 s8 mma.sync with exact int32 accumulation.
 //
@@ -27,10 +28,28 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Element offset of 16-byte chunk c (8 bf16) of row r in a [rows][64] bf16
-// tile whose rows are 128 bytes: chunk c sits at c ^ (r % 8), so the eight
-// rows of one ldmatrix 8x8 matrix hit eight different bank groups.
-__device__ __forceinline__ int swz(int r, int c) { return r * 64 + ((c ^ (r & 7)) << 3); }
+// Element offset of 16-byte chunk c (8 bf16) of row r in a [rows][DH] bf16
+// tile. DH 64 (128-byte rows): chunk c sits at c ^ (r % 8), so the eight rows
+// of one ldmatrix 8x8 matrix (eight consecutive rows from a multiple of 8)
+// hit eight different bank groups. DH 128: two 128-byte column halves, each
+// swizzled so (c ^ (r % 8) flips only the chunk's place inside its half).
+// DH 32 (64-byte rows, two a 128-byte line): chunk c sits at c ^ ((r / 2) %
+// 4), so rows r .. r + 7 cover the line's eight 16-byte slots once.
+template <int DH>
+__device__ __forceinline__ int swz_dh(int r, int c) {
+  static_assert(DH == 32 || DH == 64 || DH == 128, "head rows of 32, 64 or 128 bf16");
+  if (DH == 32) return r * 32 + ((c ^ ((r >> 1) & 3)) << 3);
+  return r * DH + ((c ^ (r & 7)) << 3);
+}
+
+// The [rows][64] tile (128-byte rows) of the 64-wide staging tiles.
+__device__ __forceinline__ int swz(int r, int c) { return swz_dh<64>(r, c); }
+
+// log2 of the 16-byte chunks a row of DH bf16 holds (DH / 8).
+template <int DH>
+__host__ __device__ constexpr int chunk_shift() {
+  return DH == 32 ? 2 : DH == 64 ? 3 : 4;
+}
 
 // 16 bytes from global to shared memory, asynchronously; zero-filled (no
 // global read) when !valid.
@@ -43,15 +62,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Rows [0, rows) of a 64-wide head slice (row r at src + r * stride, 128
+// Rows [0, rows) of a DH-wide head slice (row r at src + r * stride, 2 DH
 // bytes, 16-byte aligned) into the swizzled tile dst, rows at or past
 // `valid` zero-filled. Issued by threads tid, tid + nthreads, ...
+template <int DH = 64>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t stride, int rows,
                                           int valid, int tid, int nthreads) {
-  for (int i = tid; i < rows * 8; i += nthreads) {
-    const int r = i >> 3, c = i & 7;
+  constexpr int kShift = chunk_shift<DH>();
+  for (int i = tid; i < rows * (DH / 8); i += nthreads) {
+    const int r = i >> kShift, c = i & (DH / 8 - 1);
     const bool ok = r < valid;
-    cp_async16(dst + swz(r, c), ok ? src + (int64_t)r * stride + c * 8 : src, ok);
+    cp_async16(dst + swz_dh<DH>(r, c), ok ? src + (int64_t)r * stride + c * 8 : src, ok);
   }
 }
 

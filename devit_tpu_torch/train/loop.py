@@ -81,12 +81,13 @@ def fit(*, carry, step_fn: Callable, train_batches_fn: Callable[[int], Iterable]
         save_state_fn: Optional[Callable] = None, start_epoch: int = 0,
         profile_dir: Optional[str] = None, tensorboard: bool = False):
     """Epoch loop + eval + best accuracy + stats (log_stats.txt, result.txt
-    in output_dir). Returns (carry, best_acc1)."""
-    for name, value in (("save_state_fn", save_state_fn), ("profile_dir", profile_dir),
-                        ("tensorboard", tensorboard)):
+    in output_dir). save_state_fn(path, carry, epoch) persists resumable
+    state, as the JAX package's fit calls it: checkpoint_temp.msgpack after
+    every epoch's training (before its eval), checkpoint.msgpack at a new
+    best acc1. Returns (carry, best_acc1)."""
+    for name, value in (("profile_dir", profile_dir), ("tensorboard", tensorboard)):
         if value:
-            raise NotImplementedError(f"fit({name}=...) is still to port (the checkpoint/CLI "
-                                      "slice)")
+            raise NotImplementedError(f"fit({name}=...) is still to port (the CLI slice)")
     best_acc = -1.0
     stats_path = os.path.join(output_dir, "log_stats.txt") if output_dir else None
     if output_dir:
@@ -96,12 +97,16 @@ def fit(*, carry, step_fn: Callable, train_batches_fn: Callable[[int], Iterable]
         carry, train_stats, _ = train_epoch(step_fn, carry, train_batches_fn(epoch),
                                             _epoch_generator(generator, epoch), epoch=epoch,
                                             log_fn=log_fn)
+        if output_dir and save_state_fn is not None:
+            save_state_fn(os.path.join(output_dir, "checkpoint_temp.msgpack"), carry, epoch)
         eval_stats = eval_fn(carry)
         log_fn(f"epoch {epoch}: train loss {train_stats.get('loss', float('nan')):.4f} "
                f"val acc1 {eval_stats['acc1']:.2f} acc5 {eval_stats['acc5']:.2f} "
                f"({time.time() - t0:.1f}s)")
         if eval_stats["acc1"] > best_acc:
             best_acc = eval_stats["acc1"]
+            if output_dir and save_state_fn is not None:
+                save_state_fn(os.path.join(output_dir, "checkpoint.msgpack"), carry, epoch)
             if output_dir:
                 with open(os.path.join(output_dir, "result.txt"), "a") as f:
                     f.write(json.dumps({"epoch": epoch, "best_acc1": best_acc}) + "\n")

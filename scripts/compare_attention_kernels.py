@@ -149,12 +149,17 @@ def sass_summary(root: Path) -> dict:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1]
             name = None
+            # head width: a last int template argument (a checkout that
+            # instantiates dh 64 alone has none); dh 64 keeps the bare name
+            dh = (re.search(r"attn_bwd_kernel_mmaILb\dELb\dELi(\d+)EE", fn)
+                  or re.search(r"attn_kernel_mmaILi\d+ELi(\d+)EE", fn))
+            tag = f" dh {dh.group(1)}" if dh and dh.group(1) != "64" else ""
             if "attn_bwd_kernel_mma" in fn:  # a template instantiation, or a plain kernel
-                name = next((k for mark, k in kinds.items() if mark in fn), "monolithic")
+                name = next((k for mark, k in kinds.items() if mark in fn), "monolithic") + tag
                 ops[name] = []
-            elif "attn_kernel_mma" in fn:  # the forward, one instantiation per KC
+            elif "attn_kernel_mma" in fn:  # the forward, one instantiation per KC (and dh)
                 kc = re.search(r"attn_kernel_mmaILi(\d+)E", fn)
-                name = f"forward KC {kc.group(1) if kc else '?'}"
+                name = f"forward KC {kc.group(1) if kc else '?'}" + tag
                 ops[name] = []
         elif name is not None:
             m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)

@@ -116,3 +116,21 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+# head widths 32 and 128 (the CUDA kernels' other instantiations): the plain
+# versions, which the card holds the kernels to, against the Pallas kernels
+@pytest.mark.parametrize("dh,kh", [(32, 12), (128, 3)])
+def test_head_widths_match_pallas(dh, kh):
+    B, n = 2, 37
+    rng = np.random.default_rng(dh)
+    x = rng.standard_normal((B, n, 3 * kh * dh)).astype(np.float32)
+    g = rng.standard_normal((B, n, kh * dh)).astype(np.float32)
+    gate = _gate(kh, seed=dh)
+    want = np.asarray(jattn.fused_attention(jnp.asarray(x), jnp.asarray(gate), num_heads=kh,
+                                            interpret=True))
+    got = tattn.fused_attention(torch.from_numpy(x), torch.from_numpy(gate), num_heads=kh)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    want = np.asarray(jattn._attention_bwd_impl(jnp.asarray(x), jnp.asarray(g), kh, 2, True))
+    got = tattn.attention_bwd(torch.from_numpy(x), torch.from_numpy(g), kh)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)

@@ -31,6 +31,7 @@ pytestmark = pytest.mark.cuda
 
 N, DH = 198, 64
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # max|got-want| / max|want|
+BAD_DH = ((48, 4), (256, 1))  # (head_dim, heads) the kernels are not instantiated for
 
 
 @pytest.fixture
@@ -85,9 +86,10 @@ def test_launch_counter_counts_kernel_launches_only(gen):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    for dh, kh in BAD_DH:
+        with pytest.raises(ValueError, match="head_dim"):
+            fused_attention(torch.zeros((1, N, 3 * kh * dh), device="cuda"), num_heads=kh)
     x = torch.randn((1, N, 3 * 4 * 32), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
-        fused_attention(x, num_heads=4)  # dh 32
     with pytest.raises(TypeError, match="bfloat16"):
         fused_attention(x.half(), num_heads=2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -160,9 +162,11 @@ def test_function_gradient_matches_autograd_through_plain(gen):
 
 
 def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    for dh, kh in BAD_DH:
+        with pytest.raises(ValueError, match="head_dim"):
+            attention_bwd(torch.zeros((1, N, 3 * kh * dh), device="cuda"),
+                          torch.zeros((1, N, kh * dh), device="cuda"), kh)
     x = torch.randn((1, N, 3 * 4 * 32), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
-        attention_bwd(x, torch.zeros((1, N, 4 * 32), device="cuda"), 4)
     with pytest.raises(TypeError, match="bfloat16"):
         attention_bwd(x.half(), torch.zeros((1, N, 2 * 64), device="cuda").half(), 2)
     with pytest.raises(ValueError, match="must divide"):
@@ -320,8 +324,10 @@ def test_split_function_gradient_matches_autograd_through_plain(gen, monkeypatch
 def test_split_wrappers_reject_what_the_kernels_do_not_take(gen):
     x = torch.randn((1, N, 3 * 4 * 32), generator=gen, device="cuda")
     for fn in (attention_bwd_dv, attention_bwd_dqdk, attention_bwd_split):
-        with pytest.raises(ValueError, match="head_dim"):
-            fn(x, torch.zeros((1, N, 4 * 32), device="cuda"), 4)
+        for dh, kh in BAD_DH:
+            with pytest.raises(ValueError, match="head_dim"):
+                fn(torch.zeros((1, N, 3 * kh * dh), device="cuda"),
+                   torch.zeros((1, N, kh * dh), device="cuda"), kh)
         with pytest.raises(TypeError, match="bfloat16"):
             fn(x.half(), torch.zeros((1, N, 2 * 64), device="cuda").half(), 2)
         with pytest.raises(ValueError, match="g must be"):
@@ -484,8 +490,8 @@ def test_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
 # ---- the attention half of a layer: fused_block_attention (csrc/block_attention.cu)
 
 
-def _block_case(gen, B, n, kh, dtype, C=384, with_bias=True):
-    K = kh * DH
+def _block_case(gen, B, n, kh, dtype, C=384, with_bias=True, dh=DH):
+    K = kh * dh
     r = lambda *s: torch.randn(s, generator=gen, device="cuda")
     t = r(B, n, C).to(dtype)
     w = dict(norm_scale=1 + 0.1 * r(C), norm_bias=0.1 * r(C), qkv_kernel=(0.05 * r(C, 3 * K)).to(dtype),
@@ -554,8 +560,10 @@ def test_block_wrapper_rejects_what_the_kernel_does_not_take(gen):
         fused_block_attention(t.half(), **w, num_heads=2)
     with pytest.raises(TypeError, match="dtype"):
         fused_block_attention(t, **{**w, "qkv_kernel": w["qkv_kernel"].bfloat16()}, num_heads=2)
-    with pytest.raises(ValueError, match="head_dim"):
-        fused_block_attention(t, **w, num_heads=4)
+    for dh, kh in BAD_DH:
+        tb, wb = _block_case(gen, 1, N, kh, torch.float32, dh=dh)
+        with pytest.raises(ValueError, match="head_dim"):
+            fused_block_attention(tb, **wb, num_heads=kh)
     with pytest.raises(ValueError, match="contiguous"):
         fused_block_attention(t, **{**w, "proj_kernel": w["proj_kernel"].t().contiguous().t()},
                               num_heads=2)
@@ -676,3 +684,80 @@ def test_ill_conditioned_head_scores_on_the_card_within_their_rounding_bound(gen
     rel = _rel(got.cpu(), want)
     print(f"ill-conditioned head scores, card vs f64: {rel:.3e} (bound {bound:.3e})")
     assert got.dtype == torch.float32 and rel <= bound
+
+
+# ---- head widths 32 and 128 (64 is every test above): each kernel against
+# its plain version, dq, dk and dv each on its own, repeats bit for bit
+
+
+HEAD_DIM_CASES = [(32, 12), (128, 6)]  # (head_dim, heads): C 384 and 768
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES)
+def test_head_widths_forward_matches_plain(gen, dh, kh, dtype):
+    # f32 at dh 128 holds the score tile, K^T (then V) and Q^T to about N 260
+    lengths = (1, 17, 65, 197, 198, 256) + ((300,) if dtype == torch.bfloat16 or dh == 32 else ())
+    for n in lengths:
+        for B in (1, 7):
+            x = torch.randn((B, n, 3 * kh * dh), generator=gen, device="cuda").to(dtype)
+            gate = torch.rand((kh,), generator=gen, device="cuda") if n % 2 else None
+            got = fused_attention(x, gate, num_heads=kh)
+            again = fused_attention(x, gate, num_heads=kh)
+            torch.cuda.synchronize()
+            rel = _rel(got, reference_attention(x, gate, num_heads=kh))
+            assert rel <= TOL[dtype] and torch.equal(got, again), (n, B, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES)
+def test_head_widths_backwards_match_plain(gen, dh, kh, dtype):
+    """The monolithic kernel and the split pair (each against its plain
+    version, the pair against the monolithic kernel bit for bit) on both
+    sides of the chunked path's switch (N 256, and at dh 128 the shared
+    memory of the monolithic block)."""
+    C = kh * dh
+    for n in (1, 33, 197, 198, 209, 256, 300):
+        for B in (1, 5):
+            x = torch.randn((B, n, 3 * C), generator=gen, device="cuda").to(dtype)
+            g = torch.randn((B, n, C), generator=gen, device="cuda").to(dtype)
+            got = attention_bwd(x, g, kh)
+            again = attention_bwd(x, g, kh)
+            torch.cuda.synchronize()
+            errs = _bwd_errs(got, reference_attention_bwd(x, g, kh), C)
+            assert max(errs) <= TOL[dtype] and torch.equal(got, again), (n, B, errs)
+            split = attention_bwd_split(x, g, kh)
+            assert torch.equal(split, got), (n, B)
+            want_qk = reference_attention_bwd_dqdk(x, g, kh)
+            want_v = reference_attention_bwd_dv(x, g, kh)
+            errs = [_rel(split[..., :C], want_qk[..., :C]), _rel(split[..., C:2 * C], want_qk[..., C:]),
+                    _rel(split[..., 2 * C:], want_v)]
+            assert max(errs) <= TOL[dtype], (n, B, errs)
+
+
+@pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES)
+def test_head_widths_trainable_attention_matches_autograd(gen, dh, kh):
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, N, 3 * kh * dh), generator=gen, device="cuda").to(dtype)
+        cot = torch.randn((2, N, kh * dh), generator=gen, device="cuda")
+        x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+        (g1,) = torch.autograd.grad((make_trainable_attention(kh)(x1).float() * cot).sum(), x1)
+        (g2,) = torch.autograd.grad(
+            (reference_attention(x2, num_heads=kh).float() * cot).sum(), x2)
+        assert max(_bwd_errs(g1, g2, kh * dh)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [32, 128])
+def test_head_widths_block_kernel_matches_plain(gen, dh, dtype):
+    """Odd head counts at dh 32 make K = H dh not a multiple of the proj
+    kernel's 64-row chunks; f32 at dh 128 fits shared memory to N 108."""
+    lengths = (1, 17, 65, 198, 256) if dtype == torch.bfloat16 or dh == 32 else (1, 17, 65, 108)
+    for n in lengths:
+        for kh in ((1, 3, 6) if dh == 128 else (1, 5, 12)):
+            t, w = _block_case(gen, 3, n, kh, dtype, with_bias=kh % 2 == 1, dh=dh)
+            got = fused_block_attention(t, **w, num_heads=kh)
+            again = fused_block_attention(t, **w, num_heads=kh)
+            torch.cuda.synchronize()
+            rel = _rel(got, reference_block_attention(t, **w, num_heads=kh))
+            assert rel <= TOL[dtype] and torch.equal(got, again), (n, kh, rel)

@@ -1,8 +1,11 @@
 """The port stands alone: importing every module of devit_tpu_torch, and
 chip_smoke.py's import graph, loads neither JAX (jax, flax, optax), nor the
 msgpack package (the machine with the card has none; the port carries its
-own codec), nor anything of the JAX package. Checked in a fresh
-interpreter, since this test process has imported all of them."""
+own codec), nor anything of the JAX package; and chip_smoke.py's import
+graph loads no PIL (the card's machine is not known to have it: the port
+imports it inside the functions that decode or augment on the host).
+Checked in a fresh interpreter, since this test process has imported all of
+them."""
 
 import json
 import pkgutil
@@ -40,9 +43,10 @@ def _top_level_modules_after_import(*modules):
 def test_every_port_module_is_listed():
     assert _port_modules() == [f"devit_tpu_torch.{m}" for m in (
         "configs", "core", "core.compact", "core.hsic", "core.metrics", "core.rank",
-        "core.shrink", "data", "data.datasets", "data.mixup", "data.pipeline",
+        "core.shrink", "data", "data.autoaugment", "data.datasets", "data.fine_grained",
+        "data.host_augment", "data.mixup", "data.pipeline", "data.randaugment",
         "data.splitter", "deploy", "device", "io",
-        "io.bridge", "io.checkpoint", "io.msgpack", "kernels", "kernels._build",
+        "io.bridge", "io.checkpoint", "io.msgpack", "io.native", "kernels", "kernels._build",
         "kernels.attention", "kernels.quant", "models",
         "models.compact_vit", "models.ensemble", "models.vit", "serving", "serving.daemon",
         "train", "train.loop", "train.losses", "train.meters", "train.optim", "train.state",
@@ -55,3 +59,5 @@ def test_no_jax_and_no_jax_package(target):
     loaded = _top_level_modules_after_import(*modules)
     assert "torch" in loaded
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
+    if target == "chip_smoke":
+        assert "PIL" not in loaded

@@ -34,7 +34,8 @@ def _inputs(B, N, H, dh, seed):
 # N 258 and 578: past the 256 keys where the CUDA backwards switch to their
 # chunked path; the plain versions are what the card holds that path to
 @pytest.mark.parametrize("B,N,H,dh", [(3, 10, 2, 8), (2, 18, 4, 16), (1, 198, 6, 64),
-                                      (1, 258, 2, 64), (1, 578, 1, 64)])
+                                      (1, 258, 2, 64), (1, 578, 1, 64), (2, 45, 6, 32),
+                                      (1, 70, 2, 128)])
 def test_plain_split_matches_pallas_split(B, N, H, dh):
     qkv, g = _inputs(B, N, H, dh, seed=N + 1)
     want = np.asarray(jattn._attention_bwd_split_impl(jnp.asarray(qkv), jnp.asarray(g), H, 2,
