@@ -43,7 +43,14 @@ draws, fit for 2 epochs writing its checkpoints, eval through
 eval_transform ([data-train]); a run resumed from its
 checkpoint_temp.msgpack equal to the uninterrupted one bit for bit
 ([ckpt]); an epoch under the profiler ([data-profile]); and, where PIL
-imports, an epoch with the host augment ([pil]). Any failure
+imports, an epoch with the host augment ([pil]). Then every attention
+kernel at head widths 8, 16, 48, 80 and 96, which the wrappers zero-pad to
+an instantiation ([heads-pad]), and the devit-torch command line
+([cli]): `pipeline` at full width (4 divisions, 1 epoch) timed per stage
+with each kernel's launches, a second `pipeline` that skips every stage,
+`inspect --json`, `serve` on its deploy/ answering concurrent /predict
+requests as engine.predict does, and the served correct count over the
+val set equal to `ensemble --compact-path`'s. Any failure
 raises and exits non-zero; so does a machine without CUDA, or a directory
 that holds this script without the package.
 
@@ -1803,8 +1810,10 @@ def phase_dekd(card: str) -> dict:
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}); worst gradient leaf {worst} "
           f"||diff||/||plain|| {rel[worst]:.3e} (tol 2e-2, {len(rel)} leaves)")
 
-    L = student0.cfg.depth  # inter=False: student forward + re-forward, teacher, backward
-    expect = {True: (0, 0, 0, 0), False: (2 * L + teacher.cfg.depth, L, 0, 0)}
+    # student forward + re-forward, teacher, backward; inter=True captures the
+    # middle layer of each, which runs the plain attention
+    L, Lt = student0.cfg.depth, teacher.cfg.depth
+    expect = {True: (2 * (L - 1) + Lt - 1, L - 1, 0, 0), False: (2 * L + Lt, L, 0, 0)}
     res = dict(loss_rel=loss_rel, grad_rel_worst=rel[worst], worst_leaf=worst,
                teacher_check=teacher_check)
     _set_counts((0, 0, 0, 0))  # the main path: both modes, the kernels on
@@ -2661,6 +2670,334 @@ def phase_pil(dt: dict, card: str) -> dict:
     return {"pil": True, "img_s": img_s}
 
 
+# ---- head widths between the instantiations (zero-padded heads)
+
+PAD_DH_KH = {8: 6, 16: 6, 48: 4, 80: 3, 96: 4}  # head width -> heads
+
+
+def phase_heads_pad(card: str) -> dict:
+    """Each attention kernel at head widths 8, 16, 48, 80 and 96, which the
+    wrappers zero-pad to the 32-, 64- or 128-wide instantiation and launch
+    with the true width's scale: bf16 and f32, B 1/7/64, against its plain
+    version at the true width (2e-2 bf16, 1e-4 f32; dq, dk and dv each),
+    repeats and the split pair against the monolithic kernel bit for bit.
+    Launches here are checks, not counted. Returns the bf16 max-abs errors."""
+    from devit_tpu_torch.kernels.attention import kernel_head_dim
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    before, before_block = _counts(), fused_block_attention.launches
+    max_abs = {"fwd": 0.0, "bwd": 0.0, "dv": 0.0, "dqdk": 0.0, "block": 0.0}
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    n_cases = 0
+    for dh, kh in PAD_DH_KH.items():
+        C = kh * dh
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in (1, 7, 64):
+                x = torch.randn((B, N, 3 * C), generator=gen, device="cuda").to(dtype)
+                g = torch.randn((B, N, C), generator=gen, device="cuda").to(dtype)
+                fwd, fwd2 = fused_attention(x, num_heads=kh), fused_attention(x, num_heads=kh)
+                mono, mono2 = attention_bwd(x, g, kh), attention_bwd(x, g, kh)
+                dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
+                split = attention_bwd_split(x, g, kh)
+                # f32 holds the block's head in shared memory to N 108 at width 128
+                nb = 98 if dtype == torch.float32 and kernel_head_dim(dh) == 128 else N
+                t = torch.randn((B, nb, 384), generator=gen, device="cuda").to(dtype)
+                w = _block_weights(gen, 384, kh * dh, dtype)
+                blk = fused_block_attention(t, **w, num_heads=kh)
+                blk2 = fused_block_attention(t, **w, num_heads=kh)
+                torch.cuda.synchronize()
+                want = dict(fwd=reference_attention(x, num_heads=kh),
+                            bwd=reference_attention_bwd(x, g, kh),
+                            dqdk=reference_attention_bwd_dqdk(x, g, kh),
+                            dv=reference_attention_bwd_dv(x, g, kh),
+                            block=reference_block_attention(t, **w, num_heads=kh))
+                errs = {"fwd": [_rel(fwd, want["fwd"])], "bwd": _bwd_errs(mono, want["bwd"], C),
+                        "dqdk": [_rel(dqdk[..., :C], want["dqdk"][..., :C]),
+                                 _rel(dqdk[..., C:], want["dqdk"][..., C:])],
+                        "dv": [_rel(dv, want["dv"])], "block": [_rel(blk, want["block"])]}
+                bad = {k: v for k, v in errs.items() if max(v) > TOL[dtype]}
+                if bad:
+                    raise AssertionError(f"[heads-pad] dh {dh} {dtype} B {B}: rel err {bad} > "
+                                         f"{TOL[dtype]:.0e}")
+                same = (torch.equal(fwd, fwd2) and torch.equal(mono, mono2)
+                        and torch.equal(blk, blk2) and torch.equal(split, mono)
+                        and torch.equal(split[..., :2 * C], dqdk)
+                        and torch.equal(split[..., 2 * C:], dv))
+                if not same:
+                    raise AssertionError(f"[heads-pad] dh {dh} {dtype} B {B}: a repeat launch, "
+                                         "or the split pair against the monolithic kernel, "
+                                         "differs in its bits")
+                if dtype == torch.bfloat16:
+                    for k, got in (("fwd", fwd), ("bwd", mono), ("dqdk", dqdk), ("dv", dv),
+                                   ("block", blk)):
+                        max_abs[k] = max(max_abs[k], float(
+                            (got.float() - want[k].float()).abs().max()))
+                worst[dtype] = max(worst[dtype], max(max(v) for v in errs.values()))
+                n_cases += 1
+    try:
+        fused_attention(torch.zeros((1, N, 3 * 256), device="cuda"), num_heads=1)
+        raise AssertionError("[heads-pad] head_dim 256 did not raise")
+    except ValueError:
+        pass
+    _set_counts(before)
+    fused_block_attention.launches = before_block
+    print(f"[heads-pad] head widths {list(PAD_DH_KH)} (zero-padded to 32/64/128, the true "
+          f"width's scale): {n_cases} cases (B 1/7/64, bf16 and f32) of the forward, the "
+          f"monolithic backward, the split pair and the block half vs their plain versions "
+          f"pass; worst rel err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 "
+          f"{worst[torch.float32]:.3e} (tol 1e-4); repeats bit for bit; split == monolithic "
+          f"bit for bit; head_dim 256 raises ValueError [{card}]")
+    return dict(cases=n_cases, max_abs=max_abs,
+                worst_rel={"bf16": worst[torch.bfloat16], "f32": worst[torch.float32]})
+
+
+# ---- the devit-torch CLI: the pipeline, inspect, serve and the compact eval
+
+# the pipeline at full width: dedeit (384 wide, 12 layers, 6 heads, dh 64,
+# 224 px, N 198), 4 divisions of 25 classes, bs64, the CLI's defaults
+# otherwise (bf16, RandAugment on the host, mixup/cutmix, EMA, repeated
+# augmentation, the self-distill teacher). Cuts: 1 epoch (default 5), 2048
+# synthetic images a split in place of CIFAR-100's 50,000
+CLI_MODEL = ["--model", "dedeit", "--dataset", "synthetic:100:2048:224", "--num_division", "4",
+             "--batch-size", "64", "--epochs", "1", "--device", "cuda"]
+CLI_ARGS = CLI_MODEL + ["--deploy-num-classes", "25"]
+CLI_STAGES = ("split", "train_sub", "shrink", "distill", "ensemble", "deploy")
+CLI_FORWARD = ("train_sub", "shrink", "distill", "ensemble")  # stages that run a model
+CLI_BACKWARD = ("train_sub", "distill", "ensemble")
+KERNEL_NAMES = ("fused_attention", "attention_bwd", "attention_bwd_dv", "attention_bwd_dqdk")
+
+
+def _cli_instrument(record: dict):
+    """Wrap each stage main of cli/stages.py (pipeline_main looks them up at
+    call time) and fit's train_epoch: per stage, the wall seconds of its
+    calls ending in synchronize, the kernels' launches and the train steps.
+    Returns the function that undoes it."""
+    from devit_tpu_torch.cli import stages as St
+    from devit_tpu_torch.train import loop as TL
+
+    steps = [0]
+    originals = {name: getattr(St, f"{name}_main") for name in CLI_STAGES}
+    train_epoch = TL.train_epoch
+
+    def wrap(name, fn):
+        def run(args):
+            before, steps0 = _counts(), steps[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(args)
+            torch.cuda.synchronize()
+            rec = record.setdefault(name, dict(seconds=0.0, calls=0, steps=0, dirs=[],
+                                               launches=[0, 0, 0, 0]))
+            rec["seconds"] += time.perf_counter() - t0
+            rec["calls"] += 1
+            rec["steps"] += steps[0] - steps0
+            rec["dirs"].append(args.output_dir)
+            rec["launches"] = [a + b for a, b in zip(rec["launches"], _delta(before))]
+            return out
+        return run
+
+    def counted(step_fn, carry, batches, generator, **kw):
+        def each():
+            for batch in batches:
+                steps[0] += 1
+                yield batch
+        return train_epoch(step_fn, carry, each(), generator, **kw)
+
+    for name, fn in originals.items():
+        setattr(St, f"{name}_main", wrap(name, fn))
+    TL.train_epoch = counted
+
+    def undo():
+        for name, fn in originals.items():
+            setattr(St, f"{name}_main", fn)
+        TL.train_epoch = train_epoch
+    return undo
+
+
+def _cli(argv):
+    """One devit-torch command in this process, through its parser; returns
+    what the subcommand returns (main() returns 0)."""
+    from devit_tpu_torch.cli.__main__ import build_parser
+
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+def _serve_thread(argv):
+    """`serve` (serve_main) in a thread; returns (url, stop)."""
+    from devit_tpu_torch.cli.__main__ import build_parser
+    from devit_tpu_torch.serving.daemon import serve_main
+
+    ready, box = threading.Event(), {}
+    thread = threading.Thread(target=serve_main, args=(build_parser().parse_args(argv),),
+                              kwargs=dict(ready=lambda h: (box.update(httpd=h), ready.set())),
+                              daemon=True)
+    thread.start()
+    if not ready.wait(600):
+        raise AssertionError("[cli] serve did not come up")
+
+    def stop():
+        box["httpd"].shutdown()
+        thread.join(timeout=60)
+    return "http://%s:%d" % box["httpd"].server_address[:2], stop
+
+
+def phase_cli(card: str) -> dict:
+    """The main path through the CLI: `pipeline` at full width (split, then
+    per division train_sub, shrink and self-distill, then the stage-5
+    ensemble and deploy), timed per stage with its steps and the kernels'
+    launches; a second `pipeline` that skips every stage; `inspect --json`
+    on the artifacts; `serve` on deploy/ with six concurrent /predict
+    requests held to engine.predict and the val set's correct count held to
+    `ensemble --compact-path`'s."""
+    import contextlib
+    import io
+
+    from devit_tpu_torch.cli import common as CC
+    from devit_tpu_torch.cli.__main__ import build_parser
+    from devit_tpu_torch.core.metrics import DEDEIT_FULL_GMACS
+
+    a = build_parser().parse_args(["pipeline", *CLI_ARGS])
+    root = Path(tempfile.mkdtemp(prefix="devit_cli_"))
+    out = str(root / "pipeline")
+    record = {}
+    undo = _cli_instrument(record)
+    before = _counts()
+    try:
+        _set_counts((0, 0, 0, 0))  # the main path
+        t0 = time.perf_counter()
+        results = _cli(["pipeline", *CLI_ARGS, "--output_dir", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(zip(KERNEL_NAMES, _counts()))
+        calls = {k: v["calls"] for k, v in record.items()}
+        again = _cli(["pipeline", *CLI_ARGS, "--output_dir", out])
+        if again != {} or {k: v["calls"] for k, v in record.items()} != calls:
+            raise AssertionError(f"[cli] the second pipeline ran stages: {again}")
+    finally:
+        undo()
+    print(f"[cli] devit-torch pipeline {' '.join(CLI_ARGS)} (the CLI's defaults otherwise; "
+          f"cuts: 1 epoch, synthetic images in place of CIFAR-100): {wall:.1f} s, results "
+          f"{ {k: round(v, 2) for k, v in results.items()} } [{card}]")
+    for name in CLI_STAGES:
+        rec = record[name]
+        counts = dict(zip(KERNEL_NAMES, rec["launches"]))
+        img_s = rec["steps"] * a.batch_size / rec["seconds"] if rec["steps"] else 0.0
+        print(f"[cli]   {name}: {rec['calls']} call(s), {rec['seconds']:.2f} s, {rec['steps']} "
+              f"train steps ({img_s:.1f} img/s over the stage's wall time), launches {counts}")
+        if name in CLI_FORWARD and counts["fused_attention"] == 0:
+            raise AssertionError(f"[cli] {name} launched no fused_attention")
+        if name in CLI_BACKWARD and counts["attention_bwd"] + counts["attention_bwd_dv"] == 0:
+            raise AssertionError(f"[cli] {name} launched no backward kernel")
+        for d in rec["dirs"] if name in CLI_BACKWARD else ():
+            with open(os.path.join(d, "log_stats.txt")) as f:
+                logged = [json.loads(line) for line in f]
+            if not logged or not all(np.isfinite(r["train_loss"]) and np.isfinite(r["test_loss"])
+                                     for r in logged):
+                raise AssertionError(f"[cli] {name} logged a non-finite loss in {d}: {logged}")
+    print("[cli] a second pipeline on the same root skipped every stage (no stage main "
+          "called)")
+    # stage 3: each division's chosen policy within 2% of the MACs budget
+    # (shrink_main's: the reference's 9.19 anchor at seq 197 for dedeit)
+    cfg = CC.model_config(a.model, 0, a)
+    canonical = (cfg.depth, cfg.embed_dim, cfg.num_heads) == (12, 384, 6)
+    geo = dict(emb=cfg.embed_dim, mlp_ratio=cfg.mlp_ratio, head=cfg.num_heads, layer=cfg.depth,
+               seq_length=197 if canonical else cfg.seq_len)
+    zeros = [0.0] * cfg.depth
+    full = DEDEIT_FULL_GMACS if canonical else 2 * cal_shrink_macs(zeros, zeros, **geo)
+    target = a.shrink_ratio * full
+    for d in range(a.num_division):
+        pol = np.load(os.path.join(out, f"shrink{d}", "shrinked_policy.npy"))
+        acc = np.load(os.path.join(out, f"shrink{d}", "shrinked_accuracy.npy"))
+        best = pol[int(np.argmax(acc))]
+        macs = cal_shrink_macs(list(best[:cfg.depth]), list(best[cfg.depth:]), **geo)
+        if abs(macs - target) > 0.02 * target:
+            raise AssertionError(f"[cli] division {d}'s policy: {macs:.3f} GMACs, budget "
+                                 f"{target:.3f}")
+    print(f"[cli] stage 3: every division's chosen policy within 2% of the "
+          f"{target:.3f}-GMACs budget (shrink ratio {a.shrink_ratio})")
+    paths = [os.path.join(out, p) for p in (
+        f"division{a.num_division}/manifest.json", "sub-model0/checkpoint.msgpack",
+        "shrink0/shrinked_policy.npy", "sub-dataset0/checkpoint.msgpack",
+        "ensemble/checkpoint.msgpack", "deploy/sub-dataset0/compact.msgpack")]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _cli(["inspect", "--json", *paths, "--device", a.device])
+    inspected = json.loads(buf.getvalue())
+    kinds = [i.get("kind") for i in inspected]
+    if len(inspected) != len(paths) or not all(kinds):
+        raise AssertionError(f"[cli] inspect: {inspected}")
+    print(f"[cli] inspect --json: {kinds}")
+
+    # serve on deploy/ with the stage-5 fusion head; the compact eval
+    deploy_dir = os.path.join(out, "deploy")
+    ens_ckpt = os.path.join(out, "ensemble", "checkpoint.msgpack")
+    buckets = "1,8,32,128,256,512"  # 512: the eval's batch, so both run one shape
+    val = build_dataset(a.dataset, a.data_path, train=False, img_size=a.input_size)
+    _set_counts((0, 0, 0, 0))
+    t0 = time.perf_counter()
+    url, stop = _serve_thread(["serve", "--compact-path", deploy_dir, "--ens-path", ens_ckpt,
+                               "--port", "0", "--buckets", buckets, "--input-size",
+                               str(a.input_size), "--patch-size", str(a.patch_size),
+                               "--device", a.device])
+    up_s = time.perf_counter() - t0
+    try:
+        sizes = (1, 3, 8, 20, 64, 300)
+        rng = np.random.default_rng(3)
+        batches = [val.images[rng.integers(0, len(val), n)] for n in sizes]
+        with ThreadPoolExecutor(len(sizes)) as pool:
+            replies = list(pool.map(lambda b: _post(url, b), batches))
+        t1 = time.perf_counter()
+        correct = 0
+        for i in range(0, len(val), 512):
+            top1 = [p["topk"][0] for p in _post(url, val.images[i:i + 512])["predictions"]]
+            correct += int((np.asarray(top1) == val.labels[i:i + 512]).sum())
+        serve_s = time.perf_counter() - t1
+    finally:
+        stop()
+    serve_launches = fused_attention.launches
+    engine = build_engine_from_artifacts(
+        deploy_dir, ens_ckpt, cfg=ServeConfig(input_size=a.input_size, patch_size=a.patch_size,
+                                              buckets=tuple(int(b) for b in buckets.split(","))),
+        device=a.device, log=None)
+    worst = 0.0
+    for imgs, reply in zip(batches, replies):
+        p = torch.softmax(torch.from_numpy(engine.predict(imgs)), dim=-1)
+        for i, pred in enumerate(reply["predictions"]):
+            top = torch.tensor(pred["topk"])
+            err = float((torch.tensor(pred["probs"]) - p[i, top]).abs().max() / p[i].max())
+            worst = max(worst, err)
+            if err > 2e-2 or p[i, top[0]] < p[i].max() * (1 - 2e-2):
+                raise AssertionError(f"[cli] a reply disagrees with engine.predict ({err:.3e})")
+    _set_counts((0, 0, 0, 0))
+    t1 = time.perf_counter()
+    acc1 = _cli(["ensemble", *CLI_MODEL, "--compact-path", deploy_dir, "--ens-path", ens_ckpt,
+                 "--output_dir", str(root / "compact_eval")])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t1
+    eval_launches = fused_attention.launches
+    eval_correct = round(acc1 * len(val) / 100)
+    _set_counts(before)
+    if eval_correct != correct or serve_launches == 0 or eval_launches == 0:
+        raise AssertionError(f"[cli] served correct {correct} vs compact eval {eval_correct}; "
+                             f"launches serve {serve_launches}, eval {eval_launches}")
+    print(f"[cli] serve on deploy/ (buckets {buckets}): up with warm-up in {up_s:.2f} s; six "
+          f"concurrent /predict of {list(sizes)} images match engine.predict (worst rel "
+          f"{worst:.3e}, tol 2e-2); the {len(val)} val images in 512-image requests in "
+          f"{serve_s:.2f} s ({len(val) / serve_s:.1f} img/s over HTTP), {correct} correct; "
+          f"{serve_launches} fused_attention launches [{card}]")
+    print(f"[cli] ensemble --compact-path eval: {eval_correct} correct of {len(val)} (acc1 "
+          f"{acc1:.2f}), equal to the served count; {eval_s:.2f} s, {eval_launches} "
+          f"fused_attention launches [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(seconds=wall, stages={k: {kk: vv for kk, vv in v.items() if kk != "dirs"}
+                                      for k, v in record.items()},
+                launches=launches, results=results, serve=dict(
+                    seconds=serve_s, up_s=up_s, launches=serve_launches, correct=correct,
+                    worst_rel=worst),
+                compact_eval=dict(seconds=eval_s, launches=eval_launches, correct=eval_correct))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2726,7 +3063,10 @@ def main() -> int:
                            if k not in ("data", "root", "run_a", "images")}
     shutil.rmtree(dt["root"], ignore_errors=True)
     del dt, ck
-    hm = heads["max_abs"]
+    times["heads_pad"] = heads_pad = phase_heads_pad(card)
+    torch.cuda.empty_cache()
+    times["cli"] = cli = phase_cli(card)
+    hm = {k: max(v, heads_pad["max_abs"][k]) for k, v in heads["max_abs"].items()}
 
     fa = times["forward_attention"]
     bw = train["kernel_times"]["bwd_step"]
@@ -2736,10 +3076,12 @@ def main() -> int:
         "source": "devit_tpu_torch/kernels/csrc/attention.cu",
         "replaces": "devit_tpu/kernels/attention.py:30",
         # the launches of every main-path run: serving, stage 2, stage 5, DEKD,
-        # stage 3 (the policy search's chunks), stage 2 from the files
+        # stage 3 (the policy search's chunks), stage 2 from the files, the CLI
+        # pipeline
         "launches": (launches + train["launches"]["fused_attention"]
                      + ens["launches"]["fused_attention"] + dekd["launches"]["fused_attention"]
-                     + stage3["launches"] + times["data_train"]["launches"]["fused_attention"]),
+                     + stage3["launches"] + times["data_train"]["launches"]["fused_attention"]
+                     + cli["launches"]["fused_attention"]),
         # every shape checked: [kernel]'s up to B 256, stage 3's B 4096, [heads]
         "max_abs_err": max(max_abs_err, stage3["shrink"]["attention"]["max_abs_err"],
                            hm["fwd"]),
@@ -2750,7 +3092,8 @@ def main() -> int:
         "replaces": "devit_tpu/kernels/attention.py:238",
         "launches": (train["launches"]["attention_bwd"] + ens["launches"]["attention_bwd"]
                      + dekd["launches"]["attention_bwd"]
-                     + times["data_train"]["launches"]["attention_bwd"]),
+                     + times["data_train"]["launches"]["attention_bwd"]
+                     + cli["launches"]["attention_bwd"]),
         "max_abs_err": max(bwd_max_abs_err, hm["bwd"]),
         "ms": bw["ms"], "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
         "bound_by": bw["bound_by"], "library_ms": bw["library_ms"]}] + [{

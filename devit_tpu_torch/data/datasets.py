@@ -13,6 +13,7 @@ only where an image file is decoded.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import pickle
 from typing import Iterator, Tuple
@@ -306,6 +307,15 @@ def synthetic_dataset(
     return ArrayDataset(images=images, labels=labels.astype(np.int64), num_classes=num_classes)
 
 
+@functools.lru_cache(maxsize=2)
+def _synthetic_cached(num_classes: int, n: int, img_size: int, seed: int) -> ArrayDataset:
+    """The last train and val synthetic sets, kept: a pipeline's stages
+    rebuild their data each (8 builds a division), and one full-size set
+    (2048 images at 224 px) takes seconds to draw. Callers take division
+    views (copies) and never write into the images."""
+    return synthetic_dataset(num_classes, n, img_size=img_size, seed=seed)
+
+
 def build_dataset(
     name: str, data_path: str, train: bool, img_size: int = 224,
     inat_category: str = "name",
@@ -319,7 +329,7 @@ def build_dataset(
         k = int(parts[1]) if len(parts) > 1 else 100
         n = int(parts[2]) if len(parts) > 2 else (2048 if train else 512)
         s = int(parts[3]) if len(parts) > 3 else img_size
-        return synthetic_dataset(k, n, img_size=s, seed=0 if train else 1)
+        return _synthetic_cached(k, n, s, 0 if train else 1)
     if name == "cifar100":
         return load_cifar100(data_path, train)
     if name == "cifar10":

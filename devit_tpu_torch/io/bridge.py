@@ -132,6 +132,20 @@ def stacked_vit_from_jax_params(stacked_np: dict, model: VisionTransformer, *,
     return {k: out[k] for k in shapes if k in out}  # the model's parameter order
 
 
+def stacked_vit_values_from_jax_params(stacked_np: dict, names) -> dict:
+    """The inverse of stacked_vit_to_jax_params for a {port name: (D, ...)}
+    dict: a division-stacked tree -> {name: f32 numpy array} for `names`."""
+    out = {}
+    for name in names:
+        path, layer = _flax_path(name)
+        node = stacked_np
+        for key in path:
+            node = node[key]
+        arr = np.asarray(node.float() if isinstance(node, torch.Tensor) else node, np.float32)
+        out[name] = arr[:, layer] if layer is not None else arr
+    return out
+
+
 def stacked_vit_to_jax_params(stacked: Mapping[str, torch.Tensor]) -> dict:
     """The inverse: a stacked {port name: (D, ...)} dict (parameters,
     gradients, an EMA copy) -> the division-stacked flax tree of f32 numpy
@@ -184,3 +198,16 @@ def ensmlp_to_jax_params(values: Union[EnsMLP, Mapping[str, torch.Tensor]]) -> d
     for name, t in values.items():
         _put(tree, name.split("."), t.detach().float().cpu().numpy())
     return tree
+
+
+def ensmlp_values_from_jax_params(ens_params_np: dict, names) -> dict:
+    """The inverse of ensmlp_to_jax_params for a {port name: tensor} dict:
+    {name: f32 numpy array} for `names`."""
+    out = {}
+    for name in names:
+        node = ens_params_np
+        for key in name.split("."):
+            node = node[key]
+        out[name] = np.asarray(node.float() if isinstance(node, torch.Tensor) else node,
+                               np.float32)
+    return out

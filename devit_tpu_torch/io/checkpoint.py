@@ -68,9 +68,10 @@ def _to_np(t) -> np.ndarray:
 
 def _stack(trees) -> Any:
     """Nested dicts of arrays, one per layer -> one tree, leaves stacked on a
-    new leading axis (jax.tree_util.tree_map(np.stack) on dicts)."""
+    new leading axis (jax.tree_util.tree_map(np.stack) on dicts, which also
+    sorts each dict's keys: a checkpoint written from it has flax's bytes)."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+        return {k: _stack([t[k] for t in trees]) for k in sorted(trees[0])}
     return np.stack(trees)
 
 

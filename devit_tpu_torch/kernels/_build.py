@@ -31,22 +31,24 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "devit_tpu_torch_ker
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C entry points of the library: name -> (argument types, result type)
+_VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C entry points of the library: name -> (argument types, result type). The
+# attention entries take the logits' scale before the stream (the true head
+# width's dh^-0.5 where the wrapper zero-pads narrower heads)
 SIGNATURES = {
-    "devit_fused_attention": ([_VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
+    "devit_fused_attention": ([_VP, _VP, _I, _I, _I, _I, _I, _F, _VP], _I),
     # the three backwards take a (B, H, N, 3) f32 scratch where they walk key
     # chunks (devit_attention_bwd_long_path), else NULL
-    "devit_attention_bwd": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I),
-    "devit_attention_bwd_dv": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _VP], _I),
-    "devit_attention_bwd_dqdk": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _VP], _I),
+    "devit_attention_bwd": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP], _I),
+    "devit_attention_bwd_dv": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _F, _VP], _I),
+    "devit_attention_bwd_dqdk": ([_VP, _VP, _VP, _LL, _VP, _I, _I, _I, _I, _I, _F, _VP], _I),
     # x, w_nk, w_scale, bias (or NULL), x_q and x_scale scratch, out, M, K,
     # Kp, N, x dtype, out dtype, stream
     "devit_quant_matmul": ([_VP] * 7 + [_LL, _I, _I, _I, _I, _I, _VP], _I),
     # t, norm scale, norm bias, qkv kernel, qkv bias (or NULL), proj kernel,
     # proj bias, scratch (f32: the LN'd rows; bf16: o), f32 accumulator (or
-    # NULL at bf16), out, B, N, C, H, head_dim, eps, dtype, stream
-    "devit_block_attention": ([_VP] * 10 + [_I] * 5 + [ctypes.c_float, _I, _VP], _I),
+    # NULL at bf16), out, B, N, C, H, head_dim, eps, dtype, scale, stream
+    "devit_block_attention": ([_VP] * 10 + [_I] * 5 + [_F, _I, _F, _VP], _I),
     "devit_attention_smem_bytes": ([_I, _I, _I], _LL),
     # the backwards' queries take the device: whether they walk key chunks
     # depends on its opt-in shared memory

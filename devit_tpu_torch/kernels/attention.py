@@ -13,8 +13,13 @@ The head gate is applied outside the kernel, as in the JAX package.
 
 At bf16 the forward, the backwards and `fused_block_attention` compute every
 product on the tensor cores (mma.sync); at f32 they run f32 FMAs on the CUDA
-cores (see the sources' notes). Every kernel takes head_dim 32, 64 or 128
-(HEAD_DIMS) and raises a ValueError on any other. The backwards take any N:
+cores (see the sources' notes). Every kernel is instantiated for head_dim
+32, 64 and 128 (HEAD_DIMS); the wrappers take any head_dim up to 128 by
+zero-padding each head's q, k, v (and g) to the next instantiation, launching
+with the true head width's scale and slicing the outputs back. Zero columns
+add exact zeros to every logit and product, so the result is the unpadded
+computation. A head_dim past 128 raises a ValueError: both designs hold a
+whole head row in one block. The backwards take any N:
 past 256 keys, or where a block of the monolithic kernel would not fit
 shared memory (head_dim 128 at the larger N), they walk key chunks on the
 CUDA cores (csrc/attention_bwd_long.cu), with a (B, H, N, 3) f32 scratch of
@@ -39,12 +44,51 @@ import functools
 import os
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from devit_tpu_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 128)  # head_dim values the CUDA kernels are instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The instantiation a head of width dh runs in: the narrowest of
+    HEAD_DIMS that holds it."""
+    for width in HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"the CUDA attention kernels take head_dim up to {HEAD_DIMS[-1]}, "
+                     f"got {dh}")
+
+
+def logit_scale(dh: int) -> float:
+    """dh^-0.5 as the kernels computed it from their template's width: an
+    f32 reciprocal of an f32 square root (exact in the C float it is passed
+    as)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+
+
+def pad_heads(x: torch.Tensor, parts: int, num_heads: int, dh: int, width: int) -> torch.Tensor:
+    """(B, N, parts * num_heads * dh) -> (B, N, parts * num_heads * width),
+    each head's dh values followed by zeros (contiguous)."""
+    if dh == width:
+        return x.contiguous()
+    B, N, _ = x.shape
+    x = x.reshape(B, N, parts, num_heads, dh)
+    return F.pad(x, (0, width - dh)).reshape(B, N, parts * num_heads * width)
+
+
+def unpad_heads(x: torch.Tensor, parts: int, num_heads: int, dh: int,
+                width: int) -> torch.Tensor:
+    """The inverse of pad_heads: each head's first dh values (contiguous)."""
+    if dh == width:
+        return x
+    B, N, _ = x.shape
+    x = x.reshape(B, N, parts, num_heads, width)[..., :dh]
+    return x.reshape(B, N, parts * num_heads * dh)
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -158,15 +202,14 @@ def _check_smem(kernel: str, N: int, dh: int, elem: int, device: int) -> None:
 
 
 def _check_kernel_input(qkv: torch.Tensor, num_heads: int, kernel: str):
+    """Returns (B, N, C, dh, width): width the instantiation dh runs in."""
     B, N, C, dh = _split_heads(qkv, num_heads)
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA attention kernels take head_dim in "
-                         f"{HEAD_DIMS}, got {dh}")
+    width = kernel_head_dim(dh)
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA attention kernels take float32 or bfloat16, "
                         f"got {qkv.dtype}")
-    _check_smem(kernel, N, dh, qkv.element_size(), qkv.device.index)
-    return B, N, C, dh
+    _check_smem(kernel, N, width, qkv.element_size(), qkv.device.index)
+    return B, N, C, dh, width
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
@@ -178,20 +221,21 @@ def _check_aligned(*tensors: torch.Tensor) -> None:
 def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if not qkv.is_contiguous():
         raise ValueError("the CUDA attention kernel needs a contiguous qkv")
-    B, N, C, dh = _check_kernel_input(qkv, num_heads, "fwd")
-    _check_aligned(qkv)
+    B, N, C, dh, width = _check_kernel_input(qkv, num_heads, "fwd")
+    x = pad_heads(qkv, 3, num_heads, dh, width)
+    _check_aligned(x)
     lib = _build.library()
-    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((B, N, num_heads * width), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
-        return out
+        return unpad_heads(out, 1, num_heads, dh, width)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.devit_fused_attention(qkv.data_ptr(), out.data_ptr(), B, N,
-                                        num_heads, dh, _DTYPE_CODES[qkv.dtype],
-                                        stream)
+        err = lib.devit_fused_attention(x.data_ptr(), out.data_ptr(), B, N,
+                                        num_heads, width, _DTYPE_CODES[qkv.dtype],
+                                        logit_scale(dh), stream)
     _build.check_launch(err, "fused_attention")
     fused_attention.launches += 1
-    return out
+    return unpad_heads(out, 1, num_heads, dh, width)
 
 
 def fused_attention(qkv: torch.Tensor, head_gate: Optional[torch.Tensor] = None,
@@ -214,11 +258,14 @@ fused_attention.launches = 0
 
 
 def _check_bwd_input(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, kernel: str):
-    B, N, C, dh = _check_kernel_input(qkv, num_heads, kernel)
+    """Returns qkv and g contiguous with their heads padded to the
+    instantiation's width, and (B, N, C, dh, width) of the caller's qkv."""
+    B, N, C, dh, width = _check_kernel_input(qkv, num_heads, kernel)
     if g.shape != (B, N, C) or g.dtype != qkv.dtype or g.device != qkv.device:
         raise ValueError(f"g must be {(B, N, C)} {qkv.dtype} on {qkv.device}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
-    return qkv.contiguous(), g.contiguous(), (B, N, C, dh)
+    return (pad_heads(qkv, 3, num_heads, dh, width), pad_heads(g, 1, num_heads, dh, width),
+            (B, N, C, dh, width))
 
 
 @functools.lru_cache(maxsize=None)
@@ -244,21 +291,22 @@ def _bwd_stats(qkv: torch.Tensor, num_heads: int) -> Optional[torch.Tensor]:
 
 
 def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
-    qkv, g, (B, N, C, dh) = _check_bwd_input(qkv, g, num_heads, "bwd")
+    qkv, g, (B, N, C, dh, width) = _check_bwd_input(qkv, g, num_heads, "bwd")
     _check_aligned(qkv, g)
     dqkv = torch.empty_like(qkv)
     if B == 0:
-        return dqkv
+        return unpad_heads(dqkv, 3, num_heads, dh, width)
     lib = _build.library()
     stats = _bwd_stats(qkv, num_heads)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.devit_attention_bwd(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
                                       None if stats is None else stats.data_ptr(), B, N,
-                                      num_heads, dh, _DTYPE_CODES[qkv.dtype], stream)
+                                      num_heads, width, _DTYPE_CODES[qkv.dtype],
+                                      logit_scale(dh), stream)
     _build.check_launch(err, "attention_bwd")
     attention_bwd.launches += 1
-    return dqkv
+    return unpad_heads(dqkv, 3, num_heads, dh, width)
 
 
 def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -278,11 +326,12 @@ attention_bwd.launches = 0
 
 
 def _launch_half(kernel: str, qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
-                 out: torch.Tensor, offset: int, stats: Optional[torch.Tensor]) -> None:
+                 out: torch.Tensor, offset: int, stats: Optional[torch.Tensor],
+                 scale: float) -> None:
     """Launch the split kernel `kernel` ("dv" or "dqdk") on contiguous,
-    checked qkv and g, writing token rows of `out` (contiguous, last dim its
-    row stride) from element `offset` of each row on; `stats` is
-    _bwd_stats(qkv)."""
+    checked and padded qkv and g, writing token rows of `out` (contiguous,
+    last dim its row stride) from element `offset` of each row on; `stats`
+    is _bwd_stats(qkv); `scale` the true head width's logit_scale."""
     B, N, C, dh = _split_heads(qkv, num_heads)
     if B == 0:
         return
@@ -293,7 +342,7 @@ def _launch_half(kernel: str, qkv: torch.Tensor, g: torch.Tensor, num_heads: int
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), g.data_ptr(), out.data_ptr() + offset * out.element_size(),
                  out.shape[-1], None if stats is None else stats.data_ptr(), B, N, num_heads,
-                 dh, _DTYPE_CODES[qkv.dtype], stream)
+                 dh, _DTYPE_CODES[qkv.dtype], scale, stream)
     wrapper = attention_bwd_dv if kernel == "dv" else attention_bwd_dqdk
     _build.check_launch(err, wrapper.__name__)
     wrapper.launches += 1
@@ -306,11 +355,12 @@ def _split_half(kernel: str, plain, qkv: torch.Tensor, g: torch.Tensor,
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_bwd_{kernel} runs on cuda (kernel) or cpu (plain "
                          f"version), not {qkv.device}")
-    qkv, g, (B, N, C, _) = _check_bwd_input(qkv, g, num_heads, kernel)
-    width = C if kernel == "dv" else 2 * C
-    out = torch.empty((B, N, width), dtype=qkv.dtype, device=qkv.device)
-    _launch_half(kernel, qkv, g, num_heads, out, 0, _bwd_stats(qkv, num_heads))
-    return out
+    qkv, g, (B, N, C, dh, width) = _check_bwd_input(qkv, g, num_heads, kernel)
+    parts = 1 if kernel == "dv" else 2
+    out = torch.empty((B, N, parts * num_heads * width), dtype=qkv.dtype, device=qkv.device)
+    _launch_half(kernel, qkv, g, num_heads, out, 0, _bwd_stats(qkv, num_heads),
+                 logit_scale(dh))
+    return unpad_heads(out, parts, num_heads, dh, width)
 
 
 def attention_bwd_dv(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -345,13 +395,14 @@ def attention_bwd_split(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> t
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_bwd_split runs on cuda (kernels) or cpu (plain "
                          f"versions), not {qkv.device}")
-    qkv, g, (_, _, C, _) = _check_bwd_input(qkv, g, num_heads, "dqdk")
-    _check_smem("dv", qkv.shape[1], C // num_heads, qkv.element_size(), qkv.device.index)
+    qkv, g, (_, _, _, dh, width) = _check_bwd_input(qkv, g, num_heads, "dqdk")
+    _check_smem("dv", qkv.shape[1], width, qkv.element_size(), qkv.device.index)
     dqkv = torch.empty_like(qkv)
     stats = _bwd_stats(qkv, num_heads)  # one scratch: the two launches share a stream
-    _launch_half("dqdk", qkv, g, num_heads, dqkv, 0, stats)
-    _launch_half("dv", qkv, g, num_heads, dqkv, 2 * C, stats)
-    return dqkv
+    scale = logit_scale(dh)
+    _launch_half("dqdk", qkv, g, num_heads, dqkv, 0, stats, scale)
+    _launch_half("dv", qkv, g, num_heads, dqkv, 2 * num_heads * width, stats, scale)
+    return unpad_heads(dqkv, 3, num_heads, dh, width)
 
 
 _BWD = {"monolithic": attention_bwd, "split": attention_bwd_split}
@@ -437,8 +488,7 @@ def _launch_block(t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, p
         raise ValueError(f"num_heads={num_heads} must divide K={threeK // 3}")
     K = threeK // 3
     dh = K // num_heads
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA block-attention kernel takes head_dim in {HEAD_DIMS}, got {dh}")
+    width = kernel_head_dim(dh)
     if t.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA block-attention kernel takes float32 or bfloat16, got {t.dtype}")
     if qkv_kernel.dtype != t.dtype or proj_kernel.dtype != t.dtype:
@@ -460,14 +510,21 @@ def _launch_block(t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, p
     if any(x is not None and x.device != t.device
            for x in [qkv_kernel, proj_kernel] + vecs):
         raise ValueError(f"every operand must be on {t.device}")
-    _check_smem("block", N, dh, t.element_size(), t.device.index)
+    _check_smem("block", N, width, t.element_size(), t.device.index)
+    if width != dh:  # zero qkv columns and proj rows per head: exact zeros in every product
+        qkv_kernel = pad_heads(qkv_kernel[None], 3, num_heads, dh, width)[0]
+        proj_kernel = F.pad(proj_kernel.reshape(num_heads, dh, C), (0, 0, 0, width - dh))
+        proj_kernel = proj_kernel.reshape(num_heads * width, C)
+        if vecs[2] is not None:
+            vecs[2] = pad_heads(vecs[2].reshape(1, 1, threeK), 3, num_heads, dh, width)
     _check_aligned(t, qkv_kernel, proj_kernel)
     ns, nb, qb, pb = (None if v is None else v.float().contiguous() for v in vecs)
     out = torch.empty_like(t)
     if B == 0:
         return out
     if t.dtype == torch.bfloat16:  # o of every head, for the proj kernel
-        scratch, acc = torch.empty((B, N, K), dtype=t.dtype, device=t.device), None
+        scratch, acc = torch.empty((B, N, num_heads * width), dtype=t.dtype,
+                                   device=t.device), None
     else:  # the LN'd rows and the f32 residual accumulator
         scratch = torch.empty_like(t)
         acc = torch.empty(t.shape, dtype=torch.float32, device=t.device)
@@ -477,7 +534,7 @@ def _launch_block(t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, p
             t.data_ptr(), ns.data_ptr(), nb.data_ptr(), qkv_kernel.data_ptr(),
             None if qb is None else qb.data_ptr(), proj_kernel.data_ptr(), pb.data_ptr(),
             scratch.data_ptr(), None if acc is None else acc.data_ptr(), out.data_ptr(), B, N,
-            C, num_heads, dh, eps, _DTYPE_CODES[t.dtype], stream)
+            C, num_heads, width, eps, _DTYPE_CODES[t.dtype], logit_scale(dh), stream)
     _build.check_launch(err, "fused_block_attention")
     fused_block_attention.launches += 1
     return out

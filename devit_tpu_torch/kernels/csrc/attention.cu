@@ -220,7 +220,8 @@ attn_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H,
 }
 
 template <typename T, int DH>
-cudaError_t launch(const void* qkv, void* out, int B, int N, int H, cudaStream_t stream) {
+cudaError_t launch(const void* qkv, void* out, int B, int N, int H, float scale,
+                   cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)attn_kernel<T, DH>, opted_in);
   if (err != cudaSuccess) return err;
@@ -229,7 +230,7 @@ cudaError_t launch(const void* qkv, void* out, int B, int N, int H, cudaStream_t
   const dim3 grid((unsigned)B * n_tiles, (unsigned)H);
   attn_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(out), N, H, n_tiles,
-      1.0f / sqrtf((float)DH));
+      scale);
   return cudaGetLastError();
 }
 
@@ -313,7 +314,8 @@ attn_kernel_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
 }
 
 template <int KC, int DH>
-cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, cudaStream_t stream) {
+cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, float scale,
+                       cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)attn_kernel_mma<KC, DH>, opted_in);
   if (err != cudaSuccess) return err;
@@ -337,25 +339,26 @@ cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, cudaStre
   const dim3 grid((unsigned)(B * ((n_tiles + tpb - 1) / tpb)), (unsigned)H);
   attn_kernel_mma<KC, DH><<<grid, kMmaThreads, smem_bytes(N, DH, 2), stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, n_tiles, tpb,
-      1.0f / sqrtf((float)DH));
+      scale);
   return cudaGetLastError();
 }
 
 // The fewest score registers that hold the row: N <= 64, 128, 208 (the
 // deployed N = 198), 256; past 256, 256-key chunks.
 template <int DH>
-cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, cudaStream_t s) {
-  if (N <= 64) return launch_mma<4, DH>(qkv, out, B, N, H, s);
-  if (N <= 128) return launch_mma<8, DH>(qkv, out, B, N, H, s);
-  if (N <= 208) return launch_mma<13, DH>(qkv, out, B, N, H, s);
-  return launch_mma<16, DH>(qkv, out, B, N, H, s);
+cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, float scale,
+                        cudaStream_t s) {
+  if (N <= 64) return launch_mma<4, DH>(qkv, out, B, N, H, scale, s);
+  if (N <= 128) return launch_mma<8, DH>(qkv, out, B, N, H, scale, s);
+  if (N <= 208) return launch_mma<13, DH>(qkv, out, B, N, H, scale, s);
+  return launch_mma<16, DH>(qkv, out, B, N, H, scale, s);
 }
 
 template <int DH>
 cudaError_t launch_dh(const void* qkv, void* out, int B, int N, int H, int dtype,
-                      cudaStream_t s) {
-  if (dtype == 0) return launch<float, DH>(qkv, out, B, N, H, s);
-  if (dtype == 1) return launch_bf16<DH>(qkv, out, B, N, H, s);
+                      float scale, cudaStream_t s) {
+  if (dtype == 0) return launch<float, DH>(qkv, out, B, N, H, scale, s);
+  if (dtype == 1) return launch_bf16<DH>(qkv, out, B, N, H, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -377,14 +380,15 @@ long long devit_max_smem_optin(int device) {
 }
 
 // qkv: (B, N, 3*H*head_dim) contiguous; out: (B, N, H*head_dim) contiguous.
-// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64 or 128. Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64 or 128. scale multiplies
+// the logits: head_dim^-0.5, or a narrower head's dh^-0.5 when the caller has
+// zero-padded its heads to head_dim. Returns a cudaError_t (0 = launched).
 int devit_fused_attention(const void* qkv, void* out, int B, int N, int H,
-                          int head_dim, int dtype, void* stream) {
+                          int head_dim, int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 32) return (int)launch_dh<32>(qkv, out, B, N, H, dtype, s);
-  if (head_dim == 64) return (int)launch_dh<64>(qkv, out, B, N, H, dtype, s);
-  if (head_dim == 128) return (int)launch_dh<128>(qkv, out, B, N, H, dtype, s);
+  if (head_dim == 32) return (int)launch_dh<32>(qkv, out, B, N, H, dtype, scale, s);
+  if (head_dim == 64) return (int)launch_dh<64>(qkv, out, B, N, H, dtype, scale, s);
+  if (head_dim == 128) return (int)launch_dh<128>(qkv, out, B, N, H, dtype, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

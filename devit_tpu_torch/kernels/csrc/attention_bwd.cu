@@ -137,14 +137,14 @@ attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __restric
 
 template <typename T, int DH>
 cudaError_t launch(const void* qkv, const void* g, void* dqkv, int B, int N, int H,
-                   cudaStream_t stream) {
+                   float scale, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_kernel<T, DH>, opted_in);
   if (err != cudaSuccess) return err;
   if (N > kShortN) return cudaErrorInvalidValue;
   attn_bwd_kernel<T, DH><<<(unsigned)B * H, kThreads, dqdk_smem_bytes<T>(N, DH), stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(dqkv), N, H,
-      1.0f / sqrtf((float)DH));
+      scale);
   return cudaGetLastError();
 }
 
@@ -168,10 +168,10 @@ int devit_attention_bwd_long_path(int n, int head_dim, int elem_bytes, int devic
 // qkv: (B, N, 3*H*head_dim), g: (B, N, H*head_dim), dqkv: like qkv; all
 // contiguous and of one dtype (0 = float32, 1 = bfloat16); head_dim 32, 64
 // or 128. stats: B*H*N*3 floats of scratch, used (and needed) only where
-// devit_attention_bwd_long_path says so. Returns a cudaError_t (0 =
-// launched).
+// devit_attention_bwd_long_path says so. scale: as devit_fused_attention's.
+// Returns a cudaError_t (0 = launched).
 int devit_attention_bwd(const void* qkv, const void* g, void* dqkv, void* stats, int B, int N,
-                        int H, int head_dim, int dtype, void* stream) {
+                        int H, int head_dim, int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim != 32 && head_dim != 64 && head_dim != 128) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
@@ -181,15 +181,17 @@ int devit_attention_bwd(const void* qkv, const void* g, void* dqkv, void* stats,
   const long long row3 = 3LL * H * head_dim;
   if (use_long_path(N, head_dim, dtype == 1 ? 2 : 4, devit::device_optin(dev)))
     return (int)launch_long(qkv, g, dqkv, row3, static_cast<float*>(stats), B, N, H, head_dim,
-                            dtype, true, true, s);
+                            dtype, true, true, scale, s);
   if (dtype == 0) {
-    if (head_dim == 32) return (int)launch<float, 32>(qkv, g, dqkv, B, N, H, s);
-    if (head_dim == 64) return (int)launch<float, 64>(qkv, g, dqkv, B, N, H, s);
-    return (int)launch<float, 128>(qkv, g, dqkv, B, N, H, s);
+    if (head_dim == 32) return (int)launch<float, 32>(qkv, g, dqkv, B, N, H, scale, s);
+    if (head_dim == 64) return (int)launch<float, 64>(qkv, g, dqkv, B, N, H, scale, s);
+    return (int)launch<float, 128>(qkv, g, dqkv, B, N, H, scale, s);
   }
-  if (head_dim == 32) return (int)launch_bwd_mma<true, true, 32>(qkv, g, dqkv, row3, B, N, H, s);
-  if (head_dim == 64) return (int)launch_bwd_mma<true, true, 64>(qkv, g, dqkv, row3, B, N, H, s);
-  return (int)launch_bwd_mma<true, true, 128>(qkv, g, dqkv, row3, B, N, H, s);
+  if (head_dim == 32) return (int)launch_bwd_mma<true, true, 32>(qkv, g, dqkv, row3, B, N, H,
+      scale, s);
+  if (head_dim == 64) return (int)launch_bwd_mma<true, true, 64>(qkv, g, dqkv, row3, B, N, H,
+      scale, s);
+  return (int)launch_bwd_mma<true, true, 128>(qkv, g, dqkv, row3, B, N, H, scale, s);
 }
 
 }  // extern "C"

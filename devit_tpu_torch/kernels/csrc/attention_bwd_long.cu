@@ -238,7 +238,7 @@ attn_bwd_long_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __rest
 
 template <typename T, int DH, bool DQ>
 cudaError_t launch_rows(const void* qkv, const void* g, void* out, long long out_stride,
-                        float* stats, int B, int N, int H, cudaStream_t stream) {
+                        float* stats, int B, int N, int H, float scale, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_long_rows<T, DH, DQ>, opted_in);
   if (err != cudaSuccess) return err;
@@ -246,13 +246,13 @@ cudaError_t launch_rows(const void* qkv, const void* g, void* out, long long out
   attn_bwd_long_rows<T, DH, DQ><<<(unsigned)(B * H * n_tiles), kThreads,
                                   dqdk_smem_bytes<T>(chunk_keys<DH>, DH), stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(out), out_stride,
-      stats, N, H, n_tiles, 1.0f / sqrtf((float)DH));
+      stats, N, H, n_tiles, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DH, bool DK, bool DV>
 cudaError_t launch_keys(const void* qkv, const void* g, void* out, long long out_stride,
-                        const float* stats, int B, int N, int H, cudaStream_t stream) {
+                        const float* stats, int B, int N, int H, float scale, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_long_keys<T, DH, DK, DV>, opted_in);
   if (err != cudaSuccess) return err;
@@ -260,33 +260,35 @@ cudaError_t launch_keys(const void* qkv, const void* g, void* out, long long out
   attn_bwd_long_keys<T, DH, DK, DV><<<(unsigned)(B * H * n_chunks), kThreads,
                                       dqdk_smem_bytes<T>(chunk_keys<DH>, DH), stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(out), out_stride,
-      stats, N, H, n_chunks, 1.0f / sqrtf((float)DH));
+      stats, N, H, n_chunks, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t launch_long_t(const void* qkv, const void* g, void* out, long long out_stride,
                           float* stats, int B, int N, int H, bool dqdk, bool dv,
-                          cudaStream_t s) {
-  cudaError_t err = dqdk ? launch_rows<T, DH, true>(qkv, g, out, out_stride, stats, B, N, H, s)
-                         : launch_rows<T, DH, false>(qkv, g, out, out_stride, stats, B, N, H, s);
+                          float scale, cudaStream_t s) {
+  cudaError_t err =
+      dqdk ? launch_rows<T, DH, true>(qkv, g, out, out_stride, stats, B, N, H, scale, s)
+           : launch_rows<T, DH, false>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
   if (err != cudaSuccess) return err;
   if (dqdk && dv)
-    return launch_keys<T, DH, true, true>(qkv, g, out, out_stride, stats, B, N, H, s);
-  if (dqdk) return launch_keys<T, DH, true, false>(qkv, g, out, out_stride, stats, B, N, H, s);
-  return launch_keys<T, DH, false, true>(qkv, g, out, out_stride, stats, B, N, H, s);
+    return launch_keys<T, DH, true, true>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
+  if (dqdk)
+    return launch_keys<T, DH, true, false>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
+  return launch_keys<T, DH, false, true>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
 }
 
 template <typename T>
 cudaError_t launch_long_dh(const void* qkv, const void* g, void* out, long long out_stride,
                            float* stats, int B, int N, int H, int head_dim, bool dqdk, bool dv,
-                           cudaStream_t s) {
+                           float scale, cudaStream_t s) {
   if (head_dim == 32)
-    return launch_long_t<T, 32>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, s);
+    return launch_long_t<T, 32>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
   if (head_dim == 64)
-    return launch_long_t<T, 64>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, s);
+    return launch_long_t<T, 64>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
   if (head_dim == 128)
-    return launch_long_t<T, 128>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, s);
+    return launch_long_t<T, 128>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -302,14 +304,14 @@ size_t long_smem_bytes(int dh, int elem) {
 
 cudaError_t launch_long(const void* qkv, const void* g, void* out, long long out_stride,
                         float* stats, int B, int N, int H, int head_dim, int dtype, bool dqdk,
-                        bool dv, cudaStream_t stream) {
+                        bool dv, float scale, cudaStream_t stream) {
   if (stats == nullptr || !(dqdk || dv)) return cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_long_dh<float>(qkv, g, out, out_stride, stats, B, N, H, head_dim, dqdk, dv,
-                                 stream);
+                                 scale, stream);
   if (dtype == 1)
     return launch_long_dh<__nv_bfloat16>(qkv, g, out, out_stride, stats, B, N, H, head_dim,
-                                         dqdk, dv, stream);
+                                         dqdk, dv, scale, stream);
   return cudaErrorInvalidValue;
 }
 

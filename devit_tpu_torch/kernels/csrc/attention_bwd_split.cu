@@ -178,7 +178,7 @@ attn_bwd_dqdk_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __re
 
 template <typename T, int DH>
 cudaError_t launch_dv(const void* qkv, const void* g, void* dv, long long out_stride, int B,
-                      int N, int H, cudaStream_t stream) {
+                      int N, int H, float scale, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_dv_kernel<T, DH>, opted_in);
   if (err != cudaSuccess) return err;
@@ -186,37 +186,37 @@ cudaError_t launch_dv(const void* qkv, const void* g, void* dv, long long out_st
   attn_bwd_dv_kernel<T, DH><<<(unsigned)B * H * n_key_tiles, kThreads, dv_smem_bytes<T>(N, DH),
                               stream>>>(static_cast<const T*>(qkv), static_cast<const T*>(g),
                                         static_cast<T*>(dv), out_stride, N, H, n_key_tiles,
-                                        1.0f / sqrtf((float)DH));
+                                        scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t launch_dqdk(const void* qkv, const void* g, void* dqk, long long out_stride, int B,
-                        int N, int H, cudaStream_t stream) {
+                        int N, int H, float scale, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_dqdk_kernel<T, DH>, opted_in);
   if (err != cudaSuccess) return err;
   if (N > kShortN) return cudaErrorInvalidValue;
   attn_bwd_dqdk_kernel<T, DH><<<(unsigned)B * H, kThreads, dqdk_smem_bytes<T>(N, DH), stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(dqk), out_stride, N,
-      H, 1.0f / sqrtf((float)DH));
+      H, scale);
   return cudaGetLastError();
 }
 
 // The short-path launch of the dv (DV) or dq/dk kernel at one head width.
 template <bool DV, int DH>
 cudaError_t launch_short(const void* qkv, const void* g, void* out, long long out_stride, int B,
-                         int N, int H, int dtype, cudaStream_t s) {
+                         int N, int H, int dtype, float scale, cudaStream_t s) {
   if (dtype == 0)
-    return DV ? launch_dv<float, DH>(qkv, g, out, out_stride, B, N, H, s)
-              : launch_dqdk<float, DH>(qkv, g, out, out_stride, B, N, H, s);
-  return launch_bwd_mma<!DV, DV, DH>(qkv, g, out, out_stride, B, N, H, s);
+    return DV ? launch_dv<float, DH>(qkv, g, out, out_stride, B, N, H, scale, s)
+              : launch_dqdk<float, DH>(qkv, g, out, out_stride, B, N, H, scale, s);
+  return launch_bwd_mma<!DV, DV, DH>(qkv, g, out, out_stride, B, N, H, scale, s);
 }
 
 // The dv (DV) or dq/dk kernel: the long path where use_long_path says so.
 template <bool DV>
 int launch_half(const void* qkv, const void* g, void* out, long long out_stride, void* stats,
-                int B, int N, int H, int head_dim, int dtype, cudaStream_t s) {
+                int B, int N, int H, int head_dim, int dtype, float scale, cudaStream_t s) {
   if (head_dim != 32 && head_dim != 64 && head_dim != 128) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   int dev = 0;
@@ -224,10 +224,12 @@ int launch_half(const void* qkv, const void* g, void* out, long long out_stride,
   if (derr != cudaSuccess) return (int)derr;
   if (use_long_path(N, head_dim, dtype == 1 ? 2 : 4, devit::device_optin(dev)))
     return (int)launch_long(qkv, g, out, out_stride, static_cast<float*>(stats), B, N, H,
-                            head_dim, dtype, !DV, DV, s);
-  if (head_dim == 32) return (int)launch_short<DV, 32>(qkv, g, out, out_stride, B, N, H, dtype, s);
-  if (head_dim == 64) return (int)launch_short<DV, 64>(qkv, g, out, out_stride, B, N, H, dtype, s);
-  return (int)launch_short<DV, 128>(qkv, g, out, out_stride, B, N, H, dtype, s);
+                            head_dim, dtype, !DV, DV, scale, s);
+  if (head_dim == 32) return (int)launch_short<DV, 32>(qkv, g, out, out_stride, B, N, H, dtype,
+      scale, s);
+  if (head_dim == 64) return (int)launch_short<DV, 64>(qkv, g, out, out_stride, B, N, H, dtype,
+      scale, s);
+  return (int)launch_short<DV, 128>(qkv, g, out, out_stride, B, N, H, dtype, scale, s);
 }
 
 // Shared memory one block of the dv (DV) or dq/dk kernel needs on `device`.
@@ -258,22 +260,22 @@ long long devit_attention_bwd_dqdk_smem_bytes(int n, int head_dim, int elem_byte
 // (0 = float32, 1 = bfloat16), head_dim 32, 64 or 128. dv: token n of batch
 // row b starts at dv + (b * N + n) * out_stride and takes H*head_dim
 // elements. stats: B*H*N*3 floats of scratch, used (and needed) only where
-// devit_attention_bwd_long_path says so. Returns a cudaError_t (0 =
-// launched).
+// devit_attention_bwd_long_path says so. scale: as devit_fused_attention's.
+// Returns a cudaError_t (0 = launched).
 int devit_attention_bwd_dv(const void* qkv, const void* g, void* dv, long long out_stride,
                            void* stats, int B, int N, int H, int head_dim, int dtype,
-                           void* stream) {
+                           float scale, void* stream) {
   return launch_half<true>(qkv, g, dv, out_stride, stats, B, N, H, head_dim, dtype,
-                           static_cast<cudaStream_t>(stream));
+                           scale, static_cast<cudaStream_t>(stream));
 }
 
 // As devit_attention_bwd_dv, writing [dq | dk] (2*H*head_dim elements from
 // dqk + (b * N + n) * out_stride).
 int devit_attention_bwd_dqdk(const void* qkv, const void* g, void* dqk, long long out_stride,
                              void* stats, int B, int N, int H, int head_dim, int dtype,
-                             void* stream) {
+                             float scale, void* stream) {
   return launch_half<false>(qkv, g, dqk, out_stride, stats, B, N, H, head_dim, dtype,
-                            static_cast<cudaStream_t>(stream));
+                            scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

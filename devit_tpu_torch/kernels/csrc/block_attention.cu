@@ -341,14 +341,15 @@ block_attn_kernel(const T* __restrict__ t, const float* __restrict__ ns,
 template <typename T, int DH>
 cudaError_t launch(const void* t, const float* ns, const float* nb, const void* qw,
                    const float* qb, const void* pw, const float* pb, void* hbuf, float* acc,
-                   void* out, int B, int N, int C, int H, float eps, cudaStream_t stream) {
+                   void* out, int B, int N, int C, int H, float eps, float scale,
+                       cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)block_attn_kernel<T, DH>, opted_in);
   if (err != cudaSuccess) return err;
   block_attn_kernel<T, DH><<<B, kThreads, smem_bytes(N, DH, sizeof(T)), stream>>>(
       static_cast<const T*>(t), ns, nb, static_cast<const T*>(qw), qb,
       static_cast<const T*>(pw), pb, static_cast<T*>(hbuf), acc, static_cast<T*>(out), N, C, H,
-      1.0f / sqrtf((float)DH), eps);
+      scale, eps);
   return cudaGetLastError();
 }
 
@@ -678,13 +679,13 @@ block_proj_kernel(const bf16* __restrict__ t, const bf16* __restrict__ o,
 template <int KC, int DH>
 cudaError_t launch_qkv_attn(const bf16* t, const float* ns, const float* nb, const bf16* qw,
                             const float* qb, bf16* o, int B, int N, int C, int H, float eps,
-                            cudaStream_t stream) {
+                            float scale, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err = devit::opt_in_smem((const void*)block_qkv_attn_kernel<KC, DH>, opted_in);
   if (err != cudaSuccess) return err;
   block_qkv_attn_kernel<KC, DH><<<(unsigned)(B * H), kAttnThreads, attn_smem_bytes(N, DH),
                                   stream>>>(t, ns, nb, qw, qb, o, N, C, H,
-                                            1.0f / sqrtf((float)DH), eps);
+                                            scale, eps);
   return cudaGetLastError();
 }
 
@@ -703,16 +704,16 @@ cudaError_t launch_proj(const bf16* t, const bf16* o, const bf16* pw, const floa
 template <int DH>
 cudaError_t launch_bf16(const void* t, const float* ns, const float* nb, const void* qw,
                         const float* qb, const void* pw, const float* pb, void* o, void* out,
-                        int B, int N, int C, int H, float eps, cudaStream_t s) {
+                        int B, int N, int C, int H, float eps, float scale, cudaStream_t s) {
   const bf16* tt = static_cast<const bf16*>(t);
   const bf16* w = static_cast<const bf16*>(qw);
   bf16* ob = static_cast<bf16*>(o);
   // the fewest score registers that hold a row, as attention.cu's launch_bf16
   cudaError_t err =
-      N <= 64    ? launch_qkv_attn<4, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
-      : N <= 128 ? launch_qkv_attn<8, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
-      : N <= 208 ? launch_qkv_attn<13, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s)
-                 : launch_qkv_attn<16, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, s);
+      N <= 64    ? launch_qkv_attn<4, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, scale, s)
+      : N <= 128 ? launch_qkv_attn<8, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, scale, s)
+      : N <= 208 ? launch_qkv_attn<13, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, scale, s)
+                 : launch_qkv_attn<16, DH>(tt, ns, nb, w, qb, ob, B, N, C, H, eps, scale, s);
   if (err != cudaSuccess) return err;
   const int64_t M = (int64_t)B * N;
   const int K = H * DH;
@@ -725,12 +726,13 @@ cudaError_t launch_bf16(const void* t, const float* ns, const float* nb, const v
 template <int DH>
 cudaError_t launch_dh(const void* t, const float* const (&f)[4], const void* qw, const void* pw,
                       void* scratch, void* acc, void* out, int B, int N, int C, int H, float eps,
-                      int dtype, cudaStream_t s) {
+                      int dtype, float scale, cudaStream_t s) {
   if (dtype == 0)
     return launch<float, DH>(t, f[0], f[1], qw, f[2], pw, f[3], scratch,
-                             static_cast<float*>(acc), out, B, N, C, H, eps, s);
+                             static_cast<float*>(acc), out, B, N, C, H, eps, scale, s);
   if (dtype == 1)
-    return launch_bf16<DH>(t, f[0], f[1], qw, f[2], pw, f[3], scratch, out, B, N, C, H, eps, s);
+    return launch_bf16<DH>(t, f[0], f[1], qw, f[2], pw, f[3], scratch, out, B, N, C, H, eps,
+                           scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -751,22 +753,22 @@ long long devit_block_attention_smem_bytes(int n, int head_dim, int elem_bytes) 
 // `scratch` (B, N, C) f32 for the LN'd rows and `acc` (B, N, C) f32; bf16,
 // `scratch` (B, N, H head_dim) bf16 for o and `acc` unused. C must be a
 // multiple of 32, and the bf16 operands 16-byte aligned; head_dim 32, 64 or
-// 128. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 =
-// launched).
+// 128. dtype: 0 = float32, 1 = bfloat16. scale: as devit_fused_attention's.
+// Returns a cudaError_t (0 = launched).
 int devit_block_attention(const void* t, const void* ns, const void* nb, const void* qw,
                           const void* qb, const void* pw, const void* pb, void* scratch,
                           void* acc, void* out, int B, int N, int C, int H, int head_dim,
-                          float eps, int dtype, void* stream) {
+                          float eps, int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C % 32 != 0 || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const float* const f[4] = {static_cast<const float*>(ns), static_cast<const float*>(nb),
                              static_cast<const float*>(qb), static_cast<const float*>(pb)};
   if (head_dim == 32)
-    return (int)launch_dh<32>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, s);
+    return (int)launch_dh<32>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, scale, s);
   if (head_dim == 64)
-    return (int)launch_dh<64>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, s);
+    return (int)launch_dh<64>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, scale, s);
   if (head_dim == 128)
-    return (int)launch_dh<128>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, s);
+    return (int)launch_dh<128>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -214,7 +214,7 @@ size_t long_smem_bytes(int dh, int elem);
 // row's softmax max, sum and rowsum(dp * p)).
 cudaError_t launch_long(const void* qkv, const void* g, void* out, long long out_stride,
                         float* stats, int B, int N, int H, int head_dim, int dtype, bool dqdk,
-                        bool dv, cudaStream_t stream);
+                        bool dv, float scale, cudaStream_t stream);
 
 }  // namespace bwd
 }  // namespace devit

@@ -392,7 +392,7 @@ attn_bwd_kernel_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
 // path: use_long_path is false).
 template <bool DQDK, bool DV, int DH>
 cudaError_t launch_bwd_mma(const void* qkv, const void* g, void* out, long long out_stride,
-                           int B, int N, int H, cudaStream_t stream) {
+                           int B, int N, int H, float scale, cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
   cudaError_t err =
       devit::opt_in_smem((const void*)attn_bwd_kernel_mma<DQDK, DV, DH>, opted_in);
@@ -401,7 +401,7 @@ cudaError_t launch_bwd_mma(const void* qkv, const void* g, void* out, long long 
   attn_bwd_kernel_mma<DQDK, DV, DH><<<(unsigned)B * H, kThreads,
                                       mma_smem_bytes<DQDK, DV>(N, DH), stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(g), static_cast<bf16*>(out),
-      out_stride, N, H, 1.0f / sqrtf((float)DH));
+      out_stride, N, H, scale);
   return cudaGetLastError();
 }
 

@@ -446,9 +446,12 @@ class VisionTransformer(nn.Module):
         layer_outs = []
         qkv_slot = None
         for i, blk in enumerate(self.blocks):
+            # "middle" captures one layer: the others keep the kernels (the
+            # JAX package's scanned blocks take the plain attention in all)
             kw = dict(dtype=dtype, stat_dtype=stat_dtype, fast_math=fast_math,
                       use_kernel=self.use_kernel, train=train,
-                      capture_qkv=capture_qkv != "none",
+                      capture_qkv=capture_qkv == "all" or (capture_qkv == "middle"
+                                                           and i == capture_layer),
                       capture_rank_stats=capture_rank_stats,
                       capture_attn=capture_block_outputs)
             args = (t, gates.head[i], gates.neuron[i], dp_rates[i],

@@ -1,5 +1,5 @@
 """Serving daemon for the deployed collaborative ensemble (counterpart of
-devit_tpu/serving/daemon.py:79-611, all but serve_main).
+devit_tpu/serving/daemon.py:79-649).
 
 One batcher thread owns the device: requests land in a queue, the batcher
 coalesces everything that arrives within `max_wait_ms` of the oldest waiting
@@ -24,8 +24,14 @@ Protocol (stdlib http.server; one POST = one or more images):
 (`sub-dataset{i}/compact.msgpack`) with a stage-5 fusion checkpoint, both
 in the JAX package's msgpack format. Images are scaled by 1/255 once, as on
 the offline eval path. (The JAX daemon divides by 255 twice; the port does
-not reproduce that defect.) One device; the multi-device topology and the
-`serve` command line wait for later slices.
+not reproduce that defect.) One device; the multi-device topology waits
+for ROADMAP Queue 1 item 8. `serve_main` is the `serve` subcommand.
+
+The JAX daemon keeps an on-disk AOT cache of its compiled bucket programs
+(io/aot_cache.py). The port compiles no bucket programs (only the CUDA
+kernels, built once per source hash by kernels/_build.py), so there is
+nothing to cache: ServeConfig.aot_cache None/False is accepted and True
+raises. A counterpart comes only with CUDA graphs or AOTInductor.
 """
 
 from __future__ import annotations
@@ -63,7 +69,18 @@ class ServeConfig:
     max_wait_ms: float = 5.0  # coalescing window from the OLDEST queued request
     topk: int = 5
     dtype: torch.dtype = torch.bfloat16
+    use_kernel: bool = True  # the CUDA attention kernel (the JAX use_pallas)
     fast_math: bool = True  # serving default (parity runs: False)
+    warmup: bool = True  # run every bucket once before accepting traffic
+    # the JAX daemon's AOT executable cache: nothing to cache here (module
+    # docstring); None (auto) and False are accepted, True raises
+    aot_cache: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.aot_cache:
+            raise ValueError("aot_cache=True: the port compiles no bucket programs, so it "
+                             "has no AOT cache (the CUDA kernels are built once per source "
+                             "hash); use auto or off")
 
 
 class InferenceEngine:
@@ -98,7 +115,7 @@ class InferenceEngine:
         x = normalize(img, torch.float32)
         cls_stack, dist_stack = stack_division_features(
             self.cms, x, patch_size=self.cfg.patch_size, dtype=self.cfg.dtype,
-            fast_math=self.cfg.fast_math)
+            use_kernel=self.cfg.use_kernel, fast_math=self.cfg.fast_math)
         logits = self.ens(cls_stack, dist_stack).logits
         return logits[:n].float().cpu().numpy()
 
@@ -138,8 +155,9 @@ class InferenceEngine:
             self.ens = ens
 
     def warm_up(self) -> float:
-        """Run every bucket once before traffic (builds the kernel and lets
-        the allocator and cuBLAS settle). Returns the seconds it took."""
+        """Run every bucket once before traffic: the kernels' first-use
+        build and the first cuBLAS call at each shape. Returns the seconds it
+        took."""
         t0 = time.perf_counter()
         s = self.cfg.input_size
         for b in sorted(self.cfg.buckets):
@@ -456,3 +474,44 @@ def build_server(engine: InferenceEngine, host: str = "127.0.0.1",
     handler = type("Handler", (_Handler,), {
         "batcher": batcher, "engine": engine, "started": time.time()})
     return ThreadingHTTPServer((host, port), handler), batcher
+
+
+def serve_main(args, ready: Optional[Callable[[ThreadingHTTPServer], None]] = None) -> None:
+    """The `serve` subcommand: the engine over --compact-path (and
+    --ens-path), warmed up unless --no-warmup, behind the HTTP server until
+    interrupted. `ready(httpd)`, when given, is called once the server is
+    bound and before it serves; another thread stops it with
+    httpd.shutdown()."""
+    buckets = tuple(sorted({int(b) for b in args.buckets.split(",")}))
+    if any(b <= 0 for b in buckets):
+        raise ValueError(f"--buckets must be positive ints, got {args.buckets}")
+    from devit_tpu_torch.cli import common as C
+
+    device = C.device_from_args(args)
+    use_kernel = getattr(args, "use_pallas", None)
+    cfg = ServeConfig(
+        input_size=args.input_size, patch_size=args.patch_size, buckets=buckets,
+        max_wait_ms=args.max_wait_ms, topk=args.topk, dtype=C.dtype_from_args(args),
+        use_kernel=device.type == "cuda" if use_kernel is None else use_kernel,
+        fast_math=not args.no_fast_math, warmup=not args.no_warmup,
+        aot_cache={"auto": None, "on": True, "off": False}[getattr(args, "aot_cache", "auto")])
+    engine = build_engine_from_artifacts(
+        args.compact_path, args.ens_path,
+        num_divisions=args.num_division if args.num_division > 0 else None,
+        teacher_size=args.teacher_size, cfg=cfg, device=device)
+    if cfg.warmup:
+        print(f"warmup: {len(buckets)} buckets ...", flush=True)
+        print(f"warmup done in {engine.warm_up():.1f}s", flush=True)
+    httpd, batcher = build_server(engine, args.host, args.port)
+    host, port = httpd.server_address[:2]
+    print(f"devit-torch serving on http://{host}:{port} (POST /predict, GET /healthz, "
+          f"GET /stats)", flush=True)
+    try:
+        if ready is not None:
+            ready(httpd)
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        batcher.stop()

@@ -1,5 +1,6 @@
 """Metric meters and step logging (counterpart of devit_tpu/train/meters.py:
-SmoothedValue and MetricLogger, a copy). Pure host-side bookkeeping."""
+SmoothedValue, MetricLogger and create_logger, a copy). Pure host-side
+bookkeeping."""
 
 from __future__ import annotations
 
@@ -93,3 +94,34 @@ class MetricLogger:
             end = time.time()
         elapsed = time.time() - start
         self.log_fn(f"{header} Total time: {datetime.timedelta(seconds=int(elapsed))}")
+
+
+def create_logger(output_dir: Optional[str] = None, name: str = "devit_tpu_torch"):
+    """Console + file logger (reference utils/logger.py:12-35; the JAX
+    package's create_logger): one console handler, and log.txt in
+    output_dir, re-pointed when several stage mains run in one process with
+    different output dirs."""
+    import logging
+    import os
+
+    logger = logging.getLogger(name)
+    fmt = logging.Formatter("[%(asctime)s] %(message)s", datefmt="%H:%M:%S")
+    if not any(isinstance(h, logging.StreamHandler) and not isinstance(h, logging.FileHandler)
+               for h in logger.handlers):
+        logger.setLevel(logging.INFO)
+        sh = logging.StreamHandler()
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
+        logger.propagate = False
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        target = os.path.abspath(os.path.join(output_dir, "log.txt"))
+        file_handlers = [h for h in logger.handlers if isinstance(h, logging.FileHandler)]
+        if not any(os.path.abspath(h.baseFilename) == target for h in file_handlers):
+            for h in file_handlers:
+                logger.removeHandler(h)
+                h.close()
+            fh = logging.FileHandler(target)
+            fh.setFormatter(fmt)
+            logger.addHandler(fh)
+    return logger

@@ -13,7 +13,10 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from devit_tpu_torch.io.bridge import vit_to_jax_params, vit_values_from_jax_params
+from devit_tpu_torch.io.bridge import (
+    ensmlp_to_jax_params, ensmlp_values_from_jax_params, stacked_vit_to_jax_params,
+    stacked_vit_values_from_jax_params, vit_to_jax_params, vit_values_from_jax_params,
+)
 from devit_tpu_torch.train.optim import Optimizer, ema_update
 
 
@@ -67,12 +70,13 @@ def _chain_layout(tx: Optimizer) -> list:
     return out + ["adam" if tx.opt == "adam" else "sgd"]
 
 
-def opt_state_to_tree(tx: Optimizer, opt_state: dict) -> dict:
+def opt_state_to_tree(tx: Optimizer, opt_state: dict, to_tree=vit_to_jax_params) -> dict:
     """The port's optimizer state -> the optax state as flax's to_state_dict
     lays it out (tuples as {"0": ..., "1": ...}, named tuples as dicts,
-    empty states as {}), moments as scan-stacked trees."""
+    empty states as {}), moments as trees of the parameters' layout
+    (`to_tree`: scan-stacked by default)."""
     count = np.int32(opt_state["count"])
-    moments = lambda k: vit_to_jax_params(opt_state[k])
+    moments = lambda k: to_tree(opt_state[k])
     adam = lambda: {"count": count, "mu": moments("mu"), "nu": moments("nu")}
     elems = []
     for kind in _chain_layout(tx):
@@ -90,9 +94,10 @@ def opt_state_to_tree(tx: Optimizer, opt_state: dict) -> dict:
     return {str(i): e for i, e in enumerate(elems)}
 
 
-def opt_state_from_tree(tx: Optimizer, tree: dict, opt_state: dict) -> None:
+def opt_state_from_tree(tx: Optimizer, tree: dict, opt_state: dict,
+                        values_fn=vit_values_from_jax_params) -> None:
     """The inverse, in place into the port's `opt_state` (tensors keep
-    their device and dtype)."""
+    their device and dtype); `values_fn` the inverse of the `to_tree`."""
     moments, count = {}, None
     for i, kind in enumerate(_chain_layout(tx)):
         elem = tree[str(i)]
@@ -106,7 +111,7 @@ def opt_state_from_tree(tx: Optimizer, tree: dict, opt_state: dict) -> None:
     opt_state["count"] = int(np.asarray(count))
     with torch.no_grad():
         for key, sub in moments.items():
-            vals = vit_values_from_jax_params(sub, opt_state[key].keys())
+            vals = values_fn(sub, opt_state[key].keys())
             for name, t in opt_state[key].items():
                 t.copy_(torch.from_numpy(vals[name]))
 
@@ -118,6 +123,68 @@ def stage2_tree(state: TrainState, epoch: int) -> dict:
             "ema_params": None if state.ema_params is None else vit_to_jax_params(state.ema_params),
             "opt_state": opt_state_to_tree(state.tx, state.opt_state),
             "epoch": np.int32(epoch)}
+
+
+def _copy_values(dst: Mapping[str, torch.Tensor], vals: dict) -> None:
+    with torch.no_grad():
+        for name, t in dst.items():
+            t.copy_(torch.from_numpy(np.ascontiguousarray(vals[name])))
+
+
+def gates_tree(gates) -> dict:
+    """Shrink gates as the checkpoints store them: {head, neuron} f32."""
+    head, neuron = (a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+                    for a in gates)
+    return {"head": head.astype(np.float32), "neuron": neuron.astype(np.float32)}
+
+
+def stage4_tree(state: TrainState, epoch: int, gates) -> dict:
+    """The JAX package's stage-4 (distill) checkpoint: the stage-2 tree with
+    the student's shrink gates, {params, ema_params, opt_state, gates, epoch}."""
+    tree = stage2_tree(state, epoch)
+    return {"params": tree["params"], "ema_params": tree["ema_params"],
+            "opt_state": tree["opt_state"], "gates": gates_tree(gates),
+            "epoch": tree["epoch"]}
+
+
+def stage5_tree(bb_state: TrainState, ens_state: TrainState, epoch: int,
+                gates=None) -> dict:
+    """The JAX package's resumable stage-5 checkpoint
+    (devit_tpu/cli/stages.py _ensemble_ckpt_tree): both parameter sets
+    (the division-stacked backbones, EnsMLP), both optimizer states, both
+    EMA trees, the epoch, and the stacked shrink gates where the backbones
+    are gated."""
+    bb_ema, ens_ema = bb_state.ema_params, ens_state.ema_params
+    tree = {"backbone_params": stacked_vit_to_jax_params(bb_state.params),
+            "ens_params": ensmlp_to_jax_params(ens_state.params),
+            "bb_opt_state": opt_state_to_tree(bb_state.tx, bb_state.opt_state,
+                                              stacked_vit_to_jax_params),
+            "ens_opt_state": opt_state_to_tree(ens_state.tx, ens_state.opt_state,
+                                               ensmlp_to_jax_params),
+            "bb_ema": None if bb_ema is None else stacked_vit_to_jax_params(bb_ema),
+            "ens_ema": None if ens_ema is None else ensmlp_to_jax_params(ens_ema),
+            "epoch": np.int32(epoch)}
+    if gates is not None:
+        tree["gates"] = gates_tree(gates)
+    return tree
+
+
+def restore_stage5_tree(bb_state: TrainState, ens_state: TrainState,
+                        tree: dict) -> Tuple[TrainState, TrainState, int]:
+    """Load a stage-5 checkpoint tree (either package's) into both states in
+    place: params, optimizer states where present, EMA where both have it.
+    Returns (bb_state, ens_state, start_epoch)."""
+    for st, params_key, opt_key, ema_key, values_fn in (
+            (bb_state, "backbone_params", "bb_opt_state", "bb_ema",
+             stacked_vit_values_from_jax_params),
+            (ens_state, "ens_params", "ens_opt_state", "ens_ema",
+             ensmlp_values_from_jax_params)):
+        _copy_values(st.params, values_fn(tree[params_key], st.params.keys()))
+        if st.ema_params is not None and tree.get(ema_key) is not None:
+            _copy_values(st.ema_params, values_fn(tree[ema_key], st.ema_params.keys()))
+        if tree.get(opt_key) is not None:
+            opt_state_from_tree(st.tx, tree[opt_key], st.opt_state, values_fn)
+    return bb_state, ens_state, int(np.asarray(tree.get("epoch", -1))) + 1
 
 
 def restore_stage2_tree(state: TrainState, tree: dict) -> Tuple[TrainState, int]:

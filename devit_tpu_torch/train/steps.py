@@ -176,11 +176,12 @@ def make_dekd_step(
     weighted by gamma.
 
     step(state, teacher_variables, gates, images, labels, generator) ->
-    (state, metrics); the shrink gates apply to the student. A capture runs
-    the plain attention of the whole model, so with the relation losses
-    neither model reaches the kernels, as in the JAX package.
-    distillation_inter=False drops the relation losses and the captures
-    (loss = cls distillation only), and both models run the kernels."""
+    (state, metrics); the shrink gates apply to the student. The captured
+    middle layer runs the plain attention and every other layer the kernels
+    (the JAX package's scanned blocks take the plain attention in all of
+    them). distillation_inter=False drops the relation losses and the
+    captures (loss = cls distillation only), and every layer runs the
+    kernels."""
     mixup_active = mixup is not None and mixup.active
     base_criterion = L.make_base_criterion(mixup_active, smoothing)
     capture = "middle" if distillation_inter else "none"

@@ -134,3 +134,58 @@ def test_head_widths_match_pallas(dh, kh):
     want = np.asarray(jattn._attention_bwd_impl(jnp.asarray(x), jnp.asarray(g), kh, 2, True))
     got = tattn.attention_bwd(torch.from_numpy(x), torch.from_numpy(g), kh)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+# head widths between the instantiations (8 and 48): on the card each head is
+# zero-padded to 32 or 64 and scaled by the true width's dh^-0.5; on the CPU
+# the wrappers take their plain versions, held here to the Pallas kernels
+@pytest.mark.parametrize("dh,kh", [(8, 4), (48, 3)])
+def test_padded_head_widths_match_pallas(dh, kh):
+    B, n = 3, 37
+    rng = np.random.default_rng(dh + 1)
+    x = rng.standard_normal((B, n, 3 * kh * dh)).astype(np.float32)
+    g = rng.standard_normal((B, n, kh * dh)).astype(np.float32)
+    gate = _gate(kh, seed=dh)
+    want = np.asarray(jattn.fused_attention(jnp.asarray(x), jnp.asarray(gate), num_heads=kh,
+                                            block_b=2, interpret=True))
+    got = tattn.fused_attention(torch.from_numpy(x), torch.from_numpy(gate), num_heads=kh)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    want = np.asarray(jattn._attention_bwd_impl(jnp.asarray(x), jnp.asarray(g), kh, 2, True))
+    for fn in (tattn.attention_bwd, tattn.attention_bwd_split):
+        got = fn(torch.from_numpy(x), torch.from_numpy(g), kh)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    want = np.asarray(jattn._attention_bwd_split_impl(jnp.asarray(x), jnp.asarray(g), kh, 2,
+                                                      True))
+    got = torch.cat([tattn.attention_bwd_dqdk(torch.from_numpy(x), torch.from_numpy(g), kh),
+                     tattn.attention_bwd_dv(torch.from_numpy(x), torch.from_numpy(g), kh)], -1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dh,width", [(8, 32), (16, 32), (32, 32), (48, 64), (80, 128),
+                                      (96, 128), (128, 128)])
+def test_padded_staging_is_the_unpadded_computation(dh, width):
+    """What the wrappers stage for the card: each head's q, k, v zero-padded
+    to the instantiation's width (the padding all zeros, the slice back the
+    input), and the plain attention over the padded heads at the true
+    width's scale, sliced back, is the unpadded attention."""
+    assert tattn.kernel_head_dim(dh) == width
+    assert tattn.logit_scale(dh) == float(np.float32(1) / np.sqrt(np.float32(dh)))
+    kh, B, n = 3, 2, 19
+    x = torch.from_numpy(np.random.default_rng(dh).standard_normal(
+        (B, n, 3 * kh * dh)).astype(np.float32))
+    xp = tattn.pad_heads(x, 3, kh, dh, width)
+    assert xp.shape == (B, n, 3 * kh * width) and xp.is_contiguous()
+    heads = xp.reshape(B, n, 3, kh, width)
+    assert not heads[..., dh:].any()
+    assert torch.equal(tattn.unpad_heads(xp, 3, kh, dh, width), x)
+    q, k, v = heads.permute(2, 0, 3, 1, 4)
+    s = torch.matmul(q, k.transpose(-1, -2)) * tattn.logit_scale(dh)
+    o = torch.matmul(torch.softmax(s, dim=-1), v).permute(0, 2, 1, 3).reshape(B, n, -1)
+    got = tattn.unpad_heads(o, 1, kh, dh, width)
+    want = tattn.reference_attention(x, num_heads=kh)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_head_widths_past_128_raise():
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        tattn.kernel_head_dim(129)

@@ -95,3 +95,10 @@ def test_cpu_takes_the_plain_version_and_counts_nothing():
     with pytest.raises(ValueError, match="cuda"):
         fused_block_attention(*(None if v is None else v.to("meta") for v in a.values()),
                               num_heads=1)
+
+
+def test_padded_head_width_matches_jax_kernel_f32():
+    """dh 48: on the card the kernel runs at width 64 with zero qkv columns
+    and proj rows per head; here the plain version against the Pallas kernel."""
+    got, want = _both(_inputs(3, 21, 64, 2, 48, seed=4), 2)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

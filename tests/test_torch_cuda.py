@@ -20,7 +20,8 @@ import torch
 from devit_tpu_torch.data.pipeline import normalize
 from devit_tpu_torch.kernels.attention import (
     attention_bwd, attention_bwd_dqdk, attention_bwd_dv, attention_bwd_split,
-    fused_attention, fused_block_attention, make_trainable_attention, reference_attention,
+    fused_attention, fused_block_attention, kernel_head_dim, make_trainable_attention,
+    reference_attention,
     reference_attention_bwd, reference_attention_bwd_dqdk, reference_attention_bwd_dv,
     reference_block_attention,
 )
@@ -31,7 +32,7 @@ pytestmark = pytest.mark.cuda
 
 N, DH = 198, 64
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # max|got-want| / max|want|
-BAD_DH = ((48, 4), (256, 1))  # (head_dim, heads) the kernels are not instantiated for
+BAD_DH = ((256, 1),)  # (head_dim, heads) past the widest instantiation (128)
 
 
 @pytest.fixture
@@ -691,13 +692,18 @@ def test_ill_conditioned_head_scores_on_the_card_within_their_rounding_bound(gen
 
 
 HEAD_DIM_CASES = [(32, 12), (128, 6)]  # (head_dim, heads): C 384 and 768
+# head widths between the instantiations: each head zero-padded to the next
+# one (32, 64 or 128), the logits scaled by the true width's dh^-0.5
+PADDED_CASES = [(8, 4), (16, 6), (48, 4), (80, 3), (96, 4)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES)
+@pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES + PADDED_CASES)
 def test_head_widths_forward_matches_plain(gen, dh, kh, dtype):
-    # f32 at dh 128 holds the score tile, K^T (then V) and Q^T to about N 260
-    lengths = (1, 17, 65, 197, 198, 256) + ((300,) if dtype == torch.bfloat16 or dh == 32 else ())
+    # f32 holds the score tile, K^T (then V) and Q^T in shared memory: past
+    # N 256 only at width 32 (dh 64 to about N 290, dh 128 to about N 260)
+    lengths = (1, 17, 65, 197, 198, 256) + (
+        (300,) if dtype == torch.bfloat16 or kernel_head_dim(dh) == 32 else ())
     for n in lengths:
         for B in (1, 7):
             x = torch.randn((B, n, 3 * kh * dh), generator=gen, device="cuda").to(dtype)
@@ -710,7 +716,7 @@ def test_head_widths_forward_matches_plain(gen, dh, kh, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES)
+@pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES + PADDED_CASES)
 def test_head_widths_backwards_match_plain(gen, dh, kh, dtype):
     """The monolithic kernel and the split pair (each against its plain
     version, the pair against the monolithic kernel bit for bit) on both
@@ -735,7 +741,7 @@ def test_head_widths_backwards_match_plain(gen, dh, kh, dtype):
             assert max(errs) <= TOL[dtype], (n, B, errs)
 
 
-@pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES)
+@pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES + PADDED_CASES)
 def test_head_widths_trainable_attention_matches_autograd(gen, dh, kh):
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn((2, N, 3 * kh * dh), generator=gen, device="cuda").to(dtype)
@@ -748,13 +754,18 @@ def test_head_widths_trainable_attention_matches_autograd(gen, dh, kh):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("dh", [8, 16, 32, 48, 80, 96, 128])
 def test_head_widths_block_kernel_matches_plain(gen, dh, dtype):
     """Odd head counts at dh 32 make K = H dh not a multiple of the proj
-    kernel's 64-row chunks; f32 at dh 128 fits shared memory to N 108."""
-    lengths = (1, 17, 65, 198, 256) if dtype == torch.bfloat16 or dh == 32 else (1, 17, 65, 108)
+    kernel's 64-row chunks; f32 fits shared memory to N 108 at width 128
+    and short of N 256 at width 64. Widths between the instantiations run
+    padded (zero qkv columns and proj rows per head)."""
+    width = kernel_head_dim(dh)
+    lengths = {32: (1, 17, 65, 198, 256), 64: (1, 17, 65, 198), 128: (1, 17, 65, 108)}[width]
+    if dtype == torch.bfloat16:
+        lengths = (1, 17, 65, 198, 256)
     for n in lengths:
-        for kh in ((1, 3, 6) if dh == 128 else (1, 5, 12)):
+        for kh in ((1, 3, 6) if width == 128 else (1, 5, 12)):
             t, w = _block_case(gen, 3, n, kh, dtype, with_bias=kh % 2 == 1, dh=dh)
             got = fused_block_attention(t, **w, num_heads=kh)
             again = fused_block_attention(t, **w, num_heads=kh)

@@ -42,15 +42,16 @@ def _top_level_modules_after_import(*modules):
 
 def test_every_port_module_is_listed():
     assert _port_modules() == [f"devit_tpu_torch.{m}" for m in (
+        "cli", "cli.__main__", "cli.common", "cli.inspect_ckpt", "cli.stages",
         "configs", "core", "core.compact", "core.hsic", "core.metrics", "core.rank",
         "core.shrink", "data", "data.autoaugment", "data.datasets", "data.fine_grained",
         "data.host_augment", "data.mixup", "data.pipeline", "data.randaugment",
         "data.splitter", "deploy", "device", "io",
         "io.bridge", "io.checkpoint", "io.msgpack", "io.native", "kernels", "kernels._build",
         "kernels.attention", "kernels.quant", "models",
-        "models.compact_vit", "models.ensemble", "models.vit", "serving", "serving.daemon",
-        "train", "train.loop", "train.losses", "train.meters", "train.optim", "train.state",
-        "train.steps")]
+        "models.compact_vit", "models.ensemble", "models.vit", "runtime", "serving",
+        "serving.daemon", "train", "train.loop", "train.losses", "train.meters", "train.optim",
+        "train.state", "train.steps", "utils_profile")]
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])

@@ -276,7 +276,7 @@ def test_eval_counters_match_jax_and_ignore_padding():
         pad_batch_to_steady(np.ones((6, 2)), np.arange(6), 5)
 
 
-def test_train_epoch_lags_the_pull_and_stops_on_a_non_finite_loss():
+def test_train_epoch_lags_the_pull_and_stops_on_a_non_finite_loss(tmp_path, monkeypatch):
     seen = []
 
     def step(carry, images, labels, gen):
@@ -291,9 +291,13 @@ def test_train_epoch_lags_the_pull_and_stops_on_a_non_finite_loss():
                                 [(None, None)] * 3, torch.Generator(), epoch=0,
                                 log_fn=lambda *_: None)
     assert avg == {"loss": 2.0}
-    with pytest.raises(NotImplementedError, match="still to port"):
+    # fit's TensorBoard hook names the package it needs where it is absent
+    import sys
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    with pytest.raises(ImportError, match="tensorboard"):
         fit(carry=0, step_fn=None, train_batches_fn=None, eval_fn=None, epochs=1,
-            generator=torch.Generator(), tensorboard=True)
+            generator=torch.Generator(), output_dir=str(tmp_path), tensorboard=True)
 
 
 def test_fit_writes_stats_and_best_accuracy(tmp_path):
