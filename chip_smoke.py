@@ -50,9 +50,18 @@ an instantiation ([heads-pad]), and the devit-torch command line
 with each kernel's launches, a second `pipeline` that skips every stage,
 `inspect --json`, `serve` on its deploy/ answering concurrent /predict
 requests as engine.predict does, and the served correct count over the
-val set equal to `ensemble --compact-path`'s. Any failure
+val set equal to `ensemble --compact-path`'s. Then the attention kernels at
+every sequence length and head width the JAX kernel takes ([attn-long]:
+N 291 to 1026, head widths 32 to 256, the forward, the trainable attention
+in both backward modes and the block half against their plain versions,
+the key-chunked designs timed), one dedeit stage-2 step at 384 px in f32
+and bf16 against the plain attention ([stage2-384]), the CCT family
+([cct]: cct_14_7x2_224 on the card against the CPU, a bf16 stage-2 step,
+and `pipeline --model cct_7_3x1_32` through every stage) and the stage-5
+resume across optimizer families ([resume]). Any failure
 raises and exits non-zero; so does a machine without CUDA, or a directory
-that holds this script without the package.
+that holds this script without the package (the import of devit_tpu_torch
+fails: exit 1).
 
 The last lines of standard output are the card's name and power limit (as
 nvidia-smi gives them), one JSON line with the kernels' record, and
@@ -2734,11 +2743,6 @@ def phase_heads_pad(card: str) -> dict:
                             (got.float() - want[k].float()).abs().max()))
                 worst[dtype] = max(worst[dtype], max(max(v) for v in errs.values()))
                 n_cases += 1
-    try:
-        fused_attention(torch.zeros((1, N, 3 * 256), device="cuda"), num_heads=1)
-        raise AssertionError("[heads-pad] head_dim 256 did not raise")
-    except ValueError:
-        pass
     _set_counts(before)
     fused_block_attention.launches = before_block
     print(f"[heads-pad] head widths {list(PAD_DH_KH)} (zero-padded to 32/64/128, the true "
@@ -2746,8 +2750,192 @@ def phase_heads_pad(card: str) -> dict:
           f"monolithic backward, the split pair and the block half vs their plain versions "
           f"pass; worst rel err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 "
           f"{worst[torch.float32]:.3e} (tol 1e-4); repeats bit for bit; split == monolithic "
-          f"bit for bit; head_dim 256 raises ValueError [{card}]")
+          f"bit for bit [{card}]")
     return dict(cases=n_cases, max_abs=max_abs,
+                worst_rel={"bf16": worst[torch.bfloat16], "f32": worst[torch.float32]})
+
+
+# ---- every sequence length and head width: the key-chunked paths
+
+# (N, head width, heads): dedeit's dh 64 at 272, 384, 464 and 512 px (N 291,
+# 578, 843, 1026), dh 32 and 128 at 384 px, and heads past 128 (dh 192: embed
+# 768 at 4 heads; dh 256: 768 at 3) at 224 and 384 px
+ATTN_LONG_CASES = ([(n, 64, 6) for n in (291, 578, 843, 1026)] + [(578, 32, 12), (578, 128, 6)]
+                   + [(n, dh, kh) for n in (198, 578) for dh, kh in ((192, 4), (256, 3))])
+BLOCK_LONG_CASES = [(291, 64, 6), (578, 64, 6), (198, 192, 2), (578, 192, 2)]  # C 384
+ATTN_LONG_B = 2
+ATTN_LONG_TIME = (64, 578, 6)  # B, N, kh of the timed forward (dh 64)
+ATTN_WIDE_TIME = (64, 578, 4, 192)  # B, N, kh, dh of the timed paths past head width 128
+ATTN_BLOCK_TIME = (16, 578, 6, 384)  # B, N, kh, C of the block half's timed chunked route
+
+
+def _attn_bound(B: int, n: int, kh: int, dh: int, elem: int, flops_peak: float,
+                bwd: bool = False):
+    """Least time of one forward (qkv read, out written; 4 B N^2 C
+    operations) or backward (qkv and g read, dqkv written; 10 B N^2 C)."""
+    C = kh * dh
+    nbytes = (7 if bwd else 4) * B * n * C * elem
+    flops = (10 if bwd else 4) * B * n * n * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_attn_long(card: str) -> dict:
+    """The attention kernels at every sequence length and head width the JAX
+    kernel takes: fused_attention and make_trainable_attention (forward and
+    backward, monolithic and split) at ATTN_LONG_CASES, the block half at
+    BLOCK_LONG_CASES, bf16 and f32, each against its plain version (2e-2
+    bf16, 1e-4 f32, max-abs over max-ref; dq, dk and dv each on its own),
+    every repeat bit for bit and the split backward equal to the monolithic
+    one bit for bit; the design each forward took (attention_path). Then the
+    chunked forwards timed at B 64, N 578, kh 6 beside the plain version and
+    SDPA, the paths past head width 128 at B 64, N 578, dh 192, and the block
+    half's chunked route at B 16, N 578, C 384. Launches here are checks, not
+    counted."""
+    from devit_tpu_torch.kernels.attention import attention_path
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    before, before_block = _counts(), fused_block_attention.launches
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    max_abs = {"fwd": 0.0, "bwd": 0.0, "dv": 0.0, "dqdk": 0.0, "block": 0.0}
+    paths, n_cases = {}, 0
+    B = ATTN_LONG_B
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, dh, kh in ATTN_LONG_CASES:
+            C = kh * dh
+            x = torch.randn((B, n, 3 * C), generator=gen, device="cuda").to(dtype)
+            g = torch.randn((B, n, C), generator=gen, device="cuda").to(dtype)
+            fwd, fwd2 = fused_attention(x, num_heads=kh), fused_attention(x, num_heads=kh)
+            grads = {}
+            for mode in ("monolithic", "split"):
+                fn = make_trainable_attention(kh, mode)
+                xs = x.detach().requires_grad_()
+                out = fn(xs)
+                grads[mode] = torch.autograd.grad(out, xs, g)[0]
+                if not torch.equal(out, fwd):
+                    raise AssertionError(f"[attn-long] N {n} dh {dh} {dtype}: the trainable "
+                                         f"forward ({mode}) differs from fused_attention")
+            again = attention_bwd(x, g, kh)
+            torch.cuda.synchronize()
+            want_f = reference_attention(x, num_heads=kh)
+            want_b = reference_attention_bwd(x, g, kh)
+            errs = {"fwd": [_rel(fwd, want_f)],
+                    "bwd": _bwd_errs(grads["monolithic"], want_b, C),
+                    "split": _bwd_errs(grads["split"], want_b, C)}
+            bad = {k: v for k, v in errs.items() if max(v) > TOL[dtype]}
+            if bad:
+                raise AssertionError(f"[attn-long] N {n} dh {dh} kh {kh} {dtype}: rel err {bad} "
+                                     f"> {TOL[dtype]:.0e}")
+            if not (torch.equal(fwd, fwd2) and torch.equal(grads["monolithic"], again)
+                    and torch.equal(grads["split"], grads["monolithic"])):
+                raise AssertionError(f"[attn-long] N {n} dh {dh} {dtype}: a repeat, or the "
+                                     "split backward against the monolithic one, differs in "
+                                     "its bits")
+            if dtype == torch.bfloat16:
+                max_abs["fwd"] = max(max_abs["fwd"], float((fwd.float() - want_f).abs().max()))
+                d = (grads["monolithic"].float() - want_b.float()).abs()
+                max_abs["bwd"] = max(max_abs["bwd"], float(d.max()))
+                max_abs["dqdk"] = max(max_abs["dqdk"], float(d[..., :2 * C].max()))
+                max_abs["dv"] = max(max_abs["dv"], float(d[..., 2 * C:].max()))
+            worst[dtype] = max(worst[dtype], max(max(v) for v in errs.values()))
+            paths[f"N {n} dh {dh} {str(dtype)[6:]}"] = attention_path(n, dh, dtype)
+            n_cases += 1
+            del x, g, grads, want_b
+        for n, dh, kh in BLOCK_LONG_CASES:
+            t = torch.randn((B, n, 384), generator=gen, device="cuda").to(dtype)
+            w = _block_weights(gen, 384, kh * dh, dtype)
+            blk, blk2 = (fused_block_attention(t, **w, num_heads=kh),
+                         fused_block_attention(t, **w, num_heads=kh))
+            torch.cuda.synchronize()
+            want = reference_block_attention(t, **w, num_heads=kh)
+            err = _rel(blk, want)
+            if err > TOL[dtype] or not torch.equal(blk, blk2):
+                raise AssertionError(f"[attn-long] block half N {n} dh {dh} {dtype}: rel err "
+                                     f"{err:.3e} (tol {TOL[dtype]:.0e}), repeat identical "
+                                     f"{torch.equal(blk, blk2)}")
+            if dtype == torch.bfloat16:
+                max_abs["block"] = max(max_abs["block"],
+                                       float((blk.float() - want.float()).abs().max()))
+            worst[dtype] = max(worst[dtype], err)
+            n_cases += 1
+    print(f"[attn-long] {n_cases} cases pass: fused_attention and make_trainable_attention "
+          f"(monolithic and split) at (N, dh, kh) {ATTN_LONG_CASES}, the block half at "
+          f"{BLOCK_LONG_CASES}, B {B}, bf16 and f32, vs their plain versions; worst rel err "
+          f"bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 {worst[torch.float32]:.3e} (tol "
+          f"1e-4); dq, dk, dv each; repeats and split == monolithic bit for bit; max abs err "
+          f"bf16 {', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())} [{card}]")
+    print(f"[attn-long] forward designs: {paths}")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    Bt, n, kh = ATTN_LONG_TIME
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, F32_FLOPS)):
+        x = torch.randn((Bt, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
+        q, k, v = _sdpa_qkv(x, kh)
+        bound, by = _attn_bound(Bt, n, kh, DH, x.element_size(), peak)
+        r = dict(ms=_time_ms(lambda: fused_attention(x, num_heads=kh), iters=10),
+                 plain_ms=_time_ms(lambda: reference_attention(x, num_heads=kh), iters=5),
+                 library_ms=_time_ms(lambda: sdpa(q, k, v), iters=10), bound_ms=bound,
+                 bound_by=by, path=attention_path(n, DH, dtype))
+        times[f"fwd {str(dtype)[6:]}"] = r
+        print(f"[attn-long] fused_attention {str(dtype)[6:]} B={Bt} N={n} kh={kh} dh {DH} "
+              f"({r['path']}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA "
+              f"{r['library_ms']:.4f}, bound {bound:.4f} ({by}) [{card}]")
+        del x, q, k, v
+    Bt, n, kh, dh = ATTN_WIDE_TIME
+    C = kh * dh
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, F32_FLOPS)):
+        x = torch.randn((Bt, n, 3 * C), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((Bt, n, C), generator=gen, device="cuda").to(dtype)
+        q, k, v = (t.requires_grad_() for t in _sdpa_qkv(x, kh))
+        out = sdpa(q, k, v)
+        gh = g.view(Bt, n, kh, dh).transpose(1, 2)
+        tag = str(dtype)[6:]
+        fb, fby = _attn_bound(Bt, n, kh, dh, x.element_size(), peak)
+        bb, bby = _attn_bound(Bt, n, kh, dh, x.element_size(), peak, bwd=True)
+        bwd_lib = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True),
+                           iters=3, warmup=1)
+        for name, fn, plain, lib, bound, by in (
+                ("fwd", lambda: fused_attention(x, num_heads=kh),
+                 lambda: reference_attention(x, num_heads=kh),
+                 lambda: sdpa(q.detach(), k.detach(), v.detach()), fb, fby),
+                ("bwd", lambda: attention_bwd(x, g, kh),
+                 lambda: reference_attention_bwd(x, g, kh), None, bb, bby),
+                ("split", lambda: attention_bwd_split(x, g, kh),
+                 lambda: _split_plain(x, g, kh), None, bb, bby)):
+            r = dict(ms=_time_ms(fn, iters=3, warmup=1),
+                     plain_ms=_time_ms(plain, iters=2, warmup=1),
+                     library_ms=_time_ms(lib, iters=3, warmup=1) if lib else bwd_lib,
+                     bound_ms=bound, bound_by=by)
+            times[f"dh{dh} {name} {tag}"] = r
+            print(f"[attn-long] {name} {tag} B={Bt} N={n} kh={kh} dh {dh} (key-chunked CUDA "
+                  f"cores): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA "
+                  f"{'backward ' if name != 'fwd' else ''}{r['library_ms']:.4f}, bound "
+                  f"{bound:.4f} ({by}) [{card}]")
+        del x, g, q, k, v, out
+    Bt, n, kh, C = ATTN_BLOCK_TIME
+    K = kh * DH
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, F32_FLOPS)):
+        t = torch.randn((Bt, n, C), generator=gen, device="cuda").to(dtype)
+        w = _block_weights(gen, C, K, dtype)
+        M, elem = Bt * n, t.element_size()
+        t_bytes = elem * (2 * M * C + C * 4 * K) / HBM_BYTES_PER_S
+        t_ops = (2 * M * C * 3 * K + 4 * Bt * n * n * K + 2 * M * K * C) / peak
+        r = dict(ms=_time_ms(lambda: fused_block_attention(t, **w, num_heads=kh), iters=5),
+                 plain_ms=_time_ms(lambda: reference_block_attention(t, **w, num_heads=kh),
+                                   iters=3, warmup=1),
+                 library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+        tag = str(dtype)[6:]
+        times[f"block {tag}"] = r
+        print(f"[attn-long] fused_block_attention {tag} B={Bt} N={n} C={C} kh={kh} (the chunked "
+              f"route: LayerNorm + qkv, the forward, proj): kernels {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
+        del t, w
+    _set_counts(before)
+    fused_block_attention.launches = before_block
+    torch.cuda.empty_cache()
+    return dict(cases=n_cases, max_abs=max_abs, paths=paths, times=times,
                 worst_rel={"bf16": worst[torch.bfloat16], "f32": worst[torch.float32]})
 
 
@@ -2998,6 +3186,202 @@ def phase_cli(card: str) -> dict:
                 compact_eval=dict(seconds=eval_s, launches=eval_launches, correct=eval_correct))
 
 
+# ---- a stage-2 step at 384 px, the CCT family, the stage-5 resume fallback
+
+S384_B = 16  # images of the 384-px step (N 578: 576 patches, cls and dist)
+
+
+def phase_stage2_384(card: str) -> dict:
+    """One full-width dedeit stage-2 step at --input-size 384 (N 578), f32
+    and bf16: past 256 keys the forward takes its key-chunked designs
+    (attn_kchunk_mma at bf16, attn_chunked_kernel at f32) and the backward
+    its long path. The kernel step against the same step with the plain
+    attention (same state, batch and draws): loss and every gradient leaf
+    within 2e-2 (||diff||/||plain||). The kernel steps are a main-path run:
+    their launches are returned (24 forward, 12 backward a step)."""
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    res, launches = {}, {"fused_attention": 0, "attention_bwd": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        images = torch.randn((S384_B, 384, 384, 3), generator=gen, device="cuda").to(dtype)
+        labels = torch.randint(0, TRAIN_CLASSES, (S384_B,), generator=gen, device="cuda")
+        out = {}
+        for use_kernel in (True, False):
+            model = create_vit("dedeit", img_size=384, num_classes=TRAIN_CLASSES,
+                               drop_path_rate=0.1, dtype=dtype, use_kernel=use_kernel,
+                               use_remat=True, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+            before = _counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = _step_grads(model, (images, labels), seed=3)
+            torch.cuda.synchronize()
+            out[use_kernel] = (loss, grads, (time.perf_counter() - t0) * 1e3, _delta(before))
+            del model
+        (loss_k, g_k, ms_k, d_k), (loss_p, g_p, ms_p, d_p) = out[True], out[False]
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        rel = {k: float((g_k[k].float() - g_p[k].float()).norm()
+                        / g_p[k].float().norm().clamp_min(1e-30)) for k in g_p}
+        worst = max(rel, key=rel.get)
+        tag = str(dtype)[6:]
+        if not (np.isfinite(loss_k) and loss_rel <= 2e-2 and rel[worst] <= 2e-2):
+            raise AssertionError(f"[stage2-384] {tag}: loss {loss_k} vs plain {loss_p} (rel "
+                                 f"{loss_rel:.3e}), worst gradient {worst} {rel[worst]:.3e}")
+        if d_k[:2] != (24, 12) or any(d_p):
+            raise AssertionError(f"[stage2-384] {tag}: launches kernel step {d_k}, plain step "
+                                 f"{d_p}; expected (24, 12) and none")
+        launches["fused_attention"] += d_k[0]
+        launches["attention_bwd"] += d_k[1]
+        res[tag] = dict(loss=loss_k, plain_loss=loss_p, loss_rel=loss_rel, worst_leaf=worst,
+                        grad_rel=rel[worst], ms=ms_k, plain_ms=ms_p, launches=d_k[:2])
+        print(f"[stage2-384] dedeit stage-2 step at 384 px (N 578), {tag}, B {S384_B}: loss "
+              f"{loss_k:.6f} vs {loss_p:.6f} plain (rel {loss_rel:.3e}); worst gradient leaf "
+              f"{worst} ||diff||/||plain|| {rel[worst]:.3e} (tol 2e-2, {len(rel)} leaves); "
+              f"launches {d_k[0]} forward + {d_k[1]} backward (plain step none); step (first, "
+              f"with the build of its state) {ms_k:.1f} ms, plain {ms_p:.1f} ms [{card}]")
+        del g_k, g_p, images
+        torch.cuda.empty_cache()
+    return dict(runs=res, launches=launches)
+
+
+CCT_WIDE = "cct_14_7x2_224"  # the widest registered CCT: 384 wide, 14 layers, 6 heads, N 196
+CCT_B = 64
+# the README's CCT through every stage: cct_7_3x1_32 (256 wide, 7 layers, 4
+# heads, N 256), 4 divisions of decct_7_3x1, the CLI's defaults otherwise.
+# Cuts: 1 epoch (default 5), 2048 synthetic 32-px images a split in place of
+# CIFAR-100's 50,000
+CCT_CLI = ["--model", "cct_7_3x1_32", "--input-size", "32", "--dataset",
+           "synthetic:100:2048:32", "--num_division", "4", "--batch-size", "64", "--epochs", "1",
+           "--device", "cuda"]
+
+
+def phase_cct(card: str) -> dict:
+    """The CCT family on the card. cct_14_7x2_224's f32 forward on the card
+    against the same module on the CPU (logits within 1e-3 of max|logit|);
+    one bf16 stage-2 step at bs 64 timed (loss finite, peak memory); then
+    `pipeline --model cct_7_3x1_32 --num_division 4`: every stage timed,
+    every logged loss finite, deploy skipped as the JAX CLI skips it, and
+    no attention kernel launched (the JAX package's CCT computes its
+    attention as plain einsums)."""
+    from devit_tpu_torch.configs import get_cct_config
+    from devit_tpu_torch.models.cct import create_cct
+
+    side = get_cct_config(CCT_WIDE).img_size
+    x = torch.randn((8, side, side, 3), generator=torch.Generator().manual_seed(45))
+    model = create_cct(CCT_WIDE, num_classes=100, dtype=torch.float32, device="cpu",
+                       generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model(x).logits
+        got = model.to("cuda")(x.cuda()).logits.cpu()
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not (torch.isfinite(got).all() and rel <= 1e-3):
+        raise AssertionError(f"[cct] {CCT_WIDE} f32 logits card vs CPU: rel {rel:.3e} (tol 1e-3)")
+    cfg = model.cfg
+    print(f"[cct] {CCT_WIDE} ({cfg.embed_dim} wide, {cfg.num_layers} layers, {cfg.num_heads} "
+          f"heads, N {cfg.sequence_length()}) f32 forward of 8 images, card vs CPU: "
+          f"max|diff|/max|logit| {rel:.3e} (tol 1e-3)")
+    del model
+
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    model = create_cct(CCT_WIDE, num_classes=100, dtype=torch.bfloat16, device="cuda",
+                       generator=torch.Generator().manual_seed(2))
+    state = TrainState.create(model, make_optimizer(OptimConfig(lr=5e-4, epochs=100), 100),
+                              use_ema=True)
+    step = make_stage2_step(model, None, mixup=_mixup(100), smoothing=0.1)
+    images = torch.randn((CCT_B, side, side, 3), generator=gen, device="cuda").bfloat16()
+    labels = torch.randint(0, 100, (CCT_B,), generator=gen, device="cuda")
+    before = _counts()
+    state, m = step(state, None, images, labels, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(3):
+        state, m = step(state, None, images, labels, torch.Generator().manual_seed(1 + i))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or any(_delta(before)):
+        raise AssertionError(f"[cct] stage-2 step: losses {losses}, attention kernel launches "
+                             f"{_delta(before)} (expected none)")
+    print(f"[cct] {CCT_WIDE} bf16 stage-2 step (mixup/cutmix, AdamW + EMA) at bs {CCT_B}: "
+          f"{step_ms:.3f} ms/step = {CCT_B / step_ms * 1e3:.1f} img/s, losses {losses}, peak "
+          f"memory {peak:.2f} GiB, 0 attention kernel launches [{card}]")
+    del model, state, step, images
+    torch.cuda.empty_cache()
+
+    root = Path(tempfile.mkdtemp(prefix="devit_cct_"))
+    out = str(root / "pipeline")
+    record = {}
+    undo = _cli_instrument(record)
+    before = _counts()
+    try:
+        _set_counts((0, 0, 0, 0))
+        t0 = time.perf_counter()
+        results = _cli(["pipeline", *CCT_CLI, "--output_dir", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        undo()
+        _set_counts(before)
+    if any(launches):
+        raise AssertionError(f"[cct] the CCT pipeline launched attention kernels {launches}")
+    if "deploy" in record or os.path.exists(os.path.join(out, "deploy")):
+        raise AssertionError("[cct] deploy ran for the CCT family")
+    for name, rec in record.items():
+        for d in rec["dirs"] if name in CLI_BACKWARD else ():
+            with open(os.path.join(d, "log_stats.txt")) as f:
+                logged = [json.loads(line) for line in f]
+            if not logged or not all(np.isfinite(r["train_loss"]) and np.isfinite(r["test_loss"])
+                                     for r in logged):
+                raise AssertionError(f"[cct] {name} logged a non-finite loss in {d}: {logged}")
+    stages = {k: dict(seconds=v["seconds"], calls=v["calls"], steps=v["steps"])
+              for k, v in record.items()}
+    print(f"[cct] devit-torch pipeline {' '.join(CCT_CLI)}: {wall:.1f} s; per stage "
+          f"{ {k: (round(v['seconds'], 2), v['calls'], v['steps']) for k, v in stages.items()} } "
+          f"(seconds, calls, train steps); every logged loss finite; deploy skipped (ViT-only, "
+          f"as the JAX CLI); 0 attention kernel launches; the CCT ensemble's eval acc1 "
+          f"{results['ensemble']:.2f} [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(card_vs_cpu_rel=rel, step_ms=step_ms, img_s=CCT_B / step_ms * 1e3,
+                peak_gib=peak, losses=losses, pipeline_s=wall, stages=stages,
+                ensemble_acc1=results["ensemble"])
+
+
+RESUME_ARGS = ["--model", "dedeit", "--input-size", "32", "--patch-size", "4", "--embed-dim",
+               "32", "--depth", "2", "--num-heads", "4", "--dataset", "synthetic:8:256:32",
+               "--num_division", "2", "--batch-size", "32", "--device", "cuda"]
+
+
+def phase_resume(card: str) -> dict:
+    """The stage-5 resume fallback: `ensemble` writes an adamw checkpoint
+    (one epoch), then `ensemble --opt sgd --resume` it: its optimizer states
+    do not fit an SGD run, so the params resume alone with the JAX CLI's
+    WARNING, and the resumed epoch's loss is finite. Launches here are
+    checks', not counted."""
+    root = Path(tempfile.mkdtemp(prefix="devit_resume_"))
+    before = _counts()
+    try:
+        _cli(["ensemble", *RESUME_ARGS, "--epochs", "1", "--output_dir", str(root / "a")])
+        _cli(["ensemble", *RESUME_ARGS, "--epochs", "2", "--opt", "sgd", "--resume",
+              str(root / "a" / "checkpoint_temp.msgpack"), "--output_dir", str(root / "b")])
+    finally:
+        _set_counts(before)
+    text = (root / "b" / "log.txt").read_text()
+    warning = next((line for line in text.splitlines() if "WARNING: resumed PARAMS ONLY" in line),
+                   None)
+    with open(root / "b" / "log_stats.txt") as f:
+        logged = [json.loads(line) for line in f]
+    if warning is None or not logged or not np.isfinite(logged[0]["train_loss"]):
+        raise AssertionError(f"[resume] warning {warning!r}, logged {logged}")
+    print(f"[resume] an adamw stage-5 checkpoint resumed under --opt sgd: {warning.strip()}; "
+          f"epoch {logged[0]['epoch']} train loss {logged[0]['train_loss']:.4f} (finite) [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(warning=warning.strip(), first=logged[0])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3066,7 +3450,12 @@ def main() -> int:
     times["heads_pad"] = heads_pad = phase_heads_pad(card)
     torch.cuda.empty_cache()
     times["cli"] = cli = phase_cli(card)
-    hm = {k: max(v, heads_pad["max_abs"][k]) for k, v in heads["max_abs"].items()}
+    times["attn_long"] = attn_long = phase_attn_long(card)
+    times["stage2_384"] = s384 = phase_stage2_384(card)
+    times["cct"] = phase_cct(card)
+    times["resume"] = phase_resume(card)
+    hm = {k: max(v, heads_pad["max_abs"][k], attn_long["max_abs"][k])
+          for k, v in heads["max_abs"].items()}
 
     fa = times["forward_attention"]
     bw = train["kernel_times"]["bwd_step"]
@@ -3077,11 +3466,12 @@ def main() -> int:
         "replaces": "devit_tpu/kernels/attention.py:30",
         # the launches of every main-path run: serving, stage 2, stage 5, DEKD,
         # stage 3 (the policy search's chunks), stage 2 from the files, the CLI
-        # pipeline
+        # pipeline, stage 2 at 384 px
         "launches": (launches + train["launches"]["fused_attention"]
                      + ens["launches"]["fused_attention"] + dekd["launches"]["fused_attention"]
                      + stage3["launches"] + times["data_train"]["launches"]["fused_attention"]
-                     + cli["launches"]["fused_attention"]),
+                     + cli["launches"]["fused_attention"]
+                     + s384["launches"]["fused_attention"]),
         # every shape checked: [kernel]'s up to B 256, stage 3's B 4096, [heads]
         "max_abs_err": max(max_abs_err, stage3["shrink"]["attention"]["max_abs_err"],
                            hm["fwd"]),
@@ -3093,7 +3483,7 @@ def main() -> int:
         "launches": (train["launches"]["attention_bwd"] + ens["launches"]["attention_bwd"]
                      + dekd["launches"]["attention_bwd"]
                      + times["data_train"]["launches"]["attention_bwd"]
-                     + cli["launches"]["attention_bwd"]),
+                     + cli["launches"]["attention_bwd"] + s384["launches"]["attention_bwd"]),
         "max_abs_err": max(bwd_max_abs_err, hm["bwd"]),
         "ms": bw["ms"], "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
         "bound_by": bw["bound_by"], "library_ms": bw["library_ms"]}] + [{

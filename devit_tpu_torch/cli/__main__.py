@@ -11,8 +11,8 @@ Stages mirror the reference's five entry scripts plus deploy/serve
   distill   — DEKD distillation with shrink masks (distill_sub.py)
   ensemble  — token-fusion ensemble training/eval (ensemble.py)
 
-`bench` raises: the port's benchmark waits for ROADMAP Queue 1 item 1. The
-CCT models raise (Queue 1 item 7), and so does --ckpt-format orbax.
+`bench` raises: the port's benchmark waits for ROADMAP Queue 1 item 1; so
+does --ckpt-format orbax. Both model families (ViT/DeiT and CCT) run.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from devit_tpu_torch.configs import get_vit_config
+from devit_tpu_torch.configs import CCTConfig, get_cct_config, get_vit_config
 from devit_tpu_torch.data.datasets import ArrayDataset, BatchIterator, build_dataset
 from devit_tpu_torch.data.mixup import MixupConfig
 from devit_tpu_torch.data.pipeline import (
@@ -31,14 +31,13 @@ from devit_tpu_torch.data.splitter import DivisionManifest
 from devit_tpu_torch.device import resolve_device
 from devit_tpu_torch.io.bridge import vit_to_jax_params, vit_values_from_jax_params
 from devit_tpu_torch.io.checkpoint import (
-    load_torch_state_dict, resize_pos_embed, restore_pytree, save_pytree, torch_vit_to_params,
+    load_torch_state_dict, resize_cct_pos_embed, resize_pos_embed, restore_pytree, save_pytree,
+    torch_cct_to_params, torch_vit_to_params,
 )
+from devit_tpu_torch.models.cct import CCT
 from devit_tpu_torch.models.vit import VisionTransformer
 from devit_tpu_torch.train.meters import create_logger
 from devit_tpu_torch.train.optim import OptimConfig
-
-CCT_ITEM = "ROADMAP Queue 1 item 7"
-
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -303,15 +302,30 @@ def is_cct(name: str) -> bool:
     return name.startswith("cct") or name.startswith("decct")
 
 
-def check_vit_family(name: str) -> None:
-    if is_cct(name):
-        raise NotImplementedError(f"--model {name!r}: the CCT family is not ported yet "
-                                  f"({CCT_ITEM})")
+def model_seq_length(cfg) -> int:
+    """The true token count of a model config, for the analytic MACs and
+    params budget: a CCT's from its tokenizer geometry
+    (CCTConfig.sequence_length), a ViT's patches plus prefix tokens."""
+    if isinstance(cfg, CCTConfig):
+        return int(cfg.sequence_length())
+    return int(cfg.seq_len)
 
 
 def model_config(name: str, num_classes: int, args, resize_dim=None):
-    """The registered geometry with the CLI's overrides."""
-    check_vit_family(name)
+    """The registered geometry with the CLI's overrides (a CCT's 'decct_*'
+    name is the headless backbone)."""
+    if is_cct(name):
+        overrides = dict(img_size=args.input_size, num_classes=num_classes, dropout=args.drop,
+                         stochastic_depth=args.drop_path, resize_dim=resize_dim)
+        for flag, key in (("embed_dim", "embed_dim"), ("depth", "num_layers"),
+                          ("num_heads", "num_heads")):
+            v = getattr(args, flag, None)
+            if v is not None:
+                overrides[key] = v
+        if name.startswith("decct"):
+            overrides.setdefault("backbone", True)
+            name = name.replace("decct", "cct", 1)
+        return get_cct_config(name, **overrides)
     overrides = dict(img_size=args.input_size, patch_size=getattr(args, "patch_size", 16),
                      num_classes=num_classes, drop_rate=args.drop,
                      drop_path_rate=args.drop_path, resize_dim=resize_dim)
@@ -322,19 +336,23 @@ def model_config(name: str, num_classes: int, args, resize_dim=None):
     return get_vit_config(name, **overrides)
 
 
-def build_model(name: str, num_classes: int, args, resize_dim=None,
-                seed: int = 0) -> VisionTransformer:
-    """model_config's model, its parameters drawn from `seed` (the JAX CLI
-    draws from jax.random; both CLIs start from a checkpoint through
-    --model-path where results must agree), on --device.
+def build_model(name: str, num_classes: int, args, resize_dim=None, seed: int = 0):
+    """model_config's model (a VisionTransformer, or a CCT for 'cct_*' and
+    'decct_*', the JAX CLI's build_backbone), its parameters drawn from
+    `seed` (the JAX CLI draws from jax.random; both CLIs start from a
+    checkpoint through --model-path where results must agree), on --device.
     --use-pallas/--no-pallas choose the CUDA kernels; unset, they run on
-    cuda (on the CPU the plain attention, as the JAX CLI on the CPU)."""
+    cuda (on the CPU the plain attention, as the JAX CLI on the CPU). A CCT
+    computes its attention as plain ops, as the JAX package's does."""
     device = device_from_args(args)
-    use_kernel = getattr(args, "use_pallas", None)
-    if use_kernel is None:
-        use_kernel = device.type == "cuda"
-    model = VisionTransformer(model_config(name, num_classes, args, resize_dim),
-                              dtype=dtype_from_args(args), use_kernel=use_kernel)
+    cfg = model_config(name, num_classes, args, resize_dim)
+    if isinstance(cfg, CCTConfig):
+        model = CCT(cfg, dtype=dtype_from_args(args))
+    else:
+        use_kernel = getattr(args, "use_pallas", None)
+        if use_kernel is None:
+            use_kernel = device.type == "cuda"
+        model = VisionTransformer(cfg, dtype=dtype_from_args(args), use_kernel=use_kernel)
     return model.reset_parameters(torch.Generator().manual_seed(seed)).to(device)
 
 
@@ -387,7 +405,9 @@ def merge_params_into(model: VisionTransformer, params, template=None, log=None,
     model's own tree by default) -> the merged tree (numpy leaves).
 
     Mismatch handling, as the JAX CLI's (loud):
-      * `pos_embed` -> bicubic grid resize (de_vit.py:452-473);
+      * `pos_embed` -> bicubic grid resize (de_vit.py:452-473); a CCT's
+        `positional_emb` -> bilinear (helpers.py:26-32 pe_check, no prefix
+        token under seq-pool);
       * every other missing/shape-mismatched key keeps its init and is logged;
       * if the kept-init fraction of NON-head parameters exceeds
         `max_init_fraction`, raise: a wrong-geometry checkpoint must not train
@@ -419,10 +439,12 @@ def merge_params_into(model: VisionTransformer, params, template=None, log=None,
                                 np.float32)
                 if nv.shape != v.shape:
                     rv = None
-                    if k == "pos_embed":
+                    if k in ("pos_embed", "positional_emb"):
                         try:
-                            rv = np.asarray(resize_pos_embed(nv, cfg.seq_len,
-                                                             cfg.num_prefix_tokens))
+                            rv = np.asarray(
+                                resize_cct_pos_embed(nv, v.shape[1], 0 if cfg.seq_pool else 1)
+                                if isinstance(cfg, CCTConfig) else
+                                resize_pos_embed(nv, cfg.seq_len, cfg.num_prefix_tokens))
                         except ValueError:
                             rv = None  # non-square grid etc. -> keep init
                         if rv is not None and rv.shape != tuple(v.shape):
@@ -456,11 +478,16 @@ def merge_params_into(model: VisionTransformer, params, template=None, log=None,
     return merged
 
 
-def read_params(path: str, depth: int) -> dict:
-    """A checkpoint's flax-layout params tree: .pth/.pt (reference-layout
-    torch state dict) or msgpack ({'params': ...} or the bare tree)."""
+def read_params(path: str, cfg) -> dict:
+    """A checkpoint's flax-layout params tree: .pth/.pt (a reference-layout
+    torch state dict of cfg's family) or msgpack ({'params': ...} or the
+    bare tree)."""
     if path.endswith((".pth", ".pt")):
-        return torch_vit_to_params(load_torch_state_dict(path), depth=depth)
+        sd = load_torch_state_dict(path)
+        if isinstance(cfg, CCTConfig):
+            return torch_cct_to_params(sd, num_layers=cfg.num_layers,
+                                       n_conv_layers=cfg.n_conv_layers)
+        return torch_vit_to_params(sd, depth=cfg.depth)
     restored = restore_pytree(path)
     return restored.get("params", restored) if isinstance(restored, dict) else restored
 
@@ -469,7 +496,7 @@ def load_params_for(model: VisionTransformer, path: str, log=None) -> VisionTran
     """Load a .pth or .msgpack checkpoint into the model by name, in place,
     with head-shape filtering and pos-embed interpolation on mismatch
     (shrink.py:298-332 behaviour)."""
-    merged = merge_params_into(model, read_params(path, model.cfg.depth), log=log)
+    merged = merge_params_into(model, read_params(path, model.cfg), log=log)
     return load_tree_into(model, merged)
 
 

@@ -6,13 +6,14 @@ checkpoint_temp, result.txt, log_stats.txt, compact.msgpack,
 deploy_report.json), on one CUDA device (or the CPU with --device cpu).
 
 Checkpoints are the JAX package's msgpack trees, so either CLI resumes or
-continues from the other's artifacts. The CCT family raises
-(ROADMAP Queue 1 item 7); so does --ckpt-format orbax.
+continues from the other's artifacts. Both model families run (the CCT
+family's deploy is skipped, as in the JAX CLI); --ckpt-format orbax raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 
@@ -27,8 +28,10 @@ from devit_tpu_torch.data.pipeline import eval_transform
 from devit_tpu_torch.data.splitter import DivisionManifest
 from devit_tpu_torch.io.bridge import ensmlp_from_jax_params, vit_values_from_jax_params
 from devit_tpu_torch.io.checkpoint import restore_pytree
+from devit_tpu_torch.models.cct import CCT
 from devit_tpu_torch.models.ensemble import (
-    EnsMLP, features_param_names, init_multivit, stack_division_gates, stack_division_params,
+    EnsembleCCT, EnsMLP, features_param_names, init_multivit, stack_division_gates,
+    stack_division_params,
 )
 from devit_tpu_torch.models.vit import Gates, full_gates, map_leaves
 from devit_tpu_torch.train import steps as S
@@ -55,22 +58,52 @@ def _try_resume(args, state, log):
     return state, start_epoch
 
 
+def _snapshot(state):
+    """Copies of a state's optimizer state and EMA: what a failed full
+    restore must put back (_put_back)."""
+    ema = None if state.ema_params is None else dict(state.ema_params)
+    return copy.deepcopy(state.opt_state), copy.deepcopy(ema)
+
+
+def _put_back(state, snapshot) -> None:
+    opt, ema = snapshot
+    state.opt_state.clear()
+    state.opt_state.update(opt)
+    if ema is not None:
+        state.ema_params.update(ema)
+
+
 def _try_resume_ensemble(args, bb_state, ens_state, log):
     """Restore both states (params, optimizer states, EMA) and the epoch
-    from --resume (ensemble.py:390-402). A weights-only checkpoint resumes
-    the params, with a warning. Returns (bb_state, ens_state, start_epoch)."""
+    from --resume (ensemble.py:390-402), as the JAX CLI does: the gated or
+    gate-less checkpoint alike (the port restores by name, so a gated
+    checkpoint resumes an ungated run and the other way round); a checkpoint
+    whose optimizer states do not fit the run's optimizer (another family, a
+    clip setting, a weights-only file) resumes the params only, with the JAX
+    CLI's WARNING. A file that is not an ensemble checkpoint raises. Returns
+    (bb_state, ens_state, start_epoch)."""
     if not getattr(args, "resume", None):
         return bb_state, ens_state, 0
     tree = restore_pytree(args.resume)
     if not isinstance(tree, dict) or "backbone_params" not in tree or "ens_params" not in tree:
         raise RuntimeError(f"{args.resume} is not an ensemble checkpoint (keys: "
                            f"{sorted(tree) if isinstance(tree, dict) else type(tree)})")
-    bb_state, ens_state, start_epoch = restore_stage5_tree(bb_state, ens_state, tree)
-    if tree.get("bb_opt_state") is None or tree.get("ens_opt_state") is None:
-        log.info(f"WARNING: resumed PARAMS ONLY from {args.resume}: the checkpoint holds no "
-                 "optimizer states; Adam moments and schedule restart from zero")
-    else:
+    snapshots = [_snapshot(bb_state), _snapshot(ens_state)]
+    try:
+        for key in ("bb_opt_state", "ens_opt_state"):
+            if tree.get(key) is None:
+                raise KeyError(key)
+        bb_state, ens_state, start_epoch = restore_stage5_tree(bb_state, ens_state, tree)
         log.info(f"resumed ensemble (params, optimizer states, EMA) from {args.resume}")
+    except Exception as e:
+        for st, snap in zip((bb_state, ens_state), snapshots):
+            _put_back(st, snap)
+        params_only = {k: tree[k] for k in ("backbone_params", "ens_params", "epoch")
+                       if k in tree}
+        bb_state, ens_state, start_epoch = restore_stage5_tree(bb_state, ens_state, params_only)
+        log.info(f"WARNING: resumed PARAMS ONLY from {args.resume} — optimizer "
+                 f"states could not be restored ({type(e).__name__}: {e}); "
+                 "Adam moments and schedule restart from zero")
     log.info(f"resuming ensemble at epoch {start_epoch}")
     return bb_state, ens_state, start_epoch
 
@@ -227,9 +260,9 @@ def shrink_main(args):
 
     # the reference's 9.19 anchor and seq 197 hold for the canonical dedeit
     # geometry only (shrink_imp.py:75,144); any other geometry budgets at its
-    # true sequence length
+    # true sequence length (a CCT's from its tokenizer: 64 at 32 px)
     canonical = cfg.depth == 12 and cfg.embed_dim == 384 and cfg.num_heads == 6
-    seq_length = 197 if canonical else cfg.seq_len
+    seq_length = 197 if canonical else C.model_seq_length(cfg)
     result = model_shrink(
         model, neuron_rank, head_rank, val_batches, layer=cfg.depth,
         shrink_ratio=args.shrink_ratio, population=args.population, lb=args.lb, ub=args.ub,
@@ -397,9 +430,10 @@ def _ensemble_eval_compact(args, log, val_ds, num_classes, D) -> float:
 
 
 def _run_ensemble_training(args, log, train_ds, val_ds, num_classes, D, backbone, stacked,
-                           ens, teacher, gates) -> float:
-    """The stage-5 training tail: dual optimizers + dual EMA
-    (ensemble.py:315-348), resume, the train/eval/save loops."""
+                           ens, teacher, gates, label: str = "ensemble") -> float:
+    """The stage-5 training tail of both families: dual optimizers + dual
+    EMA (ensemble.py:315-348), resume, the train/eval/save loops. The steps
+    are the CCT family's where `backbone` is a CCT."""
     device, dtype = C.device_from_args(args), C.dtype_from_args(args)
     steps_per_epoch = C.train_steps_per_epoch(train_ds, args)
     # two optimizers, backbone lr vs ens lr (ensemble.py:343-348); --ens-lr 0
@@ -416,11 +450,14 @@ def _run_ensemble_training(args, log, train_ds, val_ds, num_classes, D, backbone
     mix_cfg = C.mixup_config_from_args(args, num_classes)
     prep_train, host_tf = C.make_train_pipeline(args, aug_cfg, dtype, device)
     prep_eval = C.make_eval_prepare(args.input_size, dtype, device)
-    step = S.make_ensemble_train_step(
+    cct = isinstance(backbone, CCT)
+    make_train = S.make_cct_ensemble_train_step if cct else S.make_ensemble_train_step
+    step = make_train(
         backbone, ens, teacher, mixup=mix_cfg, smoothing=args.smoothing,
         distillation_type=args.distillation_type, distillation_alpha=args.distillation_alpha,
         distillation_tau=args.distillation_tau)
-    ens_eval = S.make_ensemble_eval_step(backbone, ens)
+    ens_eval = (S.make_cct_ensemble_eval_step if cct else S.make_ensemble_eval_step)(backbone,
+                                                                                   ens)
 
     bb_state, ens_state, start_epoch = _try_resume_ensemble(args, bb_state, ens_state, log)
 
@@ -444,7 +481,7 @@ def _run_ensemble_training(args, log, train_ds, val_ds, num_classes, D, backbone
 
     if args.eval:
         m = eval_fn((bb_state, ens_state))
-        log.info(f"ensemble eval: acc1 {m['acc1']:.2f}")
+        log.info(f"{label} eval: acc1 {m['acc1']:.2f}")
         return m["acc1"]
 
     _, best = fit(
@@ -454,7 +491,7 @@ def _run_ensemble_training(args, log, train_ds, val_ds, num_classes, D, backbone
         output_dir=args.output_dir, log_fn=log.info, save_state_fn=save_state,
         profile_dir=getattr(args, "profile_dir", None),
         tensorboard=getattr(args, "tensorboard", False), start_epoch=start_epoch)
-    log.info(f"ensemble best acc1: {best:.2f}")
+    log.info(f"{label} best acc1: {best:.2f}")
     return best
 
 
@@ -466,7 +503,10 @@ def _division_checkpoint(root: str, i: int) -> str:
 
 def ensemble_main(args) -> float:
     """Stage 5: token-fusion ensemble over D backbones (ensemble.py:245-456).
-    Sub-model checkpoints load by name into the stacked parameters."""
+    Sub-model checkpoints load by name into the stacked parameters (the
+    classifier heads they carry are dropped). The CCT family (MultiCCT +
+    EnsembleCCT, ensemble_models.py:93-151) runs the headless 'decct'
+    backbone of --model and its own fusion head and steps."""
     log = C.setup(args)
     device = C.device_from_args(args)
     cat = getattr(args, "inat_category", "name")
@@ -480,10 +520,9 @@ def ensemble_main(args) -> float:
     # (ensemble.py:261); divisions enter through their checkpoints and gates
     if args.compact_path:
         return _ensemble_eval_compact(args, log, val_ds, num_classes, D)
-    if C.is_cct(args.model):
-        raise NotImplementedError(f"the CCT ensemble (--model {args.model!r}) is not ported "
-                                  f"yet ({C.CCT_ITEM})")
-    backbone = C.build_model(args.model, 0, args)  # features only: heads never used
+    cct = C.is_cct(args.model)
+    name = ("de" + args.model if cct and not args.model.startswith("decct") else args.model)
+    backbone = C.build_model(name, 0, args)  # features only: heads never used
     names = features_param_names(backbone)
 
     ckpt_gates = []
@@ -494,7 +533,7 @@ def ensemble_main(args) -> float:
             p = _division_checkpoint(args.sub_model_path, i)
             if p.endswith((".pth", ".pt")):
                 # .pth carries no gates: the gap keeps the all(...) guard below
-                params, gates_i = C.read_params(p, backbone.cfg.depth), None
+                params, gates_i = C.read_params(p, backbone.cfg), None
             else:
                 # one restore feeds the by-name merge and the gates
                 raw = restore_pytree(p)
@@ -527,9 +566,13 @@ def ensemble_main(args) -> float:
     if gates is not None:
         gates = Gates(gates.head.to(device), gates.neuron.to(device))
 
-    family = "deit" if backbone.cfg.distilled else "vit"
-    ens = EnsMLP(num_classes=num_classes, sub_size=backbone.cfg.embed_dim, num_divisions=D,
-                 teacher_size=args.teacher_size, family=family)
+    if cct:
+        ens = EnsembleCCT(num_classes=num_classes, sub_size=backbone.cfg.embed_dim,
+                          num_divisions=D, teacher_size=args.teacher_size)
+    else:
+        ens = EnsMLP(num_classes=num_classes, sub_size=backbone.cfg.embed_dim, num_divisions=D,
+                     teacher_size=args.teacher_size,
+                     family="deit" if backbone.cfg.distilled else "vit")
     ens = ens.reset_parameters(torch.Generator().manual_seed(args.seed + 1)).to(device)
 
     teacher = None
@@ -542,7 +585,8 @@ def ensemble_main(args) -> float:
         C.load_params_for(teacher, args.teacher_path, log)
 
     return _run_ensemble_training(args, log, train_ds, val_ds, num_classes, D, backbone,
-                                  stacked, ens, teacher, gates)
+                                  stacked, ens, teacher, gates,
+                                  label="CCT ensemble" if cct else "ensemble")
 
 
 # ------------------------------------------------------------------ pipeline
@@ -569,7 +613,6 @@ def pipeline_main(args):
     bad = [s for s in selected if s not in PIPELINE_STAGES]
     if bad:
         raise ValueError(f"unknown pipeline stage(s) {bad}; choose from {PIPELINE_STAGES}")
-    C.check_vit_family(args.model)
 
     # --lr/--weight-decay default to None here so an explicit value is
     # distinguishable from unset: stages 2-4 take the generic defaults, the
@@ -676,7 +719,12 @@ def pipeline_main(args):
                 ns(output_dir=ens_dir, sub_model_path=root, manifest=manifest,
                    resume=stage_resume(ens_dir), compact_path=None, ens_path=None,
                    gates_path=None, **ens_overrides))
-    if "deploy" in selected:
+    if "deploy" in selected and C.is_cct(args.model):
+        # ragged compaction (models/compact_vit.py) is ViT-family only; CCT
+        # divisions serve through the gated stacked path
+        log.info("pipeline: deploy (ragged compaction) is ViT-only — "
+                 "skipping for the CCT family")
+    elif "deploy" in selected:
         if done("deploy", "deploy_report.json"):
             log.info("pipeline: deploy artifacts exist - skipping")
         else:
@@ -775,25 +823,28 @@ def convert_main(args):
     """Standalone checkpoint conversion (docs/MIGRATION.md "Checkpoint
     compatibility"): in .pth/.pt (reference-layout ViT state dict), .npz
     (Flax ViT), .msgpack (ours); out .msgpack (the full tree) or .pth/.pt
-    (ViT family: the reference layout). Geometry is read from the file.
-    --ema exports the EMA parameters. CCT state dicts and orbax directories
-    raise (ROADMAP Queue 1 item 7; orbax is not ported)."""
+    (ViT family: the reference layout). Geometry (depth, a CCT's conv
+    stages) is read from the file. --ema exports the EMA parameters. Orbax
+    directories raise (not ported)."""
     from devit_tpu_torch.io.checkpoint import (
         load_flax_npz_vit, load_torch_state_dict, params_to_torch_vit, save_pytree,
-        torch_vit_to_params,
+        torch_cct_to_params, torch_vit_to_params,
     )
 
     src, dst = args.src, args.dst
     if src.endswith((".pth", ".pt")):
         sd = load_torch_state_dict(src)
         if any(k.startswith("classifier.blocks.") for k in sd):
-            raise NotImplementedError(f"{src}: a CCT state dict; the CCT family is not ported "
-                                      f"yet ({C.CCT_ITEM})")
-        if not any(k.startswith("blocks.") for k in sd):
+            L = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("classifier.blocks."))
+            nconv = 1 + max(int(k.split(".")[2]) for k in sd
+                            if k.startswith("tokenizer.conv_layers."))
+            tree = {"params": torch_cct_to_params(sd, num_layers=L, n_conv_layers=nconv)}
+        elif any(k.startswith("blocks.") for k in sd):
+            L = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+            tree = {"params": torch_vit_to_params(sd, depth=L)}
+        else:
             raise ValueError(f"{src}: no blocks.* / classifier.blocks.* keys - not a "
                              "reference-layout ViT/CCT state dict")
-        L = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
-        tree = {"params": torch_vit_to_params(sd, depth=L)}
     elif src.endswith(".npz"):
         w = np.load(src)
         L = 1 + max(int(k.split("encoderblock_")[1].split("/")[0])

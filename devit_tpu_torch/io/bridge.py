@@ -4,8 +4,9 @@ Inputs are the flax parameter trees as nested dicts of arrays (numpy, or
 anything np.asarray takes, or the torch tensors io/checkpoint.py reads for
 bfloat16 leaves); the port copies them as float32, bit for bit.
 
-A VisionTransformer's tree is scan-stacked: every `blocks/*` leaf carries a
-leading depth axis, which the port's `blocks.<i>.*` parameters split. The
+A VisionTransformer's tree (and a CCT's) is scan-stacked: every `blocks/*`
+leaf carries a leading depth axis, which the port's `blocks.<i>.*`
+parameters split. The
 ensemble's division-stacked tree (init_multivit) puts the division axis in
 front of that: a `blocks/*` leaf is (D, depth, ...), the port's stacked
 `blocks.<i>.*` entry (D, ...).
@@ -18,8 +19,9 @@ from typing import Mapping, Union
 import numpy as np
 import torch
 
-from devit_tpu_torch.configs import ViTConfig
+from devit_tpu_torch.configs import CCTConfig, ViTConfig
 from devit_tpu_torch.device import DeviceLike, resolve_device
+from devit_tpu_torch.models.cct import CCT
 from devit_tpu_torch.models.compact_vit import CompactViT, compact_vit_ragged
 from devit_tpu_torch.models.ensemble import EnsMLP
 from devit_tpu_torch.models.vit import Gates, VisionTransformer, map_leaves
@@ -37,7 +39,21 @@ def vit_from_jax_params(params_np: dict, cfg: ViTConfig, *, device: DeviceLike =
                         **model_kw) -> VisionTransformer:
     """A flax VisionTransformer `params` tree -> the port's module (f32, bit
     for bit). `model_kw` goes to VisionTransformer (dtype, use_kernel, ...)."""
-    model = VisionTransformer(cfg, **model_kw)
+    return _load_module(VisionTransformer(cfg, **model_kw), params_np, device)
+
+
+def cct_from_jax_params(params_np: dict, cfg: CCTConfig, *, device: DeviceLike = None,
+                        **model_kw) -> CCT:
+    """A flax CCT `params` tree -> the port's CCT (f32, bit for bit).
+    `model_kw` goes to CCT (dtype). The inverse is vit_to_jax_params, which
+    takes any module with the flax names, and the stacked and `values`
+    converters below serve both families alike."""
+    return _load_module(CCT(cfg, **model_kw), params_np, device)
+
+
+def _load_module(model: torch.nn.Module, params_np: dict, device: DeviceLike):
+    """Copy a scan-stacked flax tree into `model`'s parameters, every leaf
+    used and every parameter filled."""
     names = dict(model.named_parameters())
     seen = set()
     with torch.no_grad():

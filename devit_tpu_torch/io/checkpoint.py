@@ -243,6 +243,65 @@ def resize_pos_embed(pos_embed: np.ndarray, new_seq_len: int,
                            family="ViT")
 
 
+def resize_cct_pos_embed(pos_embed: np.ndarray, new_seq_len: int,
+                         num_prefix_tokens: int = 0) -> np.ndarray:
+    """Bilinear grid resize of a CCT's learnable positional embedding (the
+    reference's helpers.py:26-32 `pe_check`, F.interpolate mode='bilinear';
+    no prefix token under seq-pool, one with a class token), so a 224-px
+    checkpoint lands in a 32-px model resized, not replaced."""
+    return _resize_pe_grid(pos_embed, new_seq_len, num_prefix_tokens, method="linear",
+                           family="CCT")
+
+
+def torch_cct_to_params(sd: Dict[str, np.ndarray], num_layers: int, n_conv_layers: int) -> Dict:
+    """Reference-layout CCT state_dict -> the JAX package's scan-stacked CCT
+    parameter tree (devit_tpu/io/checkpoint.py torch_cct_to_params):
+    tokenizer.conv_layers.{i}.0.weight (O, I, kh, kw) -> tokenizer/conv{i}/
+    kernel (kh, kw, I, O); classifier.blocks.{i}.{pre_norm, self_attn.qkv,
+    self_attn.proj, norm1, linear1, linear2} -> blocks/{pre_norm, qkv, proj,
+    norm1, linear1, linear2} stacked over the layers; classifier.{norm,
+    attention_pool, fc, class_emb, positional_emb} under the same names. A
+    headless checkpoint's 'encoders.' prefix is taken as well."""
+    pre = "classifier." if any(k.startswith("classifier.") for k in sd) else "encoders."
+
+    def lin(name):
+        out = {"kernel": np.transpose(sd[f"{name}.weight"])}
+        if f"{name}.bias" in sd:
+            out["bias"] = sd[f"{name}.bias"]
+        return out
+
+    def ln(name):
+        return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+    def stack(fn):
+        return _stack([fn(i) for i in range(num_layers)])
+
+    params: Dict[str, Any] = {
+        "tokenizer": {f"conv{i}": {"kernel": sd[f"tokenizer.conv_layers.{i}.0.weight"]
+                                   .transpose(2, 3, 1, 0)} for i in range(n_conv_layers)},
+        "blocks": {
+            "pre_norm": stack(lambda i: ln(f"{pre}blocks.{i}.pre_norm")),
+            "qkv": stack(lambda i: lin(f"{pre}blocks.{i}.self_attn.qkv")),
+            "proj": stack(lambda i: lin(f"{pre}blocks.{i}.self_attn.proj")),
+            "norm1": stack(lambda i: ln(f"{pre}blocks.{i}.norm1")),
+            "linear1": stack(lambda i: lin(f"{pre}blocks.{i}.linear1")),
+            "linear2": stack(lambda i: lin(f"{pre}blocks.{i}.linear2")),
+        },
+        "norm": ln(f"{pre}norm"),
+    }
+    if f"{pre}attention_pool.weight" in sd:
+        params["attention_pool"] = lin(f"{pre}attention_pool")
+    if f"{pre}class_emb" in sd:
+        params["class_emb"] = sd[f"{pre}class_emb"]
+    if f"{pre}positional_emb" in sd:
+        params["positional_emb"] = sd[f"{pre}positional_emb"]
+    if f"{pre}fc.weight" in sd:
+        params["fc"] = lin(f"{pre}fc")
+    if "resize.weight" in sd:
+        params["resize"] = lin("resize")
+    return params
+
+
 def load_flax_npz_vit(path: str, depth: int) -> Dict:
     """A Google-Brain Flax .npz ViT checkpoint -> the scan-stacked tree."""
     w = np.load(path)

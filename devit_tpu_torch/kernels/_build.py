@@ -46,17 +46,20 @@ SIGNATURES = {
     # Kp, N, x dtype, out dtype, stream
     "devit_quant_matmul": ([_VP] * 7 + [_LL, _I, _I, _I, _I, _I, _VP], _I),
     # t, norm scale, norm bias, qkv kernel, qkv bias (or NULL), proj kernel,
-    # proj bias, scratch (f32: the LN'd rows; bf16: o), f32 accumulator (or
-    # NULL at bf16), out, B, N, C, H, head_dim, eps, dtype, scale, stream
+    # proj bias, scratch (f32: the LN'd rows; bf16: o; the chunked route:
+    # qkv and o), f32 accumulator (or NULL at bf16 and on the chunked route),
+    # out, B, N, C, H, head_dim, eps, dtype, scale, stream
     "devit_block_attention": ([_VP] * 10 + [_I] * 5 + [_F, _I, _F, _VP], _I),
-    "devit_attention_smem_bytes": ([_I, _I, _I], _LL),
-    # the backwards' queries take the device: whether they walk key chunks
-    # depends on its opt-in shared memory
+    # every query takes the device: which design a launch takes (a whole head
+    # in one block, or key chunks) depends on its opt-in shared memory
+    "devit_attention_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "devit_attention_path": ([_I, _I, _I, _I], _I),
     "devit_attention_bwd_smem_bytes": ([_I, _I, _I, _I], _LL),
     "devit_attention_bwd_dv_smem_bytes": ([_I, _I, _I, _I], _LL),
     "devit_attention_bwd_dqdk_smem_bytes": ([_I, _I, _I, _I], _LL),
     "devit_attention_bwd_long_path": ([_I, _I, _I, _I], _I),
-    "devit_block_attention_smem_bytes": ([_I, _I, _I], _LL),
+    "devit_block_attention_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "devit_block_attention_chunked": ([_I, _I, _I, _I], _I),
     "devit_max_smem_optin": ([_I], _LL),
     "devit_error_string": ([_I], ctypes.c_char_p),
 }

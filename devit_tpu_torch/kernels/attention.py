@@ -18,12 +18,19 @@ cores (see the sources' notes). Every kernel is instantiated for head_dim
 zero-padding each head's q, k, v (and g) to the next instantiation, launching
 with the true head width's scale and slicing the outputs back. Zero columns
 add exact zeros to every logit and product, so the result is the unpadded
-computation. A head_dim past 128 raises a ValueError: both designs hold a
-whole head row in one block. The backwards take any N:
-past 256 keys, or where a block of the monolithic kernel would not fit
-shared memory (head_dim 128 at the larger N), they walk key chunks on the
+computation. A head_dim past 128 runs unpadded on the key-chunked CUDA-core
+kernels (csrc/attn_chunked.cuh), which take any width, in both dtypes.
+
+Every kernel takes any N. The forward picks its design on the C side
+(`attention_path`): past 256 keys the bf16 kernel stages K and V one
+256-key chunk at a time; where the f32 whole-row block would not fit shared
+memory it walks key chunks on the CUDA cores. The backwards, past 256 keys,
+where a block of the monolithic kernel would not fit shared memory
+(head_dim 128 at the larger N) or past head_dim 128, walk key chunks on the
 CUDA cores (csrc/attention_bwd_long.cu), with a (B, H, N, 3) f32 scratch of
-row statistics that the wrapper allocates.
+row statistics that the wrapper allocates. `fused_block_attention` takes a
+chunked route of three launches (LayerNorm + qkv, the forward, proj) where
+its whole-head block would not fit.
 
 `make_trainable_attention` is the differentiable form the training path
 uses: its forward is `fused_attention`, it saves only qkv, and its backward
@@ -55,13 +62,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def kernel_head_dim(dh: int) -> int:
-    """The instantiation a head of width dh runs in: the narrowest of
-    HEAD_DIMS that holds it."""
-    for width in HEAD_DIMS:
-        if dh <= width:
-            return width
-    raise ValueError(f"the CUDA attention kernels take head_dim up to {HEAD_DIMS[-1]}, "
-                     f"got {dh}")
+    """The width a head of width dh runs at: the narrowest of HEAD_DIMS that
+    holds it, or dh itself past them (the key-chunked kernels take any
+    width)."""
+    if dh < 1:
+        raise ValueError(f"head_dim must be positive, got {dh}")
+    return next((width for width in HEAD_DIMS if dh <= width), dh)
 
 
 def logit_scale(dh: int) -> float:
@@ -188,17 +194,28 @@ _SMEM_QUERIES = {"fwd": "devit_attention_smem_bytes", "bwd": "devit_attention_bw
                  "block": "devit_block_attention_smem_bytes"}
 
 
-_BWD_KERNELS = ("bwd", "dv", "dqdk")  # their queries take the device
-
-
 @functools.lru_cache(maxsize=None)
 def _check_smem(kernel: str, N: int, dh: int, elem: int, device: int) -> None:
     """Raise if one block of `kernel` (a key of _SMEM_QUERIES) at sequence
-    length N and head_dim dh does not fit shared memory."""
-    query = getattr(_build.library(), _SMEM_QUERIES[kernel])
-    need = query(N, dh, elem, device) if kernel in _BWD_KERNELS else query(N, dh, elem)
+    length N and head_dim dh does not fit shared memory, on the design the
+    C side picks for `device`."""
+    need = getattr(_build.library(), _SMEM_QUERIES[kernel])(N, dh, elem, device)
     _build.check_smem(need, f"sequence length N={N} at head_dim {dh} in the {kernel} kernel",
                       device)
+
+
+ATTENTION_PATHS = ("whole-row", "key-chunked mma", "key-chunked CUDA cores")
+
+
+def attention_path(N: int, dh: int, dtype: torch.dtype, device: int = 0) -> str:
+    """The design `fused_attention` launches at sequence length N and head
+    width dh (before padding) on CUDA device `device`: one block holds the
+    head's keys; the bf16 tensor-core kernel over 256-key chunks; or the
+    key-chunked CUDA-core kernel (any N, any width)."""
+    code = _build.library().devit_attention_path(N, kernel_head_dim(dh),
+                                                 torch.tensor([], dtype=dtype).element_size(),
+                                                 device)
+    return ATTENTION_PATHS[code]
 
 
 def _check_kernel_input(qkv: torch.Tensor, num_heads: int, kernel: str):
@@ -511,6 +528,8 @@ def _launch_block(t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, p
            for x in [qkv_kernel, proj_kernel] + vecs):
         raise ValueError(f"every operand must be on {t.device}")
     _check_smem("block", N, width, t.element_size(), t.device.index)
+    chunked = bool(_build.library().devit_block_attention_chunked(
+        N, width, t.element_size(), t.device.index))
     if width != dh:  # zero qkv columns and proj rows per head: exact zeros in every product
         qkv_kernel = pad_heads(qkv_kernel[None], 3, num_heads, dh, width)[0]
         proj_kernel = F.pad(proj_kernel.reshape(num_heads, dh, C), (0, 0, 0, width - dh))
@@ -522,7 +541,10 @@ def _launch_block(t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, p
     out = torch.empty_like(t)
     if B == 0:
         return out
-    if t.dtype == torch.bfloat16:  # o of every head, for the proj kernel
+    if chunked:  # qkv and o of every head: (B N, 3 K) then (B N, K)
+        scratch, acc = torch.empty((B, N, 4 * num_heads * width), dtype=t.dtype,
+                                   device=t.device), None
+    elif t.dtype == torch.bfloat16:  # o of every head, for the proj kernel
         scratch, acc = torch.empty((B, N, num_heads * width), dtype=t.dtype,
                                    device=t.device), None
     else:  # the LN'd rows and the f32 residual accumulator
@@ -551,7 +573,9 @@ def fused_block_attention(t: torch.Tensor, norm_scale: torch.Tensor, norm_bias: 
     (see reference_block_attention). CUDA tensor: the kernels in
     csrc/block_attention.cu (one call counted once in
     `fused_block_attention.launches`; bf16 on the tensor cores, two
-    launches), which take the two weight kernels in t's dtype. CPU tensor:
+    launches; where the whole head does not fit one block, or past head_dim
+    128, three: LayerNorm + qkv, the forward's kernels, proj), which take
+    the two weight kernels in t's dtype. CPU tensor:
     `reference_block_attention`."""
     args = (t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias)
     if t.device.type == "cpu":

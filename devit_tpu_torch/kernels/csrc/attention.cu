@@ -63,12 +63,27 @@
 // two products, so no score or probability reaches device memory (~165 KB a
 // block at N = 198). At dh 128, K^T and V of N 198 would not fit beside S
 // (280 KB), so V takes K^T's place once S is formed (~181 KB a block).
+//
+// Past those sizes (kernel_path):
+// - bf16, N > 256 (attn_kchunk_mma): the mma design above with K, and in the
+//   last pass V, staged one 256-key chunk at a time instead of the whole
+//   head: 2 dh (64 + 2 . 256) bytes of shared memory (144 KB at dh 128) at
+//   any N. A block walks its tiles; for each it stages the chunks three
+//   times (row max, sum, p . v) with the same chunk steps, in the same order,
+//   as attn_kernel_mma<16> took over a resident K and V, so it computes the
+//   same bits that kernel did where that kernel fit.
+// - f32 where the whole-row block does not fit shared memory (N > ~281 at
+//   dh 64), and both dtypes at dh > 128 (attn_chunked_kernel): the
+//   key-chunked CUDA-core steps of attn_chunked.cuh, any N and any head
+//   width, q, k and v read kD dims at a time, the output made kT dims a
+//   block. Right, not fast: s is computed three times for each output piece.
 
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "attn_chunked.cuh"
 #include "attn_mma.cuh"
 #include "common.cuh"
 #include "mma_common.cuh"
@@ -313,15 +328,14 @@ attn_kernel_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int
   }
 }
 
-template <int KC, int DH>
-cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, float scale,
-                       cudaStream_t stream) {
-  static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_kernel_mma<KC, DH>, opted_in);
-  if (err != cudaSuccess) return err;
+// The 64-query tiles a bf16 forward block walks (tpb) and its grid: a block
+// walks all of a head's query tiles (K and V staged once) when the heads
+// alone give four blocks an SM; otherwise the tiles are split into runs
+// until they do (at most one tile a block).
+cudaError_t tile_runs(int B, int N, int H, int* tpb, dim3* grid) {
   static std::atomic<int> sms[devit::kMaxDevices];
   int dev = 0;
-  err = cudaGetDevice(&dev);
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (sms[dev].load(std::memory_order_relaxed) == 0) {
     int v = 0;
@@ -329,25 +343,170 @@ cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, float sc
     if (err != cudaSuccess) return err;
     sms[dev].store(v, std::memory_order_relaxed);
   }
-  // A block walks all of a head's query tiles (K and V staged once) when the
-  // heads alone give four blocks an SM; otherwise the tiles are split into
-  // runs until they do (at most one tile a block).
   const int n_tiles = (N + kBQ - 1) / kBQ;
   const long long heads = (long long)B * H, want = 4LL * sms[dev].load();
   const int runs = (int)std::min<long long>(n_tiles, (want + heads - 1) / heads);
-  const int tpb = (n_tiles + runs - 1) / runs;
-  const dim3 grid((unsigned)(B * ((n_tiles + tpb - 1) / tpb)), (unsigned)H);
+  *tpb = (n_tiles + runs - 1) / runs;
+  *grid = dim3((unsigned)(B * ((n_tiles + *tpb - 1) / *tpb)), (unsigned)H);
+  return cudaSuccess;
+}
+
+template <int KC, int DH>
+cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, float scale,
+                       cudaStream_t stream) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)attn_kernel_mma<KC, DH>, opted_in);
+  if (err != cudaSuccess) return err;
+  int tpb = 0;
+  dim3 grid;
+  err = tile_runs(B, N, H, &tpb, &grid);
+  if (err != cudaSuccess) return err;
   attn_kernel_mma<KC, DH><<<grid, kMmaThreads, smem_bytes(N, DH, 2), stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, n_tiles, tpb,
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, (N + kBQ - 1) / kBQ, tpb,
+      scale);
+  return cudaGetLastError();
+}
+
+// ---- bf16 past 256 keys: K and V staged a chunk at a time
+
+constexpr int kLongN = 256;  // keys of a staged chunk; past them the bf16 forward chunks K, V
+
+size_t kchunk_smem_bytes(int head_dim) {
+  // Q [kBQ][dh] | K [kLongN][dh] | V [kLongN][dh], bf16
+  return (size_t)2 * head_dim * (kBQ + 2 * kLongN);
+}
+
+// One block: (batch row, head, a run of tpb 64-query tiles); 4 warps of 16
+// query rows, as attn_kernel_mma. Per tile, the keys come in 256-key chunks,
+// each staged (cp.async, zero-filled to a multiple of 16) before all four
+// warps take it: pass 1 the row max, pass 2 the sum, pass 3 p . v with the
+// chunk's V beside its K.
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+attn_kchunk_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
+                int n_tiles, int tpb, float scale) {
+  constexpr int KC = kLongN / 16;
+  constexpr int kShift = devit::mma::chunk_shift<DH>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // the tile's q rows, then its o rows
+  bf16* Ks = Qs + kBQ * DH;
+  bf16* Vs = Ks + kLongN * DH;
+
+  const int C = H * DH;
+  const int n_runs = (n_tiles + tpb - 1) / tpb;
+  const int t0 = (blockIdx.x % n_runs) * tpb;
+  const int t1 = min(n_tiles, t0 + tpb);
+  const int b = blockIdx.x / n_runs;
+  const int h = blockIdx.y;
+  const int64_t row3 = 3LL * C;
+  const bf16* base = qkv + (int64_t)b * N * row3 + h * DH;
+  bf16* obase = out + (int64_t)b * N * C + h * DH;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp;  // the warp's first row in a tile
+
+  // stage the chunk from key c0 on (K, and V with kv): its keys, and their
+  // count rounded up to 16
+  auto stage = [&](int c0, bool kv, int& len, int& np) {
+    len = min(kLongN, N - c0);
+    np = (len + 15) & ~15;
+    __syncthreads();  // every warp is done with the previous chunk
+    devit::mma::load_rows<DH>(Ks, base + C + (int64_t)c0 * row3, row3, np, len, tid,
+                              kMmaThreads);
+    if (kv)
+      devit::mma::load_rows<DH>(Vs, base + 2 * C + (int64_t)c0 * row3, row3, np, len, tid,
+                                kMmaThreads);
+    devit::mma::cp_async_wait_all();
+    __syncthreads();
+  };
+
+  for (int tile = t0; tile < t1; ++tile) {
+    const int q0 = tile * kBQ;
+    __syncthreads();  // the previous tile's o stores out of Qs are done
+    devit::mma::load_rows<DH>(Qs, base + (int64_t)q0 * row3, row3, kBQ, N - q0, tid,
+                              kMmaThreads);
+    const bool active = q0 + r0 < N;  // some of the warp's 16 rows lie before N
+    uint32_t qa[DH / 16][4];
+    float s[2 * KC][4], o[DH / 8][4];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+    int len, np;
+    for (int c0 = 0; c0 < N; c0 += kLongN) {
+      stage(c0, false, len, np);  // the first also lands the q rows
+      if (!active) continue;
+      if (c0 == 0) {
+#pragma unroll
+        for (int ks = 0; ks < DH / 16; ++ks)
+          ldmatrix_x4(qa[ks], Qs + swz_dh<DH>(r0 + (lane & 15), 2 * ks + (lane >> 4)));
+      }
+      devit::mma::chunk_scores<KC, DH>(s, qa, Ks, 0, len, np, scale, lane);
+      devit::mma::chunk_max<KC>(s, m);
+    }
+    m[0] = devit::mma::quad_max(m[0]);
+    m[1] = devit::mma::quad_max(m[1]);
+    for (int c0 = 0; c0 < N; c0 += kLongN) {
+      stage(c0, false, len, np);
+      if (!active) continue;
+      devit::mma::chunk_scores<KC, DH>(s, qa, Ks, 0, len, np, scale, lane);
+      devit::mma::chunk_exp<KC>(s, m, l);
+    }
+    l[0] = devit::mma::quad_sum(l[0]);
+    l[1] = devit::mma::quad_sum(l[1]);
+    for (int c0 = 0; c0 < N; c0 += kLongN) {
+      stage(c0, true, len, np);
+      if (!active) continue;
+      devit::mma::chunk_scores<KC, DH>(s, qa, Ks, 0, len, np, scale, lane);
+      float unused[2] = {0.f, 0.f};
+      devit::mma::chunk_exp<KC>(s, m, unused);
+      devit::mma::chunk_pv<KC, DH>(o, s, l, Vs, 0, np, lane);
+    }
+    if (!active) continue;
+
+    // o rounded once into the warp's own 16 rows of Qs, then 16-byte stores
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + (lane >> 2) + 8 * half;
+        *reinterpret_cast<uint32_t*>(Qs + swz_dh<DH>(r, t) + 2 * (lane & 3)) =
+            pack_bf16(o[t][2 * half], o[t][2 * half + 1]);
+      }
+    __syncwarp();
+    for (int i = lane; i < 16 * (DH / 8); i += 32) {
+      const int r = i >> kShift, c = i & (DH / 8 - 1);
+      const int n = q0 + r0 + r;
+      if (n < N)
+        *reinterpret_cast<uint4*>(obase + (int64_t)n * C + 8 * c) =
+            *reinterpret_cast<const uint4*>(Qs + swz_dh<DH>(r0 + r, c));
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_kchunk(const void* qkv, void* out, int B, int N, int H, float scale,
+                          cudaStream_t stream) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)attn_kchunk_mma<DH>, opted_in);
+  if (err != cudaSuccess) return err;
+  int tpb = 0;
+  dim3 grid;
+  err = tile_runs(B, N, H, &tpb, &grid);
+  if (err != cudaSuccess) return err;
+  attn_kchunk_mma<DH><<<grid, kMmaThreads, kchunk_smem_bytes(DH), stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, (N + kBQ - 1) / kBQ, tpb,
       scale);
   return cudaGetLastError();
 }
 
 // The fewest score registers that hold the row: N <= 64, 128, 208 (the
-// deployed N = 198), 256; past 256, 256-key chunks.
+// deployed N = 198), 256; past 256, attn_kchunk_mma.
 template <int DH>
 cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, float scale,
                         cudaStream_t s) {
+  if (N > kLongN) return launch_kchunk<DH>(qkv, out, B, N, H, scale, s);
   if (N <= 64) return launch_mma<4, DH>(qkv, out, B, N, H, scale, s);
   if (N <= 128) return launch_mma<8, DH>(qkv, out, B, N, H, scale, s);
   if (N <= 208) return launch_mma<13, DH>(qkv, out, B, N, H, scale, s);
@@ -362,13 +521,116 @@ cudaError_t launch_dh(const void* qkv, void* out, int B, int N, int H, int dtype
   return cudaErrorInvalidValue;
 }
 
+// ---- the key-chunked CUDA-core forward (attn_chunked.cuh): any N, any dh
+
+namespace ch = devit::chunked;
+
+template <typename T>
+size_t chunked_smem_bytes() {
+  // P [kT][kStride] f32 | the score product's two staged pieces | V rows [kT][kStride]
+  return ch::f32_tile_bytes() + ch::stage_bytes<T>() + ch::tile_bytes<T>();
+}
+
+// One block: (batch row, head, 64-query tile, 64-dim piece of the output).
+// Passes 1 and 2 take the rows' max and sum over all keys (ch::row_stats);
+// pass 3 forms each 64-key chunk's p, rounded to T, in shared memory and adds
+// p . v into the piece's accumulators.
+template <typename T>
+__global__ void __launch_bounds__(ch::kThreads)
+attn_chunked_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H, int dh,
+                    int n_tiles, int n_pieces, float scale) {
+  using ch::kStride;
+  using ch::kT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* P = reinterpret_cast<float*>(smem);
+  T* As = reinterpret_cast<T*>(smem + ch::f32_tile_bytes());
+  T* Bs = As + ch::kD * kStride;
+  T* Vs = Bs + ch::kD * kStride;
+
+  const int piece = blockIdx.x % n_pieces;
+  const int tile = (blockIdx.x / n_pieces) % n_tiles;
+  const int b = blockIdx.x / (n_pieces * n_tiles);
+  const int h = blockIdx.y;
+  const int C = H * dh;
+  const int64_t row3 = 3LL * C;
+  const T* base = qkv + (int64_t)b * N * row3 + (int64_t)h * dh;
+  const int q0 = tile * kT, rows = min(kT, N - q0), e0 = piece * kT;
+  const T* q = base + (int64_t)q0 * row3;
+  const int tx = threadIdx.x % 16;
+
+  float m[4], l[4], acc[4][4], o[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+  ch::row_stats(m, l, q, rows, base + C, row3, N, dh, scale, As, Bs);
+  for (int c0 = 0; c0 < N; c0 += kT) {
+    ch::scores(acc, q, row3, rows, base + C + (int64_t)c0 * row3, row3, N - c0, dh, As, Bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        P[ch::row_of(i) * kStride + c] =
+            c0 + c < N ? devit::round_to<T>(expf(acc[i][j] * scale - m[i]) / l[i]) : 0.f;
+      }
+    ch::stage_rows(Vs, base + 2 * C + (int64_t)c0 * row3, row3, N - c0, e0, dh);
+    __syncthreads();
+    ch::rows_times(o, P, Vs);
+    __syncthreads();
+  }
+  ch::store_tile(o, out + ((int64_t)b * N + q0) * C + (int64_t)h * dh, C, rows, e0, dh);
+}
+
+template <typename T>
+cudaError_t launch_chunked(const void* qkv, void* out, int B, int N, int H, int dh, float scale,
+                           cudaStream_t stream) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)attn_chunked_kernel<T>, opted_in);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (N + ch::kT - 1) / ch::kT, n_pieces = (dh + ch::kT - 1) / ch::kT;
+  const dim3 grid((unsigned)((long long)B * n_tiles * n_pieces), (unsigned)H);
+  attn_chunked_kernel<T><<<grid, ch::kThreads, chunked_smem_bytes<T>(), stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), N, H, dh, n_tiles, n_pieces, scale);
+  return cudaGetLastError();
+}
+
+// ---- which design a launch takes
+
+enum Path { kWholeRow = 0, kKeyChunkMma = 1, kKeyChunked = 2 };
+
+// bf16 and dh <= 128: attn_kernel_mma to 256 keys, attn_kchunk_mma past
+// them; f32 and dh <= 128: attn_kernel where its block fits `optin` bytes of
+// shared memory; otherwise (and at every dh > 128) attn_chunked_kernel.
+int kernel_path(int n, int head_dim, int elem, long long optin) {
+  if (head_dim > 128) return kKeyChunked;
+  if (elem == 2) return n > kLongN ? kKeyChunkMma : kWholeRow;
+  return (long long)smem_bytes(n, head_dim, elem) > optin ? kKeyChunked : kWholeRow;
+}
+
+size_t path_smem_bytes(int n, int head_dim, int elem, long long optin) {
+  switch (kernel_path(n, head_dim, elem, optin)) {
+    case kWholeRow: return smem_bytes(n, head_dim, elem);
+    case kKeyChunkMma: return kchunk_smem_bytes(head_dim);
+    default: return elem == 2 ? chunked_smem_bytes<bf16>() : chunked_smem_bytes<float>();
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs at sequence length n.
-long long devit_attention_smem_bytes(int n, int head_dim, int elem_bytes) {
-  return (long long)smem_bytes(n, head_dim, elem_bytes);
+// Dynamic shared memory one block needs at sequence length n on `device`
+// (on the path devit_attention_path picks).
+long long devit_attention_smem_bytes(int n, int head_dim, int elem_bytes, int device) {
+  return (long long)path_smem_bytes(n, head_dim, elem_bytes, devit::device_optin(device));
+}
+
+// The design a forward at (n, head_dim, elem_bytes) takes on `device`: 0 one
+// block holds the head's keys (attn_kernel, attn_kernel_mma), 1 the bf16
+// tensor-core kernel over 256-key chunks, 2 the key-chunked CUDA-core kernel.
+int devit_attention_path(int n, int head_dim, int elem_bytes, int device) {
+  return kernel_path(n, head_dim, elem_bytes, devit::device_optin(device));
 }
 
 // The most dynamic shared memory a block may opt in to on `device`, or -1.
@@ -380,12 +642,20 @@ long long devit_max_smem_optin(int device) {
 }
 
 // qkv: (B, N, 3*H*head_dim) contiguous; out: (B, N, H*head_dim) contiguous.
-// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64 or 128. scale multiplies
-// the logits: head_dim^-0.5, or a narrower head's dh^-0.5 when the caller has
-// zero-padded its heads to head_dim. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 128 or any width past
+// 128. scale multiplies the logits: head_dim^-0.5, or a narrower head's
+// dh^-0.5 when the caller has zero-padded its heads to head_dim. Returns a
+// cudaError_t (0 = launched).
 int devit_fused_attention(const void* qkv, void* out, int B, int N, int H,
                           int head_dim, int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
+  if (kernel_path(N, head_dim, dtype == 1 ? 2 : 4, devit::device_optin(dev)) == kKeyChunked)
+    return (int)(dtype == 0 ? launch_chunked<float>(qkv, out, B, N, H, head_dim, scale, s)
+                            : launch_chunked<bf16>(qkv, out, B, N, H, head_dim, scale, s));
   if (head_dim == 32) return (int)launch_dh<32>(qkv, out, B, N, H, dtype, scale, s);
   if (head_dim == 64) return (int)launch_dh<64>(qkv, out, B, N, H, dtype, scale, s);
   if (head_dim == 128) return (int)launch_dh<128>(qkv, out, B, N, H, dtype, scale, s);

@@ -37,10 +37,20 @@
 // chunk fits beside the score rows; the monolithic wrapper also routes dh
 // 128 here where its short block would not fit shared memory.
 //
+// Head widths past 128 (attn_wide_bwd_rows, attn_wide_bwd_keys): a lane
+// cannot own a whole row's dims in registers, nor a block a chunk's K and V
+// rows, so the same two kernels are written over the any-width CUDA-core
+// steps of attn_chunked.cuh: 64-query tiles, 64-key chunks, each score
+// product staged 32 dims at a time, each output (dq, dk, dv) made 64 dims a
+// block. The rows kernel's every output piece recomputes the statistics; its
+// first piece writes them. The numerics are those above, so the split pair
+// stays bit for bit the monolithic backward.
+//
 // What bounds it: speed past 256 keys is not a target (no training
 // configuration runs there yet). It recomputes s four times (rows<DQ>) and
 // once more per key chunk, on the CUDA cores; chip_smoke.py times it at N 578.
 
+#include "attn_chunked.cuh"
 #include "bwd_common.cuh"
 
 namespace {
@@ -279,10 +289,224 @@ cudaError_t launch_long_t(const void* qkv, const void* g, void* out, long long o
   return launch_keys<T, DH, false, true>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
 }
 
+// ---- head widths past 128 (attn_chunked.cuh's steps)
+
+namespace ch = devit::chunked;
+
+template <typename T>
+size_t wide_rows_smem_bytes() {
+  // ds [kT][kStride] f32 | the score products' staged pieces | K rows of a piece
+  return ch::f32_tile_bytes() + ch::stage_bytes<T>() + ch::tile_bytes<T>();
+}
+
+template <typename T>
+size_t wide_keys_smem_bytes() {
+  // p, ds [kT][kStride] f32 | staged pieces | g and q rows of a piece
+  return 2 * ch::f32_tile_bytes() + ch::stage_bytes<T>() + 2 * ch::tile_bytes<T>();
+}
+
+// Block (batch row, head, 64-query tile, 64-dim piece of dq): the tile's
+// rows' m and l (ch::row_stats) and, with DQ, delta = rowsum(dp * p) and the
+// piece of dq = sum ds K. The first piece writes (m, l, delta) to stats.
+template <typename T, bool DQ>
+__global__ void __launch_bounds__(ch::kThreads)
+attn_wide_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dq,
+                   long long out_stride, float* __restrict__ stats, int N, int H, int dh,
+                   int n_tiles, int n_pieces, float scale) {
+  using ch::kStride;
+  using ch::kT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ds = reinterpret_cast<float*>(smem);
+  T* As = reinterpret_cast<T*>(smem + ch::f32_tile_bytes());
+  T* Bs = As + ch::kD * kStride;
+  T* Ks = Bs + ch::kD * kStride;
+
+  const int piece = blockIdx.x % n_pieces;
+  const int tile = (blockIdx.x / n_pieces) % n_tiles;
+  const int bh = blockIdx.x / (n_pieces * n_tiles);
+  const int b = bh / H, h = bh % H;
+  const int C = H * dh;
+  const int64_t row3 = 3LL * C;
+  const T* base = qkv + (int64_t)b * N * row3 + (int64_t)h * dh;
+  const int q0 = tile * kT, rows = min(kT, N - q0), e0 = piece * kT;
+  const T* q = base + (int64_t)q0 * row3;
+  const T* gq = g + ((int64_t)b * N + q0) * C + (int64_t)h * dh;
+  const int tx = threadIdx.x % 16;
+
+  float m[4], l[4], rs[4] = {0.f, 0.f, 0.f, 0.f};
+  ch::row_stats(m, l, q, rows, base + C, row3, N, dh, scale, As, Bs);
+  if (DQ) {
+    float s[4][4], dp[4][4], acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int pass = 0; pass < 2; ++pass) {  // delta, then dq
+      for (int c0 = 0; c0 < N; c0 += kT) {
+        const T* k = base + C + (int64_t)c0 * row3;
+        ch::scores(s, q, row3, rows, k, row3, N - c0, dh, As, Bs);
+        ch::scores(dp, gq, C, rows, k + C, row3, N - c0, dh, As, Bs);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = tx + 16 * j;
+            const bool in = c0 + c < N;
+            const float p = in ? expf(s[i][j] * scale - m[i]) / l[i] : 0.f;
+            if (pass == 0)
+              rs[i] = fmaf(dp[i][j], p, rs[i]);
+            else
+              Ds[ch::row_of(i) * kStride + c] =
+                  in ? round_to<T>((p * (dp[i][j] - rs[i])) * scale) : 0.f;
+          }
+        if (pass == 0) continue;
+        ch::stage_rows(Ks, k, row3, N - c0, e0, dh);
+        __syncthreads();
+        ch::rows_times(acc, Ds, Ks);
+        __syncthreads();
+      }
+      if (pass == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) rs[i] = ch::row_sum(rs[i]);
+      }
+    }
+    ch::store_tile(acc, dq + ((int64_t)b * N + q0) * out_stride + (int64_t)h * dh, out_stride,
+                   rows, e0, dh);
+  }
+  if (piece == 0 && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ch::row_of(i);
+      if (r >= rows) continue;
+      float* st = stats + ((int64_t)bh * N + q0 + r) * 3;
+      st[0] = m[i];
+      st[1] = l[i];
+      st[2] = rs[i];
+    }
+  }
+}
+
+// Block (batch row, head, 64-key chunk, 64-dim piece): that piece of dk (DK)
+// and dv (DV) of the chunk's keys, summed over every query tile with p (and
+// ds) formed from the statistics.
+template <typename T, bool DK, bool DV>
+__global__ void __launch_bounds__(ch::kThreads)
+attn_wide_bwd_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ out,
+                   long long out_stride, const float* __restrict__ stats, int N, int H, int dh,
+                   int n_chunks, int n_pieces, float scale) {
+  using ch::kStride;
+  using ch::kT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* P = reinterpret_cast<float*>(smem);
+  float* D = P + kT * kStride;
+  T* As = reinterpret_cast<T*>(smem + 2 * ch::f32_tile_bytes());
+  T* Bs = As + ch::kD * kStride;
+  T* Gs = Bs + ch::kD * kStride;
+  T* Qs = Gs + kT * kStride;
+
+  const int piece = blockIdx.x % n_pieces;
+  const int chunk = (blockIdx.x / n_pieces) % n_chunks;
+  const int bh = blockIdx.x / (n_pieces * n_chunks);
+  const int b = bh / H, h = bh % H;
+  const int C = H * dh;
+  const int64_t row3 = 3LL * C;
+  const T* base = qkv + (int64_t)b * N * row3 + (int64_t)h * dh;
+  const T* gbase = g + (int64_t)b * N * C + (int64_t)h * dh;
+  const int c0 = chunk * kT, len = min(kT, N - c0), e0 = piece * kT;
+  const T* k = base + C + (int64_t)c0 * row3;
+  const int tx = threadIdx.x % 16;
+
+  float s[4][4], dp[4][4], dk[4][4], dv[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
+  for (int q0 = 0; q0 < N; q0 += kT) {
+    const int rows = min(kT, N - q0);
+    const T* q = base + (int64_t)q0 * row3;
+    const T* gq = gbase + (int64_t)q0 * C;
+    ch::scores(s, q, row3, rows, k, row3, len, dh, As, Bs);
+    if (DK) ch::scores(dp, gq, C, rows, k + C, row3, len, dh, As, Bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ch::row_of(i);
+      float mi = 0.f, li = 1.f, ri = 0.f;
+      if (r < rows) {
+        const float* st = stats + ((int64_t)bh * N + q0 + r) * 3;
+        mi = st[0];
+        li = st[1];
+        ri = st[2];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool in = r < rows && c < len;
+        const float p = in ? expf(s[i][j] * scale - mi) / li : 0.f;
+        P[r * kStride + c] = p;
+        if (DK) D[r * kStride + c] = in ? round_to<T>((p * (dp[i][j] - ri)) * scale) : 0.f;
+      }
+    }
+    if (DV) ch::stage_rows(Gs, gq, C, rows, e0, dh);
+    if (DK) ch::stage_rows(Qs, q, row3, rows, e0, dh);
+    __syncthreads();
+    if (DV) ch::cols_times<T, true>(dv, P, Gs);
+    if (DK) ch::cols_times<T, false>(dk, D, Qs);
+    __syncthreads();
+  }
+  T* obase = out + ((int64_t)b * N + c0) * out_stride + (int64_t)h * dh;
+  if (DK) ch::store_tile(dk, obase + C, out_stride, len, e0, dh);
+  if (DV) ch::store_tile(dv, obase + (DK ? 2 * C : 0), out_stride, len, e0, dh);
+}
+
+// Launches kernel `fn` on `grid` blocks of ch::kThreads with `smem` bytes,
+// after its opt-in to the device's whole shared memory (`opted`, the
+// kernel's own flags).
+template <typename K, typename... A>
+cudaError_t launch_wide_kernel(K fn, std::atomic<bool>* opted, unsigned grid, size_t smem,
+                               cudaStream_t s, A... args) {
+  cudaError_t err = devit::opt_in_smem((const void*)fn, opted);
+  if (err != cudaSuccess) return err;
+  fn<<<grid, ch::kThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* qkv, const void* g, void* out, long long out_stride,
+                        float* stats, int B, int N, int H, int dh, bool dqdk, bool dv,
+                        float scale, cudaStream_t s) {
+  static std::atomic<bool> opted[5][devit::kMaxDevices];
+  const T* x = static_cast<const T*>(qkv);
+  const T* gt = static_cast<const T*>(g);
+  T* o = static_cast<T*>(out);
+  const long long bh = (long long)B * H;
+  const int tiles = (N + ch::kT - 1) / ch::kT, pieces = (dh + ch::kT - 1) / ch::kT;
+  const size_t rows_smem = wide_rows_smem_bytes<T>(), keys_smem = wide_keys_smem_bytes<T>();
+  cudaError_t err =
+      dqdk ? launch_wide_kernel(attn_wide_bwd_rows<T, true>, opted[0],
+                                (unsigned)(bh * tiles * pieces), rows_smem, s, x, gt, o,
+                                out_stride, stats, N, H, dh, tiles, pieces, scale)
+           : launch_wide_kernel(attn_wide_bwd_rows<T, false>, opted[1], (unsigned)(bh * tiles),
+                                rows_smem, s, x, gt, o, out_stride, stats, N, H, dh, tiles, 1,
+                                scale);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)(bh * tiles * pieces);
+  const float* st = stats;
+  if (dqdk && dv)
+    return launch_wide_kernel(attn_wide_bwd_keys<T, true, true>, opted[2], grid, keys_smem, s,
+                              x, gt, o, out_stride, st, N, H, dh, tiles, pieces, scale);
+  if (dqdk)
+    return launch_wide_kernel(attn_wide_bwd_keys<T, true, false>, opted[3], grid, keys_smem, s,
+                              x, gt, o, out_stride, st, N, H, dh, tiles, pieces, scale);
+  return launch_wide_kernel(attn_wide_bwd_keys<T, false, true>, opted[4], grid, keys_smem, s, x,
+                            gt, o, out_stride, st, N, H, dh, tiles, pieces, scale);
+}
+
 template <typename T>
 cudaError_t launch_long_dh(const void* qkv, const void* g, void* out, long long out_stride,
                            float* stats, int B, int N, int H, int head_dim, bool dqdk, bool dv,
                            float scale, cudaStream_t s) {
+  if (head_dim > 128)
+    return launch_wide<T>(qkv, g, out, out_stride, stats, B, N, H, head_dim, dqdk, dv, scale, s);
   if (head_dim == 32)
     return launch_long_t<T, 32>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
   if (head_dim == 64)
@@ -298,6 +522,8 @@ namespace devit {
 namespace bwd {
 
 size_t long_smem_bytes(int dh, int elem) {
+  if (dh > 128)  // the keys kernel's, the larger of the two
+    return elem == 2 ? wide_keys_smem_bytes<__nv_bfloat16>() : wide_keys_smem_bytes<float>();
   const int chunk = long_chunk(dh);
   return elem == 2 ? dqdk_smem_bytes<__nv_bfloat16>(chunk, dh) : dqdk_smem_bytes<float>(chunk, dh);
 }

@@ -217,7 +217,8 @@ cudaError_t launch_short(const void* qkv, const void* g, void* out, long long ou
 template <bool DV>
 int launch_half(const void* qkv, const void* g, void* out, long long out_stride, void* stats,
                 int B, int N, int H, int head_dim, int dtype, float scale, cudaStream_t s) {
-  if (head_dim != 32 && head_dim != 64 && head_dim != 128) return (int)cudaErrorInvalidValue;
+  if (head_dim <= 128 && head_dim != 32 && head_dim != 64 && head_dim != 128)
+    return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   int dev = 0;
   const cudaError_t derr = cudaGetDevice(&dev);
@@ -257,7 +258,8 @@ long long devit_attention_bwd_dqdk_smem_bytes(int n, int head_dim, int elem_byte
 }
 
 // qkv: (B, N, 3*H*head_dim), g: (B, N, H*head_dim), contiguous, one dtype
-// (0 = float32, 1 = bfloat16), head_dim 32, 64 or 128. dv: token n of batch
+// (0 = float32, 1 = bfloat16), head_dim 32, 64, 128 or any width past 128.
+// dv: token n of batch
 // row b starts at dv + (b * N + n) * out_stride and takes H*head_dim
 // elements. stats: B*H*N*3 floats of scratch, used (and needed) only where
 // devit_attention_bwd_long_path says so. scale: as devit_fused_attention's.

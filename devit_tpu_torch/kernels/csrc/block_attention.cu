@@ -69,7 +69,19 @@
 // f32 accumulators would not fit its registers), and the proj kernel takes
 // o and proj in 64-row chunks of K = H dh (at dh 32 and an odd H the last
 // chunk is zero-filled past K). At f32, dh 128 fits shared memory up to N
-// 108 (Qt, Kt and V of the head in f32); the wrapper raises past it.
+// 108 (Qt, Kt and V of the head in f32).
+//
+// The chunked route (use_chunked): where a block above would not fit shared
+// memory (the whole head staged: bf16 past N ~ 420 at dh 64, f32 past N ~
+// 250 at dh 64 or 108 at dh 128) and at every head width past 128, the
+// same computation runs as three launches over scratch the wrapper
+// allocates, (B N, 4 K) of t's dtype: block_gemm_kernel<LN> forms qkv =
+// round(LayerNorm(t) . W + b) (statistics in f32, h rounded), the forward's
+// kernels (attention.cu, which chunk the keys: attn_kchunk_mma at bf16 past
+// 256 keys, attn_chunked_kernel otherwise) give o, rounded, and
+// block_gemm_kernel<!LN> adds o . proj onto t in f32, then proj_bias, one
+// rounding. The GEMMs run f32 FMAs on the CUDA cores (T products are exact
+// in f32): right, not fast.
 
 #include <math.h>
 #include <stdint.h>
@@ -77,6 +89,11 @@
 #include "attn_mma.cuh"
 #include "common.cuh"
 #include "mma_common.cuh"
+
+// The forward's entries (attention.cu), which the chunked route launches.
+extern "C" int devit_fused_attention(const void* qkv, void* out, int B, int N, int H,
+                                     int head_dim, int dtype, float scale, void* stream);
+extern "C" long long devit_attention_smem_bytes(int n, int head_dim, int elem_bytes, int device);
 
 namespace {
 
@@ -723,6 +740,150 @@ cudaError_t launch_bf16(const void* t, const float* ns, const float* nb, const v
   return launch_proj<false>(tt, ob, pwt, pb, outt, M, C, K, s);
 }
 
+// ---- the chunked route: LN + qkv, the forward's kernels, proj
+
+constexpr int kGT = 64;         // output rows and columns of a block_gemm_kernel block
+constexpr int kGK = 32;         // depth of its staged chunks
+constexpr int kGStride = kGT + 1;
+
+size_t gemm_smem_bytes() {
+  // A^T [kGK][kGStride] | W [kGK][kGStride] | mean, rstd [kGT], f32
+  return sizeof(float) * (2 * kGK * kGStride + 2 * kGT);
+}
+
+// out[m][n] = round(init + sum_k a[m][k] w[k][n] + bias[n]), m < M, n < Nc,
+// for (M, Kd) rows a and a (Kd, Nc) weight w. LN: a is t and its rows enter
+// as round(LayerNorm(a)) (the two-pass f32 statistics, then (a - mean) rstd
+// ns + nb), init 0: the qkv product. Otherwise init = t[m][n] (width Nc):
+// the proj product onto the residual. bias may be null. One block a 64 x 64
+// output tile, 16 column lanes x 16 row groups of 4.
+template <typename T, bool LN>
+__global__ void __launch_bounds__(kThreads)
+block_gemm_kernel(const T* __restrict__ a, const T* __restrict__ t, const float* __restrict__ ns,
+                  const float* __restrict__ nb, const T* __restrict__ w,
+                  const float* __restrict__ bias, T* __restrict__ out, long long M, int Kd,
+                  int Nc, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Ws = As + kGK * kGStride;
+  float* mean = Ws + kGK * kGStride;
+  float* rstd = mean + kGT;
+  const int col_tiles = (Nc + kGT - 1) / kGT;
+  const long long m0 = (long long)(blockIdx.x / col_tiles) * kGT;
+  const int n0 = (blockIdx.x % col_tiles) * kGT;
+  const int rows = (int)(M - m0 < kGT ? M - m0 : kGT);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  if (LN) {  // 4 lanes a row
+    const int r = tid / 4, sub = tid % 4;
+    const T* row = a + (m0 + r) * Kd;
+    float sum = 0.f, sq = 0.f;
+    if (r < rows)
+      for (int k = sub; k < Kd; k += 4) sum += to_f(row[k]);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float mu = sum / Kd;
+    if (r < rows)
+      for (int k = sub; k < Kd; k += 4) {
+        const float d = to_f(row[k]) - mu;
+        sq = fmaf(d, d, sq);
+      }
+    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    if (sub == 0) {
+      mean[r] = mu;
+      rstd[r] = rsqrtf(sq / Kd + eps);
+    }
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < Kd; k0 += kGK) {
+    __syncthreads();  // the statistics are in; the previous chunk's readers are done
+    for (int i = tid; i < kGT * kGK; i += kThreads) {
+      const int r = i / kGK, k = i % kGK;
+      float v = 0.f;
+      if (r < rows && k0 + k < Kd) {
+        v = to_f(a[(m0 + r) * Kd + k0 + k]);
+        if (LN) v = devit::round_to<T>((v - mean[r]) * rstd[r] * ns[k0 + k] + nb[k0 + k]);
+      }
+      As[k * kGStride + r] = v;
+    }
+    for (int i = tid; i < kGK * kGT; i += kThreads) {
+      const int k = i / kGT, c = i % kGT;
+      Ws[k * kGStride + c] =
+          k0 + k < Kd && n0 + c < Nc ? to_f(w[(int64_t)(k0 + k) * Nc + n0 + c]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kGK; ++k) {
+      float av[4], wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[k * kGStride + 4 * ty + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = Ws[k * kGStride + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + tx + 16 * j;
+      if (c >= Nc) continue;
+      const int64_t at = (m0 + r) * Nc + c;
+      float v = LN ? acc[i][j] : to_f(t[at]) + acc[i][j];
+      if (bias != nullptr) v += bias[c];
+      out[at] = from_f<T>(v);
+    }
+  }
+}
+
+template <typename T, bool LN>
+cudaError_t launch_gemm(const T* a, const T* t, const float* ns, const float* nb, const T* w,
+                        const float* bias, T* out, long long M, int Kd, int Nc, float eps,
+                        cudaStream_t s) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)block_gemm_kernel<T, LN>, opted_in);
+  if (err != cudaSuccess) return err;
+  const long long blocks = ((M + kGT - 1) / kGT) * ((Nc + kGT - 1) / kGT);
+  block_gemm_kernel<T, LN><<<(unsigned)blocks, kThreads, gemm_smem_bytes(), s>>>(
+      a, t, ns, nb, w, bias, out, M, Kd, Nc, eps);
+  return cudaGetLastError();
+}
+
+// Whether the block half takes the chunked route at (n, head_dim, elem
+// bytes) on a device that lets a block opt in to `optin` bytes.
+bool use_chunked(int n, int dh, int elem, long long optin) {
+  if (dh > 128) return true;
+  const size_t need = elem == 2 ? mma_smem_bytes(n, dh) : smem_bytes(n, dh, elem);
+  return (long long)need > optin;
+}
+
+template <typename T>
+cudaError_t launch_chunked(const void* t, const float* const (&f)[4], const void* qw,
+                           const void* pw, void* scratch, void* out, int B, int N, int C, int H,
+                           int dh, float eps, int dtype, float scale, cudaStream_t s) {
+  const long long M = (long long)B * N;
+  const int K = H * dh;
+  const T* tt = static_cast<const T*>(t);
+  T* qkv = static_cast<T*>(scratch);
+  T* o = qkv + M * 3 * K;
+  cudaError_t err = launch_gemm<T, true>(tt, nullptr, f[0], f[1], static_cast<const T*>(qw),
+                                         f[2], qkv, M, C, 3 * K, eps, s);
+  if (err != cudaSuccess) return err;
+  err = (cudaError_t)devit_fused_attention(qkv, o, B, N, H, dh, dtype, scale, s);
+  if (err != cudaSuccess) return err;
+  return launch_gemm<T, false>(o, tt, nullptr, nullptr, static_cast<const T*>(pw), f[3],
+                               static_cast<T*>(out), M, K, C, eps, s);
+}
+
 template <int DH>
 cudaError_t launch_dh(const void* t, const float* const (&f)[4], const void* qw, const void* pw,
                       void* scratch, void* acc, void* out, int B, int N, int C, int H, float eps,
@@ -740,20 +901,34 @@ cudaError_t launch_dh(const void* t, const float* const (&f)[4], const void* qw,
 
 extern "C" {
 
-// Dynamic shared memory one block needs at sequence length n (bf16: the
-// larger of the two kernels' needs).
-long long devit_block_attention_smem_bytes(int n, int head_dim, int elem_bytes) {
+// Dynamic shared memory one block needs at sequence length n on `device`
+// (bf16: the larger of the two kernels' needs; the chunked route: the
+// largest of its launches').
+long long devit_block_attention_smem_bytes(int n, int head_dim, int elem_bytes, int device) {
+  if (use_chunked(n, head_dim, elem_bytes, devit::device_optin(device))) {
+    const long long attn = devit_attention_smem_bytes(n, head_dim, elem_bytes, device);
+    const long long gemm = (long long)gemm_smem_bytes();
+    return attn > gemm ? attn : gemm;
+  }
   return (long long)(elem_bytes == 2 ? mma_smem_bytes(n, head_dim)
                                      : smem_bytes(n, head_dim, elem_bytes));
+}
+
+// 1 when the block half takes the chunked route at (n, head_dim,
+// elem_bytes) on `device`, and so needs the (B N, 4 H head_dim) scratch.
+int devit_block_attention_chunked(int n, int head_dim, int elem_bytes, int device) {
+  return use_chunked(n, head_dim, elem_bytes, devit::device_optin(device)) ? 1 : 0;
 }
 
 // t, out: (B, N, C) contiguous of the dtype; qkv_kernel (C, 3 H head_dim)
 // and proj_kernel (H head_dim, C) contiguous of the dtype; norm scale/bias,
 // proj bias (C,) and qkv bias (3 H head_dim,) or NULL, f32. Scratch: f32,
 // `scratch` (B, N, C) f32 for the LN'd rows and `acc` (B, N, C) f32; bf16,
-// `scratch` (B, N, H head_dim) bf16 for o and `acc` unused. C must be a
-// multiple of 32, and the bf16 operands 16-byte aligned; head_dim 32, 64 or
-// 128. dtype: 0 = float32, 1 = bfloat16. scale: as devit_fused_attention's.
+// `scratch` (B, N, H head_dim) bf16 for o and `acc` unused; on the chunked
+// route (devit_block_attention_chunked), `scratch` (B, N, 4 H head_dim) of
+// the dtype and `acc` unused. C must be a multiple of 32, and the bf16
+// operands 16-byte aligned; head_dim 32, 64, 128 or any width past 128.
+// dtype: 0 = float32, 1 = bfloat16. scale: as devit_fused_attention's.
 // Returns a cudaError_t (0 = launched).
 int devit_block_attention(const void* t, const void* ns, const void* nb, const void* qw,
                           const void* qb, const void* pw, const void* pb, void* scratch,
@@ -761,8 +936,17 @@ int devit_block_attention(const void* t, const void* ns, const void* nb, const v
                           float eps, int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C % 32 != 0 || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const float* const f[4] = {static_cast<const float*>(ns), static_cast<const float*>(nb),
                              static_cast<const float*>(qb), static_cast<const float*>(pb)};
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
+  if (use_chunked(N, head_dim, dtype == 1 ? 2 : 4, devit::device_optin(dev)))
+    return (int)(dtype == 0 ? launch_chunked<float>(t, f, qw, pw, scratch, out, B, N, C, H,
+                                                    head_dim, eps, dtype, scale, s)
+                            : launch_chunked<bf16>(t, f, qw, pw, scratch, out, B, N, C, H,
+                                                   head_dim, eps, dtype, scale, s));
   if (head_dim == 32)
     return (int)launch_dh<32>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, scale, s);
   if (head_dim == 64)

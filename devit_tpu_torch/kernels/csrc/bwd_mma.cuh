@@ -83,10 +83,11 @@ size_t mma_smem_bytes(int n, int dh) {
 // Whether every backward (the monolithic kernel and both split kernels) walks
 // key chunks (attention_bwd_long.cu) at (n, dh, elem bytes) on a device that
 // lets a block opt in to `optin` bytes of shared memory: past kShortN keys,
-// or where a block of the monolithic kernel would not fit. One rule for all
-// three keeps the split pair bit for bit equal to the monolithic kernel.
+// or where a block of the monolithic kernel would not fit, and at every head
+// width past 128. One rule for all three keeps the split pair bit for bit
+// equal to the monolithic kernel.
 inline bool use_long_path(int n, int dh, int elem, long long optin) {
-  if (n > kShortN) return true;
+  if (n > kShortN || dh > 128) return true;
   const size_t need = elem == 2 ? mma_smem_bytes<true, true>(n, dh)
                                 : dqdk_smem_bytes<float>(n, dh);
   return (long long)need > optin;

@@ -5,15 +5,16 @@ from devit_tpu_torch.configs import VIT_CONFIGS
 
 
 def create_model(name: str, **overrides):
-    """A registered ViT/DeiT backbone by name (models/vit.py create_vit's
-    keywords). The CCT family raises: it waits for ROADMAP Queue 1 item 7."""
+    """A registered backbone by name: a ViT/DeiT (models/vit.py create_vit's
+    keywords) or a CCT ('cct_*', 'decct_*'; models/cct.py create_cct's)."""
     if name in VIT_CONFIGS:
         from devit_tpu_torch.models.vit import create_vit
 
         return create_vit(name, **overrides)
     if name.startswith("cct") or name.startswith("decct"):
-        raise NotImplementedError(
-            f"{name!r}: the CCT family is not ported yet (ROADMAP Queue 1 item 7)")
+        from devit_tpu_torch.models.cct import create_cct
+
+        return create_cct(name, **overrides)
     raise KeyError(f"unknown model {name!r}")
 
 

@@ -1,6 +1,7 @@
 """Collaborative-inference ensemble: stacked division backbones and the
-token-fusion head (counterpart of devit_tpu/models/ensemble.py:35-168 and
-:235-253).
+token-fusion head (counterpart of devit_tpu/models/ensemble.py), for the
+ViT family (MultiViT + EnsMLP) and the CCT family (`multicct_features`,
+`EnsembleCCT`: one pooled token a division).
 
 The D divisions keep the JAX layout: one {parameter name: (D, ...) tensor}
 dict, the port's names with a leading division axis (`stack_division_params`,
@@ -199,3 +200,60 @@ def ensemble_forward(model: VisionTransformer, ens_model: EnsMLP,
     if ens_params is None:
         return ens_model(cls_t, dist_t, **kw)
     return functional_call(ens_model, dict(ens_params), (cls_t, dist_t), kw)
+
+
+def multicct_features(model, stacked_params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                      stacked_gates: Optional[Gates] = None, *, train: bool = False,
+                      generators: Optional[Sequence[torch.Generator]] = None) -> torch.Tensor:
+    """All-division CCT backbone forward -> pooled features (D, B, C)
+    (MultiCCT, ensemble_models.py:93-113): division d runs `model` (a CCT
+    backbone) on stacked_params[k][d] with stacked_gates[d] (full gates if
+    None). train=True enables the backbones' dropout and drop-path, one
+    generator a division (the JAX package splits one key per division)."""
+    D = next(iter(stacked_params.values())).shape[0]
+    if train and (generators is None or len(generators) != D):
+        raise ValueError("multicct_features(train=True) needs one generator a division for "
+                         "the backbones' dropout/drop-path draws")
+    feats = []
+    for d in range(D):
+        gates = (full_gates(model.cfg, device=x.device) if stacked_gates is None
+                 else Gates(head=stacked_gates.head[d], neuron=stacked_gates.neuron[d]))
+        out = functional_call(model, {k: v[d] for k, v in stacked_params.items()}, (x,),
+                              dict(gates=gates, train=train,
+                                   generator=generators[d] if train else None))
+        feats.append(out.pooled)
+    return torch.stack(feats)
+
+
+class EnsembleCCT(nn.Module):
+    """CCT fusion head (ensemble_models.py:116-151): the division tokens (D,
+    B, C) concatenated division-major, projected to teacher_size where set
+    (cls_mlp), then classified (cls_classifier). Structurally EnsMLP's 'vit'
+    path, kept as its own class for name parity."""
+
+    def __init__(self, num_classes: int = 100, sub_size: int = 256, num_divisions: int = 4,
+                 teacher_size: Optional[int] = None, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_classes = num_classes
+        self.sub_size = sub_size
+        self.num_divisions = num_divisions
+        self.teacher_size = teacher_size
+        self.dtype = dtype
+        fused = num_divisions * sub_size
+        if teacher_size is not None:
+            self.cls_mlp = Dense(fused, teacher_size)
+        self.cls_classifier = Dense(teacher_size if teacher_size is not None else fused,
+                                    num_classes)
+
+    reset_parameters = EnsMLP.reset_parameters
+    load_params = EnsMLP.load_params
+
+    def forward(self, features: torch.Tensor, *, distill: bool = False,
+                train: bool = False) -> EnsOutput:
+        D, B, C = features.shape
+        fused = features.transpose(0, 1).reshape(B, D * C).to(self.dtype)
+        if self.teacher_size is not None:
+            fused = self.cls_mlp(fused, self.dtype)
+        logits = self.cls_classifier(fused, self.dtype).float()
+        tokens = fused if distill and train and self.teacher_size is not None else None
+        return EnsOutput(logits=logits, cls_logits=logits, ens_tokens=tokens)

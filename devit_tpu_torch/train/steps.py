@@ -1,7 +1,9 @@
-"""Train and eval steps (counterpart of devit_tpu/train/steps.py:38-317):
+"""Train and eval steps (counterpart of devit_tpu/train/steps.py):
 eval_counters, make_eval_step, the stage-2 sub-model step, the stage-4 DEKD
 step and the stage-5 ensemble train and eval steps, with every distillation
-mode. The CCT ensemble steps come with their slice.
+mode, for the ViT family and (stage 5) the CCT family. The stage-2, DEKD
+and eval steps take a CCT student or teacher unchanged (CCTOutput has the
+cls_logits, dist_logits and last_tokens they read).
 
 `variables` arguments are None (the module's own parameters) or a
 {parameter name: tensor} dict run through torch.func.functional_call (for
@@ -16,7 +18,7 @@ import torch
 from torch.func import functional_call
 
 from devit_tpu_torch.data.mixup import MixupConfig, mixup_cutmix
-from devit_tpu_torch.models.ensemble import EnsMLP, multivit_features
+from devit_tpu_torch.models.ensemble import EnsMLP, multicct_features, multivit_features
 from devit_tpu_torch.models.vit import Gates, VisionTransformer
 from devit_tpu_torch.train import losses as L
 from devit_tpu_torch.train.state import TrainState
@@ -292,6 +294,99 @@ def make_ensemble_eval_step(backbone: VisionTransformer, ens_model: EnsMLP):
         cls_t, dist_t = multivit_features(backbone, stacked_params, images,
                                           _on(stacked_gates, dev))
         out = _apply(ens_model, ens_variables, cls_t, dist_t)
+        return eval_counters(out.logits, labels)
+
+    return step
+
+
+# ---- stage 5, the CCT family
+
+
+def make_cct_ensemble_train_step(
+    backbone,
+    ens_model,
+    teacher=None,
+    *,
+    mixup: Optional[MixupConfig] = None,
+    smoothing: float = 0.1,
+    distillation_type: str = "none",
+    distillation_alpha: float = 0.5,
+    distillation_tau: float = 1.0,
+    token_loss_type: str = "mse",
+):
+    """CCT collaborative-ensemble step (MultiCCT + EnsembleCCT,
+    ensemble_models.py:93-151): one pooled token a division, the 'vit'
+    EnsLoss (one token, one classifier), one backward through both, two
+    optimizers as make_ensemble_train_step.
+
+    step(backbone_state, ens_state, teacher_variables, stacked_gates, images,
+    labels, generator) -> (backbone_state, ens_state, metrics): `generator`
+    draws the mixup parameters, then one seed a division for that division's
+    dropout and drop-path generator."""
+    if distillation_type != "none":
+        from devit_tpu_torch.models.cct import CCT
+
+        if teacher is None:
+            raise ValueError(f"distillation_type={distillation_type!r} requires a teacher "
+                             "model (--teacher-path)")
+        if not isinstance(teacher, CCT):
+            # the token loss reads the teacher's pooled feature, which a ViT
+            # teacher (the CLI default) does not have
+            raise ValueError("CCT ensemble distillation requires a CCT teacher "
+                             f"(--teacher-model cct_*); got {type(teacher).__name__}")
+        if getattr(ens_model, "teacher_size", None) is None:
+            raise ValueError("ensemble distillation requires EnsembleCCT(teacher_size=...) "
+                             "so the fused token is projected for the token loss")
+    mixup_active = mixup is not None and mixup.active
+    base_criterion = L.make_base_criterion(mixup_active, smoothing)
+
+    def step(backbone_state: TrainState, ens_state: TrainState, teacher_variables,
+             stacked_gates: Optional[Gates], images: torch.Tensor, labels: torch.Tensor,
+             generator: torch.Generator):
+        images_m, targets = _mix(mixup_active, mixup, generator, images, labels)
+        D = next(iter(backbone_state.params.values())).shape[0]
+        seeds = torch.randint(0, 2 ** 62, (D,), generator=generator,
+                              device=generator.device).tolist()
+        gens = [torch.Generator(device=generator.device).manual_seed(s) for s in seeds]
+        tea_logits = tea_token = None
+        if distillation_type != "none":
+            with torch.no_grad():
+                t_out = _apply(teacher, teacher_variables, images_m)
+            tea_logits, tea_token = t_out.logits, t_out.pooled
+
+        feats = multicct_features(backbone, backbone_state.params, images_m,
+                                  _on(stacked_gates, images_m.device), train=True,
+                                  generators=gens)
+        ens_out = ens_model(feats, distill=True, train=True)
+        if distillation_type == "none":
+            loss = base_criterion(ens_out.logits, targets)
+            metrics = {"loss": loss}
+        else:
+            token_loss, cls_loss = L.ens_loss(
+                ens_out.ens_tokens, ens_out.logits, tea_token, tea_logits, targets,
+                base_criterion, model_family="vit", distillation_type=distillation_type,
+                alpha=distillation_alpha, tau=distillation_tau, token_loss_type=token_loss_type)
+            loss = token_loss + cls_loss
+            metrics = {"loss": loss, "token_loss": token_loss, "cls_loss": cls_loss}
+        bb_grads, ens_grads = _grads(loss, [backbone_state, ens_state])
+        backbone_state.apply_gradients(bb_grads)
+        ens_state.apply_gradients(ens_grads)
+        return backbone_state, ens_state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_cct_ensemble_eval_step(backbone, ens_model):
+    """step(stacked_params, ens_variables, stacked_gates, images, labels) ->
+    summed counters of the CCT ensemble."""
+
+    @torch.no_grad()
+    def step(stacked_params, ens_variables, stacked_gates: Optional[Gates], images, labels):
+        dev = _device_of(ens_model)
+        images = torch.as_tensor(images, device=dev)
+        labels = torch.as_tensor(labels, device=dev)
+        feats = multicct_features(backbone, stacked_params, images, _on(stacked_gates, dev))
+        out = _apply(ens_model, ens_variables, feats)
         return eval_counters(out.logits, labels)
 
     return step

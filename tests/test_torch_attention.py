@@ -187,5 +187,30 @@ def test_padded_staging_is_the_unpadded_computation(dh, width):
 
 
 def test_head_widths_past_128_raise():
-    with pytest.raises(ValueError, match="head_dim up to 128"):
-        tattn.kernel_head_dim(129)
+    """Widths past 128 once raised here; they now run at their own width on
+    the key-chunked kernels (no padding), and only a non-positive width
+    raises."""
+    for dh in (129, 192, 256, 384, 768):
+        assert tattn.kernel_head_dim(dh) == dh
+    with pytest.raises(ValueError, match="head_dim must be positive"):
+        tattn.kernel_head_dim(0)
+
+
+# past the kernels' one-block designs: a head wider than 128 (the key-chunked
+# CUDA-core kernels on the card) and N 291 (dedeit at 272 px: key chunks at
+# bf16, and at f32 past the whole-row block's shared memory); on the CPU the
+# wrappers take their plain versions, held here to the Pallas kernels
+@pytest.mark.parametrize("n,dh,kh", [(37, 192, 2), (291, 64, 2)])
+def test_long_and_wide_heads_match_pallas(n, dh, kh):
+    rng = np.random.default_rng(n + dh)
+    x = rng.standard_normal((2, n, 3 * kh * dh)).astype(np.float32)
+    g = rng.standard_normal((2, n, kh * dh)).astype(np.float32)
+    gate = _gate(kh, seed=n)
+    want = np.asarray(jattn.fused_attention(jnp.asarray(x), jnp.asarray(gate), num_heads=kh,
+                                            block_b=2, interpret=True))
+    got = tattn.fused_attention(torch.from_numpy(x), torch.from_numpy(gate), num_heads=kh)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    want = np.asarray(jattn._attention_bwd_impl(jnp.asarray(x), jnp.asarray(g), kh, 2, True))
+    for fn in (tattn.attention_bwd, tattn.attention_bwd_split):
+        got = fn(torch.from_numpy(x), torch.from_numpy(g), kh)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)

@@ -22,7 +22,7 @@ import pytest
 
 from torch_cli_helpers import (DATA, MODEL, NO_DRAWS, OPT, assert_losses_close,
                                assert_params_close, few_threads, jax_inputs, jax_run, leaves,
-                               restore, torch_run)
+                               restore, stats, torch_run)
 
 _few_threads = few_threads
 
@@ -153,3 +153,25 @@ def test_convert_output_bytes_equal_jax(work, tmp_path):
     jax_run(["convert", jp, j2])
     with open(t2, "rb") as f, open(j2, "rb") as g:
         assert f.read() == g.read()
+
+
+def test_ensemble_resume_across_optimizer_families_falls_back_to_params(work, tmp_path):
+    """An adamw stage-5 checkpoint (the JAX CLI's epoch-0 file) resumed under
+    --opt sgd: its optimizer states do not fit the run's, so both CLIs
+    resume the params only and log the params-only WARNING; the first
+    epoch's losses then agree (2e-3 relative: the bf16 fusion head, as
+    above). A checkpoint that is not an ensemble checkpoint still raises."""
+    argv = [*work["ens"], "--opt", "sgd", "--resume", work["ens0"]]
+    out, ref = str(tmp_path / "t_sgd"), str(tmp_path / "j_sgd")
+    torch_run(["ensemble", *argv, "--output_dir", out])
+    jax_run(["ensemble", *argv, "--output_dir", ref])
+    for d in (out, ref):
+        with open(os.path.join(d, "log.txt")) as f:
+            text = f.read()
+        assert "WARNING: resumed PARAMS ONLY" in text and "restart from zero" in text, d
+    assert_losses_close(out, ref, rtol=2e-3, epochs=(1,))
+    assert all(np.isfinite(r["train_loss"]) for r in stats(out))
+    stage2 = os.path.join(work["jax"], "sub-model0", "checkpoint.msgpack")
+    with pytest.raises(RuntimeError, match="not an ensemble checkpoint"):
+        torch_run(["ensemble", *work["ens"], "--resume", stage2,
+                   "--output_dir", str(tmp_path / "bad")])

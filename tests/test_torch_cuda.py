@@ -5,7 +5,9 @@ devit_tpu_torch/kernels/csrc/attention.cu, attention_bwd.cu,
 attention_bwd_split.cu, quant_matmul.cu and block_attention.cu) vs their
 plain PyTorch versions, their launch counters and what their wrappers
 reject; the backwards past 256 keys (their chunked path), the split pair
-equal to the monolithic kernel bit for bit, and normalize on the card.
+equal to the monolithic kernel bit for bit, every kernel at sequence
+lengths and head widths past one block's shared memory (the key-chunked
+paths), and normalize on the card.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); elsewhere every test skips. The
 machine with the card has no JAX, so run without the repo's conftest:
@@ -32,7 +34,9 @@ pytestmark = pytest.mark.cuda
 
 N, DH = 198, 64
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # max|got-want| / max|want|
-BAD_DH = ((256, 1),)  # (head_dim, heads) past the widest instantiation (128)
+# (head_dim, heads) past the widest instantiation (128), which the wrappers
+# once rejected: they run unpadded on the key-chunked CUDA-core kernels
+BAD_DH = ((256, 1),)
 
 
 @pytest.fixture
@@ -87,17 +91,22 @@ def test_launch_counter_counts_kernel_launches_only(gen):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    """What the wrapper rejects (a dtype, a non-contiguous qkv), and what it
+    once rejected and now computes: head_dim 256 and an f32 N 4096, past
+    one block's shared memory, on the key-chunked kernel."""
     for dh, kh in BAD_DH:
-        with pytest.raises(ValueError, match="head_dim"):
-            fused_attention(torch.zeros((1, N, 3 * kh * dh), device="cuda"), num_heads=kh)
+        x = torch.randn((1, N, 3 * kh * dh), generator=gen, device="cuda")
+        assert _rel(fused_attention(x, num_heads=kh),
+                    reference_attention(x, num_heads=kh)) <= TOL[torch.float32]
     x = torch.randn((1, N, 3 * 4 * 32), generator=gen, device="cuda")
     with pytest.raises(TypeError, match="bfloat16"):
         fused_attention(x.half(), num_heads=2)
     with pytest.raises(ValueError, match="contiguous"):
         fused_attention(torch.zeros((2, N, 3 * DH), device="cuda").transpose(0, 1),
                         num_heads=1)
-    with pytest.raises(ValueError, match="shared"):
-        fused_attention(torch.zeros((1, 4096, 3 * DH), device="cuda"), num_heads=1)
+    x = torch.randn((1, 4096, 3 * DH), generator=gen, device="cuda")
+    assert _rel(fused_attention(x, num_heads=1),
+                reference_attention(x, num_heads=1)) <= TOL[torch.float32]
 
 
 # ---- the backward kernel: attention_bwd (csrc/attention_bwd.cu)
@@ -163,10 +172,11 @@ def test_function_gradient_matches_autograd_through_plain(gen):
 
 
 def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(gen):
-    for dh, kh in BAD_DH:
-        with pytest.raises(ValueError, match="head_dim"):
-            attention_bwd(torch.zeros((1, N, 3 * kh * dh), device="cuda"),
-                          torch.zeros((1, N, kh * dh), device="cuda"), kh)
+    for dh, kh in BAD_DH:  # once rejected: now the long path's any-width kernels
+        x = torch.randn((1, N, 3 * kh * dh), generator=gen, device="cuda")
+        g = torch.randn((1, N, kh * dh), generator=gen, device="cuda")
+        errs = _bwd_errs(attention_bwd(x, g, kh), reference_attention_bwd(x, g, kh), kh * dh)
+        assert max(errs) <= TOL[torch.float32], errs
     x = torch.randn((1, N, 3 * 4 * 32), generator=gen, device="cuda")
     with pytest.raises(TypeError, match="bfloat16"):
         attention_bwd(x.half(), torch.zeros((1, N, 2 * 64), device="cuda").half(), 2)
@@ -325,10 +335,14 @@ def test_split_function_gradient_matches_autograd_through_plain(gen, monkeypatch
 def test_split_wrappers_reject_what_the_kernels_do_not_take(gen):
     x = torch.randn((1, N, 3 * 4 * 32), generator=gen, device="cuda")
     for fn in (attention_bwd_dv, attention_bwd_dqdk, attention_bwd_split):
-        for dh, kh in BAD_DH:
-            with pytest.raises(ValueError, match="head_dim"):
-                fn(torch.zeros((1, N, 3 * kh * dh), device="cuda"),
-                   torch.zeros((1, N, kh * dh), device="cuda"), kh)
+        for dh, kh in BAD_DH:  # once rejected: the split pair equals the monolithic kernel
+            xw = torch.randn((1, N, 3 * kh * dh), generator=gen, device="cuda")
+            gw = torch.randn((1, N, kh * dh), generator=gen, device="cuda")
+            mono = attention_bwd(xw, gw, kh)
+            C = kh * dh
+            part = {attention_bwd_dv: mono[..., 2 * C:], attention_bwd_dqdk: mono[..., :2 * C],
+                    attention_bwd_split: mono}[fn]
+            assert torch.equal(fn(xw, gw, kh), part), fn.__name__
         with pytest.raises(TypeError, match="bfloat16"):
             fn(x.half(), torch.zeros((1, N, 2 * 64), device="cuda").half(), 2)
         with pytest.raises(ValueError, match="g must be"):
@@ -561,19 +575,19 @@ def test_block_wrapper_rejects_what_the_kernel_does_not_take(gen):
         fused_block_attention(t.half(), **w, num_heads=2)
     with pytest.raises(TypeError, match="dtype"):
         fused_block_attention(t, **{**w, "qkv_kernel": w["qkv_kernel"].bfloat16()}, num_heads=2)
-    for dh, kh in BAD_DH:
+    for dh, kh in BAD_DH:  # once rejected: the chunked route
         tb, wb = _block_case(gen, 1, N, kh, torch.float32, dh=dh)
-        with pytest.raises(ValueError, match="head_dim"):
-            fused_block_attention(tb, **wb, num_heads=kh)
+        assert _rel(fused_block_attention(tb, **wb, num_heads=kh),
+                    reference_block_attention(tb, **wb, num_heads=kh)) <= TOL[torch.float32]
     with pytest.raises(ValueError, match="contiguous"):
         fused_block_attention(t, **{**w, "proj_kernel": w["proj_kernel"].t().contiguous().t()},
                               num_heads=2)
     with pytest.raises(ValueError, match="multiple of 32"):
         t2, w2 = _block_case(gen, 1, 8, 1, torch.float32, C=48)
         fused_block_attention(t2, **w2, num_heads=1)
-    with pytest.raises(ValueError, match="shared"):
-        t3, w3 = _block_case(gen, 1, 2048, 1, torch.float32, C=64)
-        fused_block_attention(t3, **w3, num_heads=1)
+    t3, w3 = _block_case(gen, 1, 2048, 1, torch.float32, C=64)  # once past shared memory
+    assert _rel(fused_block_attention(t3, **w3, num_heads=1),
+                reference_block_attention(t3, **w3, num_heads=1)) <= TOL[torch.float32]
 
 
 # ---- stage 3: the folded candidate forward and the HSIC scores
@@ -700,10 +714,9 @@ PADDED_CASES = [(8, 4), (16, 6), (48, 4), (80, 3), (96, 4)]
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dh,kh", HEAD_DIM_CASES + PADDED_CASES)
 def test_head_widths_forward_matches_plain(gen, dh, kh, dtype):
-    # f32 holds the score tile, K^T (then V) and Q^T in shared memory: past
-    # N 256 only at width 32 (dh 64 to about N 290, dh 128 to about N 260)
-    lengths = (1, 17, 65, 197, 198, 256) + (
-        (300,) if dtype == torch.bfloat16 or kernel_head_dim(dh) == 32 else ())
+    # N 300: past the f32 whole-row block's shared memory at widths 64 and
+    # 128 (the key-chunked kernel), past 256 keys at bf16
+    lengths = (1, 17, 65, 197, 198, 256, 300)
     for n in lengths:
         for B in (1, 7):
             x = torch.randn((B, n, 3 * kh * dh), generator=gen, device="cuda").to(dtype)
@@ -757,13 +770,12 @@ def test_head_widths_trainable_attention_matches_autograd(gen, dh, kh):
 @pytest.mark.parametrize("dh", [8, 16, 32, 48, 80, 96, 128])
 def test_head_widths_block_kernel_matches_plain(gen, dh, dtype):
     """Odd head counts at dh 32 make K = H dh not a multiple of the proj
-    kernel's 64-row chunks; f32 fits shared memory to N 108 at width 128
-    and short of N 256 at width 64. Widths between the instantiations run
-    padded (zero qkv columns and proj rows per head)."""
+    kernel's 64-row chunks; the f32 whole-head block fits shared memory to N
+    108 at width 128 and short of N 256 at width 64, past which the chunked
+    route runs. Widths between the instantiations run padded (zero qkv
+    columns and proj rows per head)."""
     width = kernel_head_dim(dh)
-    lengths = {32: (1, 17, 65, 198, 256), 64: (1, 17, 65, 198), 128: (1, 17, 65, 108)}[width]
-    if dtype == torch.bfloat16:
-        lengths = (1, 17, 65, 198, 256)
+    lengths = (1, 17, 65, 198, 256)
     for n in lengths:
         for kh in ((1, 3, 6) if width == 128 else (1, 5, 12)):
             t, w = _block_case(gen, 3, n, kh, dtype, with_bias=kh % 2 == 1, dh=dh)
@@ -772,3 +784,59 @@ def test_head_widths_block_kernel_matches_plain(gen, dh, dtype):
             torch.cuda.synchronize()
             rel = _rel(got, reference_block_attention(t, **w, num_heads=kh))
             assert rel <= TOL[dtype] and torch.equal(got, again), (n, kh, rel)
+
+
+# ---- every sequence length and head width: the key-chunked paths
+# (csrc/attention.cu attn_kchunk_mma and attn_chunked_kernel,
+# csrc/attention_bwd_long.cu's any-width kernels, block_attention.cu's
+# chunked route)
+
+LONG_CASES = ([(n, 64, 6) for n in (291, 578, 843, 1026)] + [(578, 32, 12), (578, 128, 6)]
+              + [(n, dh, kh) for n in (198, 578) for dh, kh in ((192, 4), (256, 3))])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,dh,kh", LONG_CASES)
+def test_forward_and_trainable_attention_at_every_length_and_width(gen, n, dh, kh, dtype):
+    """fused_attention (gated) and make_trainable_attention in both backward
+    modes against their plain versions (dq, dk, dv each), repeats and the
+    split backward against the monolithic one bit for bit."""
+    C = kh * dh
+    x = torch.randn((2, n, 3 * C), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((2, n, C), generator=gen, device="cuda").to(dtype)
+    gate = torch.rand((kh,), generator=gen, device="cuda")
+    got, again = fused_attention(x, gate, num_heads=kh), fused_attention(x, gate, num_heads=kh)
+    torch.cuda.synchronize()
+    assert _rel(got, reference_attention(x, gate, num_heads=kh)) <= TOL[dtype]
+    assert torch.equal(got, again)
+    grads = []
+    for mode in ("monolithic", "split"):
+        xs = x.clone().requires_grad_()
+        (dx,) = torch.autograd.grad(make_trainable_attention(kh, mode)(xs), xs, g)
+        grads.append(dx)
+    torch.cuda.synchronize()
+    errs = _bwd_errs(grads[0], reference_attention_bwd(x, g, kh), C)
+    assert max(errs) <= TOL[dtype], errs
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], attention_bwd(x, g, kh))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,dh,kh", [(291, 64, 6), (578, 64, 6), (198, 192, 2), (578, 192, 2),
+                                     (300, 128, 3)])
+def test_block_kernel_at_every_length_and_width(gen, n, dh, kh, dtype):
+    t, w = _block_case(gen, 2, n, kh, dtype, with_bias=n % 2 == 0, dh=dh)
+    got = fused_block_attention(t, **w, num_heads=kh)
+    again = fused_block_attention(t, **w, num_heads=kh)
+    torch.cuda.synchronize()
+    rel = _rel(got, reference_block_attention(t, **w, num_heads=kh))
+    assert rel <= TOL[dtype] and torch.equal(got, again), rel
+
+
+def test_forward_paths_are_the_designs_the_sizes_call_for(gen):
+    from devit_tpu_torch.kernels.attention import attention_path
+
+    assert attention_path(256, 64, torch.bfloat16) == "whole-row"
+    assert attention_path(257, 64, torch.bfloat16) == "key-chunked mma"
+    assert attention_path(198, 64, torch.float32) == "whole-row"
+    assert attention_path(578, 64, torch.float32) == "key-chunked CUDA cores"
+    assert attention_path(198, 192, torch.bfloat16) == "key-chunked CUDA cores"

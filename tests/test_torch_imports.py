@@ -48,7 +48,7 @@ def test_every_port_module_is_listed():
         "data.host_augment", "data.mixup", "data.pipeline", "data.randaugment",
         "data.splitter", "deploy", "device", "io",
         "io.bridge", "io.checkpoint", "io.msgpack", "io.native", "kernels", "kernels._build",
-        "kernels.attention", "kernels.quant", "models",
+        "kernels.attention", "kernels.quant", "models", "models.cct",
         "models.compact_vit", "models.ensemble", "models.vit", "runtime", "serving",
         "serving.daemon", "train", "train.loop", "train.losses", "train.meters", "train.optim",
         "train.state", "train.steps", "utils_profile")]
