@@ -58,7 +58,14 @@ the key-chunked designs timed), one dedeit stage-2 step at 384 px in f32
 and bf16 against the plain attention ([stage2-384]), the CCT family
 ([cct]: cct_14_7x2_224 on the card against the CPU, a bf16 stage-2 step,
 and `pipeline --model cct_7_3x1_32` through every stage) and the stage-5
-resume across optimizer families ([resume]). Any failure
+resume across optimizer families ([resume]). Then several ranks: two
+ranks sharing the card over gloo run the full-width stage-2 step
+([dist-stage2]), four run the stage-5 step with one division each
+([dist-ens]), each held to the one-process step; the collaborative server
+over the deployed divisions against the engine, its lag-2 stream against
+per-batch serving ([collab]); `devit-torch train_sub` under two ranks
+against one process ([cli-dist]); and dryrun_multichip(8) on eight ranks
+sharing the card ([dryrun]). Any failure
 raises and exits non-zero; so does a machine without CUDA, or a directory
 that holds this script without the package (the import of devit_tpu_torch
 fails: exit 1).
@@ -1193,20 +1200,23 @@ def _train_state(model):
                              use_ema=True)
 
 
-def _train_step(model):
+def _train_step(model, layout=None):
     mix = MixupConfig(mixup_alpha=0.8, cutmix_alpha=1.0, prob=1.0, switch_prob=0.5,
                       label_smoothing=0.1, num_classes=TRAIN_CLASSES)
-    return make_stage2_step(model, None, mixup=mix, smoothing=0.1, distillation_type="none")
+    return make_stage2_step(model, None, mixup=mix, smoothing=0.1, distillation_type="none",
+                            layout=layout)
 
 
-def _step_grads(model, batch, seed: int):
+def _step_grads(model, batch, seed: int, layout=None):
     """Loss and gradients of one stage-2 step from a fresh state: the
-    gradients the optimizer receives."""
+    gradients the optimizer receives (averaged over the data ranks under a
+    layout)."""
     state = _train_state(model)
     seen = {}
     update = state.tx.update
     state.tx.update = lambda g, st, p: (seen.update(g), update(g, st, p))[1]
-    _, metrics = _train_step(model)(state, None, *batch, torch.Generator().manual_seed(seed))
+    _, metrics = _train_step(model, layout)(state, None, *batch,
+                                            torch.Generator().manual_seed(seed))
     return float(metrics["loss"]), seen
 
 
@@ -1472,12 +1482,13 @@ def _division_gates() -> Gates:
     return Gates(g.head.float().to("cuda"), g.neuron.float().to("cuda"))
 
 
-def _ens_setup(card: str) -> dict:
+def _ens_parts(B: int) -> dict:
     """The stage-5 configuration: four full-width dedeit divisions (drop_path
     0.1, bf16 compute, f32 parameters, full remat), gated by the deployed
     shrink policies; the deit-base teacher; EnsMLP(teacher 768, 100 classes,
     deit); hard distillation (alpha 0.5, mse tokens), mixup 0.8 / cutmix 1.0,
-    smoothing 0.1; AdamW lr 3e-4, weight decay 0.05, EMA on both states."""
+    smoothing 0.1; AdamW lr 3e-4, weight decay 0.05, EMA on both states; a
+    batch of B images from a seed."""
     backbone = create_vit("dedeit", num_classes=ENS_CLASSES, drop_path_rate=0.1,
                           dtype=torch.bfloat16, use_kernel=True, use_remat=True, device="cuda",
                           generator=torch.Generator().manual_seed(0))
@@ -1489,8 +1500,18 @@ def _ens_setup(card: str) -> dict:
     ens = ens.reset_parameters(torch.Generator().manual_seed(9)).to("cuda")
     gen = torch.Generator(device="cuda").manual_seed(40)
     px = backbone.cfg.img_size
-    images = torch.randn((ENS_B, px, px, 3), generator=gen, device="cuda").bfloat16()
-    labels = torch.randint(0, ENS_CLASSES, (ENS_B,), generator=gen, device="cuda")
+    images = torch.randn((B, px, px, 3), generator=gen, device="cuda").bfloat16()
+    labels = torch.randint(0, ENS_CLASSES, (B,), generator=gen, device="cuda")
+    return dict(backbone=backbone, stacked=stacked, teacher=teacher, ens=ens,
+                gates=_division_gates(), batch=(images, labels))
+
+
+def _ens_setup(card: str) -> dict:
+    """_ens_parts at bs 64, with the teacher's launches and logits checked
+    and the expected launches per step."""
+    parts = _ens_parts(ENS_B)
+    backbone, teacher, ens = parts["backbone"], parts["teacher"], parts["ens"]
+    images, labels = parts["batch"]
     L, Lt = backbone.cfg.depth, teacher.cfg.depth
     # the teacher alone: one forward launch a layer, at its kh (12 for deit-base)
     before = _counts()
@@ -1501,7 +1522,7 @@ def _ens_setup(card: str) -> dict:
         raise AssertionError(f"teacher forward launches {_delta(before)}, expected {Lt}")
     _set_counts(before)
     teacher_check = _teacher_logits_check(teacher, images, "[ens-train]", card)
-    gates = _division_gates()
+    gates = parts["gates"]
     # per step: each division's layers forward and again in the remat
     # re-forward, the teacher's once; one backward (or dv + dqdk) a layer
     fwd, bwd = 2 * ENS_D * L + Lt, ENS_D * L
@@ -1511,13 +1532,12 @@ def _ens_setup(card: str) -> dict:
           f"({Lt} launches at kh {teacher.cfg.num_heads} per forward), EnsMLP "
           f"{ENS_D}x{backbone.cfg.embed_dim} -> {teacher.cfg.embed_dim} -> {ENS_CLASSES}, "
           f"bs{ENS_B}; launches per step (fused, bwd, dv, dqdk) {expect} [{card}]")
-    return dict(backbone=backbone, stacked=stacked, teacher=teacher, ens=ens, gates=gates,
-                batch=(images, labels), expect=expect, teacher_check=teacher_check)
+    return dict(parts, expect=expect, teacher_check=teacher_check)
 
 
-def _ens_states(setup: dict):
-    """Fresh backbone and head states (and the step over them) from the
-    setup's initial parameters."""
+def _ens_states(setup: dict, layout=None):
+    """Fresh backbone and head states (and the step over them, under
+    `layout`) from the setup's initial parameters."""
     cfg = OptimConfig(lr=3e-4, weight_decay=0.05, epochs=100)
     stacked = {k: torch.nn.Parameter(v.detach().clone()) for k, v in setup["stacked"].items()}
     ens = copy.deepcopy(setup["ens"])
@@ -1526,7 +1546,7 @@ def _ens_states(setup: dict):
     step = make_ensemble_train_step(setup["backbone"], ens, setup["teacher"],
                                     mixup=_mixup(ENS_CLASSES), smoothing=0.1,
                                     distillation_type="hard", distillation_alpha=0.5,
-                                    token_loss_type="mse")
+                                    token_loss_type="mse", layout=layout)
     return bb, en, step
 
 
@@ -2944,9 +2964,10 @@ def phase_attn_long(card: str) -> dict:
 # the pipeline at full width: dedeit (384 wide, 12 layers, 6 heads, dh 64,
 # 224 px, N 198), 4 divisions of 25 classes, bs64, the CLI's defaults
 # otherwise (bf16, RandAugment on the host, mixup/cutmix, EMA, repeated
-# augmentation, the self-distill teacher). Cuts: 1 epoch (default 5), 2048
-# synthetic images a split in place of CIFAR-100's 50,000
-CLI_MODEL = ["--model", "dedeit", "--dataset", "synthetic:100:2048:224", "--num_division", "4",
+# augmentation, the self-distill teacher). Cuts: 1 epoch (default 5), 1024
+# synthetic images a split in place of CIFAR-100's 50,000 (2048 until the
+# multi-rank phases joined the script)
+CLI_MODEL = ["--model", "dedeit", "--dataset", "synthetic:100:1024:224", "--num_division", "4",
              "--batch-size", "64", "--epochs", "1", "--device", "cuda"]
 CLI_ARGS = CLI_MODEL + ["--deploy-num-classes", "25"]
 CLI_STAGES = ("split", "train_sub", "shrink", "distill", "ensemble", "deploy")
@@ -3382,6 +3403,396 @@ def phase_resume(card: str) -> dict:
     return dict(warning=warning.strip(), first=logged[0])
 
 
+# ---- several ranks: ranks that share the card over gloo, the
+# collaborative server, the CLI under two ranks, the multi-rank dry run
+
+SELF = str(Path(__file__).resolve())
+DIST_ENV = {"DEVIT_DIST_BACKEND": "gloo"}  # NCCL refuses two ranks on one card
+DIST_S2_B = 64  # global batch of [dist-stage2]
+DIST_ENS_B = 32  # global batch of [dist-ens]
+COLLAB_B, COLLAB_STREAM = 256, 8
+
+
+def _free_card(tag: str) -> None:
+    """Hand this process's cached device memory back before ranks that
+    share the card start (the earlier phases leave tens of GiB cached)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag} this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved) while the ranks run")
+
+
+def _probe_collectives() -> dict:
+    """Which gloo collectives take CUDA tensors under this PyTorch (the
+    package needs all_reduce and broadcast; all_gather is recorded)."""
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda")
+    out = {}
+    for name, fn in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("broadcast", lambda: dist.broadcast(x.clone(), src=0)),
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(dist.get_world_size())], x))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as e:  # an op gloo does not take on CUDA tensors
+            out[name] = str(e).splitlines()[0][:160]
+    if out["all_reduce"] != "ok" or out["broadcast"] != "ok":
+        raise RuntimeError(f"gloo on CUDA tensors: {out}; the multi-rank phases need "
+                           "all_reduce and broadcast")
+    return out
+
+
+def _timed_reduce(layout) -> list:
+    """Wrap the layout's gradient all-reduce with a synchronized timer;
+    returns the list the milliseconds land in."""
+    spent, real = [], layout.mean_over_data
+
+    def timed(tensors):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(tensors)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    layout.mean_over_data = timed
+    return spent
+
+
+def _rank_dist_stage2(B: int) -> dict:
+    """[dist-stage2] on one rank: the full-width stage-2 step with the
+    kernels over the data layout (a warm-up step on a second model first);
+    rank 0 then runs the one-process step on the same batch and draws and
+    returns the comparison."""
+    from devit_tpu_torch import runtime
+    from devit_tpu_torch.parallel import mesh as M
+
+    probe = _probe_collectives()
+    layout = M.data_layout()
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    batch = (torch.randn((B, PX, PX, 3), generator=gen, device="cuda").bfloat16(),
+             torch.randint(0, TRAIN_CLASSES, (B,), generator=gen, device="cuda"))
+    _step_grads(_train_model(True), batch, seed=1, layout=layout)  # warm-up
+    spent = _timed_reduce(layout)
+    model = _train_model(True)
+    _set_counts((0, 0, 0, 0))  # the main path
+    torch.cuda.synchronize()
+    torch.distributed.barrier()  # the ranks start the timed step together
+    t0 = time.perf_counter()
+    loss, grads = _step_grads(model, batch, seed=3, layout=layout)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = dict(rank=runtime.rank(), shape=layout.shape, probe=probe, loss=loss, ms=ms,
+               reduce_ms=sum(spent), launches=_counts())
+    if runtime.rank() == 0:
+        before = _counts()
+        ref_loss, ref = _step_grads(_train_model(True), batch, seed=3)
+        model = _train_model(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _step_grads(model, batch, seed=3)
+        torch.cuda.synchronize()
+        out["one_ms"] = (time.perf_counter() - t0) * 1e3
+        _set_counts(before)
+        rel = _grad_rel(grads, ref)
+        worst = max(rel, key=rel.get)
+        out.update(ref_loss=ref_loss, worst_leaf=worst, grad_rel=rel[worst], leaves=len(rel),
+                   max_abs=max(float((grads[k].float() - ref[k].float()).abs().max())
+                               for k in ref))
+    return out
+
+
+def phase_dist_stage2(card: str) -> dict:
+    """[dist-stage2]: two ranks share the card over gloo; one full-width
+    dedeit stage-2 step at global bs 64 (32 rows a rank, mixup/cutmix and
+    drop-path drawn at the global batch) with the kernels, held to the
+    one-process step (loss and every gradient leaf within 2e-2)."""
+    from devit_tpu_torch.parallel.launch import run_ranks
+
+    _free_card("[dist-stage2]")
+    t0 = time.perf_counter()
+    ranks = run_ranks(f"{SELF}:_rank_dist_stage2", 2, args=(DIST_S2_B,), device="cuda",
+                      env=DIST_ENV, timeout=400)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    per_rank = [r["launches"] for r in ranks]
+    if not (np.isfinite(r0["loss"]) and loss_rel <= 2e-2 and r0["grad_rel"] <= 2e-2):
+        raise AssertionError(f"[dist-stage2] 2 ranks vs one process: loss {r0['loss']} vs "
+                             f"{r0['ref_loss']} (rel {loss_rel:.3e}), worst gradient "
+                             f"{r0['worst_leaf']} {r0['grad_rel']:.3e}")
+    if any(c != (24, 12, 0, 0) for c in per_rank) or ranks[1]["loss"] != r0["loss"]:
+        raise AssertionError(f"[dist-stage2] launches per rank {per_rank} (expected 24 forward "
+                             f"+ 12 backward), losses {[r['loss'] for r in ranks]}")
+    print(f"[dist-stage2] gloo on CUDA tensors: {r0['probe']}")
+    print(f"[dist-stage2] dedeit stage-2 step, 2 ranks sharing the card (gloo, layout "
+          f"{r0['shape']}), global bs {DIST_S2_B}: loss {r0['loss']:.6f} vs {r0['ref_loss']:.6f} "
+          f"one process (rel {loss_rel:.3e}); worst gradient leaf {r0['worst_leaf']} "
+          f"||diff||/||one|| {r0['grad_rel']:.3e} (tol 2e-2, {r0['leaves']} leaves, max abs "
+          f"{r0['max_abs']:.3e}); launches per rank {per_rank} (fused, bwd, dv, dqdk); step "
+          f"{[round(r['ms'], 1) for r in ranks]} ms per rank, of it the gradient all-reduce "
+          f"{[round(r['reduce_ms'], 1) for r in ranks]} ms "
+          f"({100 * r0['reduce_ms'] / r0['ms']:.1f}% on rank 0); the one-process step "
+          f"{r0['one_ms']:.1f} ms; the phase {wall:.1f} s with the ranks' start-up [{card}]")
+    return dict(ranks=[{k: v for k, v in r.items()} for r in ranks], loss_rel=loss_rel,
+                wall_s=wall, launches=[sum(c[i] for c in per_rank) for i in range(4)])
+
+
+def _rank_dist_ens(B: int) -> dict:
+    """[dist-ens] on one rank: the stage-5 step of the four full-width
+    divisions over the ensemble layout (this rank's division), with the
+    monolithic backward and with the split pair; rank 0 then runs the
+    one-process steps and returns the comparisons."""
+    from devit_tpu_torch import runtime
+    from devit_tpu_torch.parallel import mesh as M
+
+    layout = M.ensemble_layout(ENS_D)
+    setup = _ens_parts(B)
+    models = (setup["backbone"], setup["teacher"])
+    out = dict(rank=runtime.rank(), shape=layout.shape, divisions=list(layout.divisions))
+
+    def one_step(mode, lay, count):
+        bb, en, step = _ens_states(setup, layout=lay)
+        gates = setup["gates"]
+        if lay is not None:
+            M.shard_state(bb, lay)
+            gates = Gates(**M.shard_division_tree(gates._asdict(), lay))
+        seen = {"bb": {}, "ens": {}}
+        for key, st in (("bb", bb), ("ens", en)):
+            upd = st.tx.update
+            st.tx.update = (lambda sink, u: lambda g, s_, p_: (sink.update(g),
+                                                               u(g, s_, p_))[1]
+                            )(seen[key], upd)
+        _set_mode(models, mode)
+        setup["teacher"].use_kernel = True
+        if count:
+            _set_counts((0, 0, 0, 0))  # the main path
+        torch.cuda.synchronize()
+        if lay is not None:
+            torch.distributed.barrier()  # the ranks start the timed step together
+        t0 = time.perf_counter()
+        _, _, metrics = step(bb, en, None, gates, *setup["batch"],
+                             torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if lay is not None:
+            seen["bb"] = M.gather_division_tree(seen["bb"], lay)
+        return float(metrics["loss"]), seen, ms, _counts()
+
+    one_step("monolithic", layout, False)  # warm-up
+    for mode in ("monolithic", "split"):
+        loss, seen, ms, launches = one_step(mode, layout, True)
+        out[mode] = dict(loss=loss, ms=ms, launches=launches)
+        if runtime.rank() == 0:
+            ref_loss, ref, one_ms, _ = one_step(mode, None, False)
+            rel = {**{f"bb/{k}": v for k, v in _grad_rel(seen["bb"], ref["bb"]).items()},
+                   **{f"ens/{k}": v for k, v in _grad_rel(seen["ens"], ref["ens"]).items()}}
+            worst = max(rel, key=rel.get)
+            same = all(torch.equal(seen[s][k], ref[s][k]) for s in ref for k in ref[s])
+            out[mode].update(ref_loss=ref_loss, one_ms=one_ms, worst_leaf=worst,
+                             grad_rel=rel[worst], leaves=len(rel), bit_equal=same)
+    os.environ.pop("DEVIT_ATTN_BWD", None)
+    return out
+
+
+def phase_dist_ens(card: str) -> dict:
+    """[dist-ens]: four ranks share the card over gloo, layout {div 4, data
+    1}: each rank holds one of the four full-width dedeit divisions (the
+    deployed gates), the deit-base teacher and EnsMLP; one stage-5 step at
+    global bs 32 with the monolithic backward and one with the split pair,
+    each held to the one-process step (loss and every gradient leaf of both
+    states within 2e-2; whether they are equal bit for bit is printed)."""
+    from devit_tpu_torch.parallel.launch import run_ranks
+
+    _free_card("[dist-ens]")
+    t0 = time.perf_counter()
+    ranks = run_ranks(f"{SELF}:_rank_dist_ens", ENS_D, args=(DIST_ENS_B,), device="cuda",
+                      env=DIST_ENV, timeout=500)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    Lt = 12  # the deit-base teacher's layers, each rank's on its rows
+    expect = {"monolithic": (2 * 12 + Lt, 12, 0, 0), "split": (2 * 12 + Lt, 0, 12, 12)}
+    totals = [0, 0, 0, 0]
+    for mode in ("monolithic", "split"):
+        m = r0[mode]
+        loss_rel = abs(m["loss"] - m["ref_loss"]) / abs(m["ref_loss"])
+        per_rank = [r[mode]["launches"] for r in ranks]
+        if not (np.isfinite(m["loss"]) and loss_rel <= 2e-2 and m["grad_rel"] <= 2e-2):
+            raise AssertionError(f"[dist-ens] {mode}: 4 ranks vs one process: loss {m['loss']} "
+                                 f"vs {m['ref_loss']}, worst gradient {m['worst_leaf']} "
+                                 f"{m['grad_rel']:.3e}")
+        if any(c != expect[mode] for c in per_rank):
+            raise AssertionError(f"[dist-ens] {mode} launches per rank {per_rank}, expected "
+                                 f"{expect[mode]}")
+        totals = [t + sum(c[i] for c in per_rank) for i, t in enumerate(totals)]
+        print(f"[dist-ens] stage-5 step, {mode} backward, 4 ranks sharing the card (gloo, "
+              f"layout {r0['shape']}, divisions per rank {[r['divisions'] for r in ranks]}), "
+              f"global bs {DIST_ENS_B}: loss {m['loss']:.6f} vs {m['ref_loss']:.6f} one process "
+              f"(rel {loss_rel:.3e}); worst gradient leaf {m['worst_leaf']} ||diff||/||one|| "
+              f"{m['grad_rel']:.3e} (tol 2e-2, {m['leaves']} leaves of both states), bit for "
+              f"bit: {m['bit_equal']}; launches per rank {per_rank}; step "
+              f"{[round(r[mode]['ms'], 1) for r in ranks]} ms per rank, one process "
+              f"{m['one_ms']:.1f} ms [{card}]")
+    print(f"[dist-ens] the phase {wall:.1f} s with the ranks' start-up")
+    return dict(ranks=ranks, wall_s=wall, launches=totals)
+
+
+def phase_collab(card: str) -> dict:
+    """[collab]: make_collaborative_server on [cuda:0] over the four
+    deployed divisions at bs 256 against InferenceEngine's logits (bit for
+    bit), then stream(depth=2) over 8 batches against per-batch serve (bit
+    for bit); 48 fused_attention launches a batch. The stream is the main
+    path; its launches are counted."""
+    from torch.func import functional_call
+
+    from devit_tpu_torch.parallel.serve import make_collaborative_server
+
+    cfg, cms, ens = deploy.build_artifacts(device="cuda")
+    engine = InferenceEngine(cms, ens, ServeConfig(input_size=cfg.img_size,
+                                                   patch_size=cfg.patch_size,
+                                                   buckets=(COLLAB_B,)), device="cuda")
+    ev = {k: v.detach() for k, v in ens.named_parameters()}
+    serve = make_collaborative_server(cms, lambda e, c, t: functional_call(ens, e, (c, t)), ev,
+                                      patch_size=cfg.patch_size,
+                                      devices=[torch.device("cuda", 0)])
+    rng = np.random.default_rng(70)
+    u8 = [rng.integers(0, 256, (COLLAB_B, PX, PX, 3), dtype=np.uint8)
+          for _ in range(COLLAB_STREAM)]
+    xs = [normalize(torch.from_numpy(b).cuda(), torch.float32) for b in u8]
+    before = _counts()
+    want = engine.predict(u8[0])
+    got = serve(ev, xs[0]).float().cpu().numpy()
+    per_batch = [serve(ev, x).float().cpu().numpy() for x in xs]
+    torch.cuda.synchronize()
+    _set_counts((0, 0, 0, 0))  # the main path: the lag-2 stream
+    t0 = time.perf_counter()
+    streamed = list(serve.stream(ev, xs, depth=2))
+    stream_s = time.perf_counter() - t0
+    launches = _counts()
+    t0 = time.perf_counter()
+    for x in xs:
+        serve(ev, x).float().cpu()
+    serial_s = time.perf_counter() - t0
+    _set_counts(tuple(a + b for a, b in zip(before, launches)))
+    engine_err = float(np.abs(got - want).max())
+    stream_err = max(float(np.abs(a - b).max()) for a, b in zip(streamed, per_batch))
+    if engine_err != 0.0 and engine_err > 2e-2 * float(np.abs(want).max()):
+        raise AssertionError(f"[collab] served vs engine.predict: max|diff| {engine_err}")
+    if stream_err != 0.0 or launches != (48 * COLLAB_STREAM, 0, 0, 0):
+        raise AssertionError(f"[collab] stream vs per-batch serve max|diff| {stream_err}, "
+                             f"launches {launches} (expected {48 * COLLAB_STREAM} forward)")
+    print(f"[collab] collaborative server on [cuda:0] (divisions on "
+          f"{[str(d) for d in serve.division_devices]}, fusion on {serve.fusion_device}), 4 "
+          f"deployed divisions, bs {COLLAB_B}: logits vs InferenceEngine.predict max|diff| "
+          f"{engine_err:.3e} ({'bit for bit' if engine_err == 0 else 'within 2e-2'}); "
+          f"stream(depth=2) over {COLLAB_STREAM} batches equal to per-batch serve bit for bit, "
+          f"{launches[0]} fused_attention launches (48 a batch); {COLLAB_STREAM * COLLAB_B / stream_s:.1f} "
+          f"img/s streamed, {COLLAB_STREAM * COLLAB_B / serial_s:.1f} img/s with a host copy "
+          f"after each batch [{card}]")
+    del engine, serve, cms, ens
+    torch.cuda.empty_cache()
+    return dict(engine_max_abs=engine_err, stream_max_abs=stream_err, launches=launches,
+                stream_img_s=COLLAB_STREAM * COLLAB_B / stream_s,
+                serial_img_s=COLLAB_STREAM * COLLAB_B / serial_s)
+
+
+# `train_sub` at full width on division 0 of 1024 synthetic 224-px images
+# (about 256 a division), 1 epoch at bs 64 from lr 5e-4 without warm-up,
+# augmentation on the card (the machine may lack PIL)
+CLI_DIST = ["train_sub", "--model", "dedeit", "--dataset", "synthetic:100:1024:224",
+            "--num_division", "4", "--start-division", "0", "--batch-size", "64",
+            "--eval-batch-size", "64", "--epochs", "1", "--warmup-epochs", "0", "--lr", "5e-4",
+            "--aug-backend", "device", "--device", "cuda"]
+
+
+def _rank_cli(argv: list) -> tuple:
+    """One devit-torch command on this rank; its kernel launches."""
+    _set_counts((0, 0, 0, 0))
+    _cli(argv)
+    torch.cuda.synchronize()
+    return _counts()
+
+
+def phase_cli_dist(card: str) -> dict:
+    """[cli-dist]: `devit-torch train_sub` under two ranks sharing the card
+    (gloo) against the same command in one process: the per-epoch losses
+    within 2e-2, every checkpoint leaf within the Adam bound (steps x lr);
+    rank 0 alone writes files (rank 1 its log_rank1.txt)."""
+    from devit_tpu_torch.parallel.launch import run_ranks
+
+    root = Path(tempfile.mkdtemp(prefix="devit_cli_dist_"))
+    par, one = str(root / "par"), str(root / "one")
+    _free_card("[cli-dist]")
+    t0 = time.perf_counter()
+    per_rank = run_ranks(f"{SELF}:_rank_cli", 2, args=(CLI_DIST + ["--output_dir", par],),
+                         device="cuda", env=DIST_ENV, timeout=400)
+    par_s = time.perf_counter() - t0
+    before = _counts()
+    t0 = time.perf_counter()
+    _cli(CLI_DIST + ["--output_dir", one])
+    one_s = time.perf_counter() - t0
+    _set_counts(before)
+    with open(os.path.join(par, "log_stats.txt")) as f:
+        got = [json.loads(line) for line in f]
+    with open(os.path.join(one, "log_stats.txt")) as f:
+        want = [json.loads(line) for line in f]
+    a = restore_pytree(os.path.join(par, "checkpoint_temp.msgpack"))
+    b = restore_pytree(os.path.join(one, "checkpoint_temp.msgpack"))
+    diffs = _tree_diff(a["params"], b["params"])
+    steps = 256 // 64
+    worst = max(diffs.values())
+    rel = {k: abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)
+           for k in ("train_loss", "test_loss")}
+    files = sorted(os.listdir(par))
+    extra = sorted(set(files) - set(os.listdir(one)))
+    if (not got or max(rel.values()) > 2e-2 or worst > steps * 5e-4 * 1.001
+            or extra != ["log_rank1.txt"] or min(min(c[:2]) for c in per_rank) == 0):
+        raise AssertionError(f"[cli-dist] losses rel {rel}, worst param diff {worst}, files "
+                             f"beyond one process's {extra}, launches per rank {per_rank}")
+    print(f"[cli-dist] devit-torch {' '.join(CLI_DIST)} under 2 ranks (gloo on the card) vs "
+          f"one process: losses rel {max(rel.values()):.3e} (tol 2e-2); checkpoint params "
+          f"worst max|diff| {worst:.3e} over {len(diffs)} leaves (bound {steps} steps x lr "
+          f"{steps * 5e-4:.1e}); rank 0 alone wrote files (rank 1: {extra}); launches per rank "
+          f"{per_rank}; {par_s:.1f} s under 2 ranks with their start-up, {one_s:.1f} s in one "
+          f"process [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(loss_rel=rel, worst_param=worst, par_s=par_s, one_s=one_s,
+                launches=[sum(c[i] for c in per_rank) for i in range(4)])
+
+
+def phase_dryrun(card: str) -> dict:
+    """[dryrun]: devit_tpu_torch.entry.dryrun_multichip(8): eight ranks
+    sharing the card over gloo, the stage-5, stage-2 and DEKD steps (with
+    the kernels) held to one process on the card, and the serving topology;
+    then entry()'s forward on the card (finite (8, 100) logits, 48
+    fused_attention launches; a check's, not counted)."""
+    from devit_tpu_torch.entry import dryrun_multichip, entry
+
+    _free_card("[dryrun]")
+    t0 = time.perf_counter()
+    dryrun_multichip(8)
+    s = time.perf_counter() - t0
+    fn, example = entry()
+    before = _counts()
+    logits = fn(*example)
+    torch.cuda.synchronize()
+    launches = _delta(before)
+    _set_counts(before)
+    if logits.shape != (8, 100) or not torch.isfinite(logits).all() or launches[0] != 48:
+        raise AssertionError(f"[dryrun] entry(): logits {tuple(logits.shape)}, launches "
+                             f"{launches}")
+    print(f"[dryrun] dryrun_multichip(8) in {s:.1f} s (eight processes on the card); entry()'s "
+          f"forward on {logits.device}: logits {tuple(logits.shape)} finite, "
+          f"{launches[0]} fused_attention launches [{card}]")
+    return dict(seconds=s, entry_launches=launches[0])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3454,6 +3865,12 @@ def main() -> int:
     times["stage2_384"] = s384 = phase_stage2_384(card)
     times["cct"] = phase_cct(card)
     times["resume"] = phase_resume(card)
+    times["dist_stage2"] = d2 = phase_dist_stage2(card)
+    times["dist_ens"] = de = phase_dist_ens(card)
+    times["collab"] = collab = phase_collab(card)
+    times["cli_dist"] = cd = phase_cli_dist(card)
+    times["dryrun"] = phase_dryrun(card)
+    dist = [sum(p["launches"][i] for p in (d2, de, cd)) for i in range(4)]
     hm = {k: max(v, heads_pad["max_abs"][k], attn_long["max_abs"][k])
           for k, v in heads["max_abs"].items()}
 
@@ -3466,12 +3883,14 @@ def main() -> int:
         "replaces": "devit_tpu/kernels/attention.py:30",
         # the launches of every main-path run: serving, stage 2, stage 5, DEKD,
         # stage 3 (the policy search's chunks), stage 2 from the files, the CLI
-        # pipeline, stage 2 at 384 px
+        # pipeline, stage 2 at 384 px, every rank of the multi-rank phases,
+        # the collaborative server's stream
         "launches": (launches + train["launches"]["fused_attention"]
                      + ens["launches"]["fused_attention"] + dekd["launches"]["fused_attention"]
                      + stage3["launches"] + times["data_train"]["launches"]["fused_attention"]
                      + cli["launches"]["fused_attention"]
-                     + s384["launches"]["fused_attention"]),
+                     + s384["launches"]["fused_attention"] + dist[0]
+                     + collab["launches"][0]),
         # every shape checked: [kernel]'s up to B 256, stage 3's B 4096, [heads]
         "max_abs_err": max(max_abs_err, stage3["shrink"]["attention"]["max_abs_err"],
                            hm["fwd"]),
@@ -3483,7 +3902,8 @@ def main() -> int:
         "launches": (train["launches"]["attention_bwd"] + ens["launches"]["attention_bwd"]
                      + dekd["launches"]["attention_bwd"]
                      + times["data_train"]["launches"]["attention_bwd"]
-                     + cli["launches"]["attention_bwd"] + s384["launches"]["attention_bwd"]),
+                     + cli["launches"]["attention_bwd"] + s384["launches"]["attention_bwd"]
+                     + dist[1]),
         "max_abs_err": max(bwd_max_abs_err, hm["bwd"]),
         "ms": bw["ms"], "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
         "bound_by": bw["bound_by"], "library_ms": bw["library_ms"]}] + [{
@@ -3492,11 +3912,11 @@ def main() -> int:
         "name": f"attention_bwd_{k}", "route": "cuda",
         "source": "devit_tpu_torch/kernels/csrc/attention_bwd_split.cu",
         "replaces": f"devit_tpu/kernels/attention.py:{line}",
-        "launches": ens["launches"][f"attention_bwd_{k}"],
+        "launches": ens["launches"][f"attention_bwd_{k}"] + dist[i],
         "max_abs_err": max(split_max_abs_err[k], hm[k]),
         "ms": es[k]["ms"], "plain_ms": es[k]["plain_ms"], "bound_ms": es[k]["bound_ms"],
         "bound_by": es[k]["bound_by"], "library_ms": es[k]["library_ms"]}
-        for k, line in (("dv", 306), ("dqdk", 324))]}
+        for i, k, line in ((2, "dv", 306), (3, "dqdk", 324))]}
     i8, bl = times["int8"]["int8_forward"], times["int8"]["block_forward"]
     record["kernels"] += [{
         # per bs256 deployed int8 forward (192 calls); the library yardstick

@@ -4,10 +4,15 @@ argparse groups, flag names and defaults as the JAX CLI (the reference's
 model builders, checkpoint loading by name, and the train/eval transforms.
 
 One flag is the port's own: `--device {cuda,cpu}` (default cuda) on every
-subcommand. cuda without a card raises; nothing falls back to the CPU. The
-port runs one process on one device: the JAX CLI's data- and
-ensemble-parallel placers have no counterpart (multi-device training waits
-for ROADMAP Queue 1 item 8); every batch goes to --device.
+subcommand. cuda without a card raises; nothing falls back to the CPU.
+
+Under several processes (`torchrun --nproc-per-node N -m
+devit_tpu_torch.cli ...`, or the DEVIT_COORDINATOR variables;
+runtime.setup_runtime) each rank runs on its own card, and
+parallel_context gives the stages the layout the JAX CLI's placers give
+its meshes: the batch sharded over the
+'data' ranks, stage 5's divisions over the 'div' ranks. Rank 0 alone writes
+files.
 """
 
 from __future__ import annotations
@@ -502,11 +507,50 @@ def load_params_for(model: VisionTransformer, path: str, log=None) -> VisionTran
 
 def make_saver(args):
     """Stage checkpoint writer: msgpack. --ckpt-format orbax raises (the
-    port reads and writes msgpack only, as io/checkpoint.py)."""
+    port reads and writes msgpack only, as io/checkpoint.py). Off the main
+    process it writes nothing (reference save_on_master,
+    dist_utils.py:210-212): the caller hands it what one process holds."""
+    from devit_tpu_torch.runtime import is_main_process
+
     if getattr(args, "ckpt_format", "msgpack") == "orbax":
         raise ValueError("--ckpt-format orbax: orbax checkpoints are not ported; the port "
                          "writes msgpack")
+    if not is_main_process():
+        return lambda path, tree: None
     return save_pytree
+
+
+def barrier() -> None:
+    """Wait for every rank (one process: nothing): a stage's files are
+    written by rank 0 before any rank reads them."""
+    from devit_tpu_torch import runtime
+
+    if runtime.distributed():
+        torch.distributed.barrier()
+
+
+def parallel_context(log=None, num_divisions: Optional[int] = None):
+    """The layout of a stage under several ranks, or None in one process:
+    the counterpart of the JAX CLI's data_parallel_context (no
+    num_divisions: stages 2-4, the DDP replacement; the reference trains
+    every stage under 8-GPU DDP, train_subdata.py:399-401 + README.md:50)
+    and ensemble_parallel_context (stage 5: ensemble_layout's rule, the
+    division-stacked state and gates sharded over 'div' by
+    parallel/mesh.shard_state, the EnsMLP token fusion a gather over the
+    division group). A step under it takes its rows of each global batch
+    over 'data'; a batch the ranks do not divide (the last drop_last=False
+    eval batch) is computed whole on every rank, with a warning the first
+    time."""
+    from devit_tpu_torch import runtime
+    from devit_tpu_torch.parallel import mesh as M
+
+    if runtime.world_size() == 1:
+        return None
+    layout = M.data_layout() if num_divisions is None else M.ensemble_layout(num_divisions)
+    layout.log = log.info if log is not None else None
+    if log is not None:
+        log.info(f"layout over {layout.world} ranks: {layout.shape}")
+    return layout
 
 
 def batch_to(images: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -570,13 +614,15 @@ def make_train_pipeline(args, aug_cfg: AugmentConfig, dtype=torch.bfloat16, devi
 def setup(args):
     """Runtime, output dir, logger, and the flag set as training_args.json
     (the reference pickles args into training_args.bin)."""
-    from devit_tpu_torch.runtime import setup_runtime
+    from devit_tpu_torch.runtime import is_main_process, setup_runtime
 
-    setup_runtime()
+    setup_runtime(getattr(args, "device", "cuda"))
     os.makedirs(args.output_dir, exist_ok=True)
     log = create_logger(args.output_dir)
-    with open(os.path.join(args.output_dir, "training_args.json"), "w") as f:
-        json.dump({k: v for k, v in vars(args).items() if k != "fn"}, f, indent=1, default=str)
+    if is_main_process():
+        with open(os.path.join(args.output_dir, "training_args.json"), "w") as f:
+            json.dump({k: v for k, v in vars(args).items() if k != "fn"}, f, indent=1,
+                      default=str)
     return log
 
 

@@ -3,7 +3,11 @@ devit_tpu/cli/stages.py): split, train_sub, shrink, distill, ensemble,
 pipeline, deploy, convert and ingest, with the JAX CLI's flags, artifacts
 and file layout (shrinked_policy.npy/shrinked_accuracy.npy, checkpoint +
 checkpoint_temp, result.txt, log_stats.txt, compact.msgpack,
-deploy_report.json), on one CUDA device (or the CPU with --device cpu).
+deploy_report.json), on one CUDA device (or the CPU with --device cpu), or
+on several ranks (cli/common.py): stages 2-4 and the stage-3 policy
+evaluation data-parallel, stage 5 over the ('div', 'data') layout, where
+the JAX CLI places its meshes. Rank 0 writes every file; each stage ends
+at a barrier, so the next stage's ranks read what it wrote.
 
 Checkpoints are the JAX package's msgpack trees, so either CLI resumes or
 continues from the other's artifacts. Both model families run (the CCT
@@ -34,6 +38,8 @@ from devit_tpu_torch.models.ensemble import (
     stack_division_params,
 )
 from devit_tpu_torch.models.vit import Gates, full_gates, map_leaves
+from devit_tpu_torch.parallel import mesh as M
+from devit_tpu_torch.runtime import is_main_process
 from devit_tpu_torch.train import steps as S
 from devit_tpu_torch.train.loop import fit, run_eval
 from devit_tpu_torch.train.optim import make_optimizer
@@ -143,17 +149,19 @@ def split_main(args) -> str:
                                            getattr(args, "inat_category", "name"))
     manifest = DivisionManifest.create(num_classes, args.num_division, seed=42)
     out = os.path.join(args.output_dir, f"division{args.num_division}")
-    os.makedirs(out, exist_ok=True)
     path = os.path.join(out, "manifest.json")
-    manifest.save(path)
-    log.info(f"wrote {path}: {args.num_division} divisions over {num_classes} classes")
-    for i, d in enumerate(manifest.divisions):
-        log.info(f"  division {i}: {len(d)} classes")
-    if getattr(args, "materialize", False):
-        from devit_tpu_torch.data.splitter import materialize_imagefolder
+    if is_main_process():
+        os.makedirs(out, exist_ok=True)
+        manifest.save(path)
+        log.info(f"wrote {path}: {args.num_division} divisions over {num_classes} classes")
+        for i, d in enumerate(manifest.divisions):
+            log.info(f"  division {i}: {len(d)} classes")
+        if getattr(args, "materialize", False):
+            from devit_tpu_torch.data.splitter import materialize_imagefolder
 
-        materialize_imagefolder(manifest, args.data_path, out,
-                                link=not getattr(args, "materialize_copy", False), log=log)
+            materialize_imagefolder(manifest, args.data_path, out,
+                                    link=not getattr(args, "materialize_copy", False), log=log)
+    C.barrier()
     return path
 
 
@@ -174,6 +182,9 @@ def train_sub_main(args) -> float:
     model = C.build_model(args.model, num_classes, args, seed=args.seed)
     if args.model_path:
         C.load_params_for(model, args.model_path, log)
+    layout = C.parallel_context(log)
+    if layout is not None:
+        M.replicate_tree(dict(model.named_parameters()), layout)
 
     teacher = None
     if args.distillation_type != "none":
@@ -195,13 +206,14 @@ def train_sub_main(args) -> float:
     step = S.make_stage2_step(
         model, teacher, mixup=mix_cfg, smoothing=args.smoothing,
         distillation_type=args.distillation_type, distillation_alpha=args.distillation_alpha,
-        distillation_tau=args.distillation_tau, distill_token=args.distillation_token)
+        distillation_tau=args.distillation_tau, distill_token=args.distillation_token,
+        layout=layout)
 
     def step_fn(state, images, labels, generator):
         x = prep_train(generator, images)
         return step(state, None, x, C.batch_to(labels, device), generator)
 
-    eval_step = S.make_eval_step(model)
+    eval_step = S.make_eval_step(model, layout)
 
     def eval_fn(state):
         # the live params, not the EMA (train_subdata.py:468)
@@ -225,6 +237,7 @@ def train_sub_main(args) -> float:
         log_fn=log.info, save_state_fn=save_state, profile_dir=getattr(args, "profile_dir", None),
         tensorboard=getattr(args, "tensorboard", False), start_epoch=start_epoch)
     log.info(f"best acc1: {best:.2f}")
+    C.barrier()
     return best
 
 
@@ -245,6 +258,9 @@ def shrink_main(args):
     if args.model_path:
         C.load_params_for(model, args.model_path, log)
     prep_eval = C.make_eval_prepare(args.input_size, dtype, device)
+    # data-parallel policy evaluation (the reference wraps this stage in DDP
+    # too, shrink.py:337-339); the one-batch ranking runs whole on every rank
+    layout = C.parallel_context(log)
 
     # one train batch for ranking (imp_rank.py:21-23)
     images, _ = C.first_train_batch(train_ds, args.batch_size, seed=args.seed)
@@ -268,12 +284,15 @@ def shrink_main(args):
         shrink_ratio=args.shrink_ratio, population=args.population, lb=args.lb, ub=args.ub,
         emb=cfg.embed_dim, head=cfg.num_heads, seq_length=seq_length, mlp_ratio=cfg.mlp_ratio,
         full_gmacs=9.19 if canonical else None, candidate_chunk=args.candidate_chunk,
-        seed=args.seed, log=log, prepare=lambda t: eval_transform(t, args.input_size, dtype))
-    np.save(os.path.join(args.output_dir, "shrinked_policy.npy"), result.policies)
-    np.save(os.path.join(args.output_dir, "shrinked_accuracy.npy"), result.accuracies)
-    np.save(os.path.join(args.output_dir, "neuron_rank.npy"), neuron_rank)
-    np.save(os.path.join(args.output_dir, "head_rank.npy"), head_rank)
+        seed=args.seed, log=log, prepare=lambda t: eval_transform(t, args.input_size, dtype),
+        layout=layout)
+    if is_main_process():
+        np.save(os.path.join(args.output_dir, "shrinked_policy.npy"), result.policies)
+        np.save(os.path.join(args.output_dir, "shrinked_accuracy.npy"), result.accuracies)
+        np.save(os.path.join(args.output_dir, "neuron_rank.npy"), neuron_rank)
+        np.save(os.path.join(args.output_dir, "head_rank.npy"), head_rank)
     log.info(f"best policy acc {result.accuracies.max():.2f} -> {args.output_dir}")
+    C.barrier()
     return result
 
 
@@ -306,6 +325,9 @@ def distill_main(args) -> float:
                                seed=args.seed)
     if args.model_path:
         C.load_params_for(student, args.model_path, log)
+    layout = C.parallel_context(log)
+    if layout is not None:
+        M.replicate_tree(dict(student.named_parameters()), layout)
 
     # shrink policy: the argmax-accuracy row; the first L entries are the
     # neuron sparsity, the next L the head sparsity (distill_sub.py:384-389)
@@ -351,13 +373,13 @@ def distill_main(args) -> float:
         student, teacher, gamma=tuple(args.gama), mixup=mix_cfg, smoothing=args.smoothing,
         distillation_type=args.distillation_type, distillation_alpha=args.distillation_alpha,
         distillation_tau=args.distillation_tau,
-        distillation_inter=getattr(args, "distillation_inter", True))
+        distillation_inter=getattr(args, "distillation_inter", True), layout=layout)
 
     def step_fn(state, images, labels, generator):
         x = prep_train(generator, images)
         return step(state, None, gates, x, C.batch_to(labels, device), generator)
 
-    eval_step = S.make_eval_step(student)
+    eval_step = S.make_eval_step(student, layout)
 
     def eval_fn(state):
         # the live params, not the EMA (distill_sub.py:435)
@@ -376,6 +398,7 @@ def distill_main(args) -> float:
         log_fn=log.info, save_state_fn=save_state, profile_dir=getattr(args, "profile_dir", None),
         tensorboard=getattr(args, "tensorboard", False), start_epoch=start_epoch)
     log.info(f"DEKD best acc1: {best:.2f}")
+    C.barrier()
     return best
 
 
@@ -384,10 +407,13 @@ def distill_main(args) -> float:
 
 def _ensemble_eval_compact(args, log, val_ds, num_classes, D) -> float:
     """Collaborative-inference eval from the deploy stage's compact
-    artifacts: the serving path's forward (stack_division_features at bf16
-    with fast_math, the fusion head at bf16), one device (no
-    parallel/serve.py topology)."""
-    from devit_tpu_torch.models.compact_vit import load_compact, stack_division_features
+    artifacts through the serving path's forward, the collaborative server
+    (parallel/serve.py: bf16 with fast_math, the fusion head at bf16) and
+    its lag-2 stream: a division a card with --device cuda and several
+    visible cards in one process, as the JAX CLI does, else on the rank's
+    own device."""
+    from devit_tpu_torch.models.compact_vit import load_compact
+    from devit_tpu_torch.parallel.serve import make_collaborative_server, serving_devices
 
     device = C.device_from_args(args)
     cms = [load_compact(os.path.join(args.compact_path, f"sub-dataset{i}", "compact.msgpack"),
@@ -408,15 +434,28 @@ def _ensemble_eval_compact(args, log, val_ds, num_classes, D) -> float:
     prep_eval = C.make_eval_prepare(args.input_size, C.dtype_from_args(args), device)
 
     totals = {"top1": 0, "top5": 0, "count": 0}
-    batch_size = args.eval_batch_size
-    with torch.inference_mode():
+    metas = []  # (labels, n real rows) of each batch, in order
+
+    def prepared():
+        batch_size = args.eval_batch_size
         for imgs, labels in _val_batches(args, val_ds):
             # the ragged tail padded to the steady shape, as run_eval does
             imgs, labels, batch_size, n = pad_batch_to_steady(imgs, labels, batch_size)
-            cls_stack, dist_stack = stack_division_features(
-                cms, prep_eval(imgs), patch_size=args.patch_size, use_kernel=use_kernel)
-            logits = ens(cls_stack, dist_stack).logits[:n].float().cpu().numpy()
-            labels = np.asarray(labels)[:n]
+            metas.append((np.asarray(labels)[:n], n))
+            yield prep_eval(imgs)
+
+    fwd = make_collaborative_server(
+        cms, lambda ev, c, t: torch.func.functional_call(ens, ev, (c, t)),
+        dict(ens.named_parameters()), patch_size=args.patch_size,
+        devices=serving_devices(device), use_kernel=use_kernel)
+    if len(set(fwd.division_devices)) > 1:
+        log.info(f"collaborative serving: divisions on "
+                 f"{[str(d) for d in fwd.division_devices]}, fusion on {fwd.fusion_device}")
+    outputs = fwd.stream(dict(ens.named_parameters()), prepared(), depth=2)
+    with torch.inference_mode():
+        for logits in outputs:
+            labels, n = metas.pop(0)
+            logits = logits[:n]
             pred = np.argsort(-logits, axis=-1)
             totals["top1"] += int((pred[:, 0] == labels).sum())
             k = min(5, logits.shape[-1])
@@ -441,6 +480,10 @@ def _run_ensemble_training(args, log, train_ds, val_ds, num_classes, D, backbone
     bb_cfg = C.optim_config_from_args(args, args.batch_size)
     ens_lr = args.ens_lr if args.ens_lr is not None else args.lr
     ens_cfg = type(bb_cfg)(**{**bb_cfg.__dict__, "lr": ens_lr})
+    layout = C.parallel_context(log, num_divisions=D)
+    if layout is not None:
+        M.replicate_tree(stacked, layout)
+        M.replicate_tree(dict(ens.named_parameters()), layout)
     bb_state = TrainState.create(stacked, make_optimizer(bb_cfg, steps_per_epoch),
                                  use_ema=args.model_ema, ema_decay=args.model_ema_decay)
     ens_state = TrainState.create(ens, make_optimizer(ens_cfg, steps_per_epoch),
@@ -455,11 +498,17 @@ def _run_ensemble_training(args, log, train_ds, val_ds, num_classes, D, backbone
     step = make_train(
         backbone, ens, teacher, mixup=mix_cfg, smoothing=args.smoothing,
         distillation_type=args.distillation_type, distillation_alpha=args.distillation_alpha,
-        distillation_tau=args.distillation_tau)
-    ens_eval = (S.make_cct_ensemble_eval_step if cct else S.make_ensemble_eval_step)(backbone,
-                                                                                   ens)
+        distillation_tau=args.distillation_tau, layout=layout)
+    ens_eval = (S.make_cct_ensemble_eval_step if cct else S.make_ensemble_eval_step)(
+        backbone, ens, layout)
 
+    # every rank restores the whole checkpoint, then keeps its divisions
     bb_state, ens_state, start_epoch = _try_resume_ensemble(args, bb_state, ens_state, log)
+    all_gates = gates
+    if layout is not None:
+        M.shard_state(bb_state, layout)
+        if gates is not None:
+            gates = Gates(**M.shard_division_tree(gates._asdict(), layout))
 
     def step_fn(carry, images, labels, generator):
         bb_state, ens_state = carry
@@ -476,8 +525,11 @@ def _run_ensemble_training(args, log, train_ds, val_ds, num_classes, D, backbone
     save = C.make_saver(args)
 
     def save_state(path, carry, epoch):
+        # gathered over the division group: the file is one process's
         bb_state, ens_state = carry
-        save(path, stage5_tree(bb_state, ens_state, epoch, gates))
+        if layout is not None:
+            bb_state = M.gathered_state(bb_state, layout)
+        save(path, stage5_tree(bb_state, ens_state, epoch, all_gates))
 
     if args.eval:
         m = eval_fn((bb_state, ens_state))
@@ -492,6 +544,7 @@ def _run_ensemble_training(args, log, train_ds, val_ds, num_classes, D, backbone
         profile_dir=getattr(args, "profile_dir", None),
         tensorboard=getattr(args, "tensorboard", False), start_epoch=start_epoch)
     log.info(f"{label} best acc1: {best:.2f}")
+    C.barrier()
     return best
 
 
@@ -798,7 +851,8 @@ def deploy_main(args):
         cm = compact_vit_ragged(params, gates, cfg, neuron_multiple=args.neuron_multiple,
                                 device="cpu")
         out = os.path.join(args.output_dir, f"sub-dataset{i}", "compact.msgpack")
-        save_compact(out, cm)
+        if is_main_process():
+            save_compact(out, cm)
         n_sp, h_sp = check_sparsity(gates)
         # 197 for the canonical dedeit geometry only (shrink_imp.py:75)
         canonical = cfg.depth == 12 and cfg.embed_dim == 384 and cfg.num_heads == 6
@@ -811,8 +865,10 @@ def deploy_main(args):
         log.info(f"division {i}: {macs:.3f} GMACs, {paras:.1f} M params, "
                  f"{kept_h}/{cfg.depth * cfg.num_heads} heads -> {out}")
         report.append({"division": i, "gmacs": macs, "mparams": paras})
-    with open(os.path.join(args.output_dir, "deploy_report.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    if is_main_process():
+        with open(os.path.join(args.output_dir, "deploy_report.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    C.barrier()
     return report
 
 

@@ -24,6 +24,7 @@ from devit_tpu_torch.core.metrics import cal_shrink_macs
 from devit_tpu_torch.core.rank import build_gates
 from devit_tpu_torch.data.datasets import pad_batch_to_steady
 from devit_tpu_torch.models.vit import Gates
+from devit_tpu_torch.parallel.mesh import batch_rows
 
 
 def screen(
@@ -132,6 +133,7 @@ def evaluate_policies(
     *,
     candidate_chunk: int = 8,
     prepare: Optional[Callable] = None,
+    layout=None,
 ) -> np.ndarray:
     """Top-1 accuracy (percent, float64) per candidate, chunked over
     candidates to bound activation memory.
@@ -140,7 +142,9 @@ def evaluate_policies(
     to the steady shape (labels -1, which never match) before `prepare` (the
     eval transform, on a tensor on the model's device) runs. The candidate
     axis is padded to a chunk multiple with candidate 0's gates, so every
-    chunk has one shape; the padded candidates' counts are sliced away."""
+    chunk has one shape; the padded candidates' counts are sliced away.
+    Under a data `layout` (parallel/mesh.Layout) each rank scores its rows
+    of every padded batch and the counts are summed over the data group."""
     step = make_batched_policy_eval(model)
     device = _device(model)
     head = np.asarray(stacked_gates.head)
@@ -155,11 +159,14 @@ def evaluate_policies(
     neuron = torch.as_tensor(neuron, device=device)
 
     correct = np.zeros(C_pad, dtype=np.int64)
+    shard = np.zeros(C_pad, dtype=np.int64)  # counts of this rank's rows only
     total = 0
     batch_size = None
     for images, labels in val_batches:
         images, labels, batch_size, n = pad_batch_to_steady(images, labels, batch_size)
         total += int(n)
+        rows = None if layout is None else layout.rows(len(labels))
+        images, labels = batch_rows(rows, images, labels)
         images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
         if prepare is not None:
             images = prepare(images)
@@ -167,7 +174,9 @@ def evaluate_policies(
         for c0 in range(0, C_pad, candidate_chunk):
             sl = slice(c0, c0 + candidate_chunk)
             out = step(Gates(head[sl], neuron[sl]), images, labels)
-            correct[sl] += out.cpu().numpy().astype(np.int64)
+            (correct if rows is None else shard)[sl] += out.cpu().numpy().astype(np.int64)
+    if layout is not None:
+        correct += layout.sum_over_data(torch.from_numpy(shard).to(device)).cpu().numpy()
     return 100.0 * correct[:C] / max(total, 1)
 
 
@@ -207,10 +216,11 @@ def model_shrink(
     seed: Optional[int] = None,
     prepare: Optional[Callable] = None,
     log=None,
+    layout=None,
 ) -> ShrinkResult:
     """End-to-end policy search. `val_batches_fn()` returns a fresh iterable
     of RAW HOST (images, labels) batches; `prepare` is the eval transform
-    (see evaluate_policies)."""
+    (see evaluate_policies, which `layout` shards)."""
     if full_gmacs is None:
         zeros = [0.0] * layer
         full_gmacs = 2 * cal_shrink_macs(
@@ -225,6 +235,7 @@ def model_shrink(
     stacked = policies_to_gates(candidates, neuron_rank, head_rank, layer)
     accs = evaluate_policies(
         model, stacked, val_batches_fn(), candidate_chunk=candidate_chunk, prepare=prepare,
+        layout=layout,
     )
     if log is not None:
         for ratio, acc in zip(candidates, accs):

@@ -2,6 +2,8 @@
 
 The port runs on CUDA unless the caller asks for the CPU. A request for CUDA
 on a machine without a usable card raises; nothing falls back to the CPU.
+Under a process group (runtime.setup_runtime) a bare "cuda" is the rank's
+own card, cuda:{local_rank % device_count}, made the current device.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """None -> cuda. Raises when cuda is asked for and absent."""
+    """None -> cuda. Raises when cuda is asked for and absent. A bare cuda
+    under a process group is the rank's card (module docstring)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -22,6 +25,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "pass device='cpu' to run the plain PyTorch path on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")
+    if dev.type == "cuda" and dev.index is None:
+        from devit_tpu_torch import runtime
+
+        if runtime.distributed():
+            dev = torch.device("cuda", runtime.local_rank() % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
     return dev
 
 

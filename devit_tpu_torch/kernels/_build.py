@@ -6,6 +6,12 @@ build/devit_tpu_torch_kernels/ at the root of the checkout, at first use: one
 nvcc process a source, all started together, then one link. The library is named by the hash of every source and header in
 csrc/ and of the flags, so an edited file is never served by a stale build.
 
+Ranks that start together (one process a card, or ranks that share one)
+build once: a build holds an exclusive lock on a file beside the library
+(fcntl.flock, released by the kernel when its process ends, so a killed
+build leaves no stale lock), and a process that waited for it finds the
+library built.
+
 `library()` loads it once with every kernel's C signature declared; the
 kernel modules (attention.py, quant.py) launch through it and raise through
 `check_launch`. No flag relaxes IEEE arithmetic: the int8 kernel's
@@ -15,6 +21,7 @@ quantization divides and rounds as its plain version does.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -88,11 +95,20 @@ def _lib_path() -> Path:
 def build() -> Tuple[float, str]:
     """Compile the library unless an up-to-date one exists: every source to
     an object in parallel, then one link. Returns the wall seconds spent and
-    nvcc's output (registers, shared memory, spills)."""
+    nvcc's output (registers, shared memory, spills). Concurrent callers
+    build once (module docstring)."""
     out = _lib_path()
     if out.exists():
         return 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # built while this process waited
+            return 0.0, ""
+        return _build_locked(out)
+
+
+def _build_locked(out: Path) -> Tuple[float, str]:
     tag = f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")

@@ -35,7 +35,7 @@ from torch import nn
 from devit_tpu_torch.configs import CCTConfig, get_cct_config
 from devit_tpu_torch.device import DeviceLike, resolve_device, to_device
 from devit_tpu_torch.models.vit import (
-    Dense, Gates, LayerNorm, _dropout, _rows, _seeded, _trunc_normal_, drop_path,
+    Dense, Gates, LayerNorm, Rows, _dropout, _rows, _seeded, _trunc_normal_, drop_path,
     drop_path_masks, fast_gelu, full_gates,
 )
 
@@ -131,9 +131,11 @@ class CCTLayer(nn.Module):
     def forward(self, x: torch.Tensor, head_gate: torch.Tensor, neuron_gate: torch.Tensor,
                 dp_rate: float, dp_masks: Optional[torch.Tensor], dropout_seed: Optional[int],
                 *, dtype: torch.dtype, train: bool, capture_qkv: bool,
-                capture_rank_stats: bool, capture_outputs: bool) -> Tuple[torch.Tensor, dict]:
+                capture_rank_stats: bool, capture_outputs: bool,
+                rows: Optional[Rows] = None) -> Tuple[torch.Tensor, dict]:
         """dp_masks: (2, B, 1, 1) keep masks of the two residual branches, or
-        None; dropout_seed seeds the layer's dropout generator on x's device."""
+        None; dropout_seed seeds the layer's dropout generator on x's device
+        (`rows` as in vit._dropout)."""
         cfg = self.cfg
         B, N, D = x.shape
         H = cfg.num_heads
@@ -147,25 +149,25 @@ class CCTLayer(nn.Module):
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (dh ** -0.5)
         probs = torch.softmax(logits, dim=-1).to(dtype)
         if train:
-            probs = _dropout(probs, cfg.attention_dropout, gen)
+            probs = _dropout(probs, cfg.attention_dropout, gen, rows)
         att = torch.matmul(probs, v)  # (B, H, N, dh)
         if capture_rank_stats:
             outs["head_out"] = att.transpose(1, 2)
         att = att * _rows(head_gate.to(dtype))[:, :, None, None]
         att = self.proj(att.transpose(1, 2).reshape(B, N, D), dtype)
         if train:
-            att = _dropout(att, cfg.dropout, gen)
+            att = _dropout(att, cfg.dropout, gen, rows)
         x = x + (att if dp_masks is None else drop_path(att, dp_rate, dp_masks[0]))
 
         h = self.norm1(x)
         h = fast_gelu(self.linear1(h, dtype))
         if train:
-            h = _dropout(h, cfg.dropout, gen)
+            h = _dropout(h, cfg.dropout, gen, rows)
         if capture_rank_stats:
             outs["neuron_act"] = h
         h = self.linear2(h * _rows(neuron_gate.to(dtype))[:, None, :], dtype)
         if train:
-            h = _dropout(h, cfg.dropout, gen)
+            h = _dropout(h, cfg.dropout, gen, rows)
         x = x + (h if dp_masks is None else drop_path(h, dp_rate, dp_masks[1]))
         if capture_qkv:
             outs["qkv"] = torch.stack([q, k, v])
@@ -233,10 +235,12 @@ class CCT(nn.Module):
                 capture_qkv: str = "none", capture_layer: Optional[int] = None,
                 capture_outputs: bool = False, capture_rank_stats: bool = False,
                 distill_token: bool = False,
-                generator: Optional[torch.Generator] = None) -> CCTOutput:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Rows] = None) -> CCTOutput:
         """x: (B, H, W, C) NHWC. distill_token is accepted for the steps' API
         (the pooled feature is the distillation token). `generator` draws the
-        drop-path masks and the dropout seeds when train=True."""
+        drop-path masks and the dropout seeds when train=True; with `rows`
+        at the global batch, cut to those rows (vit.VisionTransformer)."""
         cfg, dtype = self.cfg, self.dtype
         L = cfg.num_layers
         if capture_qkv not in ("none", "middle", "all"):
@@ -263,14 +267,14 @@ class CCT(nn.Module):
             seeds = torch.randint(0, 2 ** 62, (L + 1,), generator=generator,
                                   device=generator.device).tolist()
         if train and cfg.dropout > 0:
-            t = _dropout(t, cfg.dropout, _seeded(seeds[0], t.device))
+            t = _dropout(t, cfg.dropout, _seeded(seeds[0], t.device), rows)
         if gates is None:
             gates = full_gates(cfg, device=t.device)
 
         dp_rates = torch.linspace(0.0, cfg.stochastic_depth, L).tolist()
         masks = None
         if train and cfg.stochastic_depth > 0:
-            masks = to_device(drop_path_masks(generator, dp_rates, B), t.device)
+            masks = to_device(drop_path_masks(generator, dp_rates, B, rows), t.device)
         t_emb = t  # post-PE, post-dropout embedding: the reference's hidden[0]
         layer_outs, qkv_slot = [], None
         for i, blk in enumerate(self.blocks):
@@ -280,7 +284,7 @@ class CCT(nn.Module):
                           capture_qkv=capture_qkv == "all" or (capture_qkv == "middle"
                                                                and i == capture_layer),
                           capture_rank_stats=capture_rank_stats,
-                          capture_outputs=capture_outputs)
+                          capture_outputs=capture_outputs, rows=rows)
             if capture_qkv == "middle" and i == capture_layer:
                 qkv_slot = outs["qkv"].to(dtype)
             layer_outs.append(outs)

@@ -300,15 +300,26 @@ def compact_forward(
 def stack_division_features(cms: Sequence[CompactViT], images: torch.Tensor, *,
                             patch_size: int, dtype: torch.dtype = torch.bfloat16,
                             use_kernel: bool = True, fast_math: bool = True,
-                            int8: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                            int8: bool = False, out_device: Optional[torch.device] = None
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run every compact division on the same batch and stack the token
-    features division-major: (cls (D, B, C), dist (D, B, C) or None)."""
-    feats = [compact_forward(cm, images, patch_size=patch_size, dtype=dtype,
-                             use_kernel=use_kernel, fast_math=fast_math,
-                             features_only=True, int8=int8) for cm in cms]
-    cls_stack = torch.stack([c for c, _ in feats])
+    features division-major on `out_device` (default the images' device):
+    (cls (D, B, C), dist (D, B, C) or None). Each division runs where its
+    weights lie; the batch goes once to each such device, and only the
+    (B, C) tokens come back (parallel/serve.py)."""
+    images = torch.as_tensor(images)
+    out_device = images.device if out_device is None else out_device
+    on_device, feats = {}, []
+    for cm in cms:
+        dev = cm.pos_embed.device
+        if dev not in on_device:
+            on_device[dev] = images.to(dev, non_blocking=True)
+        feats.append(compact_forward(cm, on_device[dev], patch_size=patch_size, dtype=dtype,
+                                     use_kernel=use_kernel, fast_math=fast_math,
+                                     features_only=True, int8=int8))
+    cls_stack = torch.stack([c.to(out_device, non_blocking=True) for c, _ in feats])
     dist_stack = (None if feats[0][1] is None
-                  else torch.stack([d for _, d in feats]))
+                  else torch.stack([d.to(out_device, non_blocking=True) for _, d in feats]))
     return cls_stack, dist_stack
 
 

@@ -28,7 +28,9 @@ from torch import nn
 from torch.func import functional_call
 
 from devit_tpu_torch.models import vit
-from devit_tpu_torch.models.vit import Gates, VisionTransformer, _trunc_normal_, full_gates
+from devit_tpu_torch.models.vit import (
+    Gates, Rows, VisionTransformer, _trunc_normal_, full_gates, train_draws,
+)
 
 # parameters a features_only forward never reaches; the JAX package's
 # features_only init never creates them
@@ -162,25 +164,41 @@ def init_multivit(model: VisionTransformer, generators: Sequence[torch.Generator
 
 def multivit_features(model: VisionTransformer, stacked_params: Mapping[str, torch.Tensor],
                       x: torch.Tensor, stacked_gates: Optional[Gates] = None, *,
-                      train: bool = False, generator: Optional[torch.Generator] = None
+                      train: bool = False, generator: Optional[torch.Generator] = None,
+                      divisions: Optional[Sequence[int]] = None,
+                      num_divisions: Optional[int] = None, rows: Optional[Rows] = None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """All-division forward on the same batch (ensemble_models.py:32-40):
     division d runs `model` on stacked_params[k][d] with stacked_gates[d]
     (full gates if None). train=True enables the backbones' drop-path and
     dropout, drawn from `generator` one division after the other.
 
-    Returns (cls_tokens (D, B, C), dist_tokens (D, B, C) or None)."""
+    A division-parallel rank holds some of the num_divisions divisions:
+    `divisions` names the global index of each stacked slice, and the
+    generator passes over the others' draws in order. `rows` (start, stop,
+    global batch): x holds those rows (vit.VisionTransformer.forward).
+
+    Returns (cls_tokens (D, B, C), dist_tokens (D, B, C) or None) over the
+    stacked slices."""
     if train and generator is None:
         raise ValueError("multivit_features(train=True) needs generator= for the backbones' "
                          "dropout/drop-path draws")
     D = next(iter(stacked_params.values())).shape[0]
+    divisions = list(range(D)) if divisions is None else list(divisions)
+    num_divisions = D if num_divisions is None else num_divisions
+    batch = x.shape[0] if rows is None else rows[2]
     cls_t, dist_t = [], []
-    for d in range(D):
+    for g in range(num_divisions):
+        if g not in divisions:
+            if train:
+                train_draws(model.cfg, generator, batch)
+            continue
+        d = divisions.index(g)
         gates = (full_gates(model.cfg, device=x.device) if stacked_gates is None
                  else Gates(head=stacked_gates.head[d], neuron=stacked_gates.neuron[d]))
         out = functional_call(model, {k: v[d] for k, v in stacked_params.items()}, (x,),
                               dict(gates=gates, features_only=True, train=train,
-                                   generator=generator))
+                                   generator=generator, rows=rows))
         cls_t.append(out.cls_feat)
         dist_t.append(out.dist_feat)
     return torch.stack(cls_t), (None if dist_t[0] is None else torch.stack(dist_t))
@@ -204,23 +222,31 @@ def ensemble_forward(model: VisionTransformer, ens_model: EnsMLP,
 
 def multicct_features(model, stacked_params: Mapping[str, torch.Tensor], x: torch.Tensor,
                       stacked_gates: Optional[Gates] = None, *, train: bool = False,
-                      generators: Optional[Sequence[torch.Generator]] = None) -> torch.Tensor:
+                      generators: Optional[Sequence[torch.Generator]] = None,
+                      divisions: Optional[Sequence[int]] = None,
+                      num_divisions: Optional[int] = None,
+                      rows: Optional[Rows] = None) -> torch.Tensor:
     """All-division CCT backbone forward -> pooled features (D, B, C)
     (MultiCCT, ensemble_models.py:93-113): division d runs `model` (a CCT
     backbone) on stacked_params[k][d] with stacked_gates[d] (full gates if
     None). train=True enables the backbones' dropout and drop-path, one
-    generator a division (the JAX package splits one key per division)."""
+    generator a division (the JAX package splits one key per division).
+    `divisions`, `num_divisions` and `rows` as in multivit_features: a
+    division-parallel rank runs the stacked slices it holds, each with the
+    generator of its global index."""
     D = next(iter(stacked_params.values())).shape[0]
-    if train and (generators is None or len(generators) != D):
+    divisions = list(range(D)) if divisions is None else list(divisions)
+    num_divisions = D if num_divisions is None else num_divisions
+    if train and (generators is None or len(generators) != num_divisions):
         raise ValueError("multicct_features(train=True) needs one generator a division for "
                          "the backbones' dropout/drop-path draws")
     feats = []
-    for d in range(D):
+    for d, g in enumerate(divisions):
         gates = (full_gates(model.cfg, device=x.device) if stacked_gates is None
                  else Gates(head=stacked_gates.head[d], neuron=stacked_gates.neuron[d]))
         out = functional_call(model, {k: v[d] for k, v in stacked_params.items()}, (x,),
                               dict(gates=gates, train=train,
-                                   generator=generators[d] if train else None))
+                                   generator=generators[g] if train else None, rows=rows))
         feats.append(out.pooled)
     return torch.stack(feats)
 

@@ -78,12 +78,21 @@ class ViTOutput(NamedTuple):
     head_out: Optional[torch.Tensor] = None  # (L,B,N,H,dh) pre-gate head outputs
 
 
-def drop_path_masks(generator: torch.Generator, rates, batch: int) -> torch.Tensor:
+Rows = Tuple[int, int, int]  # (start, stop, global batch): a rank's rows of a batch
+
+
+def drop_path_masks(generator: torch.Generator, rates, batch: int,
+                    rows: Optional[Rows] = None) -> torch.Tensor:
     """Keep masks of every layer's two residual branches, (L, 2, B, 1, 1) f32
-    0/1, Bernoulli(1 - rates[l]), drawn on the generator's device."""
+    0/1, Bernoulli(1 - rates[l]), drawn on the generator's device. With
+    `rows` the masks are drawn at the global batch and cut to the rows, so a
+    data-parallel rank draws what one process draws for those rows."""
+    if rows is not None:
+        batch = rows[2]
     keep = torch.tensor([1.0 - r for r in rates], device=generator.device)
     keep = keep.view(-1, 1, 1, 1, 1).expand(len(rates), 2, batch, 1, 1).contiguous()
-    return torch.bernoulli(keep, generator=generator)
+    masks = torch.bernoulli(keep, generator=generator)
+    return masks if rows is None else masks[:, :, rows[0]:rows[1]]
 
 
 def drop_path(x: torch.Tensor, rate: float, mask: torch.Tensor) -> torch.Tensor:
@@ -102,13 +111,18 @@ def _seeded(seed: Optional[int], device: torch.device) -> Optional[torch.Generat
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             rows: Optional[Rows] = None) -> torch.Tensor:
     """flax nn.Dropout: keep with probability 1 - rate, scaled by 1/(1 - rate);
-    `generator` lies on x's device."""
+    `generator` lies on x's device. With `rows` x holds those rows of the
+    batch (dim 0) and the mask is drawn at the global batch, then cut."""
     if rate <= 0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.bernoulli(torch.full(x.shape, keep, device=x.device), generator=generator)
+    shape = x.shape if rows is None else (rows[2],) + tuple(x.shape[1:])
+    mask = torch.bernoulli(torch.full(shape, keep, device=x.device), generator=generator)
+    if rows is not None:
+        mask = mask[rows[0]:rows[1]]
     return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -276,10 +290,12 @@ class Block(nn.Module):
                 dp_rate: float, dp_masks: Optional[torch.Tensor], dropout_seed: Optional[int],
                 *, dtype: torch.dtype, stat_dtype: torch.dtype, fast_math: bool,
                 use_kernel: bool, train: bool, capture_qkv: bool,
-                capture_rank_stats: bool, capture_attn: bool) -> Tuple[torch.Tensor, dict]:
+                capture_rank_stats: bool, capture_attn: bool,
+                rows: Optional[Rows] = None) -> Tuple[torch.Tensor, dict]:
         """dp_masks: (2, B, 1, 1) keep masks of the attention and MLP branches,
         or None (no drop-path). dropout_seed seeds a generator on x's device
-        for dropout, so a recompute draws the same bits."""
+        for dropout, so a recompute draws the same bits; `rows` as in
+        _dropout."""
         cfg = self.cfg
         B, N, _ = x.shape
         H, dh, A = cfg.num_heads, cfg.head_dim, cfg.attn_dim
@@ -299,7 +315,7 @@ class Block(nn.Module):
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (dh ** -0.5)
             probs = torch.softmax(logits, dim=-1).to(dtype)
             if train:
-                probs = _dropout(probs, cfg.attn_drop_rate, gen)
+                probs = _dropout(probs, cfg.attn_drop_rate, gen, rows)
             attn_out = torch.matmul(probs, v)  # (B, H, N, dh)
             if capture_rank_stats:
                 outs["head_out"] = attn_out.transpose(1, 2)
@@ -309,20 +325,20 @@ class Block(nn.Module):
             attn_out = attn_out.transpose(1, 2).reshape(B, N, A)
         attn_out = self.proj(attn_out, dtype)
         if train:
-            attn_out = _dropout(attn_out, cfg.drop_rate, gen)
+            attn_out = _dropout(attn_out, cfg.drop_rate, gen, rows)
         x = x + (attn_out if dp_masks is None else drop_path(attn_out, dp_rate, dp_masks[0]))
 
         h = self.norm2(x, stat_dtype)
         h = self.fc1(h, dtype)
         h = gelu_tanh(h) if fast_math else fast_gelu(h)
         if train:
-            h = _dropout(h, cfg.drop_rate, gen)
+            h = _dropout(h, cfg.drop_rate, gen, rows)
         if capture_rank_stats:
             outs["neuron_act"] = h
         h = h * _rows(neuron_gate.to(dtype))[:, None, :]
         h = self.fc2(h, dtype)
         if train:
-            h = _dropout(h, cfg.drop_rate, gen)
+            h = _dropout(h, cfg.drop_rate, gen, rows)
         x = x + (h if dp_masks is None else drop_path(h, dp_rate, dp_masks[1]))
         if capture_attn:
             outs["attn"] = attn_out
@@ -400,9 +416,13 @@ class VisionTransformer(nn.Module):
                 capture_block_outputs: bool = False, capture_embedding: bool = False,
                 capture_rank_stats: bool = False, distill_token: bool = False,
                 features_only: bool = False,
-                generator: Optional[torch.Generator] = None) -> ViTOutput:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Rows] = None) -> ViTOutput:
         """x: (B, H, W, C) NHWC. `generator` draws drop-path masks and
-        dropout seeds when train=True (required then if the config has any)."""
+        dropout seeds when train=True (required then if the config has any).
+        `rows` (start, stop, global batch): x holds those rows of a global
+        batch, and every per-sample draw is made at the global batch and cut
+        to them (a data-parallel rank's share of one process's step)."""
         cfg = self.cfg
         dtype = self.dtype
         B = x.shape[0]
@@ -426,22 +446,19 @@ class VisionTransformer(nn.Module):
         if cfg.distilled:
             toks.append(self.dist_token.to(dtype).expand(B, 1, C))
         t = torch.cat(toks + [t], dim=1) + self.pos_embed.to(dtype)
-        # seeds of the embedding's dropout (0) and each block's (1..depth)
-        seeds = [None] * (cfg.depth + 1)
-        if train and (cfg.drop_rate > 0 or cfg.attn_drop_rate > 0):
-            seeds = torch.randint(0, 2 ** 62, (cfg.depth + 1,), generator=generator,
-                                  device=generator.device).tolist()
+        seeds, masks = [None] * (cfg.depth + 1), None
+        if train:
+            seeds, masks = train_draws(cfg, generator, B, rows)
         if train and cfg.drop_rate > 0:
-            t = _dropout(t, cfg.drop_rate, _seeded(seeds[0], t.device))
+            t = _dropout(t, cfg.drop_rate, _seeded(seeds[0], t.device), rows)
         resize = cfg.resize_dim is not None
         embedding = None
         if capture_embedding:
             embedding = self.resize_encoder_mlp(t, dtype) if resize else t
 
         dp_rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
-        masks = None
-        if train and cfg.drop_path_rate > 0:
-            masks = to_device(drop_path_masks(generator, dp_rates, B), t.device)
+        if masks is not None:
+            masks = to_device(masks, t.device)
         remat = self.use_remat and train and torch.is_grad_enabled()
         layer_outs = []
         qkv_slot = None
@@ -453,7 +470,7 @@ class VisionTransformer(nn.Module):
                       capture_qkv=capture_qkv == "all" or (capture_qkv == "middle"
                                                            and i == capture_layer),
                       capture_rank_stats=capture_rank_stats,
-                      capture_attn=capture_block_outputs)
+                      capture_attn=capture_block_outputs, rows=rows)
             args = (t, gates.head[i], gates.neuron[i], dp_rates[i],
                     None if masks is None else masks[i], seeds[i + 1])
             if remat:
@@ -509,6 +526,25 @@ class VisionTransformer(nn.Module):
             dist_logits = self.head_dist(dist_feat, dtype).float()
             logits = (cls_logits + dist_logits) / 2.0
         return ViTOutput(logits=logits, cls_logits=cls_logits, dist_logits=dist_logits, **common)
+
+
+def train_draws(cfg: ViTConfig, generator: torch.Generator, batch: int,
+                rows: Optional[Rows] = None) -> Tuple[list, Optional[torch.Tensor]]:
+    """What a train=True forward at `batch` rows draws from `generator`:
+    the seeds of the embedding's dropout (0) and each block's (1..depth),
+    None without dropout, then the drop-path masks (drop_path_masks, on the
+    generator's device), None without drop-path. A division-parallel rank
+    draws and drops another rank's divisions' share, so its generator stays
+    in step with one process that runs all of them."""
+    seeds = [None] * (cfg.depth + 1)
+    if cfg.drop_rate > 0 or cfg.attn_drop_rate > 0:
+        seeds = torch.randint(0, 2 ** 62, (cfg.depth + 1,), generator=generator,
+                              device=generator.device).tolist()
+    masks = None
+    if cfg.drop_path_rate > 0:
+        rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
+        masks = drop_path_masks(generator, rates, batch, rows)
+    return seeds, masks
 
 
 def create_vit(name: str, *, device: DeviceLike = None,

@@ -24,8 +24,13 @@ Protocol (stdlib http.server; one POST = one or more images):
 (`sub-dataset{i}/compact.msgpack`) with a stage-5 fusion checkpoint, both
 in the JAX package's msgpack format. Images are scaled by 1/255 once, as on
 the offline eval path. (The JAX daemon divides by 255 twice; the port does
-not reproduce that defect.) One device; the multi-device topology waits
-for ROADMAP Queue 1 item 8. `serve_main` is the `serve` subcommand.
+not reproduce that defect.) The engine serves through the collaborative
+server (parallel/serve.py): with --device cuda and several visible cards a
+division a card and the fusion on a spare one, as the JAX daemon does on
+several chips, else everything on the one device; /healthz reports the
+placement. `serve_main` is the `serve` subcommand; under several ranks rank
+0 serves on its own card and the others return (one process serves over
+every card).
 
 The JAX daemon keeps an on-disk AOT cache of its compiled bucket programs
 (io/aot_cache.py). The port compiles no bucket programs (only the CUDA
@@ -50,13 +55,16 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from devit_tpu_torch.data.pipeline import normalize
 from devit_tpu_torch.device import DeviceLike, resolve_device
 from devit_tpu_torch.io.bridge import ensmlp_from_jax_params
 from devit_tpu_torch.io.checkpoint import restore_pytree
-from devit_tpu_torch.models.compact_vit import CompactViT, load_compact, stack_division_features
+from devit_tpu_torch.models.compact_vit import CompactViT, load_compact
 from devit_tpu_torch.models.ensemble import EnsMLP
+from devit_tpu_torch.parallel.serve import make_collaborative_server, serving_devices
+from devit_tpu_torch.runtime import is_main_process
 
 
 @dataclasses.dataclass
@@ -95,12 +103,23 @@ class InferenceEngine:
                  *, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.cms = [cm.to(self.device) for cm in cms]
-        self.ens = ens.to(self.device)
-        self.num_divisions = len(self.cms)
+        self.num_divisions = len(cms)
         self.num_classes = ens.num_classes
         self._ens_avals = _avals({k.replace(".", "/"): p for k, p in ens.named_parameters()})
         self._lock = threading.Lock()
+        # the deployment topology (parallel/serve.py): a division a card and
+        # the token fusion on a spare one where several cards serve, all on
+        # self.device otherwise
+        self.ens = ens
+        self._serve = make_collaborative_server(
+            list(cms), lambda ev, c, t: functional_call(self.ens, ev, (c, t)),
+            dict(ens.named_parameters()), patch_size=cfg.patch_size,
+            devices=serving_devices(self.device), dtype=cfg.dtype, use_kernel=cfg.use_kernel,
+            fast_math=cfg.fast_math)
+        self.cms = self._serve.placed_divisions
+        self.division_devices = self._serve.division_devices
+        self.fusion_device = self._serve.fusion_device
+        self.ens = ens.to(self.fusion_device)
 
     @torch.inference_mode()
     def _run_bucket(self, images_u8: np.ndarray) -> np.ndarray:
@@ -111,12 +130,9 @@ class InferenceEngine:
             pad = np.zeros((bucket - n,) + images_u8.shape[1:], np.uint8)
             images_u8 = np.concatenate([images_u8, pad], axis=0)
         # request bodies arrive as read-only views: torch wants writable memory
-        img = torch.from_numpy(np.require(images_u8, requirements=("C", "W"))).to(self.device)
-        x = normalize(img, torch.float32)
-        cls_stack, dist_stack = stack_division_features(
-            self.cms, x, patch_size=self.cfg.patch_size, dtype=self.cfg.dtype,
-            use_kernel=self.cfg.use_kernel, fast_math=self.cfg.fast_math)
-        logits = self.ens(cls_stack, dist_stack).logits
+        img = torch.from_numpy(np.require(images_u8, requirements=("C", "W"))).to(
+            self.division_devices[0])
+        logits = self._serve(dict(self.ens.named_parameters()), normalize(img, torch.float32))
         return logits[:n].float().cpu().numpy()
 
     def predict(self, images_u8: np.ndarray) -> np.ndarray:
@@ -150,7 +166,7 @@ class InferenceEngine:
                              f"serving fusion head: {new} vs {self._ens_avals} - restart to "
                              f"change geometry")
         ens = ensmlp_from_jax_params(params, num_divisions=self.num_divisions,
-                                     dtype=self.ens.dtype, device=self.device)
+                                     dtype=self.ens.dtype, device=self.fusion_device)
         with self._lock:  # never swap mid-forward
             self.ens = ens
 
@@ -399,6 +415,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "input_size": e.cfg.input_size,
                 "buckets": sorted(e.cfg.buckets),
                 "device": str(e.device),
+                "division_devices": [str(d) for d in e.division_devices],
+                "fusion_device": str(e.fusion_device),
                 "uptime_s": round(time.time() - self.started, 1),
             })
         elif path == "/stats":
@@ -485,8 +503,15 @@ def serve_main(args, ready: Optional[Callable[[ThreadingHTTPServer], None]] = No
     buckets = tuple(sorted({int(b) for b in args.buckets.split(",")}))
     if any(b <= 0 for b in buckets):
         raise ValueError(f"--buckets must be positive ints, got {args.buckets}")
+    from devit_tpu_torch import runtime
     from devit_tpu_torch.cli import common as C
 
+    runtime.setup_runtime(getattr(args, "device", "cuda"))
+    if not is_main_process():
+        # one server a launch, on rank 0's card; the other ranks have
+        # nothing to serve
+        print(f"rank {runtime.rank()}: serving runs on rank 0", flush=True)
+        return
     device = C.device_from_args(args)
     use_kernel = getattr(args, "use_pallas", None)
     cfg = ServeConfig(

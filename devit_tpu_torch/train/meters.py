@@ -97,25 +97,30 @@ class MetricLogger:
 
 
 def create_logger(output_dir: Optional[str] = None, name: str = "devit_tpu_torch"):
-    """Console + file logger (reference utils/logger.py:12-35; the JAX
-    package's create_logger): one console handler, and log.txt in
-    output_dir, re-pointed when several stage mains run in one process with
-    different output dirs."""
+    """Console (rank 0 only) + per-rank file logger (reference
+    utils/logger.py:12-35; the JAX package's create_logger): log.txt in
+    output_dir on rank 0 and log_rank{r}.txt on rank r, re-pointed when
+    several stage mains run in one process with different output dirs."""
     import logging
     import os
 
+    from devit_tpu_torch.runtime import rank as process_rank
+
+    rank = process_rank()
     logger = logging.getLogger(name)
     fmt = logging.Formatter("[%(asctime)s] %(message)s", datefmt="%H:%M:%S")
     if not any(isinstance(h, logging.StreamHandler) and not isinstance(h, logging.FileHandler)
                for h in logger.handlers):
         logger.setLevel(logging.INFO)
-        sh = logging.StreamHandler()
-        sh.setFormatter(fmt)
-        logger.addHandler(sh)
+        if rank == 0:
+            sh = logging.StreamHandler()
+            sh.setFormatter(fmt)
+            logger.addHandler(sh)
         logger.propagate = False
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
-        target = os.path.abspath(os.path.join(output_dir, "log.txt"))
+        fname = "log.txt" if rank == 0 else f"log_rank{rank}.txt"
+        target = os.path.abspath(os.path.join(output_dir, fname))
         file_handlers = [h for h in logger.handlers if isinstance(h, logging.FileHandler)]
         if not any(os.path.abspath(h.baseFilename) == target for h in file_handlers):
             for h in file_handlers:

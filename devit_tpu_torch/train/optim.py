@@ -229,6 +229,11 @@ class Optimizer:
     weight_decay: float = 0.0
     momentum: Optional[float] = None
     clip_grad: Optional[float] = None
+    # where the parameters are one rank's share of a division-sharded state,
+    # the sum of the clip's squares over the ranks that hold the rest
+    # (set by parallel/mesh.shard_state: Layout.sum_over_div)
+    sumsq_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
@@ -246,7 +251,10 @@ class Optimizer:
         g = [grads[k].float() for k in names]
         p = [params[k] for k in names]
         if self.clip_grad is not None:
-            norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+            sumsq = sum(torch.sum(x * x) for x in g)
+            if self.sumsq_reduce is not None:
+                sumsq = self.sumsq_reduce(sumsq)
+            norm = torch.sqrt(sumsq)
             g = [torch.where(norm < self.clip_grad, x, x / norm * self.clip_grad) for x in g]
         decay = [state["mask"][k] for k in names]
         lr = self.schedule(state["count"])

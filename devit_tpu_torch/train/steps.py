@@ -8,6 +8,16 @@ cls_logits, dist_logits and last_tokens they read).
 `variables` arguments are None (the module's own parameters) or a
 {parameter name: tensor} dict run through torch.func.functional_call (for
 example the EMA copy), the counterpart of `model.apply(variables, ...)`.
+
+Every step takes an optional `layout` (parallel/mesh.Layout): each rank
+then takes the global batch one process would take, mixes it whole (the
+flip pairs row i with row B-1-i, which may lie on another rank), keeps its
+rows, draws every per-sample random number at the global batch
+(VisionTransformer.forward's `rows`), averages each state's gradients and
+the loss metrics over the data group in one bucket per state, and, in stage
+5, computes its own divisions and gathers the division tokens over the
+division group. The eval steps sum their counters over the data group. A
+W-rank step is the one-process step on the same global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from torch.func import functional_call
 from devit_tpu_torch.data.mixup import MixupConfig, mixup_cutmix
 from devit_tpu_torch.models.ensemble import EnsMLP, multicct_features, multivit_features
 from devit_tpu_torch.models.vit import Gates, VisionTransformer
+from devit_tpu_torch.parallel.mesh import Layout, batch_rows
 from devit_tpu_torch.train import losses as L
 from devit_tpu_torch.train.state import TrainState
 
@@ -45,6 +56,38 @@ def _mix(mixup_active: bool, mixup: Optional[MixupConfig], generator, images, la
     if mixup_active:
         return mixup_cutmix(generator, images, labels, mixup)
     return images, labels
+
+
+def _rows(layout: Optional[Layout], batch: int):
+    return None if layout is None else layout.rows(batch)
+
+
+def _mean_over_data(layout: Optional[Layout], grads: list, metrics: dict):
+    """Each state's gradients averaged over the data group, one flattened
+    bucket a state; the loss metrics ride in the last one."""
+    if layout is None or layout.data_group is None:
+        return grads, metrics
+    names = list(metrics)
+    out = []
+    for i, g in enumerate(grads):
+        keys = list(g)
+        extra = ([metrics[k].detach().float().reshape(1) for k in names]
+                 if i == len(grads) - 1 else [])
+        vals = layout.mean_over_data([g[k] for k in keys] + extra)
+        out.append(dict(zip(keys, vals[:len(keys)])))
+        if extra:
+            metrics = {k: v.reshape(()) for k, v in zip(names, vals[len(keys):])}
+    return out, metrics
+
+
+def _sum_counters(layout: Optional[Layout], rows, counters: dict) -> dict:
+    """Counters summed over the data group, where the rank counted its rows
+    only (a batch computed whole on every rank counts once)."""
+    if layout is None or rows is None:
+        return counters
+    names = list(counters)
+    flat = layout.sum_over_data(torch.stack([counters[k].double() for k in names]))
+    return {k: flat[i].to(counters[k].dtype) for i, k in enumerate(names)}
 
 
 def _grads(loss: torch.Tensor, states: Sequence[TrainState]) -> list:
@@ -80,17 +123,20 @@ def eval_counters(logits: torch.Tensor, labels: torch.Tensor) -> dict:
     }
 
 
-def make_eval_step(model: VisionTransformer):
-    """step(variables, gates, images, labels) -> summed counters. Kernel
-    selection (use_kernel) lives on the model instance."""
+def make_eval_step(model: VisionTransformer, layout: Optional[Layout] = None):
+    """step(variables, gates, images, labels) -> summed counters (over the
+    data group under `layout`). Kernel selection (use_kernel) lives on the
+    model instance."""
 
     @torch.no_grad()
     def step(variables, gates: Optional[Gates], images, labels):
         dev = _device_of(model)
         images = torch.as_tensor(images, device=dev)
         labels = torch.as_tensor(labels, device=dev)
+        rows = _rows(layout, images.shape[0])
+        images, labels = batch_rows(rows, images, labels)
         out = _apply(model, variables, images, gates=gates)
-        return eval_counters(out.logits, labels)
+        return _sum_counters(layout, rows, eval_counters(out.logits, labels))
 
     return step
 
@@ -105,6 +151,7 @@ def make_stage2_step(
     distillation_alpha: float = 0.5,
     distillation_tau: float = 1.0,
     distill_token: bool = False,
+    layout: Optional[Layout] = None,
 ):
     """Sub-model finetune step (train_subdata.py:233-287).
 
@@ -123,6 +170,8 @@ def make_stage2_step(
     def step(state: TrainState, teacher_variables, images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator):
         images_m, targets = _mix(mixup_active, mixup, generator, images, labels)
+        rows = _rows(layout, images_m.shape[0])
+        images_m, targets = batch_rows(rows, images_m, targets)
 
         teacher_logits = teacher_token = None
         if distillation_type != "none":
@@ -131,7 +180,8 @@ def make_stage2_step(
                                distill_token=distill_token)
             teacher_logits, teacher_token = t_out.logits, t_out.last_tokens
 
-        out = model(images_m, train=True, generator=generator, distill_token=distill_token)
+        out = model(images_m, train=True, generator=generator, distill_token=distill_token,
+                    rows=rows)
         cls_logits = out.cls_logits
         kd_logits = out.dist_logits if out.dist_logits is not None else out.cls_logits
         base = base_criterion(cls_logits, targets)
@@ -153,7 +203,7 @@ def make_stage2_step(
                 loss = loss + token_loss
         metrics["loss"] = loss
 
-        (grads,) = _grads(loss, [state])
+        (grads,), metrics = _mean_over_data(layout, _grads(loss, [state]), metrics)
         state.apply_gradients(grads)
         return state, {k: v.detach() for k, v in metrics.items()}
 
@@ -171,6 +221,7 @@ def make_dekd_step(
     distillation_alpha: float = 0.5,
     distillation_tau: float = 1.0,
     distillation_inter: bool = True,
+    layout: Optional[Layout] = None,
 ):
     """DEKD step (engine.train_1epoch_qkv, engine.py:48-140): student forward
     with the middle layer's q/k/v captured, the teacher's forward under
@@ -191,10 +242,12 @@ def make_dekd_step(
     def step(state: TrainState, teacher_variables, gates: Gates, images: torch.Tensor,
              labels: torch.Tensor, generator: torch.Generator):
         images_m, targets = _mix(mixup_active, mixup, generator, images, labels)
+        rows = _rows(layout, images_m.shape[0])
+        images_m, targets = batch_rows(rows, images_m, targets)
         with torch.no_grad():
             t_out = _apply(teacher, teacher_variables, images_m, capture_qkv=capture)
         out = student(images_m, gates=_on(gates, images_m.device), train=True,
-                      generator=generator, capture_qkv=capture)
+                      generator=generator, capture_qkv=capture, rows=rows)
         kd_logits = out.dist_logits if out.dist_logits is not None else out.cls_logits
         if distillation_inter:
             total, aux = L.dekd_loss(
@@ -208,7 +261,7 @@ def make_dekd_step(
                                  distillation_tau)
             total, aux = cls, {"cls_loss": cls}
         aux["loss"] = total
-        (grads,) = _grads(total, [state])
+        (grads,), aux = _mean_over_data(layout, _grads(total, [state]), aux)
         state.apply_gradients(grads)
         return state, {k: v.detach() for k, v in aux.items()}
 
@@ -226,6 +279,7 @@ def make_ensemble_train_step(
     distillation_alpha: float = 0.5,
     distillation_tau: float = 1.0,
     token_loss_type: str = "mse",
+    layout: Optional[Layout] = None,
 ):
     """Ensemble step (engine.train_1epoch_ens_disjoint, engine.py:143-210):
     MultiViT features -> EnsMLP fusion -> EnsLoss, ONE backward through both,
@@ -237,7 +291,8 @@ def make_ensemble_train_step(
     step(backbone_state, ens_state, teacher_variables, stacked_gates, images,
     labels, generator) -> (backbone_state, ens_state, metrics); both states
     are updated in place. The backbones train with their drop-path active
-    (engine.py:146)."""
+    (engine.py:146). Under a division-sharded `layout` backbone_state and
+    stacked_gates hold this rank's divisions (parallel/mesh.shard_state)."""
     if distillation_type != "none":
         if teacher is None:
             raise ValueError(f"distillation_type={distillation_type!r} requires a teacher "
@@ -253,15 +308,17 @@ def make_ensemble_train_step(
              stacked_gates: Optional[Gates], images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator):
         images_m, targets = _mix(mixup_active, mixup, generator, images, labels)
+        rows = _rows(layout, images_m.shape[0])
+        images_m, targets = batch_rows(rows, images_m, targets)
         tea_logits = tea_tokens = None
         if distillation_type != "none":
             with torch.no_grad():
                 t_out = _apply(teacher, teacher_variables, images_m, distill_token=True)
             tea_logits, tea_tokens = t_out.logits, t_out.last_tokens
 
-        cls_t, dist_t = multivit_features(backbone, backbone_state.params, images_m,
-                                          _on(stacked_gates, images_m.device), train=True,
-                                          generator=generator)
+        cls_t, dist_t = _division_tokens(
+            layout, multivit_features, backbone, backbone_state.params, images_m,
+            _on(stacked_gates, images_m.device), train=True, generator=generator, rows=rows)
         ens_out = ens_model(cls_t, dist_t, distill=True, train=True)
         if distillation_type == "none":
             loss = base_criterion(ens_out.logits, targets)
@@ -273,7 +330,8 @@ def make_ensemble_train_step(
                 alpha=distillation_alpha, tau=distillation_tau, token_loss_type=token_loss_type)
             loss = token_loss + cls_loss  # engine.py:176
             metrics = {"loss": loss, "token_loss": token_loss, "cls_loss": cls_loss}
-        bb_grads, ens_grads = _grads(loss, [backbone_state, ens_state])
+        (bb_grads, ens_grads), metrics = _mean_over_data(
+            layout, _grads(loss, [backbone_state, ens_state]), metrics)
         backbone_state.apply_gradients(bb_grads)
         ens_state.apply_gradients(ens_grads)
         return backbone_state, ens_state, {k: v.detach() for k, v in metrics.items()}
@@ -281,20 +339,37 @@ def make_ensemble_train_step(
     return step
 
 
-def make_ensemble_eval_step(backbone: VisionTransformer, ens_model: EnsMLP):
+def _division_tokens(layout: Optional[Layout], features_fn, model, stacked_params, images,
+                     gates, **kw):
+    """features_fn's division tokens, computed for this rank's divisions and
+    gathered over the division group under a division-sharded layout."""
+    if layout is None or not layout.division_sharded:
+        return features_fn(model, stacked_params, images, gates, **kw)
+    out = features_fn(model, stacked_params, images, gates, divisions=layout.divisions,
+                      num_divisions=layout.num_divisions, **kw)
+    if isinstance(out, tuple):
+        return tuple(None if t is None else layout.gather_divisions(t) for t in out)
+    return layout.gather_divisions(out)
+
+
+def make_ensemble_eval_step(backbone: VisionTransformer, ens_model: EnsMLP,
+                            layout: Optional[Layout] = None):
     """Collaborative-inference eval (engine.evaluate_ens_disjoint,
     engine.py:212-242): step(stacked_params, ens_variables, stacked_gates,
-    images, labels) -> summed counters."""
+    images, labels) -> summed counters (over the data group under
+    `layout`)."""
 
     @torch.no_grad()
     def step(stacked_params, ens_variables, stacked_gates: Optional[Gates], images, labels):
         dev = _device_of(ens_model)
         images = torch.as_tensor(images, device=dev)
         labels = torch.as_tensor(labels, device=dev)
-        cls_t, dist_t = multivit_features(backbone, stacked_params, images,
-                                          _on(stacked_gates, dev))
+        rows = _rows(layout, images.shape[0])
+        images, labels = batch_rows(rows, images, labels)
+        cls_t, dist_t = _division_tokens(layout, multivit_features, backbone, stacked_params,
+                                         images, _on(stacked_gates, dev), rows=rows)
         out = _apply(ens_model, ens_variables, cls_t, dist_t)
-        return eval_counters(out.logits, labels)
+        return _sum_counters(layout, rows, eval_counters(out.logits, labels))
 
     return step
 
@@ -313,6 +388,7 @@ def make_cct_ensemble_train_step(
     distillation_alpha: float = 0.5,
     distillation_tau: float = 1.0,
     token_loss_type: str = "mse",
+    layout: Optional[Layout] = None,
 ):
     """CCT collaborative-ensemble step (MultiCCT + EnsembleCCT,
     ensemble_models.py:93-151): one pooled token a division, the 'vit'
@@ -322,7 +398,7 @@ def make_cct_ensemble_train_step(
     step(backbone_state, ens_state, teacher_variables, stacked_gates, images,
     labels, generator) -> (backbone_state, ens_state, metrics): `generator`
     draws the mixup parameters, then one seed a division for that division's
-    dropout and drop-path generator."""
+    dropout and drop-path generator. `layout` as in make_ensemble_train_step."""
     if distillation_type != "none":
         from devit_tpu_torch.models.cct import CCT
 
@@ -344,7 +420,11 @@ def make_cct_ensemble_train_step(
              stacked_gates: Optional[Gates], images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator):
         images_m, targets = _mix(mixup_active, mixup, generator, images, labels)
+        rows = _rows(layout, images_m.shape[0])
+        images_m, targets = batch_rows(rows, images_m, targets)
         D = next(iter(backbone_state.params.values())).shape[0]
+        if layout is not None and layout.division_sharded:
+            D = layout.num_divisions
         seeds = torch.randint(0, 2 ** 62, (D,), generator=generator,
                               device=generator.device).tolist()
         gens = [torch.Generator(device=generator.device).manual_seed(s) for s in seeds]
@@ -354,9 +434,9 @@ def make_cct_ensemble_train_step(
                 t_out = _apply(teacher, teacher_variables, images_m)
             tea_logits, tea_token = t_out.logits, t_out.pooled
 
-        feats = multicct_features(backbone, backbone_state.params, images_m,
-                                  _on(stacked_gates, images_m.device), train=True,
-                                  generators=gens)
+        feats = _division_tokens(layout, multicct_features, backbone, backbone_state.params,
+                                 images_m, _on(stacked_gates, images_m.device), train=True,
+                                 generators=gens, rows=rows)
         ens_out = ens_model(feats, distill=True, train=True)
         if distillation_type == "none":
             loss = base_criterion(ens_out.logits, targets)
@@ -368,7 +448,8 @@ def make_cct_ensemble_train_step(
                 alpha=distillation_alpha, tau=distillation_tau, token_loss_type=token_loss_type)
             loss = token_loss + cls_loss
             metrics = {"loss": loss, "token_loss": token_loss, "cls_loss": cls_loss}
-        bb_grads, ens_grads = _grads(loss, [backbone_state, ens_state])
+        (bb_grads, ens_grads), metrics = _mean_over_data(
+            layout, _grads(loss, [backbone_state, ens_state]), metrics)
         backbone_state.apply_gradients(bb_grads)
         ens_state.apply_gradients(ens_grads)
         return backbone_state, ens_state, {k: v.detach() for k, v in metrics.items()}
@@ -376,17 +457,21 @@ def make_cct_ensemble_train_step(
     return step
 
 
-def make_cct_ensemble_eval_step(backbone, ens_model):
+def make_cct_ensemble_eval_step(backbone, ens_model, layout: Optional[Layout] = None):
     """step(stacked_params, ens_variables, stacked_gates, images, labels) ->
-    summed counters of the CCT ensemble."""
+    summed counters of the CCT ensemble (over the data group under
+    `layout`)."""
 
     @torch.no_grad()
     def step(stacked_params, ens_variables, stacked_gates: Optional[Gates], images, labels):
         dev = _device_of(ens_model)
         images = torch.as_tensor(images, device=dev)
         labels = torch.as_tensor(labels, device=dev)
-        feats = multicct_features(backbone, stacked_params, images, _on(stacked_gates, dev))
+        rows = _rows(layout, images.shape[0])
+        images, labels = batch_rows(rows, images, labels)
+        feats = _division_tokens(layout, multicct_features, backbone, stacked_params, images,
+                                 _on(stacked_gates, dev), rows=rows)
         out = _apply(ens_model, ens_variables, feats)
-        return eval_counters(out.logits, labels)
+        return _sum_counters(layout, rows, eval_counters(out.logits, labels))
 
     return step

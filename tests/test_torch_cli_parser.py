@@ -97,8 +97,10 @@ def test_unported_options_raise(tmp_path, monkeypatch):
               "--epochs", "1", "--output_dir", str(tmp_path)])
     with pytest.raises(ValueError, match="AOT"):
         ServeConfig(aot_cache=True)
+    # multi-process runs are ported (runtime.py); a coordinator without the
+    # process count and id still raises, and no process group is left behind
     monkeypatch.setattr(runtime, "_DONE", False)
     monkeypatch.setenv("DEVIT_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(RuntimeError, match="DEVIT_NUM_PROCESSES"):
         runtime.setup_runtime()
-    assert runtime.is_main_process()
+    assert runtime.is_main_process() and not runtime.distributed()

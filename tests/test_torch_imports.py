@@ -46,10 +46,11 @@ def test_every_port_module_is_listed():
         "configs", "core", "core.compact", "core.hsic", "core.metrics", "core.rank",
         "core.shrink", "data", "data.autoaugment", "data.datasets", "data.fine_grained",
         "data.host_augment", "data.mixup", "data.pipeline", "data.randaugment",
-        "data.splitter", "deploy", "device", "io",
+        "data.splitter", "deploy", "device", "entry", "io",
         "io.bridge", "io.checkpoint", "io.msgpack", "io.native", "kernels", "kernels._build",
         "kernels.attention", "kernels.quant", "models", "models.cct",
-        "models.compact_vit", "models.ensemble", "models.vit", "runtime", "serving",
+        "models.compact_vit", "models.ensemble", "models.vit", "parallel", "parallel.launch",
+        "parallel.mesh", "parallel.serve", "runtime", "serving",
         "serving.daemon", "train", "train.loop", "train.losses", "train.meters", "train.optim",
         "train.state", "train.steps", "utils_profile")]
 

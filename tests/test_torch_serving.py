@@ -32,7 +32,7 @@ from devit_tpu_torch.configs import get_vit_config
 from devit_tpu_torch.data.pipeline import normalize
 from devit_tpu_torch.io.bridge import compact_from_jax_params, ensmlp_from_jax_params
 from devit_tpu_torch.models.compact_vit import compact_forward, stack_division_features
-from devit_tpu_torch.serving import daemon
+from devit_tpu_torch.parallel import serve as collab
 from devit_tpu_torch.serving.daemon import (InferenceEngine, MicroBatcher, ServeConfig,
                                             build_server)
 
@@ -122,14 +122,15 @@ def test_engine_matches_jax_offline_forward(toy, engine):
 
 
 def test_bucket_padding_and_chunking(engine, monkeypatch):
+    # the engine's forward is the collaborative server's (parallel/serve.py)
     seen = []
-    real = daemon.stack_division_features
+    real = collab.stack_division_features
 
     def spy(cms, images, **kw):
         seen.append(images.shape[0])
         return real(cms, images, **kw)
 
-    monkeypatch.setattr(daemon, "stack_division_features", spy)
+    monkeypatch.setattr(collab, "stack_division_features", spy)
     imgs = _imgs(11, seed=2)
     full = engine.predict(imgs)  # 11 > 8: chunk 8, then 3 padded to bucket 4
     assert seen == [8, 4]
