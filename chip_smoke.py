@@ -58,10 +58,13 @@ the key-chunked designs timed), one dedeit stage-2 step at 384 px in f32
 and bf16 against the plain attention ([stage2-384]), the CCT family
 ([cct]: cct_14_7x2_224 on the card against the CPU, a bf16 stage-2 step,
 and `pipeline --model cct_7_3x1_32` through every stage) and the stage-5
-resume across optimizer families ([resume]). Then several ranks: two
-ranks sharing the card over gloo run the full-width stage-2 step
-([dist-stage2]), four run the stage-5 step with one division each
-([dist-ens]), each held to the one-process step; the collaborative server
+resume across optimizer families ([resume]). Then the masked-attention text
+CCT at its defaults against the CPU and in 10 AdamW steps ([text]), and the
+stage-2 step under five remat policies, each held to full remat, with its
+attention launches a step, ms a step and peak memory ([remat]). Then
+several ranks: two ranks sharing the card over gloo run the full-width
+stage-2 step ([dist-stage2]), four run the stage-5 step with one division
+each ([dist-ens]), each held to the one-process step; the collaborative server
 over the deployed divisions against the engine, its lag-2 stream against
 per-batch serving ([collab]); `devit-torch train_sub` under two ranks
 against one process ([cli-dist]); and dryrun_multichip(8) on eight ranks
@@ -3403,6 +3406,178 @@ def phase_resume(card: str) -> dict:
     return dict(warning=warning.strip(), first=logged[0])
 
 
+TEXT_B, TEXT_VOCAB, TEXT_CLASSES, TEXT_L = 256, 30000, 4, 64  # a word vocabulary; AG News' 4
+
+
+def _text_batch(seed: int):
+    """TEXT_B rows of TEXT_L word ids: padded tails of random length
+    (padding id 1, mask 0) and one row masked everywhere."""
+    gen = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, TEXT_L + 1, (TEXT_B,), generator=gen)
+    lengths[-1] = 0
+    mask = (torch.arange(TEXT_L)[None] < lengths[:, None]).float()
+    ids = torch.randint(2, TEXT_VOCAB, (TEXT_B, TEXT_L), generator=gen)
+    ids[mask == 0] = 1
+    labels = torch.randint(0, TEXT_CLASSES, (TEXT_B,), generator=gen)
+    return ids, mask, labels
+
+
+def phase_text(card: str) -> dict:
+    """The masked-attention text CCT (models/text.py) at TextCCT's defaults
+    (64 words, 300-wide embeddings, 256 wide, 4 layers, 4 heads, kernel 4:
+    N 16 tokens) with a 30,000-word table: the f32 eval logits on the card
+    against the same module on the CPU (1e-3 of max|logit|), the bf16 logits
+    against the f32 ones (2e-2), then 10 bf16 AdamW steps (train/optim.py)
+    with dropout and drop-path on, every loss finite. The JAX package runs
+    this attention as plain einsums: no attention kernel may launch."""
+    from devit_tpu_torch.models.text import TextCCT
+
+    ids, mask, labels = _text_batch(60)
+
+    def build(dtype, device):
+        return TextCCT(TEXT_VOCAB, TEXT_CLASSES, dtype=dtype, device=device,
+                       generator=torch.Generator().manual_seed(61))
+
+    before = _counts()
+    _set_counts((0, 0, 0, 0))
+    try:
+        model = build(torch.float32, "cpu")
+        with torch.no_grad():
+            want = model(ids, mask)
+            got = model.to("cuda")(ids.cuda(), mask.cuda()).cpu()
+            bf16 = build(torch.bfloat16, "cuda")(ids.cuda(), mask.cuda()).cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        rel_bf16 = float((bf16 - got).abs().max() / got.abs().max())
+        if not (torch.isfinite(got).all() and rel <= 1e-3 and rel_bf16 <= 2e-2):
+            raise AssertionError(f"[text] logits: f32 card vs CPU rel {rel:.3e} (tol 1e-3), bf16 "
+                                 f"vs f32 rel {rel_bf16:.3e} (tol 2e-2)")
+        print(f"[text] TextCCT defaults, vocab {TEXT_VOCAB}, {TEXT_CLASSES} classes, bs{TEXT_B} "
+              f"({int((mask.sum(1) < TEXT_L).sum())} rows padded, 1 masked everywhere): f32 "
+              f"logits card vs CPU max|diff|/max|logit| {rel:.3e} (tol 1e-3); bf16 vs f32 "
+              f"{rel_bf16:.3e} (tol 2e-2) [{card}]")
+        del model
+
+        model = build(torch.bfloat16, "cuda")
+        state = TrainState.create(model, make_optimizer(OptimConfig(lr=5e-4, epochs=10), 1))
+        names = list(state.params)
+        ids_c, mask_c, labels_c = ids.cuda(), mask.cuda(), labels.cuda()
+
+        def step(seed: int):
+            logits = model(ids_c, mask_c, train=True,
+                           generator=torch.Generator().manual_seed(seed))
+            loss = torch.nn.functional.cross_entropy(logits, labels_c)
+            grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+            state.apply_gradients(dict(zip(names, grads)))
+            return loss.detach()
+
+        step(0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [step(1 + i) for i in range(10)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 10
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = _counts()
+    finally:
+        _set_counts(before)
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or any(launches):
+        raise AssertionError(f"[text] losses {losses}, attention kernel launches {launches} "
+                             "(expected none)")
+    print(f"[text] 10 bf16 AdamW steps, dropout and drop-path 0.1: {step_ms:.3f} ms/step = "
+          f"{TEXT_B / step_ms * 1e3:.1f} sequences/s, losses {[round(v, 4) for v in losses]} "
+          f"(all finite), peak memory {peak:.3f} GiB, 0 attention kernel launches [{card}]")
+    del model, state
+    torch.cuda.empty_cache()
+    return dict(card_vs_cpu_rel=rel, bf16_vs_f32_rel=rel_bf16, step_ms=step_ms,
+                seq_s=TEXT_B / step_ms * 1e3, peak_gib=peak, losses=losses)
+
+
+# remat_policy -> (attention forward, backward) launches a stage-2 step: the
+# policies that save the attention's output run no forward in the backward
+REMAT_RUN = {None: (24, 12), "dots_with_no_batch_dims_saveable": (24, 12),
+             "dots_saveable": (24, 12), "dots_and_attn": (12, 12),
+             "everything_saveable": (12, 12)}
+REMAT_TURN_STEPS = 3
+
+
+def phase_remat(card: str) -> dict:
+    """[train]'s stage-2 step (full-width dedeit, bs256, bf16, the kernels)
+    under each remat_policy of REMAT_RUN: one step from one state, batch and
+    draws, whose loss and every gradient leaf must equal full remat's
+    (||diff||/||ref|| <= 1e-6); then REMAT_TURN_STEPS timed steps a turn,
+    the policies in turns (forward order, then reverse), the attention
+    launches of every step held to REMAT_RUN, the peak memory of each
+    turn."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    images = torch.randn((TRAIN_B, 224, 224, 3), generator=gen, device="cuda").bfloat16()
+    labels = torch.randint(0, TRAIN_CLASSES, (TRAIN_B,), generator=gen, device="cuda")
+    model = _train_model(True)
+    before = _counts()
+    _set_counts((0, 0, 0, 0))
+    per_step = {p: [] for p in REMAT_RUN}
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    try:
+        ref = None
+        rels, exact = {}, {}
+        for policy in REMAT_RUN:
+            model.remat_policy = policy
+            with torch.no_grad():  # the step updates the parameters in place
+                for k, p in model.named_parameters():
+                    p.copy_(init[k])
+            c0 = _counts()
+            loss, grads = _step_grads(model, (images, labels), seed=1)
+            per_step[policy].append(_delta(c0)[:2])
+            if ref is None:
+                ref = (loss, grads)
+            diff = {k: float((g.float() - ref[1][k].float()).norm()
+                             / ref[1][k].float().norm().clamp_min(1e-30)) for k, g in grads.items()}
+            rels[policy] = max(max(diff.values()), abs(loss - ref[0]) / abs(ref[0]))
+            exact[policy] = loss == ref[0] and all(torch.equal(g, ref[1][k])
+                                                   for k, g in grads.items())
+            del grads
+        state = _train_state(model)
+        step = _train_step(model)
+        ms, peaks, losses = {p: [] for p in REMAT_RUN}, {p: [] for p in REMAT_RUN}, []
+        order = list(REMAT_RUN) + list(reversed(REMAT_RUN))
+        for turn, policy in enumerate(order):
+            model.remat_policy = policy
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(REMAT_TURN_STEPS):
+                c0 = _counts()
+                state, metrics = step(state, None, images, labels,
+                                      torch.Generator().manual_seed(300 + turn * 10 + i))
+                per_step[policy].append(_delta(c0)[:2])
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            ms[policy].append((time.perf_counter() - t0) * 1e3 / REMAT_TURN_STEPS)
+            peaks[policy].append(torch.cuda.max_memory_allocated() / 2**30)
+        launches = {"fused_attention": fused_attention.launches,
+                    "attention_bwd": attention_bwd.launches}
+    finally:
+        model.remat_policy = None
+        _set_counts(before)
+    bad = {p: c for p, c in per_step.items() if any(x != REMAT_RUN[p] for x in c)}
+    host_losses = [float(v) for v in losses]
+    worst = max(rels, key=rels.get)
+    if bad or rels[worst] > 1e-6 or not all(np.isfinite(host_losses)):
+        raise AssertionError(f"[remat] launches a step off {REMAT_RUN}: {bad}; worst policy "
+                             f"{worst} rel {rels[worst]:.3e} (tol 1e-6); losses {host_losses}")
+    for p in REMAT_RUN:
+        print(f"[remat] remat_policy={p!r}: loss and gradients vs full remat "
+              f"{'bit for bit' if exact[p] else f'max rel {rels[p]:.3e}'}; "
+              f"{REMAT_RUN[p][0]} + {REMAT_RUN[p][1]} attention launches a step; "
+              f"{sum(ms[p]) / len(ms[p]):.3f} ms/step (turns {[round(t, 3) for t in ms[p]]}), "
+              f"peak memory {max(peaks[p]):.3f} GiB [{card}]")
+    del model, state, step, init
+    torch.cuda.empty_cache()
+    return dict(rel=rels, bit_for_bit=exact, ms={str(p): v for p, v in ms.items()},
+                peak_gib={str(p): max(v) for p, v in peaks.items()}, launches=launches)
+
+
 # ---- several ranks: ranks that share the card over gloo, the
 # collaborative server, the CLI under two ranks, the multi-rank dry run
 
@@ -3865,6 +4040,9 @@ def main() -> int:
     times["stage2_384"] = s384 = phase_stage2_384(card)
     times["cct"] = phase_cct(card)
     times["resume"] = phase_resume(card)
+    torch.cuda.empty_cache()
+    times["text"] = phase_text(card)
+    times["remat"] = remat = phase_remat(card)
     times["dist_stage2"] = d2 = phase_dist_stage2(card)
     times["dist_ens"] = de = phase_dist_ens(card)
     times["collab"] = collab = phase_collab(card)
@@ -3890,7 +4068,7 @@ def main() -> int:
                      + stage3["launches"] + times["data_train"]["launches"]["fused_attention"]
                      + cli["launches"]["fused_attention"]
                      + s384["launches"]["fused_attention"] + dist[0]
-                     + collab["launches"][0]),
+                     + collab["launches"][0] + remat["launches"]["fused_attention"]),
         # every shape checked: [kernel]'s up to B 256, stage 3's B 4096, [heads]
         "max_abs_err": max(max_abs_err, stage3["shrink"]["attention"]["max_abs_err"],
                            hm["fwd"]),
@@ -3903,7 +4081,7 @@ def main() -> int:
                      + dekd["launches"]["attention_bwd"]
                      + times["data_train"]["launches"]["attention_bwd"]
                      + cli["launches"]["attention_bwd"] + s384["launches"]["attention_bwd"]
-                     + dist[1]),
+                     + dist[1] + remat["launches"]["attention_bwd"]),
         "max_abs_err": max(bwd_max_abs_err, hm["bwd"]),
         "ms": bw["ms"], "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
         "bound_by": bw["bound_by"], "library_ms": bw["library_ms"]}] + [{

@@ -4,12 +4,11 @@ Inputs are the flax parameter trees as nested dicts of arrays (numpy, or
 anything np.asarray takes, or the torch tensors io/checkpoint.py reads for
 bfloat16 leaves); the port copies them as float32, bit for bit.
 
-A VisionTransformer's tree (and a CCT's) is scan-stacked: every `blocks/*`
-leaf carries a leading depth axis, which the port's `blocks.<i>.*`
-parameters split. The
-ensemble's division-stacked tree (init_multivit) puts the division axis in
-front of that: a `blocks/*` leaf is (D, depth, ...), the port's stacked
-`blocks.<i>.*` entry (D, ...).
+A VisionTransformer's tree (and a CCT's, and a TextCCT's classifier) is
+scan-stacked: every `blocks/*` leaf carries a leading depth axis, which the
+port's `blocks.<i>.*` parameters split. The ensemble's division-stacked
+tree (init_multivit) puts the division axis in front of that: a `blocks/*`
+leaf is (D, depth, ...), the port's stacked `blocks.<i>.*` entry (D, ...).
 """
 
 from __future__ import annotations
@@ -24,14 +23,18 @@ from devit_tpu_torch.device import DeviceLike, resolve_device
 from devit_tpu_torch.models.cct import CCT
 from devit_tpu_torch.models.compact_vit import CompactViT, compact_vit_ragged
 from devit_tpu_torch.models.ensemble import EnsMLP
+from devit_tpu_torch.models.text import TextCCT
 from devit_tpu_torch.models.vit import Gates, VisionTransformer, map_leaves
 
 
 def _flax_path(name: str):
-    """Port parameter name -> (flax tree path, layer index or None)."""
+    """Port parameter name -> (flax tree path, layer index or None): the
+    index after a `blocks` part is the scanned layer's (`blocks.<i>.*` of a
+    ViT or CCT, `classifier.blocks.<i>.*` of a TextCCT)."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return ["blocks"] + parts[2:], int(parts[1])
+    if "blocks" in parts:
+        i = parts.index("blocks")
+        return parts[:i + 1] + parts[i + 2:], int(parts[i + 1])
     return parts, None
 
 
@@ -49,6 +52,25 @@ def cct_from_jax_params(params_np: dict, cfg: CCTConfig, *, device: DeviceLike =
     takes any module with the flax names, and the stacked and `values`
     converters below serve both families alike."""
     return _load_module(CCT(cfg, **model_kw), params_np, device)
+
+
+def text_from_jax_params(params_np: dict, *, device: DeviceLike = None,
+                         dtype: torch.dtype = torch.bfloat16, module: type = TextCCT,
+                         **text_kw) -> torch.nn.Module:
+    """A flax text-stack `params` tree -> the port's module (f32, bit for
+    bit): `module` is TextCCT by default, or any class of models/text.py
+    (Embedder, TextTokenizer, MaskedTextLayer, MaskedTextClassifier), built
+    from `text_kw`, its constructor's arguments. A TextCCT tree holds
+    `embedder/embedding`, `tokenizer/conv/kernel` and `classifier/*`, whose
+    `blocks/*` leaves carry the scanned layer axis."""
+    return _load_module(module(**text_kw, dtype=dtype, device="cpu"), params_np, device)
+
+
+def text_to_jax_params(model: torch.nn.Module) -> dict:
+    """The inverse of text_from_jax_params: the module's parameters as the
+    flax tree of f32 numpy arrays, `classifier/blocks/*` stacked on a
+    leading layer axis."""
+    return vit_to_jax_params(model)
 
 
 def _load_module(model: torch.nn.Module, params_np: dict, device: DeviceLike):

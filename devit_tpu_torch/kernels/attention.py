@@ -33,9 +33,11 @@ chunked route of three launches (LayerNorm + qkv, the forward, proj) where
 its whole-head block would not fit.
 
 `make_trainable_attention` is the differentiable form the training path
-uses: its forward is `fused_attention`, it saves only qkv, and its backward
-recomputes the probabilities. The backward mode comes from DEVIT_ATTN_BWD
-(default "monolithic"), as in the JAX package:
+uses: its forward is `fused_attention`, registered as the dispatcher op
+`devit_torch::trainable_attention` (`trainable_attention_op`) so that
+selective checkpointing can save its output; it saves only qkv, and its
+backward recomputes the probabilities. The backward mode comes from
+DEVIT_ATTN_BWD (default "monolithic"), as in the JAX package:
 - "monolithic": `attention_bwd`, the kernel in csrc/attention_bwd.cu;
 - "split": `attention_bwd_split`, two kernels in csrc/attention_bwd_split.cu,
   `attention_bwd_dqdk` ([dq | dk]) and `attention_bwd_dv` (dv), which equal
@@ -425,22 +427,36 @@ def attention_bwd_split(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> t
 _BWD = {"monolithic": attention_bwd, "split": attention_bwd_split}
 
 
-class _TrainableAttention(torch.autograd.Function):
-    """fused_attention with the backward of `bwd_mode` as its gradient;
-    saves only qkv."""
+@torch.library.custom_op("devit_torch::trainable_attention", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def _trainable_attention(qkv: torch.Tensor, num_heads: int, bwd_mode: str) -> torch.Tensor:
+    """fused_attention as a dispatcher op, so that selective checkpointing
+    (models/vit.py remat_policy) sees it and can save its output: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor, as
+    fused_attention picks them. The gradient is `bwd_mode`'s backward,
+    which saves only qkv and recomputes the probabilities."""
+    return fused_attention(qkv, None, num_heads=num_heads)
 
-    @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int, bwd_mode: str) -> torch.Tensor:
-        qkv = qkv.contiguous()
-        ctx.num_heads = num_heads
-        ctx.bwd_mode = bwd_mode
-        ctx.save_for_backward(qkv)
-        return fused_attention(qkv, None, num_heads=num_heads)
 
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        (qkv,) = ctx.saved_tensors
-        return _BWD[ctx.bwd_mode](qkv, g, ctx.num_heads), None, None
+@_trainable_attention.register_fake
+def _(qkv: torch.Tensor, num_heads: int, bwd_mode: str) -> torch.Tensor:
+    B, N, C3 = qkv.shape
+    return qkv.new_empty((B, N, C3 // 3))
+
+
+def _trainable_setup(ctx, inputs, output) -> None:
+    qkv, ctx.num_heads, ctx.bwd_mode = inputs
+    ctx.save_for_backward(qkv)
+
+
+def _trainable_backward(ctx, g: torch.Tensor):
+    (qkv,) = ctx.saved_tensors
+    return _BWD[ctx.bwd_mode](qkv, g, ctx.num_heads), None, None
+
+
+_trainable_attention.register_autograd(_trainable_backward, setup_context=_trainable_setup)
+# the op a checkpoint policy names to save the attention output
+trainable_attention_op = torch.ops.devit_torch.trainable_attention.default
 
 
 def make_trainable_attention(num_heads: int, bwd_mode: Optional[str] = None):
@@ -454,8 +470,7 @@ def make_trainable_attention(num_heads: int, bwd_mode: Optional[str] = None):
         raise ValueError(f"unknown bwd_mode {bwd_mode!r}")
 
     def attention(qkv: torch.Tensor) -> torch.Tensor:
-        # some torch versions take no keywords in Function.apply
-        return _TrainableAttention.apply(qkv, num_heads, bwd_mode)
+        return _trainable_attention(qkv.contiguous(), num_heads, bwd_mode)
 
     return attention
 

@@ -22,6 +22,7 @@ recomputes with the tensors it ran with, not the module's own.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -29,11 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from devit_tpu_torch.configs import ViTConfig, get_vit_config
 from devit_tpu_torch.device import DeviceLike, resolve_device, to_device
-from devit_tpu_torch.kernels.attention import make_trainable_attention
+from devit_tpu_torch.kernels.attention import make_trainable_attention, trainable_attention_op
 
 
 class Gates(NamedTuple):
@@ -345,6 +346,43 @@ class Block(nn.Module):
         return x, outs
 
 
+# The aten ops a block's matrix products reach, read under a TorchDispatchMode
+# on the CPU and on the card (torch 2.11 and 2.13, f32 and bf16 alike): a
+# Dense layer's (B, N, C) @ (C, O) folds its leading axes into one `mm`; the
+# plain attention's q . k^T and p . v are `bmm`.
+_DOTS_NO_BATCH = [torch.ops.aten.mm.default]
+_DOTS = _DOTS_NO_BATCH + [torch.ops.aten.bmm.default]
+# remat_policy name -> the ops whose outputs a block under remat saves; the
+# rest it recomputes in the backward pass. [] is full remat (only the
+# block's inputs are saved); None saves everything, which is no remat at all.
+# The names are JAX's jax.checkpoint_policies entries that take no argument,
+# and 'dots_and_attn': dots_saveable plus the fused attention's output.
+REMAT_POLICIES = {
+    "nothing_saveable": [],
+    "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
+    "checkpoint_dots_with_no_batch_dims": _DOTS_NO_BATCH,
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_and_attn": _DOTS + [trainable_attention_op],
+    "everything_saveable": None,
+}
+
+
+def remat_saved_ops(remat_policy: Optional[str]) -> Optional[list]:
+    """The ops whose outputs `remat_policy` saves under remat (REMAT_POLICIES:
+    [] for None, full remat; None for everything_saveable). Any other name
+    raises, as the JAX package rejects the policy factories
+    (save_only_these_names, ...), which passed bare would save everything
+    and silently turn remat off."""
+    if remat_policy is None:
+        return []
+    if remat_policy not in REMAT_POLICIES:
+        plain = sorted(k for k in REMAT_POLICIES if k != "dots_and_attn")
+        raise ValueError(f"remat_policy={remat_policy!r} is not a supported checkpoint "
+                         f"policy; choose from {plain} or 'dots_and_attn'")
+    return REMAT_POLICIES[remat_policy]
+
+
 def _block_call(blk: Block, params: dict, *args, **kw):
     """blk(*args, **kw) with `params` bound: what a checkpointed block runs,
     and recomputes in the backward pass, when the caller's functional_call
@@ -360,21 +398,22 @@ class VisionTransformer(nn.Module):
     kernel; False takes the plain attention everywhere.
     use_remat: in training, each block runs under torch.utils.checkpoint
     (non-reentrant) and is recomputed in the backward pass.
+    remat_policy: what a block under remat saves instead of recomputing
+    (REMAT_POLICIES, JAX's names; None, the default, saves nothing but the
+    block's inputs). A name is checked where the JAX package checks it, at
+    a training forward under remat.
     """
 
     def __init__(self, cfg: ViTConfig, *, dtype: torch.dtype = torch.bfloat16,
                  fast_math: bool = False, use_kernel: bool = True, use_remat: bool = True,
                  remat_policy: Optional[str] = None):
         super().__init__()
-        if remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r}: selective rematerialization is still "
-                "to port; None (full remat of each block) is supported")
         self.cfg = cfg
         self.dtype = dtype
         self.fast_math = fast_math
         self.use_kernel = use_kernel
         self.use_remat = use_remat
+        self.remat_policy = remat_policy
         C = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, C))
@@ -459,7 +498,13 @@ class VisionTransformer(nn.Module):
         dp_rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
         if masks is not None:
             masks = to_device(masks, t.device)
-        remat = self.use_remat and train and torch.is_grad_enabled()
+        # everything_saveable (saved_ops None) recomputes nothing: no remat;
+        # full remat ([]) takes checkpoint's own context, the other policies
+        # its selective form over the ops they save
+        saved_ops = remat_saved_ops(self.remat_policy) if self.use_remat and train else None
+        remat = saved_ops is not None and torch.is_grad_enabled()
+        ctx = dict(context_fn=partial(create_selective_checkpoint_contexts, saved_ops)) \
+            if saved_ops else {}
         layer_outs = []
         qkv_slot = None
         for i, blk in enumerate(self.blocks):
@@ -475,7 +520,7 @@ class VisionTransformer(nn.Module):
                     None if masks is None else masks[i], seeds[i + 1])
             if remat:
                 t, outs = checkpoint(_block_call, blk, dict(blk.named_parameters()), *args,
-                                     use_reentrant=False, **kw)
+                                     use_reentrant=False, **ctx, **kw)
             else:
                 t, outs = blk(*args, **kw)
             if capture_block_outputs:

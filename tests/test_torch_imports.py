@@ -49,7 +49,8 @@ def test_every_port_module_is_listed():
         "data.splitter", "deploy", "device", "entry", "io",
         "io.bridge", "io.checkpoint", "io.msgpack", "io.native", "kernels", "kernels._build",
         "kernels.attention", "kernels.quant", "models", "models.cct",
-        "models.compact_vit", "models.ensemble", "models.vit", "parallel", "parallel.launch",
+        "models.compact_vit", "models.ensemble", "models.text", "models.vit", "parallel",
+        "parallel.launch",
         "parallel.mesh", "parallel.serve", "runtime", "serving",
         "serving.daemon", "train", "train.loop", "train.losses", "train.meters", "train.optim",
         "train.state", "train.steps", "utils_profile")]

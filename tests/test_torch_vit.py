@@ -169,8 +169,11 @@ def test_train_needs_a_generator_for_drop_path_and_rejects_remat_policy():
     model = vit_from_jax_params(params, cfg, device="cpu", dtype=torch.float32)
     with pytest.raises(ValueError, match="generator"):
         model(torch.from_numpy(x), train=True)
-    with pytest.raises(NotImplementedError, match="still to port"):
-        tvit.VisionTransformer(cfg, remat_policy="dots_saveable")
+    # a policy factory's name, which JAX rejects at a training forward under remat
+    model = vit_from_jax_params(params, cfg, device="cpu", dtype=torch.float32,
+                                remat_policy="save_only_these_names")
+    with pytest.raises(ValueError, match="remat_policy"):
+        model(torch.from_numpy(x), train=True, generator=torch.Generator().manual_seed(0))
 
 
 def test_decay_mask_matches_jax_leaf_by_leaf():
