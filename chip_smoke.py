@@ -7,11 +7,11 @@ Run from the root of a checkout. It builds the CUDA kernels from the
 sources in the checkout, counts the tensor-core instructions in the built
 library (HMMA in the bf16 attention kernels at each head width: the
 forward, the monolithic backward and the split pair, three instantiations
-of one template, and the two block-attention kernels; IMMA in the int8
-GEMM), holds
-each kernel against its plain PyTorch version on the card (the split pair
-also against the monolithic kernel, bit for bit; every backward past 256
-keys, [bwd-long]), runs the deployed 4-division dedeit
+of one template, the forward and the backward pair past 256 keys, and the
+two block-attention kernels; IMMA in the int8 GEMM), holds each kernel
+against its plain PyTorch version on the card (the split pair also against
+the monolithic kernel, bit for bit; every backward past 256 keys at head
+widths 32, 64 and 128, [bwd-long]), runs the deployed 4-division dedeit
 ensemble at full width, serves it over HTTP to concurrent clients, times
 the kernels and the forward. Then the deployment artifacts: the int8 matmul
 kernel against its
@@ -55,7 +55,8 @@ every sequence length and head width the JAX kernel takes ([attn-long]:
 N 291 to 1026, head widths 32 to 256, the forward, the trainable attention
 in both backward modes and the block half against their plain versions,
 the key-chunked designs timed), one dedeit stage-2 step at 384 px in f32
-and bf16 against the plain attention ([stage2-384]), the CCT family
+and bf16 against the plain attention and the steady bf16 step at B 64 with
+the kernels and with the plain attention in turns ([stage2-384]), the CCT family
 ([cct]: cct_14_7x2_224 on the card against the CPU, a bf16 stage-2 step,
 and `pipeline --model cct_7_3x1_32` through every stage) and the stage-5
 resume across optimizer families ([resume]). Then the masked-attention text
@@ -197,10 +198,13 @@ def _qkv(B: int, kh: int, dtype, gen, zero_head: bool = False) -> torch.Tensor:
 
 # the tensor-core kernels: name -> (a regular expression for its function's
 # mangled name in the SASS, the mma opcode): every instantiation of the
-# forward attn_kernel_mma<KC, DH>, of the backward template
-# attn_bwd_kernel_mma<DQDK, DV, DH> and of the bf16 block-attention kernels
-# block_qkv_attn_kernel<KC, DH> and block_proj_kernel<Ragged>; the int8 GEMM
-# (m16n8k32 s8 is IMMA)
+# forward attn_kernel_mma<KC, DH> and, past 256 keys, attn_long_mma<DH>; of
+# the backward template attn_bwd_kernel_mma<DQDK, DV, DH> and, past 256 keys,
+# of attn_bwd_long_rows_mma<DH, DQ> and attn_bwd_long_keys_mma<DH, DK, DV>;
+# of the bf16 block-attention kernels block_qkv_attn_kernel<KC, DH> and
+# block_proj_kernel<Ragged>; the int8 GEMM (m16n8k32 s8 is IMMA).
+# tests/test_torch_kernel_build.py checks that every __global__ of csrc/ is
+# either here or in its list of CUDA-core kernels.
 HEAD_DIMS = (32, 64, 128)
 KEY_CHUNKS = (4, 8, 13, 16)  # KC: the score registers' key steps (launch_bf16)
 MMA_KERNELS = {
@@ -212,6 +216,19 @@ MMA_KERNELS = {
        for a, b, ia, ib, w in (("true", "true", 1, 1, "attention_bwd"),
                                ("false", "true", 0, 1, "attention_bwd_dv"),
                                ("true", "false", 1, 0, "attention_bwd_dqdk"))},
+    **{f"attn_long_mma<{dh}> (fused_attention past 256 keys)":
+       (rf"attn_long_mmaILi{dh}EE", "HMMA") for dh in HEAD_DIMS},
+    **{f"attn_bwd_long_rows_mma<{dh},{q}> ({w})": (rf"attn_bwd_long_rows_mmaILi{dh}ELb{iq}EE",
+                                                   "HMMA")
+       for dh in HEAD_DIMS
+       for q, iq, w in (("true", 1, "attention_bwd, attention_bwd_dqdk past 256 keys"),
+                        ("false", 0, "attention_bwd_dv past 256 keys"))},
+    **{f"attn_bwd_long_keys_mma<{dh},{a},{b}> ({w})":
+       (rf"attn_bwd_long_keys_mmaILi{dh}ELb{ia}ELb{ib}EE", "HMMA")
+       for dh in HEAD_DIMS
+       for a, b, ia, ib, w in (("true", "true", 1, 1, "attention_bwd past 256 keys"),
+                               ("false", "true", 0, 1, "attention_bwd_dv past 256 keys"),
+                               ("true", "false", 1, 0, "attention_bwd_dqdk past 256 keys"))},
     **{f"block_qkv_attn_kernel<{kc},{dh}> (fused_block_attention)":
        (rf"block_qkv_attn_kernelILi{kc}ELi{dh}EE", "HMMA")
        for dh in HEAD_DIMS for kc in KEY_CHUNKS},
@@ -626,7 +643,7 @@ def phase_times(cms, ens, card: str) -> dict:
 def _kind(kernel_name: str) -> str:
     if "quant_rows_kernel" in kernel_name or "quant_mma_kernel" in kernel_name:
         return "int8 matmul (fused_int8_matmul)"
-    if "attn_kernel" in kernel_name:
+    if "attn_kernel" in kernel_name or "attn_long_mma" in kernel_name:
         return "attention (fused_attention)"
     if any(s in kernel_name for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90")):
         return "matmul (cuBLAS)"
@@ -1096,6 +1113,13 @@ def phase_bwd_checks() -> float:
 
 LONG_N = (258, 578, 1026)  # 256 px and 384 px (deit-base 384) at patch 16; 512 px
 LONG_TIME_N = 578
+# (N, head width, heads, B) past the short kernels: dh 64 at kh 1, 6 and 12
+# in both dtypes; at bf16 also dh 32 and 128 past 256 keys, and dh 128 at N
+# 209-256, where its monolithic block does not fit and every backward takes
+# the long path (use_long_path)
+LONG_CASES = [(n, DH, kh, B) for n in LONG_N for kh, B in ((1, 3), (6, 2), (12, 1))]
+LONG_CASES_BF16 = ([(n, dh, kh, 2) for n in LONG_N for dh, kh in ((32, 12), (128, 6))]
+                   + [(n, 128, 6, 2) for n in (209, 240, 256)])
 
 
 def _split_plain(x, g, kh):
@@ -1111,47 +1135,83 @@ BWD_WRAPPERS = {  # name -> (the kernel's wrapper, its plain version)
 }
 
 
+def _hold_bwd(x: torch.Tensor, g: torch.Tensor, kh: int, where: str, max_abs: dict) -> float:
+    """Each of BWD_WRAPPERS on (x, g) against its plain version: dq, dk and
+    dv each within TOL, a repeat bit for bit, and the split pair, dq/dk and
+    dv equal to the monolithic backward bit for bit. The bf16 max-abs error
+    of each wrapper goes into max_abs. Returns the worst rel err."""
+    C, dtype = g.shape[-1], x.dtype
+    got, worst = {}, 0.0
+    for name, (fn, plain) in BWD_WRAPPERS.items():
+        got[name], again = fn(x, g, kh), fn(x, g, kh)
+        torch.cuda.synchronize()
+        want = plain(x, g, kh)
+        errs = [_rel(got[name][..., i * C:(i + 1) * C], want[..., i * C:(i + 1) * C])
+                for i in range(got[name].shape[-1] // C)]
+        if max(errs) > TOL[dtype] or not torch.equal(got[name], again):
+            raise AssertionError(f"[bwd-long] {name} {where}: rel err {errs} (tol "
+                                 f"{TOL[dtype]:.0e}), repeat identical "
+                                 f"{torch.equal(got[name], again)}")
+        if dtype == torch.bfloat16:
+            d = float((got[name].float() - want.float()).abs().max())
+            max_abs[name] = max(max_abs[name], d)
+        worst = max(worst, max(errs))
+        del want, again
+    mono = got["attention_bwd"]
+    if not (torch.equal(got["attention_bwd_split"], mono)
+            and torch.equal(got["attention_bwd_dqdk"], mono[..., :2 * C])
+            and torch.equal(got["attention_bwd_dv"], mono[..., 2 * C:])):
+        raise AssertionError(f"[bwd-long] {where}: the split pair differs from the monolithic "
+                             "backward in its bits")
+    return worst
+
+
 def phase_bwd_long(card: str) -> dict:
-    """The four backward wrappers past 256 keys, where they walk 256-key
-    chunks (csrc/attention_bwd_long.cu): each vs its plain version, dq, dk
-    and dv each on its own, at N 258, 578 and 1026, kh 1/6/12, bf16 and f32,
-    every call repeated bit for bit; then one launch of each timed at B 64,
-    kh 6, N 578 in both dtypes beside its plain version, its bound and SDPA's
-    backward on the same inputs. These launches are not the main path's:
-    the counts are restored. Returns the largest bf16 max-abs error of each
-    wrapper and the times."""
+    """The four backward wrappers past 256 keys, where they walk key chunks
+    (csrc/attention_bwd_long.cu): each vs its plain version, dq, dk and dv
+    each on its own, at LONG_CASES in both dtypes and LONG_CASES_BF16 at
+    bf16 (with the forward past 256 keys there), every call repeated bit for
+    bit and the split pair, dq/dk and dv equal to the monolithic backward
+    bit for bit; then, at B 64, kh 6, N 578 in both dtypes, the same checks
+    and one launch of each timed beside its plain version, its bound and
+    SDPA's backward on the same inputs. These launches are not the main path's: the counts are
+    restored. Returns the largest bf16 max-abs error of each wrapper and the
+    times."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     before = _counts()
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    max_abs = dict.fromkeys(BWD_WRAPPERS, 0.0)
+    max_abs = dict.fromkeys(list(BWD_WRAPPERS) + ["fwd"], 0.0)
     n_cases = 0
-    for dtype in (torch.bfloat16, torch.float32):
-        for n in LONG_N:
-            for kh, B in ((1, 3), (6, 2), (12, 1)):
-                C = kh * DH
-                x = torch.randn((B, n, 3 * C), generator=gen, device="cuda").to(dtype)
-                g = torch.randn((B, n, C), generator=gen, device="cuda").to(dtype)
-                for name, (fn, plain) in BWD_WRAPPERS.items():
-                    got, again = fn(x, g, kh), fn(x, g, kh)
-                    torch.cuda.synchronize()
-                    want = plain(x, g, kh)
-                    errs = [_rel(got[..., i * C:(i + 1) * C], want[..., i * C:(i + 1) * C])
-                            for i in range(got.shape[-1] // C)]
-                    if max(errs) > TOL[dtype] or not torch.equal(got, again):
-                        raise AssertionError(f"{name} {dtype} N={n} kh={kh} B={B}: rel err "
-                                             f"{errs} (tol {TOL[dtype]:.0e}), repeat identical "
-                                             f"{torch.equal(got, again)}")
-                    if dtype == torch.bfloat16:
-                        max_abs[name] = max(max_abs[name],
-                                            float((got.float() - want.float()).abs().max()))
-                    worst[dtype] = max(worst[dtype], max(errs))
-                    n_cases += 1
+    cases = [(torch.bfloat16, c) for c in LONG_CASES + LONG_CASES_BF16]
+    cases += [(torch.float32, c) for c in LONG_CASES]
+    for dtype, (n, dh, kh, B) in cases:
+        C = kh * dh
+        x = torch.randn((B, n, 3 * C), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, n, C), generator=gen, device="cuda").to(dtype)
+        worst[dtype] = max(worst[dtype], _hold_bwd(x, g, kh, f"{dtype} N={n} dh={dh} kh={kh} "
+                                                         f"B={B}", max_abs))
+        n_cases += len(BWD_WRAPPERS)
+        if dtype == torch.bfloat16 and n > 256:
+            fwd, fwd2 = fused_attention(x, num_heads=kh), fused_attention(x, num_heads=kh)
+            torch.cuda.synchronize()
+            want = reference_attention(x, num_heads=kh)
+            err = _rel(fwd, want)
+            if err > TOL[dtype] or not torch.equal(fwd, fwd2):
+                raise AssertionError(f"[bwd-long] fused_attention bf16 N={n} dh={dh} kh={kh}: "
+                                     f"rel err {err:.3e}, repeat identical "
+                                     f"{torch.equal(fwd, fwd2)}")
+            max_abs["fwd"] = max(max_abs["fwd"], float((fwd.float() - want.float()).abs().max()))
+            worst[dtype] = max(worst[dtype], err)
+        del x, g
     print(f"[bwd-long] attention_bwd, attention_bwd_split, attention_bwd_dqdk, attention_bwd_dv "
-          f"past 256 keys vs plain: {n_cases} cases pass (N {list(LONG_N)}, kh 1/6/12, bf16 and "
-          f"f32; dq, dk, dv each); worst rel err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), "
-          f"f32 {worst[torch.float32]:.3e} (tol 1e-4); max abs err bf16 "
+          f"past 256 keys vs plain: {n_cases} cases pass (N {list(LONG_N)} at dh 64, kh "
+          f"1/6/12, bf16 and f32; bf16 also dh 32 (kh 12) and 128 (kh 6) at those N and dh 128 "
+          f"at N 209/240/256, with fused_attention past 256 keys; dq, dk, dv each); worst rel "
+          f"err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 {worst[torch.float32]:.3e} "
+          f"(tol 1e-4); max abs err bf16 "
           f"{', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())}; repeat launches "
-          f"bit-identical")
+          f"bit-identical; the split pair, dq/dk and dv equal to the monolithic backward bit "
+          f"for bit at every case")
 
     B, kh, n = ENS_B, 6, LONG_TIME_N
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1171,6 +1231,8 @@ def phase_bwd_long(card: str) -> dict:
         bounds = {"attention_bwd": bwd_bound, "attention_bwd_split": bwd_bound,
                   "attention_bwd_dqdk": (split["dqdk"][0], split["dqdk"][1] == "bytes"),
                   "attention_bwd_dv": (split["dv"][0], split["dv"][1] == "bytes")}
+        worst[dtype] = max(worst[dtype], _hold_bwd(x, g, kh, f"{dtype} N={n} dh={DH} kh={kh} "
+                                                         f"B={B}", max_abs))
         for name, (fn, plain) in BWD_WRAPPERS.items():
             r = dict(ms=_time_ms(lambda: fn(x, g, kh), iters=5, warmup=1),
                      plain_ms=_time_ms(lambda: plain(x, g, kh), iters=3, warmup=1),
@@ -1181,6 +1243,10 @@ def phase_bwd_long(card: str) -> dict:
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA backward "
                   f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
         del x, g, q, k, v, out
+    print(f"[bwd-long] the timed shape B={B} N={n} kh={kh} dh {DH}: each wrapper within tol of "
+          f"its plain version (dq, dk, dv each), repeats and split == monolithic bit for bit; "
+          f"worst rel err bf16 {worst[torch.bfloat16]:.3e}, f32 {worst[torch.float32]:.3e} "
+          f"(with the cases above)")
     _set_counts(before)
     torch.cuda.empty_cache()
     return dict(max_abs=max_abs, worst={str(k)[6:]: v for k, v in worst.items()},
@@ -2803,6 +2869,27 @@ def _attn_bound(B: int, n: int, kh: int, dh: int, elem: int, flops_peak: float,
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _note(worst: dict, max_abs: dict, key: str, dtype, err: float, mabs: float) -> None:
+    worst[dtype] = max(worst[dtype], err)
+    if dtype == torch.bfloat16:
+        max_abs[key] = max(max_abs[key], mabs)
+
+
+def _hold_timed(where: str, fn, plain, C: int, dtype) -> tuple:
+    """A timed call held against its plain version on the same inputs: each
+    C-wide slice of the output (o; or dq, dk and dv) within TOL, and a repeat
+    bit for bit. Returns (the worst rel err, the max-abs err, the output)."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    want = plain()
+    errs = [_rel(got[..., i * C:(i + 1) * C], want[..., i * C:(i + 1) * C])
+            for i in range(got.shape[-1] // C)]
+    if max(errs) > TOL[dtype] or not torch.equal(got, again):
+        raise AssertionError(f"[attn-long] {where}: rel err {errs} (tol {TOL[dtype]:.0e}), "
+                             f"repeat identical {torch.equal(got, again)}")
+    return max(errs), float((got.float() - want.float()).abs().max()), got
+
+
 def phase_attn_long(card: str) -> dict:
     """The attention kernels at every sequence length and head width the JAX
     kernel takes: fused_attention and make_trainable_attention (forward and
@@ -2813,8 +2900,9 @@ def phase_attn_long(card: str) -> dict:
     one bit for bit; the design each forward took (attention_path). Then the
     chunked forwards timed at B 64, N 578, kh 6 beside the plain version and
     SDPA, the paths past head width 128 at B 64, N 578, dh 192, and the block
-    half's chunked route at B 16, N 578, C 384. Launches here are checks, not
-    counted."""
+    half's chunked route at B 16, N 578, C 384; each timed call is first held
+    against its plain version on the same inputs (_hold_timed). Launches here
+    are checks, not counted."""
     from devit_tpu_torch.kernels.attention import attention_path
 
     gen = torch.Generator(device="cuda").manual_seed(43)
@@ -2896,6 +2984,10 @@ def phase_attn_long(card: str) -> dict:
         x = torch.randn((Bt, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
         q, k, v = _sdpa_qkv(x, kh)
         bound, by = _attn_bound(Bt, n, kh, DH, x.element_size(), peak)
+        err, mabs, _ = _hold_timed(f"fused_attention {dtype} B={Bt} N={n} kh={kh}",
+                                   lambda: fused_attention(x, num_heads=kh),
+                                   lambda: reference_attention(x, num_heads=kh), kh * DH, dtype)
+        _note(worst, max_abs, "fwd", dtype, err, mabs)
         r = dict(ms=_time_ms(lambda: fused_attention(x, num_heads=kh), iters=10),
                  plain_ms=_time_ms(lambda: reference_attention(x, num_heads=kh), iters=5),
                  library_ms=_time_ms(lambda: sdpa(q, k, v), iters=10), bound_ms=bound,
@@ -2918,6 +3010,7 @@ def phase_attn_long(card: str) -> dict:
         bb, bby = _attn_bound(Bt, n, kh, dh, x.element_size(), peak, bwd=True)
         bwd_lib = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True),
                            iters=3, warmup=1)
+        got = {}
         for name, fn, plain, lib, bound, by in (
                 ("fwd", lambda: fused_attention(x, num_heads=kh),
                  lambda: reference_attention(x, num_heads=kh),
@@ -2926,6 +3019,9 @@ def phase_attn_long(card: str) -> dict:
                  lambda: reference_attention_bwd(x, g, kh), None, bb, bby),
                 ("split", lambda: attention_bwd_split(x, g, kh),
                  lambda: _split_plain(x, g, kh), None, bb, bby)):
+            err, mabs, got[name] = _hold_timed(f"dh{dh} {name} {tag} B={Bt} N={n} kh={kh}", fn,
+                                               plain, C, dtype)
+            _note(worst, max_abs, "bwd" if name == "split" else name, dtype, err, mabs)
             r = dict(ms=_time_ms(fn, iters=3, warmup=1),
                      plain_ms=_time_ms(plain, iters=2, warmup=1),
                      library_ms=_time_ms(lib, iters=3, warmup=1) if lib else bwd_lib,
@@ -2935,12 +3031,20 @@ def phase_attn_long(card: str) -> dict:
                   f"cores): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA "
                   f"{'backward ' if name != 'fwd' else ''}{r['library_ms']:.4f}, bound "
                   f"{bound:.4f} ({by}) [{card}]")
-        del x, g, q, k, v, out
+        if not torch.equal(got["split"], got["bwd"]):
+            raise AssertionError(f"[attn-long] dh{dh} {tag} B={Bt} N={n}: the split backward "
+                                 "differs from the monolithic one in its bits")
+        del x, g, q, k, v, out, got
     Bt, n, kh, C = ATTN_BLOCK_TIME
     K = kh * DH
     for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, F32_FLOPS)):
         t = torch.randn((Bt, n, C), generator=gen, device="cuda").to(dtype)
         w = _block_weights(gen, C, K, dtype)
+        err, mabs, _ = _hold_timed(f"fused_block_attention {dtype} B={Bt} N={n} C={C}",
+                                   lambda: fused_block_attention(t, **w, num_heads=kh),
+                                   lambda: reference_block_attention(t, **w, num_heads=kh), C,
+                                   dtype)
+        _note(worst, max_abs, "block", dtype, err, mabs)
         M, elem = Bt * n, t.element_size()
         t_bytes = elem * (2 * M * C + C * 4 * K) / HBM_BYTES_PER_S
         t_ops = (2 * M * C * 3 * K + 4 * Bt * n * n * K + 2 * M * K * C) / peak
@@ -2955,6 +3059,10 @@ def phase_attn_long(card: str) -> dict:
               f"route: LayerNorm + qkv, the forward, proj): kernels {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
         del t, w
+    print(f"[attn-long] every timed call within tol of its plain version on its inputs, "
+          f"repeats (and the dh {ATTN_WIDE_TIME[3]} split == monolithic) bit for bit; worst rel "
+          f"err bf16 {worst[torch.bfloat16]:.3e}, f32 {worst[torch.float32]:.3e}; max abs err "
+          f"bf16 {', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())} (with the cases above)")
     _set_counts(before)
     fused_block_attention.launches = before_block
     torch.cuda.empty_cache()
@@ -3213,16 +3321,81 @@ def phase_cli(card: str) -> dict:
 # ---- a stage-2 step at 384 px, the CCT family, the stage-5 resume fallback
 
 S384_B = 16  # images of the 384-px step (N 578: 576 patches, cls and dist)
+S384_STEADY_B, S384_TURN_STEPS = 64, 3  # the steady bf16 steps: the kernels' timed B 64
+
+
+def _model_384(dtype, use_kernel: bool):
+    return create_vit("dedeit", img_size=384, num_classes=TRAIN_CLASSES, drop_path_rate=0.1,
+                      dtype=dtype, use_kernel=use_kernel, use_remat=True, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+
+
+def _steady_384(gen, card: str) -> dict:
+    """The bf16 384-px stage-2 step at B 64 through train_epoch (AdamW + EMA,
+    mixup/cutmix), with the kernels and with the plain attention: one
+    warm-up step each, then S384_TURN_STEPS steps a turn in turns (kernel,
+    plain, plain, kernel), host clock ending in synchronize. The kernel
+    steps are main-path launches (24 + 12 a step, asserted)."""
+    images = torch.randn((S384_STEADY_B, 384, 384, 3), generator=gen,
+                         device="cuda").bfloat16()
+    labels = torch.randint(0, TRAIN_CLASSES, (S384_STEADY_B,), generator=gen, device="cuda")
+    batch = (images, labels)
+    models = {k: _model_384(torch.bfloat16, k) for k in (True, False)}
+    states = {k: _train_state(m) for k, m in models.items()}
+    steps = {k: _train_step(m) for k, m in models.items()}
+    losses = []
+
+    def step_fn(use_kernel):
+        def fn(state, images, labels, generator):
+            state, metrics = steps[use_kernel](state, None, images, labels, generator)
+            losses.append(metrics["loss"])
+            return state, metrics
+        return fn
+
+    def run(use_kernel, n_steps, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[use_kernel], _, _ = train_epoch(
+            step_fn(use_kernel), states[use_kernel], [batch] * n_steps,
+            torch.Generator().manual_seed(seed), epoch=0, log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_steps
+
+    before = _counts()
+    for use_kernel in (True, False):
+        run(use_kernel, 1, seed=300)
+    runs = {True: [], False: []}
+    for i, use_kernel in enumerate((True, False, False, True)):
+        runs[use_kernel].append(run(use_kernel, S384_TURN_STEPS, seed=310 + i))
+    d = _delta(before)
+    n_kernel_steps = 1 + 2 * S384_TURN_STEPS
+    if d[:2] != (24 * n_kernel_steps, 12 * n_kernel_steps) or any(d[2:]):
+        raise AssertionError(f"[stage2-384] steady steps: launches {d}, expected "
+                             f"{(24 * n_kernel_steps, 12 * n_kernel_steps)} and no split launch")
+    host_losses = [float(x) for x in losses]
+    if not all(np.isfinite(host_losses)):
+        raise AssertionError(f"[stage2-384] non-finite loss in the steady steps: {host_losses}")
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    print(f"[stage2-384] steady bf16 stage-2 step at 384 px (N 578), B {S384_STEADY_B}, AdamW + "
+          f"EMA, mixup/cutmix: {ms[True]:.3f} ms/step = {S384_STEADY_B / ms[True] * 1e3:.1f} "
+          f"img/s with the kernels, {ms[False]:.3f} ms/step with the plain attention; turns "
+          f"(ms/step) {runs}; {n_kernel_steps} kernel steps of 24 forward + 12 backward "
+          f"launches; losses finite [{card}]")
+    del models, states, steps, images
+    torch.cuda.empty_cache()
+    return dict(ms=ms[True], plain_ms=ms[False], runs_ms=runs[True], plain_runs_ms=runs[False],
+                B=S384_STEADY_B, launches=d[:2])
 
 
 def phase_stage2_384(card: str) -> dict:
     """One full-width dedeit stage-2 step at --input-size 384 (N 578), f32
     and bf16: past 256 keys the forward takes its key-chunked designs
-    (attn_kchunk_mma at bf16, attn_chunked_kernel at f32) and the backward
+    (attn_long_mma at bf16, attn_chunked_kernel at f32) and the backward
     its long path. The kernel step against the same step with the plain
     attention (same state, batch and draws): loss and every gradient leaf
-    within 2e-2 (||diff||/||plain||). The kernel steps are a main-path run:
-    their launches are returned (24 forward, 12 backward a step)."""
+    within 2e-2 (||diff||/||plain||). Then the steady bf16 step at B 64
+    (_steady_384). The kernel steps are a main-path run: their launches
+    are returned (24 forward, 12 backward a step)."""
     gen = torch.Generator(device="cuda").manual_seed(44)
     res, launches = {}, {"fused_attention": 0, "attention_bwd": 0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -3230,10 +3403,7 @@ def phase_stage2_384(card: str) -> dict:
         labels = torch.randint(0, TRAIN_CLASSES, (S384_B,), generator=gen, device="cuda")
         out = {}
         for use_kernel in (True, False):
-            model = create_vit("dedeit", img_size=384, num_classes=TRAIN_CLASSES,
-                               drop_path_rate=0.1, dtype=dtype, use_kernel=use_kernel,
-                               use_remat=True, device="cuda",
-                               generator=torch.Generator().manual_seed(0))
+            model = _model_384(dtype, use_kernel)
             before = _counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3264,7 +3434,10 @@ def phase_stage2_384(card: str) -> dict:
               f"with the build of its state) {ms_k:.1f} ms, plain {ms_p:.1f} ms [{card}]")
         del g_k, g_p, images
         torch.cuda.empty_cache()
-    return dict(runs=res, launches=launches)
+    steady = _steady_384(gen, card)
+    launches["fused_attention"] += steady["launches"][0]
+    launches["attention_bwd"] += steady["launches"][1]
+    return dict(runs=res, launches=launches, steady=steady)
 
 
 CCT_WIDE = "cct_14_7x2_224"  # the widest registered CCT: 384 wide, 14 layers, 6 heads, N 196
@@ -4052,6 +4225,7 @@ def main() -> int:
     hm = {k: max(v, heads_pad["max_abs"][k], attn_long["max_abs"][k])
           for k, v in heads["max_abs"].items()}
 
+    bl = times["bwd_long"]["max_abs"]
     fa = times["forward_attention"]
     bw = train["kernel_times"]["bwd_step"]
     es = ens["kernel_times"]["per_step"]
@@ -4069,9 +4243,10 @@ def main() -> int:
                      + cli["launches"]["fused_attention"]
                      + s384["launches"]["fused_attention"] + dist[0]
                      + collab["launches"][0] + remat["launches"]["fused_attention"]),
-        # every shape checked: [kernel]'s up to B 256, stage 3's B 4096, [heads]
+        # every shape checked: [kernel]'s up to B 256, stage 3's B 4096, [heads],
+        # past 256 keys
         "max_abs_err": max(max_abs_err, stage3["shrink"]["attention"]["max_abs_err"],
-                           hm["fwd"]),
+                           hm["fwd"], bl["fwd"]),
         "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"]}, {
         "name": "attention_bwd", "route": "cuda",
@@ -4082,7 +4257,8 @@ def main() -> int:
                      + times["data_train"]["launches"]["attention_bwd"]
                      + cli["launches"]["attention_bwd"] + s384["launches"]["attention_bwd"]
                      + dist[1] + remat["launches"]["attention_bwd"]),
-        "max_abs_err": max(bwd_max_abs_err, hm["bwd"]),
+        "max_abs_err": max(bwd_max_abs_err, hm["bwd"], bl["attention_bwd"],
+                           bl["attention_bwd_split"]),
         "ms": bw["ms"], "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
         "bound_by": bw["bound_by"], "library_ms": bw["library_ms"]}] + [{
         # per stage-5 step (48 launches at B 64, kh 6); the library yardstick
@@ -4091,7 +4267,7 @@ def main() -> int:
         "source": "devit_tpu_torch/kernels/csrc/attention_bwd_split.cu",
         "replaces": f"devit_tpu/kernels/attention.py:{line}",
         "launches": ens["launches"][f"attention_bwd_{k}"] + dist[i],
-        "max_abs_err": max(split_max_abs_err[k], hm[k]),
+        "max_abs_err": max(split_max_abs_err[k], hm[k], bl[f"attention_bwd_{k}"]),
         "ms": es[k]["ms"], "plain_ms": es[k]["plain_ms"], "bound_ms": es[k]["bound_ms"],
         "bound_by": es[k]["bound_by"], "library_ms": es[k]["library_ms"]}
         for i, k, line in ((2, "dv", 306), (3, "dqdk", 324))]}

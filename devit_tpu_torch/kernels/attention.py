@@ -22,13 +22,15 @@ computation. A head_dim past 128 runs unpadded on the key-chunked CUDA-core
 kernels (csrc/attn_chunked.cuh), which take any width, in both dtypes.
 
 Every kernel takes any N. The forward picks its design on the C side
-(`attention_path`): past 256 keys the bf16 kernel stages K and V one
-256-key chunk at a time; where the f32 whole-row block would not fit shared
-memory it walks key chunks on the CUDA cores. The backwards, past 256 keys,
-where a block of the monolithic kernel would not fit shared memory
-(head_dim 128 at the larger N) or past head_dim 128, walk key chunks on the
-CUDA cores (csrc/attention_bwd_long.cu), with a (B, H, N, 3) f32 scratch of
-row statistics that the wrapper allocates. `fused_block_attention` takes a
+(`attention_path`): past 256 keys the bf16 kernel walks K and V in chunks
+through a ring of two shared-memory buffers (attn_long_mma, tensor cores);
+where the f32 whole-row block would not fit shared memory it walks key
+chunks on the CUDA cores. The backwards, past 256 keys, where a block of
+the monolithic kernel would not fit shared memory (head_dim 128 from N 209
+at bf16) or past head_dim 128, walk key chunks (csrc/attention_bwd_long.cu:
+a rows kernel, then a keys kernel; at bf16 up to head_dim 128 on the tensor
+cores, otherwise on the CUDA cores), with a (B, H, N, 3) f32 scratch of row
+statistics that the wrapper allocates. `fused_block_attention` takes a
 chunked route of three launches (LayerNorm + qkv, the forward, proj) where
 its whole-head block would not fit.
 
@@ -212,7 +214,7 @@ ATTENTION_PATHS = ("whole-row", "key-chunked mma", "key-chunked CUDA cores")
 def attention_path(N: int, dh: int, dtype: torch.dtype, device: int = 0) -> str:
     """The design `fused_attention` launches at sequence length N and head
     width dh (before padding) on CUDA device `device`: one block holds the
-    head's keys; the bf16 tensor-core kernel over 256-key chunks; or the
+    head's keys; the bf16 tensor-core kernel over key chunks; or the
     key-chunked CUDA-core kernel (any N, any width)."""
     code = _build.library().devit_attention_path(N, kernel_head_dim(dh),
                                                  torch.tensor([], dtype=dtype).element_size(),

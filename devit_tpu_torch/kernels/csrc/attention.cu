@@ -39,12 +39,11 @@
 // instructions of `/`, which took 38% of the kernel's time. O = P V takes V
 // through ldmatrix.trans, and p never leaves registers: the rounded, packed
 // accumulators of two adjacent key tiles are the A fragment of the next mma.
-// o goes out through shared memory as 16-byte stores. Past N = 256 the keys
-// come in 256-key chunks and S is recomputed per chunk: once for the row
-// max, once for the sum, once for p . v (the exact two-pass softmax without
-// a score tile in shared memory). What bounds it: the f32 softmax (expf, the
-// divisions) on 8 warps an SM (the score registers allow two blocks), and
-// the padding of N = 198 to 208 keys and 256 query rows. The steps on a
+// o goes out through shared memory as 16-byte stores. Past N = 256 the
+// score row does not fit a lane's registers: attn_long_mma below. What bounds
+// it: the f32 softmax (expf, the divisions) on 8 warps an SM (the score
+// registers allow two blocks), and the padding of N = 198 to 208 keys and
+// 256 query rows. The steps on a
 // warp's rows (attend_rows and its chunk_* steps) live in attn_mma.cuh,
 // which block_attention.cu's bf16 kernel shares.
 //
@@ -65,13 +64,25 @@
 // (280 KB), so V takes K^T's place once S is formed (~181 KB a block).
 //
 // Past those sizes (kernel_path):
-// - bf16, N > 256 (attn_kchunk_mma): the mma design above with K, and in the
-//   last pass V, staged one 256-key chunk at a time instead of the whole
-//   head: 2 dh (64 + 2 . 256) bytes of shared memory (144 KB at dh 128) at
-//   any N. A block walks its tiles; for each it stages the chunks three
-//   times (row max, sum, p . v) with the same chunk steps, in the same order,
-//   as attn_kernel_mma<16> took over a resident K and V, so it computes the
-//   same bits that kernel did where that kernel fit.
+// - bf16, N > 256 (attn_long_mma, steps in long_mma.cuh): one block a
+//   (batch row, head, 64-query tile), 4 warps of 16 rows, the q fragments in
+//   registers. The keys come in chunks of 64 (32 at dh 128) through a ring
+//   of two cp.async buffers, one block barrier a chunk, the next chunk's
+//   copy running while this one computes. Two walks: K alone for the row's
+//   max and sum, kept online per lane (rescaled as the max grows) and
+//   reduced over the quad at the end; then K and V for o += round(exp(s -
+//   m) / l) . v, p normalised by the final sum before it is rounded, as the
+//   TPU kernel does. The online (m, l) sum in another order than
+//   attn_kernel_mma's, so this path's bits differ from the whole-row
+//   kernel's (within the bf16 tolerance); it runs only past 256 keys. What
+//   bounds it: not the bytes (0.034 ms at B 64, N 578, kh 6) but the
+//   per-score f32 work, two expf and a division a score: at kh 12, dh 32
+//   (twice the scores, the same products) it takes 1.6x the dh-64 time. 128
+//   registers a thread give four blocks (16 warps) an SM; eight-warp blocks
+//   sharing a chunk ran slower on the H100 (0.4245 against 0.4181 ms), and
+//   a whole-chunk path without the key mask took 0.42 to 0.39 ms. exp2 on
+//   prescaled scores ran at 0.332 ms but is not kept: it rounds the
+//   exponent otherwise than the TPU kernel's exp.
 // - f32 where the whole-row block does not fit shared memory (N > ~281 at
 //   dh 64), and both dtypes at dh > 128 (attn_chunked_kernel): the
 //   key-chunked CUDA-core steps of attn_chunked.cuh, any N and any head
@@ -86,6 +97,7 @@
 #include "attn_chunked.cuh"
 #include "attn_mma.cuh"
 #include "common.cuh"
+#include "long_mma.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -367,146 +379,123 @@ cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, float sc
   return cudaGetLastError();
 }
 
-// ---- bf16 past 256 keys: K and V staged a chunk at a time
+// ---- bf16 past 256 keys: K and V chunks through a ring of two buffers
 
-constexpr int kLongN = 256;  // keys of a staged chunk; past them the bf16 forward chunks K, V
+constexpr int kLongN = 256;  // past this many keys the bf16 forward walks key chunks
 
-size_t kchunk_smem_bytes(int head_dim) {
-  // Q [kBQ][dh] | K [kLongN][dh] | V [kLongN][dh], bf16
-  return (size_t)2 * head_dim * (kBQ + 2 * kLongN);
+namespace lm = devit::longmma;
+
+// Q [16 W][dh] | two buffers of a K and a V chunk [2][2][chunk_keys][dh], bf16
+template <int DH>
+constexpr size_t long_smem_bytes() {
+  return (size_t)2 * DH * (kBQ + 4 * lm::chunk_keys<DH>());
 }
 
-// One block: (batch row, head, a run of tpb 64-query tiles); 4 warps of 16
-// query rows, as attn_kernel_mma. Per tile, the keys come in 256-key chunks,
-// each staged (cp.async, zero-filled to a multiple of 16) before all four
-// warps take it: pass 1 the row max, pass 2 the sum, pass 3 p . v with the
-// chunk's V beside its K.
+size_t long_fwd_smem_bytes(int head_dim) {
+  return head_dim == 32 ? long_smem_bytes<32>()
+         : head_dim == 64 ? long_smem_bytes<64>() : long_smem_bytes<128>();
+}
+
+// One block: (batch row, head, 64-query tile); 4 warps of 16 query rows. The
+// keys come in chunks of CK through a ring of two cp.async buffers (the copy
+// of the next chunk runs while this one computes; one block barrier a
+// chunk): walk 1 over K alone for the online row max and sum, walk 2 over K
+// and V for o += round(exp(s - m) / l) . v. The q fragments stay in registers
+// for both walks; o leaves through the warp's own rows of the q tile.
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-attn_kchunk_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
-                int n_tiles, int tpb, float scale) {
-  constexpr int KC = kLongN / 16;
+__global__ void __launch_bounds__(lm::kThreads, DH == 128 ? 3 : 4)
+attn_long_mma(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H, int n_tiles,
+              float scale) {
+  constexpr int CK = lm::chunk_keys<DH>(), NT = CK / 8;
   constexpr int kShift = devit::mma::chunk_shift<DH>();
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // the tile's q rows, then its o rows
-  bf16* Ks = Qs + kBQ * DH;
-  bf16* Vs = Ks + kLongN * DH;
+  bf16* ring = Qs + kBQ * DH;                // buffer i & 1: K chunk, then V chunk
 
   const int C = H * DH;
-  const int n_runs = (n_tiles + tpb - 1) / tpb;
-  const int t0 = (blockIdx.x % n_runs) * tpb;
-  const int t1 = min(n_tiles, t0 + tpb);
-  const int b = blockIdx.x / n_runs;
-  const int h = blockIdx.y;
+  const int tile = blockIdx.x % n_tiles, b = blockIdx.x / n_tiles, h = blockIdx.y;
   const int64_t row3 = 3LL * C;
   const bf16* base = qkv + (int64_t)b * N * row3 + h * DH;
   bf16* obase = out + (int64_t)b * N * C + h * DH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = 16 * warp;  // the warp's first row in a tile
+  const int q0 = tile * kBQ, r0 = 16 * warp;
+  const bool active = q0 + r0 < N;  // some of the warp's 16 rows lie before N
+  const int n_chunks = (N + CK - 1) / CK;
 
-  // stage the chunk from key c0 on (K, and V with kv): its keys, and their
-  // count rounded up to 16
-  auto stage = [&](int c0, bool kv, int& len, int& np) {
-    len = min(kLongN, N - c0);
-    np = (len + 15) & ~15;
-    __syncthreads();  // every warp is done with the previous chunk
-    devit::mma::load_rows<DH>(Ks, base + C + (int64_t)c0 * row3, row3, np, len, tid,
-                              kMmaThreads);
-    if (kv)
-      devit::mma::load_rows<DH>(Vs, base + 2 * C + (int64_t)c0 * row3, row3, np, len, tid,
-                                kMmaThreads);
-    devit::mma::cp_async_wait_all();
-    __syncthreads();
-  };
+  devit::mma::load_rows<DH>(Qs, base + (int64_t)q0 * row3, row3, kBQ, N - q0, tid,
+                            lm::kThreads);
+  uint32_t qa[DH / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, unused[2], rl[2];
+  float o[DH / 8][4];
+#pragma unroll
+  for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  // step i: chunk i % n_chunks, K (and V in walk 2) into buffer i & 1
+  lm::ring_walk(
+      2 * n_chunks, active,
+      [&](int i) {
+        lm::fetch_chunk<DH>(ring, i, n_chunks, base + C, C, row3, N, i >= n_chunks, tid);
+      },
+      [&](int i) {
+        if (i == 0) lm::load_a<DH>(qa, Qs, r0, lane);
+        const bf16* Kb = ring + (i & 1) * 2 * CK * DH;
+        const int c0 = lm::chunk_key0<DH>(i, n_chunks);
+        float s[NT][4];
+        lm::times_rows<NT, DH>(s, qa, Kb, 0, N - c0, lane);
+        lm::scale_mask<NT>(s, c0, N, scale, lane);
+        if (i < n_chunks) {
+          lm::stats_step<NT, false>(s, s, m, l, unused, rl, i == n_chunks - 1);
+          return;
+        }
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[t][e] = lm::prob(s[t][e], m[e >> 1], l[e >> 1], rl[e >> 1]);
+        lm::chunk_times_cols<NT, DH>(o, s, Kb + CK * DH, c0, N, lane);
+      });
+  if (!active) return;
 
-  for (int tile = t0; tile < t1; ++tile) {
-    const int q0 = tile * kBQ;
-    __syncthreads();  // the previous tile's o stores out of Qs are done
-    devit::mma::load_rows<DH>(Qs, base + (int64_t)q0 * row3, row3, kBQ, N - q0, tid,
-                              kMmaThreads);
-    const bool active = q0 + r0 < N;  // some of the warp's 16 rows lie before N
-    uint32_t qa[DH / 16][4];
-    float s[2 * KC][4], o[DH / 8][4];
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // o rounded once into the warp's own 16 rows of Qs, then 16-byte stores
+  __syncwarp();
 #pragma unroll
-    for (int t = 0; t < DH / 8; ++t)
+  for (int t = 0; t < DH / 8; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
-    int len, np;
-    for (int c0 = 0; c0 < N; c0 += kLongN) {
-      stage(c0, false, len, np);  // the first also lands the q rows
-      if (!active) continue;
-      if (c0 == 0) {
-#pragma unroll
-        for (int ks = 0; ks < DH / 16; ++ks)
-          ldmatrix_x4(qa[ks], Qs + swz_dh<DH>(r0 + (lane & 15), 2 * ks + (lane >> 4)));
-      }
-      devit::mma::chunk_scores<KC, DH>(s, qa, Ks, 0, len, np, scale, lane);
-      devit::mma::chunk_max<KC>(s, m);
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + (lane >> 2) + 8 * half;
+      *reinterpret_cast<uint32_t*>(Qs + swz_dh<DH>(r, t) + 2 * (lane & 3)) =
+          pack_bf16(o[t][2 * half], o[t][2 * half + 1]);
     }
-    m[0] = devit::mma::quad_max(m[0]);
-    m[1] = devit::mma::quad_max(m[1]);
-    for (int c0 = 0; c0 < N; c0 += kLongN) {
-      stage(c0, false, len, np);
-      if (!active) continue;
-      devit::mma::chunk_scores<KC, DH>(s, qa, Ks, 0, len, np, scale, lane);
-      devit::mma::chunk_exp<KC>(s, m, l);
-    }
-    l[0] = devit::mma::quad_sum(l[0]);
-    l[1] = devit::mma::quad_sum(l[1]);
-    for (int c0 = 0; c0 < N; c0 += kLongN) {
-      stage(c0, true, len, np);
-      if (!active) continue;
-      devit::mma::chunk_scores<KC, DH>(s, qa, Ks, 0, len, np, scale, lane);
-      float unused[2] = {0.f, 0.f};
-      devit::mma::chunk_exp<KC>(s, m, unused);
-      devit::mma::chunk_pv<KC, DH>(o, s, l, Vs, 0, np, lane);
-    }
-    if (!active) continue;
-
-    // o rounded once into the warp's own 16 rows of Qs, then 16-byte stores
-    __syncwarp();
-#pragma unroll
-    for (int t = 0; t < DH / 8; ++t)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + (lane >> 2) + 8 * half;
-        *reinterpret_cast<uint32_t*>(Qs + swz_dh<DH>(r, t) + 2 * (lane & 3)) =
-            pack_bf16(o[t][2 * half], o[t][2 * half + 1]);
-      }
-    __syncwarp();
-    for (int i = lane; i < 16 * (DH / 8); i += 32) {
-      const int r = i >> kShift, c = i & (DH / 8 - 1);
-      const int n = q0 + r0 + r;
-      if (n < N)
-        *reinterpret_cast<uint4*>(obase + (int64_t)n * C + 8 * c) =
-            *reinterpret_cast<const uint4*>(Qs + swz_dh<DH>(r0 + r, c));
-    }
+  __syncwarp();
+  for (int i = lane; i < 16 * (DH / 8); i += 32) {
+    const int r = i >> kShift, c = i & (DH / 8 - 1);
+    const int n = q0 + r0 + r;
+    if (n < N)
+      *reinterpret_cast<uint4*>(obase + (int64_t)n * C + 8 * c) =
+          *reinterpret_cast<const uint4*>(Qs + swz_dh<DH>(r0 + r, c));
   }
 }
 
 template <int DH>
-cudaError_t launch_kchunk(const void* qkv, void* out, int B, int N, int H, float scale,
-                          cudaStream_t stream) {
+cudaError_t launch_long_mma(const void* qkv, void* out, int B, int N, int H, float scale,
+                            cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_kchunk_mma<DH>, opted_in);
+  cudaError_t err = devit::opt_in_smem((const void*)attn_long_mma<DH>, opted_in);
   if (err != cudaSuccess) return err;
-  int tpb = 0;
-  dim3 grid;
-  err = tile_runs(B, N, H, &tpb, &grid);
-  if (err != cudaSuccess) return err;
-  attn_kchunk_mma<DH><<<grid, kMmaThreads, kchunk_smem_bytes(DH), stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, (N + kBQ - 1) / kBQ, tpb,
-      scale);
+  const int n_tiles = (N + kBQ - 1) / kBQ;
+  const dim3 grid((unsigned)(B * n_tiles), (unsigned)H);
+  attn_long_mma<DH><<<grid, lm::kThreads, long_smem_bytes<DH>(), stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, n_tiles, scale);
   return cudaGetLastError();
 }
 
 // The fewest score registers that hold the row: N <= 64, 128, 208 (the
-// deployed N = 198), 256; past 256, attn_kchunk_mma.
+// deployed N = 198), 256; past 256, attn_long_mma.
 template <int DH>
 cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, float scale,
                         cudaStream_t s) {
-  if (N > kLongN) return launch_kchunk<DH>(qkv, out, B, N, H, scale, s);
+  if (N > kLongN) return launch_long_mma<DH>(qkv, out, B, N, H, scale, s);
   if (N <= 64) return launch_mma<4, DH>(qkv, out, B, N, H, scale, s);
   if (N <= 128) return launch_mma<8, DH>(qkv, out, B, N, H, scale, s);
   if (N <= 208) return launch_mma<13, DH>(qkv, out, B, N, H, scale, s);
@@ -599,7 +588,7 @@ cudaError_t launch_chunked(const void* qkv, void* out, int B, int N, int H, int 
 
 enum Path { kWholeRow = 0, kKeyChunkMma = 1, kKeyChunked = 2 };
 
-// bf16 and dh <= 128: attn_kernel_mma to 256 keys, attn_kchunk_mma past
+// bf16 and dh <= 128: attn_kernel_mma to 256 keys, attn_long_mma past
 // them; f32 and dh <= 128: attn_kernel where its block fits `optin` bytes of
 // shared memory; otherwise (and at every dh > 128) attn_chunked_kernel.
 int kernel_path(int n, int head_dim, int elem, long long optin) {
@@ -611,7 +600,7 @@ int kernel_path(int n, int head_dim, int elem, long long optin) {
 size_t path_smem_bytes(int n, int head_dim, int elem, long long optin) {
   switch (kernel_path(n, head_dim, elem, optin)) {
     case kWholeRow: return smem_bytes(n, head_dim, elem);
-    case kKeyChunkMma: return kchunk_smem_bytes(head_dim);
+    case kKeyChunkMma: return long_fwd_smem_bytes(head_dim);
     default: return elem == 2 ? chunked_smem_bytes<bf16>() : chunked_smem_bytes<float>();
   }
 }
@@ -628,7 +617,8 @@ long long devit_attention_smem_bytes(int n, int head_dim, int elem_bytes, int de
 
 // The design a forward at (n, head_dim, elem_bytes) takes on `device`: 0 one
 // block holds the head's keys (attn_kernel, attn_kernel_mma), 1 the bf16
-// tensor-core kernel over 256-key chunks, 2 the key-chunked CUDA-core kernel.
+// tensor-core kernel over key chunks (attn_long_mma), 2 the key-chunked
+// CUDA-core kernel.
 int devit_attention_path(int n, int head_dim, int elem_bytes, int device) {
   return kernel_path(n, head_dim, elem_bytes, devit::device_optin(device));
 }

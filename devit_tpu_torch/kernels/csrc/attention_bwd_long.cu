@@ -1,57 +1,89 @@
 // The attention backward past kShortN (256) keys, at both dtypes: what the
 // monolithic kernel (attention_bwd.cu) and the split pair
-// (attention_bwd_split.cu) launch when N > 256.
+// (attention_bwd_split.cu) launch when N > 256 (and at bf16, dh 128, from N
+// 209, where the monolithic block does not fit: use_long_path).
 //
 // Replaces, for long sequences, devit_tpu/kernels/attention.py:
 // _attn_bwd_kernel and the split pair _attn_bwd_dv_kernel /
 // _attn_bwd_dqdk_kernel, which hold whole rows and so take any N. Numerics
 // follow the TPU kernels: s = (q . k^T) * dh^-0.5 and p = softmax(s) in f32,
-// dv = round(p)^T g with p rounded to the input dtype, dp = g v^T in f32, ds =
-// round((p * (dp - rowsum(dp * p))) * scale) over the unrounded p, dq = ds k,
-// dk = ds^T q; every product accumulates in f32 and is rounded once.
+// dv = round(p)^T g with p rounded to the input dtype after it is normalised
+// by the row's sum, dp = g v^T in f32, ds = round((p * (dp - rowsum(dp *
+// p))) * scale) over the unrounded p, dq = ds k, dk = ds^T q; every product
+// accumulates in f32 and is rounded once.
 //
 // Why a second design: a short-path block owns a whole (batch row, head), and
-// its softmax needs the whole score row. At N 578 a block cannot hold the
-// score rows and the resident K and V (240 KB of shared memory at f32 for the
-// CUDA-core dv kernel's K alone), and the warps' registers hold dk and dv of
-// 256 keys at most. So the long path walks 256-key chunks, as the forward's
-// long path does (attention.cu), with the CUDA-core steps of bwd_common.cuh:
-// 1. attn_bwd_long_rows: one block a (batch row, head, 32-query tile). It
-//    walks the key chunks once for each row's max m, once for its sum l, and
-//    (DQ) once for delta = rowsum(dp * p) and once more for dq = sum ds K,
-//    written once. It writes (m, l, delta) in f32 to the caller's scratch.
-// 2. attn_bwd_long_keys: one block a (batch row, head, 256-key chunk), the
-//    chunk's K (and V) resident. It walks all query tiles, forms p =
-//    exp(s - m) / l (and ds) from the statistics, and sums dv += round(p)^T g
-//    and/or dk += ds^T q for its keys in registers, written once.
-// The monolithic backward is rows<DQ> + keys<DK, DV>, the dv kernel rows +
-// keys<DV>, the dq/dk kernel rows<DQ> + keys<DK>. Every output has one writer
-// and nothing is summed with atomics, so repeat launches are bit-identical.
+// its softmax needs the whole score row. Past 256 keys a block cannot hold
+// the score rows beside K and V, nor a warp's registers dk and dv of every
+// key. So the long path is two kernels, which is what gives every output one
+// writer without atomics: a rows kernel writes each row's (m, l, delta) to
+// the caller's (B, H, N, 3) f32 scratch and its dq; a keys kernel, one block
+// a key chunk, sums dk and dv of its keys over every query from those
+// statistics. The monolithic backward is rows<DQ> + keys<DK, DV>, the dv
+// kernel rows + keys<DV>, the dq/dk kernel rows<DQ> + keys<DK>: each output
+// comes from the same instantiation's arithmetic in either mode, so the pair
+// equals the monolithic backward bit for bit, and repeat launches are
+// bit-identical.
+//
+// bf16, dh 32, 64 and 128 (attn_bwd_long_rows_mma, attn_bwd_long_keys_mma,
+// with the tensor-core steps of long_mma.cuh): every product on
+// mma.sync.m16n8k16, 4-warp blocks.
+// 1. Rows: a block takes a (batch row, head, 64-query tile), a warp 16 rows,
+//    q and g held as A fragments. The key chunks (64 keys, 32 at dh 128)
+//    come through a ring of two cp.async buffers, one barrier a chunk. Walk 1
+//    computes s = q k^T and dp = g v^T a chunk at a time and keeps the row's
+//    max, sum and rowsum(dp * e) online per lane (rescaled as the max grows;
+//    delta = that rowsum / l), reduced over the quad at the end. Walk 2 (DQ)
+//    recomputes s and dp, forms ds and packs it straight from the
+//    accumulators into the A fragments of dq += ds k (K through
+//    ldmatrix.trans). Two walks where the CUDA-core design took four.
+// 2. Keys: a block takes a (batch row, head, 64-key chunk), the chunk's K
+//    and V resident, a warp 16 keys. Query tiles (64, 32 at dh 128), their g
+//    rows and their statistics stream through a ring of two buffers. s^T = k
+//    q^T and dp^T = v g^T come out with keys as rows, so round(p)^T and ds^T
+//    pack straight into the A fragments of dv += round(p)^T g and dk += ds^T
+//    q (g and q through ldmatrix.trans): no trip through shared memory. A
+//    warp's dk and dv stay in its accumulators and are written once.
+// The online (m, l, delta) sum in another order than the short path's row
+// reductions, so this path no longer equals the N <= 256 kernels bit for
+// bit (the bf16 tolerance holds); it runs only where they do not. The
+// statistics go through the _rn intrinsics (long_mma.cuh), so rows<true>
+// and rows<false> give (m, l) the same bits. What bounds it: at B 64, N 578,
+// kh 6 the bound is the operations (0.083 ms at 989 TFLOP/s); the design
+// runs nine products where the minimum is five (s twice and dp twice for
+// the statistics and dq, again in the keys kernel) and three expf a score,
+// at 12 warps an SM (168 registers a thread, 3 blocks at dh <= 64, 2 at dh
+// 128); the rows<true> and keys<true, true> launches took 1.17 ms together
+// on the H100, 1.05-1.08 with a path without the key and query masks for
+// whole chunks. Launch bounds of two blocks an SM ran at 1.25 ms (206
+// registers), of four at 1.41 (128 registers, spills), two for the rows
+// kernel and three for the keys kernel at 1.17.
+//
+// f32, dh 32, 64 and 128 (attn_bwd_long_rows, attn_bwd_long_keys): the same
+// two kernels on the CUDA-core steps of bwd_common.cuh (the f32 tolerance is
+// 1e-4, finer than TF32), 512-thread blocks over 256-key chunks (128 at dh
+// 128), a lane owning dims l + 32 j. The rows kernel walks the chunks once
+// for each row's max, once for its sum, and (DQ) once for delta and once
+// more for dq; the keys kernel recomputes s and dp for every 32-query tile.
 // A lane's partial max, sum and rowsum run over its columns l + 32 j in
-// softmax_row's and ds_row's order, and the chunks are a multiple of 32 wide,
-// so at f32 this path computes what the one-block-a-head steps would if their
-// registers held the row.
+// softmax_row's and ds_row's order, so at f32 this path computes what the
+// one-block-a-head steps would if their registers held the row. Right, not
+// fast (13.4 ms at B 64, N 578, kh 6): a later redesign's.
 //
-// Head widths 32, 64 and 128: a lane owns dims l + 32 j, j < dh / 32. At dh
-// 128 the chunks are 128 keys (long_chunk), so that an f32 block's K and V
-// chunk fits beside the score rows; the monolithic wrapper also routes dh
-// 128 here where its short block would not fit shared memory.
-//
-// Head widths past 128 (attn_wide_bwd_rows, attn_wide_bwd_keys): a lane
-// cannot own a whole row's dims in registers, nor a block a chunk's K and V
-// rows, so the same two kernels are written over the any-width CUDA-core
-// steps of attn_chunked.cuh: 64-query tiles, 64-key chunks, each score
-// product staged 32 dims at a time, each output (dq, dk, dv) made 64 dims a
-// block. The rows kernel's every output piece recomputes the statistics; its
-// first piece writes them. The numerics are those above, so the split pair
-// stays bit for bit the monolithic backward.
-//
-// What bounds it: speed past 256 keys is not a target (no training
-// configuration runs there yet). It recomputes s four times (rows<DQ>) and
-// once more per key chunk, on the CUDA cores; chip_smoke.py times it at N 578.
+// Head widths past 128 (attn_wide_bwd_rows, attn_wide_bwd_keys), both
+// dtypes: a lane cannot own a whole row's dims in registers, nor a block a
+// chunk's K and V rows, so the same two kernels are written over the
+// any-width CUDA-core steps of attn_chunked.cuh: 64-query tiles, 64-key
+// chunks, each score product staged 32 dims at a time, each output (dq, dk,
+// dv) made 64 dims a block. The rows kernel's every output piece recomputes
+// the statistics; its first piece writes them. The numerics are those above,
+// so the split pair stays bit for bit the monolithic backward.
+
+#include <type_traits>
 
 #include "attn_chunked.cuh"
 #include "bwd_common.cuh"
+#include "long_mma.cuh"
 
 namespace {
 
@@ -289,6 +321,294 @@ cudaError_t launch_long_t(const void* qkv, const void* g, void* out, long long o
   return launch_keys<T, DH, false, true>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
 }
 
+// ---- bf16 at head widths 32, 64 and 128: the tensor-core pair (long_mma.cuh)
+
+namespace lm = devit::longmma;
+using devit::mma::bf16;
+
+// The rows kernel: the q and g tiles [2][64][dh] | two buffers of a K and a V
+// chunk [2][2][chunk_keys][dh], bf16.
+template <int DH>
+constexpr size_t rows_mma_smem_bytes() {
+  return (size_t)2 * DH * (2 * lm::kRows + 4 * lm::chunk_keys<DH>());
+}
+
+// The keys kernel: the chunk's K and V [2][64][dh] | two buffers of a q and a
+// g tile [2][2][chunk_keys][dh], bf16, and of its rows' statistics
+// [2][chunk_keys][3], f32.
+template <int DH>
+constexpr size_t keys_mma_smem_bytes() {
+  return (size_t)2 * DH * (2 * lm::kRows + 4 * lm::chunk_keys<DH>()) +
+         sizeof(float) * 2 * 3 * lm::chunk_keys<DH>();
+}
+
+size_t long_mma_smem_bytes(int dh) {
+  const size_t r = dh == 32 ? rows_mma_smem_bytes<32>()
+                   : dh == 64 ? rows_mma_smem_bytes<64>() : rows_mma_smem_bytes<128>();
+  const size_t k = dh == 32 ? keys_mma_smem_bytes<32>()
+                   : dh == 64 ? keys_mma_smem_bytes<64>() : keys_mma_smem_bytes<128>();
+  return r > k ? r : k;
+}
+
+// Block (batch row, head, 64-query tile), 4 warps of 16 rows: the rows' (m,
+// l) and, with DQ, delta and dq. q and g stay in registers as A fragments;
+// the key chunks come through the ring. Walk 1 (every chunk): s = q k^T
+// (and, with DQ, dp = g v^T) by mma, the online (m, l) and rowsum(dp * e)
+// (online_step); then the statistics go to stats[(bh N + n) 3 + {0, 1, 2}]
+// (delta 0 without DQ). Walk 2 (DQ): s and dp again, p = exp(s - m) / l, ds =
+// round((p (dp - delta)) scale) packed straight into the A fragments of dq +=
+// ds k (K through ldmatrix.trans); dq written once. rows<false> runs walk 1 as
+// rows<true> does, so (m, l) have the same bits in both.
+template <int DH, bool DQ>
+__global__ void __launch_bounds__(lm::kThreads, DH == 128 ? 2 : 3)
+attn_bwd_long_rows_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
+                       bf16* __restrict__ dq, long long out_stride, float* __restrict__ stats,
+                       int N, int H, int n_tiles, float scale) {
+  constexpr int CK = lm::chunk_keys<DH>(), NT = CK / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + lm::kRows * DH;
+  bf16* ring = Gs + lm::kRows * DH;  // buffer i & 1: K chunk, then V chunk
+
+  const int tile = blockIdx.x % n_tiles, bh = blockIdx.x / n_tiles;
+  const int b = bh / H, h = bh % H;
+  const int C = H * DH;
+  const int64_t row3 = 3LL * C;
+  const bf16* base = qkv + (int64_t)b * N * row3 + h * DH;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = tile * lm::kRows, r0 = 16 * warp;
+  const bool active = q0 + r0 < N;
+  const int n_chunks = (N + CK - 1) / CK;
+
+  devit::mma::load_rows<DH>(Qs, base + (int64_t)q0 * row3, row3, lm::kRows, N - q0, tid,
+                            lm::kThreads);
+  if (DQ)
+    devit::mma::load_rows<DH>(Gs, g + ((int64_t)b * N + q0) * C + h * DH, C, lm::kRows, N - q0,
+                              tid, lm::kThreads);
+  uint32_t qa[DH / 16][4], ga[DH / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f}, rl[2];
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  // step i: chunk i % n_chunks, K (and V with DQ) into buffer i & 1
+  lm::ring_walk(
+      DQ ? 2 * n_chunks : n_chunks, active,
+      [&](int i) { lm::fetch_chunk<DH>(ring, i, n_chunks, base + C, C, row3, N, DQ, tid); },
+      [&](int i) {
+        if (i == 0) {
+          lm::load_a<DH>(qa, Qs, r0, lane);
+          if (DQ) lm::load_a<DH>(ga, Gs, r0, lane);
+        }
+        const bf16* Kb = ring + (i & 1) * 2 * CK * DH;
+        const int c0 = lm::chunk_key0<DH>(i, n_chunks);
+        float s[NT][4], dp[NT][4];
+        lm::times_rows<NT, DH>(s, qa, Kb, 0, N - c0, lane);
+        lm::scale_mask<NT>(s, c0, N, scale, lane);
+        if (DQ) lm::times_rows<NT, DH>(dp, ga, Kb + CK * DH, 0, N - c0, lane);
+        if (i < n_chunks) {
+          lm::stats_step<NT, DQ>(s, dp, m, l, dl, rl, i == n_chunks - 1);
+          return;
+        }
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = lm::prob(s[t][e], m[r], l[r], rl[r]);
+            s[t][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[t][e], dl[r])), scale);  // ds
+          }
+        lm::chunk_times_cols<NT, DH>(acc, s, Kb, c0, N, lane);
+      });
+  if (!active) return;
+  if (DQ) {
+    bf16* qout = dq + ((int64_t)b * N + q0) * out_stride + h * DH;
+#pragma unroll
+    for (int t = 0; t < DH / 8; ++t)
+      devit::mma::store_rows(acc[t], qout, out_stride, r0, N - q0, 8 * t, lane);
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = q0 + r0 + (lane >> 2) + 8 * i;
+      if (n >= N) continue;
+      float* st = stats + ((int64_t)bh * N + n) * 3;
+      st[0] = m[i];
+      st[1] = l[i];
+      st[2] = DQ ? dl[i] : 0.f;
+    }
+  }
+}
+
+// Block (batch row, head, 64-key chunk), 4 warps of 16 keys: dk (DK) and dv
+// (DV) of the chunk's keys, summed over every query. The chunk's K (and V)
+// stay resident, the warp's 16 keys as A fragments (in registers up to dh 64,
+// read again at dh 128); the query tiles, their g rows and their statistics
+// come through the ring. For each 32 queries: s^T = k q^T (and dp^T = v g^T)
+// by mma, keys as rows and queries as columns; p = exp(s - m) / l and ds =
+// round((p (dp - delta)) scale) from the columns' statistics (0 for queries
+// at or past N); then dv += round(p)^T g and dk += ds^T q by mma, with
+// round(p)^T and ds^T packed straight from the accumulators into A fragments
+// and g, q through ldmatrix.trans. Each warp's dk and dv stay in its
+// accumulators and are written once. Every instantiation runs these steps on
+// the same operands in the same order, so the split pair equals the
+// monolithic <true, true> bit for bit.
+template <int DH, bool DK, bool DV>
+__global__ void __launch_bounds__(lm::kThreads, DH == 128 ? 2 : 3)
+attn_bwd_long_keys_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
+                       bf16* __restrict__ out, long long out_stride,
+                       const float* __restrict__ stats, int N, int H, int n_chunks, float scale) {
+  static_assert(DK || DV, "an instantiation computes dk, dv or both");
+  constexpr int QT = lm::chunk_keys<DH>();  // queries of a staged tile
+  constexpr bool kHold = DH <= 64;          // the key fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + lm::kRows * DH;
+  bf16* ring = Vs + lm::kRows * DH;  // buffer i & 1: q tile, then g tile
+  float* St = reinterpret_cast<float*>(ring + 4 * QT * DH);  // [2][QT][3]
+
+  const int chunk = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks;
+  const int b = bh / H, h = bh % H;
+  const int C = H * DH;
+  const int64_t row3 = 3LL * C;
+  const bf16* base = qkv + (int64_t)b * N * row3 + h * DH;
+  const bf16* gbase = g + (int64_t)b * N * C + h * DH;
+  const float* sbase = stats + (int64_t)bh * N * 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = chunk * lm::kRows, len = min(lm::kRows, N - c0), kr = 16 * warp;
+  const bool active = kr < len;
+  const int n_tiles = (N + QT - 1) / QT;
+
+  auto fetch = [&](int i) {
+    const int t0 = i * QT;
+    bf16* Qb = ring + (i & 1) * 2 * QT * DH;
+    devit::mma::load_rows<DH>(Qb, base + (int64_t)t0 * row3, row3, QT, N - t0, tid,
+                              lm::kThreads);
+    devit::mma::load_rows<DH>(Qb + QT * DH, gbase + (int64_t)t0 * C, C, QT, N - t0, tid,
+                              lm::kThreads);
+    float* sb = St + (i & 1) * 3 * QT;
+    for (int k = tid; k < 3 * QT; k += lm::kThreads) {
+      const bool ok = t0 + k / 3 < N;
+      lm::cp_async4(sb + k, ok ? sbase + (int64_t)t0 * 3 + k : sbase, ok);
+    }
+    devit::mma::cp_async_commit();
+  };
+  devit::mma::load_rows<DH>(Ks, base + C + (int64_t)c0 * row3, row3, lm::kRows, len, tid,
+                            lm::kThreads);
+  if (DK)
+    devit::mma::load_rows<DH>(Vs, base + 2 * C + (int64_t)c0 * row3, row3, lm::kRows, len, tid,
+                              lm::kThreads);
+
+  uint32_t ka[kHold ? DH / 16 : 1][4], va[kHold ? DH / 16 : 1][4];
+  float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+  for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
+  // step i: query tile i, its g rows and statistics into buffer i & 1
+  lm::ring_walk(n_tiles, active, fetch, [&](int i) {
+    if constexpr (kHold) {
+      if (i == 0) {
+        lm::load_a<DH>(ka, Ks, kr, lane);
+        if (DK) lm::load_a<DH>(va, Vs, kr, lane);
+      }
+    }
+    const bf16* Qb = ring + (i & 1) * 2 * QT * DH;
+    const bf16* Gb = Qb + QT * DH;
+    const float* sb = St + (i & 1) * 3 * QT;
+    const int t0 = i * QT;
+    const bool full = t0 + QT <= N;  // no query past N in the tile
+#pragma unroll
+    for (int j0 = 0; j0 < QT; j0 += 32) {
+      if (t0 + j0 >= N) break;  // warp-uniform
+      float s[4][4], dp[4][4];
+      if constexpr (kHold) {
+        lm::times_rows<4, DH>(s, ka, Qb, j0, N - t0, lane);
+        if (DK) lm::times_rows<4, DH>(dp, va, Gb, j0, N - t0, lane);
+      } else {
+        lm::tile_times_rows<4, DH>(s, Ks, kr, Qb, j0, N - t0, lane);
+        if (DK) lm::tile_times_rows<4, DH>(dp, Vs, kr, Gb, j0, N - t0, lane);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int q = j0 + 8 * t + 2 * (lane & 3) + c;  // the column's query in the tile
+          const float mq = sb[3 * q], lq = sb[3 * q + 1], rq = __frcp_rn(lq);
+          const bool in = full || t0 + q < N;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int e = 2 * half + c;
+            const float p = in ? lm::prob(__fmul_rn(s[t][e], scale), mq, lq, rq) : 0.f;
+            s[t][e] = p;
+            if (DK) dp[t][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[t][e], sb[3 * q + 2])), scale);
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (t0 + j0 + 16 * j >= N) break;  // queries past N: p and ds are 0 (warp-uniform)
+        uint32_t a[4];
+        if (DV) {
+          lm::pack_a<4>(a, s, j);
+          lm::times_cols<DH>(dv, a, Gb, j0 + 16 * j, lane);
+        }
+        if (DK) {
+          lm::pack_a<4>(a, dp, j);
+          lm::times_cols<DH>(dk, a, Qb, j0 + 16 * j, lane);
+        }
+      }
+    }
+  });
+  if (!active) return;
+  bf16* obase = out + ((int64_t)b * N + c0) * out_stride + h * DH;
+#pragma unroll
+  for (int t = 0; t < DH / 8; ++t) {
+    if (DK) devit::mma::store_rows(dk[t], obase + C, out_stride, kr, len, 8 * t, lane);
+    if (DV)
+      devit::mma::store_rows(dv[t], obase + (DK ? 2 * C : 0), out_stride, kr, len, 8 * t, lane);
+  }
+}
+
+template <typename K, typename... A>
+cudaError_t launch_mma_kernel(K fn, std::atomic<bool>* opted, unsigned grid, size_t smem,
+                              cudaStream_t s, A... args) {
+  cudaError_t err = devit::opt_in_smem((const void*)fn, opted);
+  if (err != cudaSuccess) return err;
+  fn<<<grid, lm::kThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// rows<dqdk>, then keys<dqdk, dv>: the monolithic backward (both), the dq/dk
+// kernel (dqdk) or the dv kernel (dv).
+template <int DH>
+cudaError_t launch_long_mma(const void* qkv, const void* g, void* out, long long out_stride,
+                            float* stats, int B, int N, int H, bool dqdk, bool dv, float scale,
+                            cudaStream_t s) {
+  static std::atomic<bool> opted[5][devit::kMaxDevices];
+  const bf16* x = static_cast<const bf16*>(qkv);
+  const bf16* gt = static_cast<const bf16*>(g);
+  bf16* o = static_cast<bf16*>(out);
+  const unsigned bh = (unsigned)(B * H);
+  const int tiles = (N + lm::kRows - 1) / lm::kRows;  // query tiles, and key chunks
+  const size_t rs = rows_mma_smem_bytes<DH>(), ks = keys_mma_smem_bytes<DH>();
+  cudaError_t err =
+      dqdk ? launch_mma_kernel(attn_bwd_long_rows_mma<DH, true>, opted[0], bh * tiles, rs, s, x,
+                               gt, o, out_stride, stats, N, H, tiles, scale)
+           : launch_mma_kernel(attn_bwd_long_rows_mma<DH, false>, opted[1], bh * tiles, rs, s, x,
+                               gt, o, out_stride, stats, N, H, tiles, scale);
+  if (err != cudaSuccess) return err;
+  const float* st = stats;
+  if (dqdk && dv)
+    return launch_mma_kernel(attn_bwd_long_keys_mma<DH, true, true>, opted[2], bh * tiles, ks, s,
+                             x, gt, o, out_stride, st, N, H, tiles, scale);
+  if (dqdk)
+    return launch_mma_kernel(attn_bwd_long_keys_mma<DH, true, false>, opted[3], bh * tiles, ks,
+                             s, x, gt, o, out_stride, st, N, H, tiles, scale);
+  return launch_mma_kernel(attn_bwd_long_keys_mma<DH, false, true>, opted[4], bh * tiles, ks, s,
+                           x, gt, o, out_stride, st, N, H, tiles, scale);
+}
+
 // ---- head widths past 128 (attn_chunked.cuh's steps)
 
 namespace ch = devit::chunked;
@@ -507,12 +827,21 @@ cudaError_t launch_long_dh(const void* qkv, const void* g, void* out, long long 
                            float scale, cudaStream_t s) {
   if (head_dim > 128)
     return launch_wide<T>(qkv, g, out, out_stride, stats, B, N, H, head_dim, dqdk, dv, scale, s);
-  if (head_dim == 32)
-    return launch_long_t<T, 32>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
-  if (head_dim == 64)
-    return launch_long_t<T, 64>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
-  if (head_dim == 128)
-    return launch_long_t<T, 128>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (head_dim == 32)
+      return launch_long_mma<32>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+    if (head_dim == 64)
+      return launch_long_mma<64>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+    if (head_dim == 128)
+      return launch_long_mma<128>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+  } else {  // f32: the CUDA-core kernels above
+    if (head_dim == 32)
+      return launch_long_t<T, 32>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+    if (head_dim == 64)
+      return launch_long_t<T, 64>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+    if (head_dim == 128)
+      return launch_long_t<T, 128>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -524,8 +853,8 @@ namespace bwd {
 size_t long_smem_bytes(int dh, int elem) {
   if (dh > 128)  // the keys kernel's, the larger of the two
     return elem == 2 ? wide_keys_smem_bytes<__nv_bfloat16>() : wide_keys_smem_bytes<float>();
-  const int chunk = long_chunk(dh);
-  return elem == 2 ? dqdk_smem_bytes<__nv_bfloat16>(chunk, dh) : dqdk_smem_bytes<float>(chunk, dh);
+  if (elem == 2) return long_mma_smem_bytes(dh);
+  return dqdk_smem_bytes<float>(long_chunk(dh), dh);
 }
 
 cudaError_t launch_long(const void* qkv, const void* g, void* out, long long out_stride,

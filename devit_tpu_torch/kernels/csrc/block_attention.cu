@@ -77,7 +77,7 @@
 // same computation runs as three launches over scratch the wrapper
 // allocates, (B N, 4 K) of t's dtype: block_gemm_kernel<LN> forms qkv =
 // round(LayerNorm(t) . W + b) (statistics in f32, h rounded), the forward's
-// kernels (attention.cu, which chunk the keys: attn_kchunk_mma at bf16 past
+// kernels (attention.cu, which chunk the keys: attn_long_mma at bf16 past
 // 256 keys, attn_chunked_kernel otherwise) give o, rounded, and
 // block_gemm_kernel<!LN> adds o . proj onto t in f32, then proj_bias, one
 // rounding. The GEMMs run f32 FMAs on the CUDA cores (T products are exact

@@ -1,6 +1,6 @@
 // The CUDA-core steps of the attention backward, shared by the f32 monolithic
 // kernel (attention_bwd.cu), the f32 split pair (attention_bwd_split.cu) and
-// the path past kShortN keys at both dtypes (attention_bwd_long.cu).
+// the f32 path past kShortN keys (attention_bwd_long.cu).
 //
 // Every kernel that uses them runs kThreads threads and walks queries in
 // kBQ-row tiles: warp w owns the tile's rows 2w and 2w + 1. K (and V) sit in
@@ -198,9 +198,10 @@ size_t dqdk_smem_bytes(int n, int dh) {
          sizeof(T) * (2 * (size_t)n * kv_stride<T>(dh) + 2 * (size_t)kBQ * dh);
 }
 
-// ---- the path past kShortN keys (attention_bwd_long.cu), both dtypes
+// ---- the path past kShortN keys (attention_bwd_long.cu): at f32 over these
+// steps, at bf16 (head widths up to 128) on the tensor cores (long_mma.cuh)
 
-// Keys a chunk of the long path: kShortN, or 128 at dh 128 (so that an f32
+// Keys a chunk of the f32 long path: kShortN, or 128 at dh 128 (so that an f32
 // block's K and V chunk fits beside the score rows).
 __host__ __device__ constexpr int long_chunk(int dh) { return dh > 64 ? 128 : kShortN; }
 

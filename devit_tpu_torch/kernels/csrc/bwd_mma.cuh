@@ -64,6 +64,7 @@ using devit::mma::ldmatrix_x4;
 using devit::mma::ldmatrix_x4_trans;
 using devit::mma::mma_bf16;
 using devit::mma::pack_bf16;
+using devit::mma::store_rows;
 using devit::mma::swz_dh;
 
 static_assert(kBQ == 32 && kWarps == 16, "the tile steps below deal 32-row tiles to 16 warps");
@@ -91,20 +92,6 @@ inline bool use_long_path(int n, int dh, int elem, long long optin) {
   const size_t need = elem == 2 ? mma_smem_bytes<true, true>(n, dh)
                                 : dqdk_smem_bytes<float>(n, dh);
   return (long long)need > optin;
-}
-
-// Writes the lane's two rows of an m16n8 accumulator (rows r0 + lane/4 and
-// + 8, dims d0 + 2(lane % 4) and + 1), rounded, to rows out + row * stride
-// that lie before `rows`.
-__device__ __forceinline__ void store_rows(const float (&acc)[4], bf16* out, int64_t stride,
-                                           int r0, int rows, int d0, int lane) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + (lane >> 2) + 8 * half;
-    if (r < rows)
-      *reinterpret_cast<uint32_t*>(out + (int64_t)r * stride + d0 + 2 * (lane & 3)) =
-          pack_bf16(acc[2 * half], acc[2 * half + 1]);
-  }
 }
 
 // Tile rows r0 .. r0 + R - 1: s (in P) -> round(p) into Pb (DV) and, with

@@ -112,6 +112,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Writes the lane's two rows of an m16n8 accumulator (rows r0 + lane/4 and
+// + 8, dims d0 + 2(lane % 4) and + 1), rounded, to rows out + row * stride
+// that lie before `rows`.
+__device__ __forceinline__ void store_rows(const float (&acc)[4], bf16* out, int64_t stride,
+                                           int r0, int rows, int d0, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + (lane >> 2) + 8 * half;
+    if (r < rows)
+      *reinterpret_cast<uint32_t*>(out + (int64_t)r * stride + d0 + 2 * (lane & 3)) =
+          pack_bf16(acc[2 * half], acc[2 * half + 1]);
+  }
+}
+
 // a / b rounded to nearest, given rb = 1/b rounded to nearest (__frcp_rn):
 // q = a rb and one FMA correction (Markstein), which is the IEEE quotient
 // whenever it is a normal number; three instructions where `/` takes ~10.

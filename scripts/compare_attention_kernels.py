@@ -13,19 +13,24 @@ pair (attention_bwd_dv, attention_bwd_dqdk) at B 64 with kh 6 (the stage-5
 step's shape) and B 256 with kh 6, all at N 198, bf16, by CUDA events over 30
 launches after 3 warm-up launches queued behind a spin kernel (device time,
 without the host's launch overhead), beside SDPA's forward on the same
-inputs;
+inputs; the bf16 kernels past 256 keys at B 64, N 578, kh 6 (dedeit at 384
+px): fused_attention, attention_bwd, attention_bwd_split and the dv and
+dq/dk kernels; the bf16 dedeit stage-2 step at 384 px, B 64, with the
+kernels (host clock over 3 steps after one);
 fused_int8_matmul (bf16 in and out) at M 50688 (bs256 x 198 tokens) at every
 distinct (K, N) of the deployed divisions' weight products, with each
 layer's own quantized weights, summed over one int8 forward's 192 calls; and
 the bf16 fused_block_attention at B 256, N 198, C 384 with kh 1-6, summed
 over one forward's 48 layers at the deployed kh mix. Each turn also hashes
-the outputs on fixed inputs (the forward, the backwards, the int8 matmul),
-so the script says whether the two checkouts' kernels give the same bits.
-Last, the SASS of each side's bf16 attention kernels (cuobjdump beside
-nvcc): instructions, HMMA instructions and a hash of the opcode sequence,
-so a kernel whose source should compile unchanged can be checked. Prints
-the card's name and power limit, one JSON line per turn and the mean of each
-side's two turns.
+the outputs on fixed inputs (every timed call, and the forward and the
+three backwards of every other path: f32 at N 198 and 578, head width 192
+in both dtypes, bf16 dh 32 and 128; the block half in bf16 and f32, the
+int8 matmul), so the script says which outputs the two checkouts' kernels
+give the same bits. Last, the SASS of every kernel of each side's library
+(cuobjdump beside nvcc): instructions, HMMA instructions and a hash of the
+opcode sequence, so a kernel whose source should compile unchanged can be
+checked, and the kernels only one side has. Prints the card's name and
+power limit, one JSON line per turn and the mean of each side's two turns.
 """
 
 from __future__ import annotations
@@ -36,12 +41,20 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 N, DH = 198, 64
 FWD = [(256, kh) for kh in range(1, 7)] + [(64, 6), (64, 12)]
 BWD = [(256, 6), (64, 6), (64, 12)]
 SPLIT = [(64, 6), (256, 6)]
+LONG = (64, 578, 6)  # B, N, kh of the bf16 kernels past 256 keys (dedeit at 384 px)
+# outputs hashed, not timed: (dtype, B, N, heads, head width) of every other
+# path: f32 at N 198 and past its whole-row block, bf16 and f32 past head
+# width 128, bf16 at dh 32 and 128
+HASHED = ([("f32", 64, N, 6, 64), ("f32", 4, 578, 6, 64), ("bf16", 2, 578, 4, 192),
+           ("f32", 2, 578, 4, 192), ("bf16", 16, N, 12, 32), ("bf16", 16, N, 6, 128)])
+S384 = (64, 3)  # B and timed steps of the bf16 384-px stage-2 step
 
 
 def _time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
@@ -68,8 +81,8 @@ def child(root: Path) -> dict:
     from devit_tpu_torch import deploy
     from devit_tpu_torch.kernels import _build
     from devit_tpu_torch.kernels.attention import (attention_bwd, attention_bwd_dqdk,
-                                                   attention_bwd_dv, fused_attention,
-                                                   fused_block_attention)
+                                                   attention_bwd_dv, attention_bwd_split,
+                                                   fused_attention, fused_block_attention)
     from devit_tpu_torch.kernels.quant import fused_int8_matmul, quantize_weight
 
     _build.build()
@@ -93,6 +106,34 @@ def child(root: Path) -> dict:
         for name, fn in (("dv", attention_bwd_dv), ("dqdk", attention_bwd_dqdk)):
             res[f"{name} B{B} kh{kh}"] = _time_ms(torch, lambda: fn(x, g, kh))
             digest[f"{name} B{B} kh{kh}"] = _digest(fn(x, g, kh))
+
+    B, n, kh = LONG
+    x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").bfloat16()
+    for name, fn in (("fwd", lambda: fused_attention(x, num_heads=kh)),
+                     ("bwd", lambda: attention_bwd(x, g, kh)),
+                     ("split", lambda: attention_bwd_split(x, g, kh)),
+                     ("dv", lambda: attention_bwd_dv(x, g, kh)),
+                     ("dqdk", lambda: attention_bwd_dqdk(x, g, kh))):
+        key = f"{name} B{B} N{n} kh{kh}"
+        res[key] = _time_ms(torch, fn, iters=10 if name == "fwd" else 5, warmup=2)
+        digest[key] = _digest(fn())
+    for dtype, B, n, kh, dh in HASHED:
+        dt = torch.float32 if dtype == "f32" else torch.bfloat16
+        x = torch.randn((B, n, 3 * kh * dh), generator=gen, device="cuda").to(dt)
+        g = torch.randn((B, n, kh * dh), generator=gen, device="cuda").to(dt)
+        for name, fn in (("fwd", lambda: fused_attention(x, num_heads=kh)),
+                         ("bwd", lambda: attention_bwd(x, g, kh)),
+                         ("dv", lambda: attention_bwd_dv(x, g, kh)),
+                         ("dqdk", lambda: attention_bwd_dqdk(x, g, kh))):
+            digest[f"{name} {dtype} B{B} N{n} kh{kh} dh{dh}"] = _digest(fn())
+    for dt, n in ((torch.bfloat16, N), (torch.float32, N), (torch.float32, 578)):
+        C, Kh, kh = 384, 6 * DH, 6
+        r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        args = (r(4, n, C).to(dt), 1 + 0.1 * r(C), 0.1 * r(C), (0.05 * r(C, 3 * Kh)).to(dt),
+                0.1 * r(3 * Kh), (0.05 * r(Kh, C)).to(dt), 0.1 * r(C))
+        digest[f"block {str(dt)[6:]} N{n}"] = _digest(fused_block_attention(*args, num_heads=kh))
+    res["stage2 384px step"] = _step_384(torch)
 
     _, cms, _ = deploy.build_artifacts(device="cuda")
     weights, calls, mix = {}, {}, {}
@@ -127,40 +168,79 @@ def child(root: Path) -> dict:
     return {"ms": res, "digest": digest}
 
 
+def _step_384(torch) -> float:
+    """ms of the bf16 dedeit stage-2 step at 384 px (N 578) with the
+    kernels: S384[1] steps through train_epoch after one warm-up step, host
+    clock ending in synchronize."""
+    from devit_tpu_torch.data.mixup import MixupConfig
+    from devit_tpu_torch.models.vit import create_vit
+    from devit_tpu_torch.train.loop import train_epoch
+    from devit_tpu_torch.train.optim import OptimConfig, make_optimizer
+    from devit_tpu_torch.train.state import TrainState
+    from devit_tpu_torch.train.steps import make_stage2_step
+
+    B, steps = S384
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = (torch.randn((B, 384, 384, 3), generator=gen, device="cuda").bfloat16(),
+             torch.randint(0, 25, (B,), generator=gen, device="cuda"))
+    model = create_vit("dedeit", img_size=384, num_classes=25, drop_path_rate=0.1,
+                       dtype=torch.bfloat16, use_kernel=True, use_remat=True, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    state = TrainState.create(model, make_optimizer(OptimConfig(lr=5e-4, epochs=100), 100),
+                              use_ema=True)
+    mix = MixupConfig(mixup_alpha=0.8, cutmix_alpha=1.0, prob=1.0, switch_prob=0.5,
+                      label_smoothing=0.1, num_classes=25)
+    step = make_stage2_step(model, None, mixup=mix, smoothing=0.1, distillation_type="none")
+    ms = []
+    for k in (1, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, _ = train_epoch(lambda st, im, lb, gn: step(st, None, im, lb, gn), state,
+                                  [batch] * k, torch.Generator().manual_seed(k), epoch=0,
+                                  log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / k)
+    return ms[-1]
+
+
 def _digest(t) -> str:
     """sha256 of a tensor's values (bf16 widened to f32, which is exact)."""
     return hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()
 
 
+def _kernel_name(fn: str) -> str:
+    """A kernel's mangled name without its anonymous namespace (whose tag
+    follows the source file, so it would differ between checkouts), with a
+    readable alias for the kernels earlier PRs compared by name."""
+    fn = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN", fn.strip())
+    kinds = {"ILb1ELb1E": "monolithic", "ILb0ELb1E": "dv", "ILb1ELb0E": "dqdk"}
+    dh = (re.search(r"attn_bwd_kernel_mmaILb\dELb\dELi(\d+)EE", fn)
+          or re.search(r"attn_kernel_mmaILi\d+ELi(\d+)EE", fn))
+    tag = f" dh {dh.group(1)}" if dh and dh.group(1) != "64" else ""
+    if "attn_bwd_kernel_mma" in fn:  # head width: dh 64 keeps the bare name
+        return next((k for mark, k in kinds.items() if mark in fn), "monolithic") + tag
+    if "attn_kernel_mma" in fn:
+        kc = re.search(r"attn_kernel_mmaILi(\d+)E", fn)
+        return f"forward KC {kc.group(1) if kc else '?'}" + tag
+    return fn
+
+
 def sass_summary(root: Path) -> dict:
-    """Per bf16 attention kernel of root's built library (attn_kernel_mma
-    and attn_bwd_kernel_mma, named by their instantiations): SASS
-    instructions, HMMA instructions and the sha256 of its opcode sequence
-    (operands, addresses and the parameter layout left out)."""
+    """Per kernel of root's built library (every __global__ function, named
+    by _kernel_name): SASS instructions, HMMA instructions and the sha256 of
+    its opcode sequence (operands, addresses and the parameter layout left
+    out)."""
     sys.path.insert(0, str(root))
     from devit_tpu_torch.kernels import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(_build._lib_path())], capture_output=True,
                           text=True, check=True).stdout
-    kinds = {"ILb1ELb1E": "monolithic", "ILb0ELb1E": "dv", "ILb1ELb0E": "dqdk"}
     ops, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :", 1)[1]
-            name = None
-            # head width: a last int template argument (a checkout that
-            # instantiates dh 64 alone has none); dh 64 keeps the bare name
-            dh = (re.search(r"attn_bwd_kernel_mmaILb\dELb\dELi(\d+)EE", fn)
-                  or re.search(r"attn_kernel_mmaILi\d+ELi(\d+)EE", fn))
-            tag = f" dh {dh.group(1)}" if dh and dh.group(1) != "64" else ""
-            if "attn_bwd_kernel_mma" in fn:  # a template instantiation, or a plain kernel
-                name = next((k for mark, k in kinds.items() if mark in fn), "monolithic") + tag
-                ops[name] = []
-            elif "attn_kernel_mma" in fn:  # the forward, one instantiation per KC (and dh)
-                kc = re.search(r"attn_kernel_mmaILi(\d+)E", fn)
-                name = f"forward KC {kc.group(1) if kc else '?'}" + tag
-                ops[name] = []
+            name = _kernel_name(line.split("Function :", 1)[1])
+            ops[name] = []
         elif name is not None:
             m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
             if m:
@@ -206,17 +286,21 @@ def main() -> int:
     # bits again, and the two sides compare output by output
     same = {k: digests["old"][0][k] == digests["new"][0][k] for k in digests["new"][0]}
     repeat = all(d == ds[0] for ds in digests.values() for d in ds)
-    print(f"outputs bit-identical old vs new: {same}; each side's two turns identical: {repeat}")
+    print(f"outputs bit-identical old vs new: {same}; differing: "
+          f"{[k for k, v in same.items() if not v]}; each side's two turns identical: {repeat}")
     sass = {}
     for side in ("old", "new"):
         out = subprocess.run([sys.executable, __file__, args.old, args.new, "--sass",
                               getattr(args, side)], capture_output=True, text=True)
         sass[side] = json.loads(out.stdout) if out.returncode == 0 else out.stderr[-500:]
-        print(f"SASS of the {side} bf16 attention kernels: {sass[side]}")
+        if not isinstance(sass[side], dict):
+            print(f"SASS of the {side} library failed: {sass[side]}")
     if all(isinstance(v, dict) for v in sass.values()):
-        unchanged = {k: v["opcodes"] == sass["old"].get(k, {}).get("opcodes")
-                     for k, v in sass["new"].items()}
-        print(f"SASS opcode sequence unchanged old vs new: {unchanged}")
+        both = sorted(set(sass["old"]) & set(sass["new"]))
+        changed = [k for k in both if sass["old"][k]["opcodes"] != sass["new"][k]["opcodes"]]
+        print(f"SASS: {len(both)} kernels in both libraries, opcode sequence changed in "
+              f"{len(changed)}: {changed}; only in old: {sorted(set(sass['old']) - set(both))}; "
+              f"only in new: {sorted(set(sass['new']) - set(both))}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(card=card, turns=turns, mean=mean,

@@ -216,8 +216,8 @@ def test_bf16_bwd_tile_edges(gen, n):
 
 @pytest.mark.parametrize("n", [257, 271, 279, 300, 384, 512, 700])
 def test_bf16_forward_past_256(gen, n):
-    """Past 256 keys the forward walks 256-key chunks of scores (max, sum,
-    then p . v), the path the deployed N never takes."""
+    """Past 256 keys the forward walks key chunks twice (the online max and
+    sum, then p . v), the path the deployed N never takes."""
     for kh, B in ((1, 3), (6, 2), (12, 1)):
         x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").bfloat16()
         gate = torch.rand((kh,), generator=gen, device="cuda")
@@ -398,6 +398,45 @@ def test_bwd_past_256(gen, n, dtype):
         dv, dqdk = attention_bwd_dv(x, g, kh), attention_bwd_dqdk(x, g, kh)
         assert torch.equal(dv, attention_bwd_dv(x, g, kh))
         assert torch.equal(dqdk, attention_bwd_dqdk(x, g, kh))
+        mono = attention_bwd(x, g, kh)
+        assert torch.equal(attention_bwd_split(x, g, kh), mono), (kh, B)
+        assert torch.equal(dqdk, mono[..., :2 * C]) and torch.equal(dv, mono[..., 2 * C:])
+
+
+# bf16 head widths 32 and 128 past 256 keys, and dh 128 from N 209, where its
+# monolithic block does not fit and every backward takes the long path
+LONG_DH_CASES = ([(n, dh) for n in LONG_N for dh in (32, 128)]
+                 + [(n, 128) for n in (209, 240, 256)])
+
+
+@pytest.mark.parametrize("n, dh", LONG_DH_CASES)
+def test_bf16_long_path_head_widths(gen, n, dh):
+    """The bf16 tensor-core long path (attn_bwd_long_rows_mma,
+    attn_bwd_long_keys_mma; attn_long_mma past 256 keys) at dh 32 and 128:
+    each backward wrapper within 2e-2 of its plain version (dq, dk, dv each),
+    a repeat bit for bit, the split pair, dq/dk and dv equal to the
+    monolithic backward bit for bit; the forward within 2e-2, repeats bit
+    for bit."""
+    for kh, B in ((1, 3), (6, 2)):
+        C = kh * dh
+        x = torch.randn((B, n, 3 * C), generator=gen, device="cuda").bfloat16()
+        g = torch.randn((B, n, C), generator=gen, device="cuda").bfloat16()
+        mono = attention_bwd(x, g, kh)
+        torch.cuda.synchronize()
+        errs = _bwd_errs(mono, reference_attention_bwd(x, g, kh), C)
+        assert max(errs) <= TOL[torch.bfloat16], (kh, B, errs)
+        assert torch.equal(mono, attention_bwd(x, g, kh))
+        split = attention_bwd_split(x, g, kh)
+        dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
+        assert torch.equal(split, mono), (kh, B)
+        assert torch.equal(dqdk, mono[..., :2 * C]) and torch.equal(dv, mono[..., 2 * C:])
+        assert torch.equal(dv, attention_bwd_dv(x, g, kh))
+        assert torch.equal(dqdk, attention_bwd_dqdk(x, g, kh))
+        if n > 256:
+            fwd = fused_attention(x, num_heads=kh)
+            torch.cuda.synchronize()
+            assert _rel(fwd, reference_attention(x, num_heads=kh)) <= TOL[torch.bfloat16]
+            assert torch.equal(fwd, fused_attention(x, num_heads=kh))
 
 
 @pytest.mark.parametrize("mode", ["monolithic", "split"])
@@ -787,7 +826,7 @@ def test_head_widths_block_kernel_matches_plain(gen, dh, dtype):
 
 
 # ---- every sequence length and head width: the key-chunked paths
-# (csrc/attention.cu attn_kchunk_mma and attn_chunked_kernel,
+# (csrc/attention.cu attn_long_mma and attn_chunked_kernel,
 # csrc/attention_bwd_long.cu's any-width kernels, block_attention.cu's
 # chunked route)
 

@@ -4,7 +4,9 @@ once against a stand-in nvcc (a script that writes its -o file, slowly, and
 logs each call); one compiles every source and links, the other waits and
 finds the library; one library and no object or temporary file is left."""
 
+import importlib.util
 import os
+import re
 import stat
 import subprocess
 import sys
@@ -61,3 +63,39 @@ def test_concurrent_builds_compile_once(tmp_path):
     libs = [n for n in left if n.endswith(".so")]
     assert len(libs) == 1 and libs[0] == _build._lib_path().name
     assert not [n for n in left if n.endswith((".o", ".tmp"))], left
+
+
+# ---- every kernel is classified for chip_smoke.py's SASS check
+
+# The __global__ kernels of csrc/ that run on the CUDA cores (f32, the
+# key-chunked and wide paths, the int8 quantisation); every other kernel must
+# have an entry in chip_smoke.py's MMA_KERNELS. A new kernel is classified
+# here or there by hand.
+CUDA_CORE_KERNELS = {
+    "attn_kernel", "attn_chunked_kernel", "attn_bwd_kernel", "attn_bwd_long_rows",
+    "attn_bwd_long_keys", "attn_wide_bwd_rows", "attn_wide_bwd_keys", "attn_bwd_dv_kernel",
+    "attn_bwd_dqdk_kernel", "block_attn_kernel", "block_gemm_kernel", "quant_rows_kernel",
+}
+
+
+def test_every_bf16_mma_kernel_is_in_the_sass_check():
+    """chip_smoke.py's [build] step requires an mma opcode (HMMA, or IMMA
+    for int8) in each kernel of MMA_KERNELS. Every __global__ function of
+    csrc/ is either there or in CUDA_CORE_KERNELS, not both, so that no
+    tensor-core kernel can fall off the tensor cores unseen."""
+    root = Path(_build.__file__).resolve().parents[2]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    patterns = [mark for mark, _ in smoke.MMA_KERNELS.values()]
+
+    csrc = Path(_build.__file__).resolve().parent / "csrc"
+    name = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    kernels = {k for f in csrc.glob("*.cu*") for k in name.findall(f.read_text())}
+    assert {"attn_kernel_mma", "attn_bwd_kernel_mma", "attn_long_mma", "attn_bwd_long_rows_mma",
+            "attn_bwd_long_keys_mma", "quant_mma_kernel"} <= kernels, sorted(kernels)
+    in_check = {k for k in kernels if any(re.match(rf"{k}(?![a-z0-9_])", p) for p in patterns)}
+    unclassified = sorted(kernels - in_check - CUDA_CORE_KERNELS)
+    assert not unclassified, f"kernels in neither MMA_KERNELS nor CUDA_CORE_KERNELS: {unclassified}"
+    assert not in_check & CUDA_CORE_KERNELS, sorted(in_check & CUDA_CORE_KERNELS)
+    assert CUDA_CORE_KERNELS <= kernels, sorted(CUDA_CORE_KERNELS - kernels)
