@@ -8,7 +8,8 @@ sources in the checkout, counts the tensor-core instructions in the built
 library (HMMA in the bf16 attention kernels at each head width: the
 forward, the monolithic backward and the split pair, three instantiations
 of one template, the forward and the backward pair past 256 keys, and the
-two block-attention kernels; IMMA in the int8 GEMM), holds each kernel
+two block-attention kernels; in the f32 forward and backward pair, 3xTF32;
+IMMA in the int8 GEMM), holds each kernel
 against its plain PyTorch version on the card (the split pair also against
 the monolithic kernel, bit for bit; every backward past 256 keys at head
 widths 32, 64 and 128, [bwd-long]), runs the deployed 4-division dedeit
@@ -36,7 +37,7 @@ CPU's), one candidate chunk folded into 8 x 512 = 4096 rows through the
 attention kernel against the plain attention, the whole model_shrink
 search with its four .npy files, and the best policy's compacted model
 against the gated one. Then every attention kernel at head widths 32, 64
-and 128 against its plain version, timed ([heads]); stage 2 from a
+and 128 against its plain version, timed in bf16 and f32 ([heads]); stage 2 from a
 CIFAR-100 pickle tree written from a seed: build_dataset, division 0, the
 C++ gather, train_transform on the card held to the CPU on the same host
 draws, fit for 2 epochs writing its checkpoints, eval through
@@ -55,8 +56,9 @@ every sequence length and head width the JAX kernel takes ([attn-long]:
 N 291 to 1026, head widths 32 to 256, the forward, the trainable attention
 in both backward modes and the block half against their plain versions,
 the key-chunked designs timed), one dedeit stage-2 step at 384 px in f32
-and bf16 against the plain attention and the steady bf16 step at B 64 with
-the kernels and with the plain attention in turns ([stage2-384]), the CCT family
+and bf16 against the plain attention, the steady bf16 step at B 64 and f32
+step at B 16 with the kernels and with the plain attention in turns
+([stage2-384]), the CCT family
 ([cct]: cct_14_7x2_224 on the card against the CPU, a bf16 stage-2 step,
 and `pipeline --model cct_7_3x1_32` through every stage) and the stage-5
 resume across optimizer families ([resume]). Then the masked-attention text
@@ -155,6 +157,7 @@ PX = 224  # image side of the deployed divisions
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12  # f32 outside the tensor cores
+TF32X3_FLOPS = 495e12 / 3  # f32 products as three TF32 passes on the tensor cores (3xTF32)
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # max|got-want| / max|want|
 
 
@@ -201,8 +204,11 @@ def _qkv(B: int, kh: int, dtype, gen, zero_head: bool = False) -> torch.Tensor:
 # forward attn_kernel_mma<KC, DH> and, past 256 keys, attn_long_mma<DH>; of
 # the backward template attn_bwd_kernel_mma<DQDK, DV, DH> and, past 256 keys,
 # of attn_bwd_long_rows_mma<DH, DQ> and attn_bwd_long_keys_mma<DH, DK, DV>;
-# of the bf16 block-attention kernels block_qkv_attn_kernel<KC, DH> and
-# block_proj_kernel<Ragged>; the int8 GEMM (m16n8k32 s8 is IMMA).
+# the f32 forward attn_long_tf32<DH> and backward pair
+# attn_bwd_long_rows_tf32<DH, DQ> and attn_bwd_long_keys_tf32<DH, DK, DV>
+# (3xTF32: HMMA.1688.F32.TF32); of the bf16 block-attention kernels
+# block_qkv_attn_kernel<KC, DH> and block_proj_kernel<Ragged>; the int8 GEMM
+# (m16n8k32 s8 is IMMA).
 # tests/test_torch_kernel_build.py checks that every __global__ of csrc/ is
 # either here or in its list of CUDA-core kernels.
 HEAD_DIMS = (32, 64, 128)
@@ -229,6 +235,19 @@ MMA_KERNELS = {
        for a, b, ia, ib, w in (("true", "true", 1, 1, "attention_bwd past 256 keys"),
                                ("false", "true", 0, 1, "attention_bwd_dv past 256 keys"),
                                ("true", "false", 1, 0, "attention_bwd_dqdk past 256 keys"))},
+    **{f"attn_long_tf32<{dh}> (fused_attention f32)": (rf"attn_long_tf32ILi{dh}EE", "HMMA")
+       for dh in HEAD_DIMS},
+    **{f"attn_bwd_long_rows_tf32<{dh},{q}> ({w} f32)":
+       (rf"attn_bwd_long_rows_tf32ILi{dh}ELb{iq}EE", "HMMA")
+       for dh in HEAD_DIMS
+       for q, iq, w in (("true", 1, "attention_bwd, attention_bwd_dqdk"),
+                        ("false", 0, "attention_bwd_dv"))},
+    **{f"attn_bwd_long_keys_tf32<{dh},{a},{b}> ({w} f32)":
+       (rf"attn_bwd_long_keys_tf32ILi{dh}ELb{ia}ELb{ib}EE", "HMMA")
+       for dh in HEAD_DIMS
+       for a, b, ia, ib, w in (("true", "true", 1, 1, "attention_bwd"),
+                               ("false", "true", 0, 1, "attention_bwd_dv"),
+                               ("true", "false", 1, 0, "attention_bwd_dqdk"))},
     **{f"block_qkv_attn_kernel<{kc},{dh}> (fused_block_attention)":
        (rf"block_qkv_attn_kernelILi{kc}ELi{dh}EE", "HMMA")
        for dh in HEAD_DIMS for kc in KEY_CHUNKS},
@@ -269,7 +288,7 @@ def phase_build() -> tuple:
     print(f"[build] nvcc {[f.name for f in _build.SOURCES]}:\n{log.strip()}")
     print(f"[build] kernel built in {secs:.2f} s")
     counts = _mma_counts()
-    print(f"[build] tensor-core instructions (cuobjdump -sass; HMMA bf16, IMMA int8): "
+    print(f"[build] tensor-core instructions (cuobjdump -sass; HMMA bf16 and TF32, IMMA int8): "
           f"{', '.join(f'{k} {MMA_KERNELS[k][1]} {n}' for k, n in counts.items())}")
     return secs, counts
 
@@ -383,38 +402,62 @@ def phase_split_checks() -> dict:
     return max_abs
 
 
+def _features(cms, x, *, dtype, use_kernel, fast_math, int8=False):
+    """The divisions' stacked (cls, dist) tokens, the fusion head's input."""
+    return stack_division_features(cms, x, patch_size=16, dtype=dtype, use_kernel=use_kernel,
+                                   fast_math=fast_math, int8=int8)
+
+
 def _forward(cms, ens, x, *, dtype, use_kernel, fast_math, int8=False):
-    cls_s, dist_s = stack_division_features(cms, x, patch_size=16, dtype=dtype,
-                                            use_kernel=use_kernel, fast_math=fast_math,
-                                            int8=int8)
-    return ens(cls_s, dist_s).logits
+    return ens(*_features(cms, x, dtype=dtype, use_kernel=use_kernel, fast_math=fast_math,
+                          int8=int8)).logits
+
+
+F32_FEATURE_TOL = 1e-5  # the f32 divisions' tokens, kernel vs plain attention
 
 
 @torch.inference_mode()
 def phase_full_width(cms, ens) -> None:
     """The deployed ensemble at bs16: the forward through the kernel vs the
     same forward through the plain attention, with the divisions in bf16 and
-    fast_math (the serving numerics) and in f32 with strict numerics (the
-    fusion head keeps its own bf16 in both)."""
+    fast_math (the serving numerics; the logits within 2e-2) and in f32 with
+    strict numerics. The deployed fusion head computes in bf16, whose
+    rounding moves a logit by one bf16 ulp (2.5e-3 of the largest here) for
+    a 3e-7 change in the head's input; so at f32 the divisions' tokens are
+    held within F32_FEATURE_TOL and the logits of the same head computed in
+    f32 within 1e-3, and the bf16 head's logits are printed beside them."""
     imgs = np.random.default_rng(1).integers(0, 256, (16, 224, 224, 3), dtype=np.uint8)
     x = normalize(torch.from_numpy(imgs).cuda(), torch.float32)
+    head32 = copy.deepcopy(ens)
+    head32.dtype = torch.float32
     for dtype, fast, tol in ((torch.bfloat16, True, 2e-2), (torch.float32, False, 1e-3)):
         before = fused_attention.launches
-        got = _forward(cms, ens, x, dtype=dtype, use_kernel=True, fast_math=fast)
+        feats = _features(cms, x, dtype=dtype, use_kernel=True, fast_math=fast)
+        got = ens(*feats).logits
         torch.cuda.synchronize()
         launches = fused_attention.launches - before
         if launches != 48:
             raise AssertionError(f"{launches} kernel launches in one forward, expected 48")
-        want = _forward(cms, ens, x, dtype=dtype, use_kernel=False, fast_math=fast)
+        plain = _features(cms, x, dtype=dtype, use_kernel=False, fast_math=fast)
+        want = ens(*plain).logits
         if fused_attention.launches - before != 48:
             raise AssertionError("the plain forward launched the kernel")
         if got.shape != (16, 100) or got.dtype != torch.float32:
             raise AssertionError(f"logits {tuple(got.shape)} {got.dtype}, expected (16, 100) f32")
         rel = _rel(got, want)
+        note = ""
+        if dtype == torch.float32:
+            rel_feat = max(_rel(a, b) for a, b in zip(feats, plain) if a is not None)
+            if rel_feat > F32_FEATURE_TOL:
+                raise AssertionError(f"full-width f32 forward: the divisions' tokens, kernel vs "
+                                     f"plain rel {rel_feat:.3e} > {F32_FEATURE_TOL}")
+            note = (f"; tokens {rel_feat:.3e} (tol {F32_FEATURE_TOL}); the bf16 head's logits "
+                    f"{rel:.3e}")
+            rel = _rel(head32(*feats).logits, head32(*plain).logits)
         if rel > tol:
             raise AssertionError(f"full-width {dtype} forward: kernel vs plain rel {rel:.3e} > {tol}")
         print(f"[forward] full width bs16 {str(dtype)[6:]} fast_math={fast}: 48 launches, "
-              f"kernel vs plain rel err {rel:.3e} (tol {tol})")
+              f"kernel vs plain rel err {rel:.3e} (tol {tol}; at f32 the head in f32){note}")
 
 
 def _post(url: str, imgs: np.ndarray) -> dict:
@@ -1113,10 +1156,10 @@ def phase_bwd_checks() -> float:
 
 LONG_N = (258, 578, 1026)  # 256 px and 384 px (deit-base 384) at patch 16; 512 px
 LONG_TIME_N = 578
-# (N, head width, heads, B) past the short kernels: dh 64 at kh 1, 6 and 12
-# in both dtypes; at bf16 also dh 32 and 128 past 256 keys, and dh 128 at N
-# 209-256, where its monolithic block does not fit and every backward takes
-# the long path (use_long_path)
+# (N, head width, heads, B) past the short kernels: dh 64 at kh 1, 6 and 12;
+# dh 32 and 128 past 256 keys, and dh 128 at N 209-256, where its bf16
+# monolithic block does not fit and every backward takes the long path
+# (use_long_path); both dtypes (f32 takes the long path at every N)
 LONG_CASES = [(n, DH, kh, B) for n in LONG_N for kh, B in ((1, 3), (6, 2), (12, 1))]
 LONG_CASES_BF16 = ([(n, dh, kh, 2) for n in LONG_N for dh, kh in ((32, 12), (128, 6))]
                    + [(n, 128, 6, 2) for n in (209, 240, 256)])
@@ -1138,8 +1181,9 @@ BWD_WRAPPERS = {  # name -> (the kernel's wrapper, its plain version)
 def _hold_bwd(x: torch.Tensor, g: torch.Tensor, kh: int, where: str, max_abs: dict) -> float:
     """Each of BWD_WRAPPERS on (x, g) against its plain version: dq, dk and
     dv each within TOL, a repeat bit for bit, and the split pair, dq/dk and
-    dv equal to the monolithic backward bit for bit. The bf16 max-abs error
-    of each wrapper goes into max_abs. Returns the worst rel err."""
+    dv equal to the monolithic backward bit for bit. The max-abs error of
+    each wrapper goes into max_abs (f32 under "<name> f32"). Returns the
+    worst rel err."""
     C, dtype = g.shape[-1], x.dtype
     got, worst = {}, 0.0
     for name, (fn, plain) in BWD_WRAPPERS.items():
@@ -1152,9 +1196,9 @@ def _hold_bwd(x: torch.Tensor, g: torch.Tensor, kh: int, where: str, max_abs: di
             raise AssertionError(f"[bwd-long] {name} {where}: rel err {errs} (tol "
                                  f"{TOL[dtype]:.0e}), repeat identical "
                                  f"{torch.equal(got[name], again)}")
-        if dtype == torch.bfloat16:
-            d = float((got[name].float() - want.float()).abs().max())
-            max_abs[name] = max(max_abs[name], d)
+        key = name if dtype == torch.bfloat16 else f"{name} f32"
+        max_abs[key] = max(max_abs.get(key, 0.0),
+                           float((got[name].float() - want.float()).abs().max()))
         worst = max(worst, max(errs))
         del want, again
     mono = got["attention_bwd"]
@@ -1182,8 +1226,8 @@ def phase_bwd_long(card: str) -> dict:
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     max_abs = dict.fromkeys(list(BWD_WRAPPERS) + ["fwd"], 0.0)
     n_cases = 0
-    cases = [(torch.bfloat16, c) for c in LONG_CASES + LONG_CASES_BF16]
-    cases += [(torch.float32, c) for c in LONG_CASES]
+    cases = [(dtype, c) for dtype in (torch.bfloat16, torch.float32)
+             for c in LONG_CASES + LONG_CASES_BF16]
     for dtype, (n, dh, kh, B) in cases:
         C = kh * dh
         x = torch.randn((B, n, 3 * C), generator=gen, device="cuda").to(dtype)
@@ -1191,32 +1235,35 @@ def phase_bwd_long(card: str) -> dict:
         worst[dtype] = max(worst[dtype], _hold_bwd(x, g, kh, f"{dtype} N={n} dh={dh} kh={kh} "
                                                          f"B={B}", max_abs))
         n_cases += len(BWD_WRAPPERS)
-        if dtype == torch.bfloat16 and n > 256:
+        if n > 256 or dtype == torch.float32:
             fwd, fwd2 = fused_attention(x, num_heads=kh), fused_attention(x, num_heads=kh)
             torch.cuda.synchronize()
             want = reference_attention(x, num_heads=kh)
             err = _rel(fwd, want)
             if err > TOL[dtype] or not torch.equal(fwd, fwd2):
-                raise AssertionError(f"[bwd-long] fused_attention bf16 N={n} dh={dh} kh={kh}: "
+                raise AssertionError(f"[bwd-long] fused_attention {dtype} N={n} dh={dh} kh={kh}: "
                                      f"rel err {err:.3e}, repeat identical "
                                      f"{torch.equal(fwd, fwd2)}")
-            max_abs["fwd"] = max(max_abs["fwd"], float((fwd.float() - want.float()).abs().max()))
+            key = "fwd" if dtype == torch.bfloat16 else "fwd f32"
+            max_abs[key] = max(max_abs.get(key, 0.0),
+                               float((fwd.float() - want.float()).abs().max()))
             worst[dtype] = max(worst[dtype], err)
         del x, g
     print(f"[bwd-long] attention_bwd, attention_bwd_split, attention_bwd_dqdk, attention_bwd_dv "
           f"past 256 keys vs plain: {n_cases} cases pass (N {list(LONG_N)} at dh 64, kh "
-          f"1/6/12, bf16 and f32; bf16 also dh 32 (kh 12) and 128 (kh 6) at those N and dh 128 "
-          f"at N 209/240/256, with fused_attention past 256 keys; dq, dk, dv each); worst rel "
-          f"err bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 {worst[torch.float32]:.3e} "
-          f"(tol 1e-4); max abs err bf16 "
-          f"{', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())}; repeat launches "
+          f"1/6/12, dh 32 (kh 12) and 128 (kh 6) at those N and dh 128 at N 209/240/256, bf16 "
+          f"and f32, with fused_attention; dq, dk, dv each); worst rel err bf16 "
+          f"{worst[torch.bfloat16]:.3e} (tol 2e-2), f32 {worst[torch.float32]:.3e} (tol 1e-4, "
+          f"3xTF32 expected within ~1e-6); max abs err "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())} (bf16 unless f32); "
+          f"repeat launches "
           f"bit-identical; the split pair, dq/dk and dv equal to the monolithic backward bit "
           f"for bit at every case")
 
     B, kh, n = ENS_B, 6, LONG_TIME_N
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = {}
-    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, F32_FLOPS)):
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, TF32X3_FLOPS)):
         x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
         g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").to(dtype)
         q, k, v = (t.contiguous().requires_grad_() for t in
@@ -1239,9 +1286,11 @@ def phase_bwd_long(card: str) -> dict:
                      library_ms=library, bound_ms=bounds[name][0],
                      bound_by="bytes" if bounds[name][1] else "operations")
             times[f"{name} {str(dtype)[6:]}"] = r
+            peak_note = " at 165 TFLOP/s (3xTF32)" if dtype == torch.float32 else ""
             print(f"[bwd-long] {name} {str(dtype)[6:]} B={B} N={n} kh={kh}: kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA backward "
-                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}"
+                  f"{peak_note}) [{card}]")
         del x, g, q, k, v, out
     print(f"[bwd-long] the timed shape B={B} N={n} kh={kh} dh {DH}: each wrapper within tol of "
           f"its plain version (dq, dk, dv each), repeats and split == monolithic bit for bit; "
@@ -2333,7 +2382,8 @@ def phase_heads(card: str) -> dict:
     pair equal to the monolithic kernel bit for bit; then each timed at the
     stage shapes (bf16): the forward at B 256, the backwards at B 64, the
     block half at B 256, beside the plain version, SDPA (where it computes
-    the same function) and the bound. Launches here are checks, not counted."""
+    the same function) and the bound; and in f32 (_heads_f32_times). Launches
+    here are checks, not counted."""
     gen = torch.Generator(device="cuda").manual_seed(40)
     before, before_block = _counts(), fused_block_attention.launches
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2419,7 +2469,9 @@ def phase_heads(card: str) -> dict:
                      plain_ms=_time_ms(lambda: reference_block_attention(t, **w, num_heads=kb)),
                      library_ms=None, bound_ms=blb,
                      bound_by="bytes" if blb_bytes >= blb else "operations")
+        f32_t = _heads_f32_times(gen, dh, kh, C)
         res[dh] = dict(kh=kh, block_kh=kb, cases=n_cases, fwd=fwd_t, bwd=bwd_t, block=blk_t,
+                       f32=f32_t,
                        worst_rel={"bf16": worst[torch.bfloat16], "f32": worst[torch.float32]})
         print(f"[heads] dh {dh}: {n_cases} cases (B 1/7/64, bf16 and f32) of the forward, the "
               f"monolithic backward, the split pair and the block half vs their plain versions "
@@ -2436,9 +2488,64 @@ def phase_heads(card: str) -> dict:
               f"{bwd_t['dv_bound_ms']:.4f}, {bwd_t['dqdk_bound_ms']:.4f}); block B256 kh{kb} "
               f"{blk_t['ms']:.4f} ms (plain {blk_t['plain_ms']:.4f}, bound "
               f"{blk_t['bound_ms']:.4f} {blk_t['bound_by']}) [{card}]")
+        fw, bw = f32_t["fwd"], f32_t["bwd"]
+        print(f"[heads] dh {dh} times (f32, 3xTF32): forward B256 kh{kh} {fw['ms']:.4f} ms "
+              f"(plain {fw['plain_ms']:.4f}, SDPA {fw['library_ms']:.4f}, bound "
+              f"{fw['bound_ms']:.4f} {fw['bound_by']} at 165 TFLOP/s, "
+              f"{fw['bound_ms_67']:.4f} at 67); backward B64 kh{kh} {bw['ms']:.4f} ms (plain "
+              f"{bw['plain_ms']:.4f}, SDPA backward {bw['library_ms']:.4f}, bound "
+              f"{bw['bound_ms']:.4f} {bw['bound_by']}, {bw['bound_ms_67']:.4f} at 67); split "
+              f"pair {bw['split_ms']:.4f} ms = dv {bw['dv_ms']:.4f} + dq/dk {bw['dqdk_ms']:.4f} "
+              f"(plain {bw['dv_plain_ms']:.4f}, {bw['dqdk_plain_ms']:.4f}; bounds "
+              f"{bw['dv_bound_ms']:.4f}, {bw['dqdk_bound_ms']:.4f}) [{card}]")
     _set_counts(before)
     fused_block_attention.launches = before_block
     return res
+
+
+def _heads_f32_times(gen, dh: int, kh: int, C: int) -> dict:
+    """[heads]' f32 times at N 198: the forward at B 256, the monolithic
+    backward and the split pair (and each half) at B 64, beside the plain
+    versions, SDPA's f32 forward and its backward through autograd, and the
+    bounds at 3xTF32's 165 TFLOP/s (and the CUDA cores' 67). Each timed call
+    is first held against its plain version (_hold_timed)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f32 = torch.float32
+    x = torch.randn((256, N, 3 * C), generator=gen, device="cuda")
+    q, k, v = _sdpa_qkv(x, kh)
+    _hold_timed(f"[heads] f32 forward dh {dh} B 256", lambda: fused_attention(x, num_heads=kh),
+                lambda: reference_attention(x, num_heads=kh), C, f32)
+    fb, fby = _attn_bound(256, N, kh, dh, 4, TF32X3_FLOPS)
+    fwd = dict(ms=_time_ms(lambda: fused_attention(x, num_heads=kh)),
+               plain_ms=_time_ms(lambda: reference_attention(x, num_heads=kh), iters=5),
+               library_ms=_time_ms(lambda: sdpa(q, k, v)), bound_ms=fb, bound_by=fby,
+               bound_ms_67=_attn_bound(256, N, kh, dh, 4, F32_FLOPS)[0])
+    del x, q, k, v
+    x = torch.randn((64, N, 3 * C), generator=gen, device="cuda")
+    g = torch.randn((64, N, C), generator=gen, device="cuda")
+    q, k, v = (t.requires_grad_() for t in _sdpa_qkv(x, kh))
+    out = sdpa(q, k, v)
+    gh = g.view(64, N, kh, dh).transpose(1, 2)
+    for name, fn, plain in (("bwd", attention_bwd, reference_attention_bwd),
+                            ("split", attention_bwd_split, _split_plain)):
+        _hold_timed(f"[heads] f32 {name} dh {dh} B 64", lambda: fn(x, g, kh),
+                    lambda: plain(x, g, kh), C, f32)
+    bb, bby = _attn_bound(64, N, kh, dh, 4, TF32X3_FLOPS, bwd=True)
+    sb = _split_bounds(64, C // DH, 4, TF32X3_FLOPS)
+    bwd = dict(ms=_time_ms(lambda: attention_bwd(x, g, kh)),
+               plain_ms=_time_ms(lambda: reference_attention_bwd(x, g, kh), iters=5),
+               library_ms=_time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh,
+                                                               retain_graph=True)),
+               bound_ms=bb, bound_by=bby,
+               bound_ms_67=_attn_bound(64, N, kh, dh, 4, F32_FLOPS, bwd=True)[0],
+               split_ms=_time_ms(lambda: attention_bwd_split(x, g, kh)),
+               dv_ms=_time_ms(lambda: attention_bwd_dv(x, g, kh)),
+               dqdk_ms=_time_ms(lambda: attention_bwd_dqdk(x, g, kh)),
+               dv_plain_ms=_time_ms(lambda: reference_attention_bwd_dv(x, g, kh), iters=5),
+               dqdk_plain_ms=_time_ms(lambda: reference_attention_bwd_dqdk(x, g, kh), iters=5),
+               dv_bound_ms=sb["dv"][0], dqdk_bound_ms=sb["dqdk"][0])
+    del x, g, q, k, v, out
+    return dict(fwd=fwd, bwd=bwd)
 
 
 def _block_weights(gen, C: int, K: int, dtype) -> dict:
@@ -2871,8 +2978,8 @@ def _attn_bound(B: int, n: int, kh: int, dh: int, elem: int, flops_peak: float,
 
 def _note(worst: dict, max_abs: dict, key: str, dtype, err: float, mabs: float) -> None:
     worst[dtype] = max(worst[dtype], err)
-    if dtype == torch.bfloat16:
-        max_abs[key] = max(max_abs[key], mabs)
+    key = key if dtype == torch.bfloat16 else f"{key} f32"
+    max_abs[key] = max(max_abs.get(key, 0.0), mabs)
 
 
 def _hold_timed(where: str, fn, plain, C: int, dtype) -> tuple:
@@ -2885,7 +2992,8 @@ def _hold_timed(where: str, fn, plain, C: int, dtype) -> tuple:
     errs = [_rel(got[..., i * C:(i + 1) * C], want[..., i * C:(i + 1) * C])
             for i in range(got.shape[-1] // C)]
     if max(errs) > TOL[dtype] or not torch.equal(got, again):
-        raise AssertionError(f"[attn-long] {where}: rel err {errs} (tol {TOL[dtype]:.0e}), "
+        tag = "" if where.startswith("[") else "[attn-long] "
+        raise AssertionError(f"{tag}{where}: rel err {errs} (tol {TOL[dtype]:.0e}), "
                              f"repeat identical {torch.equal(got, again)}")
     return max(errs), float((got.float() - want.float()).abs().max()), got
 
@@ -2942,12 +3050,10 @@ def phase_attn_long(card: str) -> dict:
                 raise AssertionError(f"[attn-long] N {n} dh {dh} {dtype}: a repeat, or the "
                                      "split backward against the monolithic one, differs in "
                                      "its bits")
-            if dtype == torch.bfloat16:
-                max_abs["fwd"] = max(max_abs["fwd"], float((fwd.float() - want_f).abs().max()))
-                d = (grads["monolithic"].float() - want_b.float()).abs()
-                max_abs["bwd"] = max(max_abs["bwd"], float(d.max()))
-                max_abs["dqdk"] = max(max_abs["dqdk"], float(d[..., :2 * C].max()))
-                max_abs["dv"] = max(max_abs["dv"], float(d[..., 2 * C:].max()))
+            d = (grads["monolithic"].float() - want_b.float()).abs()
+            for key, v in (("fwd", (fwd.float() - want_f.float()).abs().max()), ("bwd", d.max()),
+                           ("dqdk", d[..., :2 * C].max()), ("dv", d[..., 2 * C:].max())):
+                _note(worst, max_abs, key, dtype, 0.0, float(v))
             worst[dtype] = max(worst[dtype], max(max(v) for v in errs.values()))
             paths[f"N {n} dh {dh} {str(dtype)[6:]}"] = attention_path(n, dh, dtype)
             n_cases += 1
@@ -2964,23 +3070,21 @@ def phase_attn_long(card: str) -> dict:
                 raise AssertionError(f"[attn-long] block half N {n} dh {dh} {dtype}: rel err "
                                      f"{err:.3e} (tol {TOL[dtype]:.0e}), repeat identical "
                                      f"{torch.equal(blk, blk2)}")
-            if dtype == torch.bfloat16:
-                max_abs["block"] = max(max_abs["block"],
-                                       float((blk.float() - want.float()).abs().max()))
-            worst[dtype] = max(worst[dtype], err)
+            _note(worst, max_abs, "block", dtype, err,
+                  float((blk.float() - want.float()).abs().max()))
             n_cases += 1
     print(f"[attn-long] {n_cases} cases pass: fused_attention and make_trainable_attention "
           f"(monolithic and split) at (N, dh, kh) {ATTN_LONG_CASES}, the block half at "
           f"{BLOCK_LONG_CASES}, B {B}, bf16 and f32, vs their plain versions; worst rel err "
           f"bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2), f32 {worst[torch.float32]:.3e} (tol "
           f"1e-4); dq, dk, dv each; repeats and split == monolithic bit for bit; max abs err "
-          f"bf16 {', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())} [{card}]")
+          f"{', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())} (bf16 unless f32) [{card}]")
     print(f"[attn-long] forward designs: {paths}")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = {}
     Bt, n, kh = ATTN_LONG_TIME
-    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, F32_FLOPS)):
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, TF32X3_FLOPS)):
         x = torch.randn((Bt, n, 3 * kh * DH), generator=gen, device="cuda").to(dtype)
         q, k, v = _sdpa_qkv(x, kh)
         bound, by = _attn_bound(Bt, n, kh, DH, x.element_size(), peak)
@@ -3062,7 +3166,8 @@ def phase_attn_long(card: str) -> dict:
     print(f"[attn-long] every timed call within tol of its plain version on its inputs, "
           f"repeats (and the dh {ATTN_WIDE_TIME[3]} split == monolithic) bit for bit; worst rel "
           f"err bf16 {worst[torch.bfloat16]:.3e}, f32 {worst[torch.float32]:.3e}; max abs err "
-          f"bf16 {', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())} (with the cases above)")
+          f"{', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())} (bf16 unless f32; with the "
+          f"cases above)")
     _set_counts(before)
     fused_block_attention.launches = before_block
     torch.cuda.empty_cache()
@@ -3321,7 +3426,8 @@ def phase_cli(card: str) -> dict:
 # ---- a stage-2 step at 384 px, the CCT family, the stage-5 resume fallback
 
 S384_B = 16  # images of the 384-px step (N 578: 576 patches, cls and dist)
-S384_STEADY_B, S384_TURN_STEPS = 64, 3  # the steady bf16 steps: the kernels' timed B 64
+# the steady steps: bf16 at the kernels' timed B 64, f32 at B 16; steps a turn
+S384_STEADY, S384_TURN_STEPS = ((torch.bfloat16, 64), (torch.float32, 16)), 3
 
 
 def _model_384(dtype, use_kernel: bool):
@@ -3330,17 +3436,16 @@ def _model_384(dtype, use_kernel: bool):
                       generator=torch.Generator().manual_seed(0))
 
 
-def _steady_384(gen, card: str) -> dict:
-    """The bf16 384-px stage-2 step at B 64 through train_epoch (AdamW + EMA,
-    mixup/cutmix), with the kernels and with the plain attention: one
-    warm-up step each, then S384_TURN_STEPS steps a turn in turns (kernel,
-    plain, plain, kernel), host clock ending in synchronize. The kernel
-    steps are main-path launches (24 + 12 a step, asserted)."""
-    images = torch.randn((S384_STEADY_B, 384, 384, 3), generator=gen,
-                         device="cuda").bfloat16()
-    labels = torch.randint(0, TRAIN_CLASSES, (S384_STEADY_B,), generator=gen, device="cuda")
+def _steady_384(gen, card: str, dtype, B: int) -> dict:
+    """The 384-px stage-2 step of `dtype` at batch B through train_epoch
+    (AdamW + EMA, mixup/cutmix), with the kernels and with the plain
+    attention: one warm-up step each, then S384_TURN_STEPS steps a turn in
+    turns (kernel, plain, plain, kernel), host clock ending in synchronize.
+    The kernel steps are main-path launches (24 + 12 a step, asserted)."""
+    images = torch.randn((B, 384, 384, 3), generator=gen, device="cuda").to(dtype)
+    labels = torch.randint(0, TRAIN_CLASSES, (B,), generator=gen, device="cuda")
     batch = (images, labels)
-    models = {k: _model_384(torch.bfloat16, k) for k in (True, False)}
+    models = {k: _model_384(dtype, k) for k in (True, False)}
     states = {k: _train_state(m) for k, m in models.items()}
     steps = {k: _train_step(m) for k, m in models.items()}
     losses = []
@@ -3376,26 +3481,27 @@ def _steady_384(gen, card: str) -> dict:
     if not all(np.isfinite(host_losses)):
         raise AssertionError(f"[stage2-384] non-finite loss in the steady steps: {host_losses}")
     ms = {k: sum(v) / len(v) for k, v in runs.items()}
-    print(f"[stage2-384] steady bf16 stage-2 step at 384 px (N 578), B {S384_STEADY_B}, AdamW + "
-          f"EMA, mixup/cutmix: {ms[True]:.3f} ms/step = {S384_STEADY_B / ms[True] * 1e3:.1f} "
+    print(f"[stage2-384] steady {str(dtype)[6:]} stage-2 step at 384 px (N 578), B {B}, AdamW "
+          f"+ EMA, mixup/cutmix: {ms[True]:.3f} ms/step = {B / ms[True] * 1e3:.1f} "
           f"img/s with the kernels, {ms[False]:.3f} ms/step with the plain attention; turns "
           f"(ms/step) {runs}; {n_kernel_steps} kernel steps of 24 forward + 12 backward "
           f"launches; losses finite [{card}]")
     del models, states, steps, images
     torch.cuda.empty_cache()
     return dict(ms=ms[True], plain_ms=ms[False], runs_ms=runs[True], plain_runs_ms=runs[False],
-                B=S384_STEADY_B, launches=d[:2])
+                B=B, launches=d[:2])
 
 
 def phase_stage2_384(card: str) -> dict:
     """One full-width dedeit stage-2 step at --input-size 384 (N 578), f32
     and bf16: past 256 keys the forward takes its key-chunked designs
-    (attn_long_mma at bf16, attn_chunked_kernel at f32) and the backward
-    its long path. The kernel step against the same step with the plain
+    (attn_long_mma at bf16, attn_long_tf32 at f32) and the backward its
+    long path. The kernel step against the same step with the plain
     attention (same state, batch and draws): loss and every gradient leaf
-    within 2e-2 (||diff||/||plain||). Then the steady bf16 step at B 64
-    (_steady_384). The kernel steps are a main-path run: their launches
-    are returned (24 forward, 12 backward a step)."""
+    within 2e-2 (||diff||/||plain||). Then the steady bf16 step at B 64 and
+    f32 step at B 16 (_steady_384). The kernel steps are a main-path run:
+    their launches are returned (24 forward, 12 backward a step), also by
+    dtype."""
     gen = torch.Generator(device="cuda").manual_seed(44)
     res, launches = {}, {"fused_attention": 0, "attention_bwd": 0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -3434,10 +3540,14 @@ def phase_stage2_384(card: str) -> dict:
               f"with the build of its state) {ms_k:.1f} ms, plain {ms_p:.1f} ms [{card}]")
         del g_k, g_p, images
         torch.cuda.empty_cache()
-    steady = _steady_384(gen, card)
-    launches["fused_attention"] += steady["launches"][0]
-    launches["attention_bwd"] += steady["launches"][1]
-    return dict(runs=res, launches=launches, steady=steady)
+    steady, by_dtype = {}, {tag: tuple(r["launches"]) for tag, r in res.items()}
+    for dtype, B in S384_STEADY:
+        tag = str(dtype)[6:]
+        steady[tag] = _steady_384(gen, card, dtype, B)
+        launches["fused_attention"] += steady[tag]["launches"][0]
+        launches["attention_bwd"] += steady[tag]["launches"][1]
+        by_dtype[tag] = tuple(a + b for a, b in zip(by_dtype[tag], steady[tag]["launches"]))
+    return dict(runs=res, launches=launches, steady=steady, launches_by_dtype=by_dtype)
 
 
 CCT_WIDE = "cct_14_7x2_224"  # the widest registered CCT: 384 wide, 14 layers, 6 heads, N 196
@@ -4271,6 +4381,23 @@ def main() -> int:
         "ms": es[k]["ms"], "plain_ms": es[k]["plain_ms"], "bound_ms": es[k]["bound_ms"],
         "bound_by": es[k]["bound_by"], "library_ms": es[k]["library_ms"]}
         for i, k, line in ((2, "dv", 306), (3, "dqdk", 324))]}
+    # the f32 routes on the tensor cores (3xTF32), timed at B 64, N 578, kh 6;
+    # their main-path launches are [stage2-384]'s f32 steps
+    f32_launches = s384["launches_by_dtype"]["float32"]
+    al, blt = times["attn_long"], times["bwd_long"]
+    record["kernels"] += [{
+        "name": name, "route": "cuda", "source": f"devit_tpu_torch/kernels/csrc/{src}",
+        "replaces": f"devit_tpu/kernels/attention.py:{line}", "launches": f32_launches[i],
+        "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        for i, name, src, line, err, t in (
+            (0, "fused_attention f32 (attn_long_tf32)", "attention.cu", 30,
+             max(al["max_abs"]["fwd f32"], blt["max_abs"]["fwd f32"]), al["times"]["fwd float32"]),
+            (1, "attention_bwd f32 (attn_bwd_long_rows_tf32 + attn_bwd_long_keys_tf32)",
+             "attention_bwd_long.cu", 238,
+             max(al["max_abs"]["bwd f32"], blt["max_abs"]["attention_bwd f32"],
+                 blt["max_abs"]["attention_bwd_split f32"]),
+             blt["times"]["attention_bwd float32"]))]
     i8, bl = times["int8"]["int8_forward"], times["int8"]["block_forward"]
     record["kernels"] += [{
         # per bs256 deployed int8 forward (192 calls); the library yardstick

@@ -12,9 +12,14 @@ falls back.
 The head gate is applied outside the kernel, as in the JAX package.
 
 At bf16 the forward, the backwards and `fused_block_attention` compute every
-product on the tensor cores (mma.sync); at f32 they run f32 FMAs on the CUDA
-cores (see the sources' notes). Every kernel is instantiated for head_dim
-32, 64 and 128 (HEAD_DIMS); the wrappers take any head_dim up to 128 by
+product on the tensor cores (mma.sync m16n8k16). At f32 the forward and the
+backwards do too, as 3xTF32 (mma.sync m16n8k8): each operand is split into
+two TF32 halves and each product takes three passes (small big + big small
++ big big), which keeps f32 accuracy where one TF32 pass (11 significant
+bits an operand) misses the f32 tolerance by ~10x (tests/test_torch_tf32x3.py
+holds that decision on the CPU). The f32 block half stays on the CUDA cores
+(see the sources' notes). Every kernel is instantiated for head_dim 32, 64
+and 128 (HEAD_DIMS); the wrappers take any head_dim up to 128 by
 zero-padding each head's q, k, v (and g) to the next instantiation, launching
 with the true head width's scale and slicing the outputs back. Zero columns
 add exact zeros to every logit and product, so the result is the unpadded
@@ -22,17 +27,16 @@ computation. A head_dim past 128 runs unpadded on the key-chunked CUDA-core
 kernels (csrc/attn_chunked.cuh), which take any width, in both dtypes.
 
 Every kernel takes any N. The forward picks its design on the C side
-(`attention_path`): past 256 keys the bf16 kernel walks K and V in chunks
-through a ring of two shared-memory buffers (attn_long_mma, tensor cores);
-where the f32 whole-row block would not fit shared memory it walks key
-chunks on the CUDA cores. The backwards, past 256 keys, where a block of
-the monolithic kernel would not fit shared memory (head_dim 128 from N 209
-at bf16) or past head_dim 128, walk key chunks (csrc/attention_bwd_long.cu:
-a rows kernel, then a keys kernel; at bf16 up to head_dim 128 on the tensor
-cores, otherwise on the CUDA cores), with a (B, H, N, 3) f32 scratch of row
-statistics that the wrapper allocates. `fused_block_attention` takes a
-chunked route of three launches (LayerNorm + qkv, the forward, proj) where
-its whole-head block would not fit.
+(`attention_path`): at bf16 past 256 keys, and at f32 at every N, it walks K
+and V in chunks through a ring of two shared-memory buffers (attn_long_mma,
+attn_long_tf32; tensor cores). The backwards walk key chunks
+(csrc/attention_bwd_long.cu: a rows kernel, then a keys kernel; on the
+tensor cores up to head_dim 128, otherwise on the CUDA cores) at f32, at
+bf16 past 256 keys or where a block of the monolithic kernel would not fit
+shared memory (head_dim 128 from N 209), and past head_dim 128, with a (B, H,
+N, 3) f32 scratch of row statistics that the wrapper allocates.
+`fused_block_attention` takes a chunked route of three launches (LayerNorm +
+qkv, the forward, proj) where its whole-head block would not fit.
 
 `make_trainable_attention` is the differentiable form the training path
 uses: its forward is `fused_attention`, registered as the dispatcher op
@@ -214,8 +218,9 @@ ATTENTION_PATHS = ("whole-row", "key-chunked mma", "key-chunked CUDA cores")
 def attention_path(N: int, dh: int, dtype: torch.dtype, device: int = 0) -> str:
     """The design `fused_attention` launches at sequence length N and head
     width dh (before padding) on CUDA device `device`: one block holds the
-    head's keys; the bf16 tensor-core kernel over key chunks; or the
-    key-chunked CUDA-core kernel (any N, any width)."""
+    head's keys (bf16 to 256 keys); a tensor-core kernel over key chunks
+    (bf16 past 256 keys, f32 at every N); or the key-chunked CUDA-core kernel
+    (past head width 128)."""
     code = _build.library().devit_attention_path(N, kernel_head_dim(dh),
                                                  torch.tensor([], dtype=dtype).element_size(),
                                                  device)
@@ -234,9 +239,10 @@ def _check_kernel_input(qkv: torch.Tensor, num_heads: int, kernel: str):
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
-    """The bf16 kernels stage head rows with 16-byte copies."""
-    if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the bf16 CUDA attention kernels need 16-byte aligned operands")
+    """The tensor-core kernels (bf16, and f32 on the forward and the
+    backwards) stage head rows with 16-byte copies."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the CUDA attention kernels need 16-byte aligned operands")
 
 
 def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -292,12 +298,14 @@ def _check_bwd_input(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, kernel:
 @functools.lru_cache(maxsize=None)
 def _bwd_long_path(N: int, dh: int, elem: int, device: int) -> bool:
     """Whether the backwards walk key chunks (csrc/bwd_mma.cuh use_long_path:
-    past 256 keys, or where the monolithic kernel's block does not fit)."""
+    at f32, past 256 keys, where the monolithic kernel's block does not fit,
+    past head_dim 128)."""
     return bool(_build.library().devit_attention_bwd_long_path(N, dh, elem, device))
 
 
-# Past this N the backwards always walk key chunks (csrc/bwd_common.cuh
-# kShortN); at or below it only where the monolithic block does not fit.
+# Past this N the bf16 backwards always walk key chunks (csrc/bwd_common.cuh
+# kShortN); at or below it only where the monolithic block does not fit. The
+# f32 backwards walk key chunks at every N.
 _SHORT_N = 256
 
 
@@ -305,8 +313,8 @@ def _bwd_stats(qkv: torch.Tensor, num_heads: int) -> Optional[torch.Tensor]:
     """The long path's (B, H, N, 3) f32 scratch of each row's softmax max,
     sum and rowsum(dp * p), or None where one block owns a (row, head)."""
     B, N, C3 = qkv.shape
-    if N <= _SHORT_N and not (qkv.is_cuda and _bwd_long_path(
-            N, C3 // (3 * num_heads), qkv.element_size(), qkv.device.index)):
+    if (qkv.dtype != torch.float32 and N <= _SHORT_N and not (qkv.is_cuda and _bwd_long_path(
+            N, C3 // (3 * num_heads), qkv.element_size(), qkv.device.index))):
         return None
     return torch.empty((B, num_heads, N, 3), dtype=torch.float32, device=qkv.device)
 
@@ -553,7 +561,8 @@ def _launch_block(t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, p
         proj_kernel = proj_kernel.reshape(num_heads * width, C)
         if vecs[2] is not None:
             vecs[2] = pad_heads(vecs[2].reshape(1, 1, threeK), 3, num_heads, dh, width)
-    _check_aligned(t, qkv_kernel, proj_kernel)
+    if t.dtype == torch.bfloat16:  # the f32 block half reads its operands 4 bytes at a time
+        _check_aligned(t, qkv_kernel, proj_kernel)
     ns, nb, qb, pb = (None if v is None else v.float().contiguous() for v in vecs)
     out = torch.empty_like(t)
     if B == 0:

@@ -48,20 +48,33 @@
 // which block_attention.cu's bf16 kernel shares.
 //
 // Head widths: every kernel is instantiated for dh 32, 64 and 128 (the
-// wrapper raises on any other). At bf16 the swizzled tiles hold rows of dh
-// bf16 (swz_dh in mma_common.cuh); a warp's q fragments, o accumulators and
-// the key and value steps scale with dh.
+// wrapper pads any other width up to 128 to one of them). At bf16 the
+// swizzled tiles hold rows of dh bf16 (swz_dh in mma_common.cuh), at f32
+// padded rows of dh f32; a warp's q fragments, o accumulators and the key and
+// value steps scale with dh.
 //
-// f32 (attn_kernel): f32 FMAs on the CUDA cores, reading its operands from
-// shared memory. It stays off the tensor cores because the f32 tolerance is
-// 1e-4 and a TF32 mma keeps ~10 mantissa bits of each operand, too few. The
-// whole N-wide score row sits in shared memory, as it fits in VMEM on the
-// TPU: each block owns (batch row, head, 64-query tile), stages that head's
-// K (transposed, so a warp reads consecutive keys) and V and its Q tile in
-// shared memory once, and keeps the 64 x N f32 score tile there between the
-// two products, so no score or probability reaches device memory (~165 KB a
-// block at N = 198). At dh 128, K^T and V of N 198 would not fit beside S
-// (280 KB), so V takes K^T's place once S is formed (~181 KB a block).
+// f32 (attn_long_tf32, steps in long_tf32.cuh), every N at dh <= 128: both
+// products on the tensor cores as 3xTF32 mma.sync.m16n8k8. One TF32 pass
+// keeps 11 significant bits of each operand, too few for the f32 tolerance
+// of 1e-4; each operand is split into big = x rounded to TF32 and small = x -
+// big rounded to TF32, and a b = small big + big small + big big, which drops
+// only small small (~2^-22 of the product): f32 accuracy (the numpy
+// emulation in tests/test_torch_tf32x3.py comes within ~1e-6 of the f32
+// reference where one pass is ~1e-3 off; on the H100 the kernel within a few
+// 1e-6, SDPA's class, once each k8 step of p . v is added to o in f32:
+// long_tf32.cuh chunk_times_cols). A block owns (batch row, head, 128
+// query rows), 4 warps of two m16 tiles; K and V chunks come through
+// attn_long_mma's ring in one walk with an online max and sum, o rescaled as
+// the max grows and divided by the sum once at the end (p is not rounded at
+// f32, so this is the same function as normalising p first). What bounds it
+// on the H100: not the tensor cores (0.199 ms at 165 TFLOP/s, three TF32
+// passes at 495, at B 64, N 578, kh 6) but the instructions a warp issues:
+// the splits (five an element, each B element split once for both m16 tiles),
+// the fragment loads and their addresses, the softmax (~12 instructions an
+// HMMA in the first design, whose two walks took 1.36 ms there; this one
+// 0.71, 0.77 with o's f32 adds). It replaced the CUDA-core whole-row kernel
+// (attn_kernel) at N <= 256 too: at N 198 it ran 3-4x faster at every head
+// width.
 //
 // Past those sizes (kernel_path):
 // - bf16, N > 256 (attn_long_mma, steps in long_mma.cuh): one block a
@@ -83,11 +96,10 @@
 //   a whole-chunk path without the key mask took 0.42 to 0.39 ms. exp2 on
 //   prescaled scores ran at 0.332 ms but is not kept: it rounds the
 //   exponent otherwise than the TPU kernel's exp.
-// - f32 where the whole-row block does not fit shared memory (N > ~281 at
-//   dh 64), and both dtypes at dh > 128 (attn_chunked_kernel): the
-//   key-chunked CUDA-core steps of attn_chunked.cuh, any N and any head
-//   width, q, k and v read kD dims at a time, the output made kT dims a
-//   block. Right, not fast: s is computed three times for each output piece.
+// - both dtypes at dh > 128 (attn_chunked_kernel): the key-chunked CUDA-core
+//   steps of attn_chunked.cuh, any N and any head width, q, k and v read kD
+//   dims at a time, the output made kT dims a block. Right, not fast: s is
+//   computed three times for each output piece.
 
 #include <math.h>
 #include <stdint.h>
@@ -98,167 +110,18 @@
 #include "attn_mma.cuh"
 #include "common.cuh"
 #include "long_mma.cuh"
+#include "long_tf32.cuh"
 #include "mma_common.cuh"
 
 namespace {
 
-using devit::from_f;
-using devit::score_stride;
-using devit::to_f;
-using devit::warp_max;
-using devit::warp_sum;
-
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kThreads = 256;  // f32: 8 warps, 16 column lanes x 16 row groups of 4
+constexpr int kBQ = 64;           // query rows per block
 constexpr int kMmaThreads = 128;  // bf16: 4 warps, 16 query rows each
 
-// f32 at dh > 64: V shares K^T's region (staged once S is formed).
-__host__ __device__ constexpr bool shares_kv(int head_dim) { return head_dim > 64; }
-
-size_t smem_bytes(int n, int head_dim, int elem) {
-  if (elem == 2)  // bf16: Q [2][kBQ][dh] | K [NP][dh] | V [NP][dh], NP = N rounded up to 16
-    return (size_t)2 * head_dim * (2 * kBQ + 2 * (size_t)((n + 15) & ~15));
-  // f32: S [kBQ][stride] | K^T [dh][N] | V [N][dh] (or V over K^T) | Q^T [dh][kBQ]
-  const size_t kv = (shares_kv(head_dim) ? 1 : 2) * (size_t)n * head_dim;
-  return (size_t)kBQ * score_stride(n) * sizeof(float) +
-         (size_t)elem * (kv + (size_t)head_dim * kBQ);
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-attn_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H,
-            int n_tiles, float scale) {
-  static_assert(DH % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int DJ = DH / 16;  // output dims per thread
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int SP = score_stride(N);
-  float* S = reinterpret_cast<float*>(smem);
-  constexpr bool kShare = shares_kv(DH);
-  T* Kt = reinterpret_cast<T*>(S + kBQ * SP);
-  T* Vs = kShare ? Kt : Kt + DH * N;
-  T* Qt = Vs + N * DH;
-
-  const int C = H * DH;
-  const int tile = blockIdx.x % n_tiles;
-  const int b = blockIdx.x / n_tiles;
-  const int h = blockIdx.y;
-  const int q0 = tile * kBQ;
-  const int64_t row_stride = 3LL * C;
-  const T* base = qkv + (int64_t)b * N * row_stride + h * DH;
-
-  // ---- stage K^T, V (whole sequence; V later where it shares K^T's place)
-  // and Q^T (this tile) in shared memory
-  for (int i = threadIdx.x; i < N * DH; i += kThreads) {
-    const int n = i / DH, d = i % DH;
-    const T* row = base + (int64_t)n * row_stride;
-    Kt[d * N + n] = row[C + d];
-    if (!kShare) Vs[n * DH + d] = row[2 * C + d];
-  }
-  for (int i = threadIdx.x; i < kBQ * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    const int n = q0 + r;
-    Qt[d * kBQ + r] = n < N ? base[(int64_t)n * row_stride + d] : from_f<T>(0.f);
-  }
-  __syncthreads();
-
-  const int tx = threadIdx.x % 16;  // column lane
-  const int ty = threadIdx.x / 16;  // row group: rows 4*ty .. 4*ty+3
-
-  // ---- S = (q . k^T) * scale, f32, 64 key columns per pass
-  for (int c0 = 0; c0 < N; c0 += 64) {
-    float acc[4][4];
-    int col[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) col[j] = c0 + tx + 16 * j;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float q[4], k[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) q[i] = to_f(Qt[d * kBQ + 4 * ty + i]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) k[j] = col[j] < N ? to_f(Kt[d * N + col[j]]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(q[i], k[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (col[j] < N) S[(4 * ty + i) * SP + col[j]] = acc[i][j] * scale;
-  }
-  __syncthreads();
-  if (kShare) {  // K^T is read no more: V takes its place
-    for (int i = threadIdx.x; i < N * DH; i += kThreads)
-      Vs[i] = base[(int64_t)(i / DH) * row_stride + 2 * C + i % DH];
-  }
-
-  // ---- softmax over each row's N keys, f32; p rounded to T (v's dtype)
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kBQ; r += kThreads / 32) {
-    if (q0 + r >= N) continue;  // row past the sequence: never written
-    float* row = S + r * SP;
-    float m = -INFINITY;
-    for (int c = lane; c < N; c += 32) m = fmaxf(m, row[c]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < N; c += 32) {
-      const float e = expf(row[c] - m);
-      row[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < N; c += 32) row[c] = to_f(from_f<T>(row[c] / sum));
-  }
-  __syncthreads();
-
-  // ---- O = p . v, f32 accumulation; rows 4*ty+i, dims tx + 16*j
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < N; ++c) {
-    float p[4], v[DJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = S[(4 * ty + i) * SP + c];
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) v[j] = to_f(Vs[c * DH + tx + 16 * j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p[i], v[j], acc[i][j]);
-  }
-  T* obase = out + (int64_t)b * N * C + h * DH;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = q0 + 4 * ty + i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) obase[(int64_t)n * C + tx + 16 * j] = from_f<T>(acc[i][j]);
-  }
-}
-
-template <typename T, int DH>
-cudaError_t launch(const void* qkv, void* out, int B, int N, int H, float scale,
-                   cudaStream_t stream) {
-  static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_kernel<T, DH>, opted_in);
-  if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes(N, DH, sizeof(T));
-  const int n_tiles = (N + kBQ - 1) / kBQ;
-  const dim3 grid((unsigned)B * n_tiles, (unsigned)H);
-  attn_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, H, n_tiles,
-      scale);
-  return cudaGetLastError();
+// The whole-row bf16 block: Q [2][kBQ][dh] | K [NP][dh] | V [NP][dh], NP = N
+// rounded up to 16
+size_t smem_bytes(int n, int head_dim) {
+  return (size_t)2 * head_dim * (2 * kBQ + 2 * (size_t)((n + 15) & ~15));
 }
 
 // ---- bf16 on the tensor cores
@@ -373,7 +236,7 @@ cudaError_t launch_mma(const void* qkv, void* out, int B, int N, int H, float sc
   dim3 grid;
   err = tile_runs(B, N, H, &tpb, &grid);
   if (err != cudaSuccess) return err;
-  attn_kernel_mma<KC, DH><<<grid, kMmaThreads, smem_bytes(N, DH, 2), stream>>>(
+  attn_kernel_mma<KC, DH><<<grid, kMmaThreads, smem_bytes(N, DH), stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, (N + kBQ - 1) / kBQ, tpb,
       scale);
   return cudaGetLastError();
@@ -490,6 +353,110 @@ cudaError_t launch_long_mma(const void* qkv, void* out, int B, int N, int H, flo
   return cudaGetLastError();
 }
 
+// ---- f32 on the tensor cores (3xTF32): K and V chunks through the same ring
+
+namespace lt = devit::longtf32;
+
+// m16 tiles a warp: 128 query rows a block (one tile a warp ran 0.8634
+// against 0.7142 ms at B 64, N 578, kh 6 on the H100)
+constexpr int kFwdMT = 2;
+
+// Q [64 kFwdMT][dh + 4] | two buffers of a K and a V chunk [2][2][chunk_keys][dh + 4], f32
+template <int DH>
+constexpr size_t tf32_smem_bytes() {
+  return sizeof(float) * (size_t)(lt::tile_floats<DH>(64 * kFwdMT) +
+                                  4 * lt::tile_floats<DH>(lt::chunk_keys<DH>()));
+}
+
+size_t tf32_fwd_smem_bytes(int head_dim) {
+  return head_dim == 32 ? tf32_smem_bytes<32>()
+         : head_dim == 64 ? tf32_smem_bytes<64>() : tf32_smem_bytes<128>();
+}
+
+// One block: (batch row, head, 64 kFwdMT query rows), 4 warps of kFwdMT m16
+// tiles. K and V come in chunks through attn_long_mma's ring, in one walk:
+// s = q k^T (3xTF32), the online row max and sum with o rescaled as the max
+// grows (lt::softmax_step), o += exp(s - m) . v (3xTF32); o / l at the end.
+// p is not rounded at f32, so normalising o once at the end is the same
+// function as attn_long_mma's two walks, which normalise p before rounding
+// it, with one product a chunk fewer. The q fragments are read from the
+// staged tile and split once a k8 step of each chunk; o leaves as 8-byte
+// stores.
+template <int DH>
+__global__ void __launch_bounds__(lm::kThreads, DH == 128 ? 2 : 3)
+attn_long_tf32(const float* __restrict__ qkv, float* __restrict__ out, int N, int H,
+               int n_tiles, float scale) {
+  constexpr int MT = kFwdMT, TQ = 64 * MT;
+  constexpr int CK = lt::chunk_keys<DH>(), NT = CK / 8, KT = lt::tile_floats<DH>(CK);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // the tile's q rows
+  float* ring = Qs + lt::tile_floats<DH>(TQ);  // buffer i & 1: K chunk, then V chunk
+
+  const int C = H * DH;
+  const int tile = blockIdx.x % n_tiles, b = blockIdx.x / n_tiles, h = blockIdx.y;
+  const int64_t row3 = 3LL * C;
+  const float* base = qkv + (int64_t)b * N * row3 + h * DH;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = tile * TQ, r0 = 16 * MT * warp;
+  const bool active = q0 + r0 < N;  // some of the warp's rows lie before N
+  const int n_chunks = (N + CK - 1) / CK;
+
+  lt::load_rows<DH>(Qs, base + (int64_t)q0 * row3, row3, TQ, N - q0, tid, lm::kThreads);
+  float m[MT][2], l[MT][2], o[MT][DH / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][t][e] = 0.f;
+  }
+  // step i: chunk i of K and V into buffer i & 1
+  lm::ring_walk(
+      n_chunks, active,
+      [&](int i) { lt::fetch_chunk<DH>(ring, i, i * CK, base + C, C, row3, N, true, tid); },
+      [&](int i) {
+        const float* Kb = ring + (i & 1) * 2 * KT;
+        const int c0 = i * CK;
+        float s[MT][NT][4];
+        lt::times_rows<MT, NT, DH>(s, Qs, r0, Kb, 0, N - c0, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          lm::scale_mask<NT>(s[mt], c0, N, scale, lane);
+          lt::softmax_step<NT, DH>(s[mt], m[mt], l[mt], o[mt]);
+        }
+        lt::chunk_times_cols<MT, NT, DH>(o, s, Kb + KT, c0, N, lane);
+      });
+  if (!active) return;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float li = devit::mma::quad_sum(l[mt][i]), rl = __frcp_rn(li);
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) o[mt][d][e] = devit::mma::div_rn(o[mt][d][e], li, rl);
+    }
+    lt::store_rows<DH>(o[mt], out + ((int64_t)b * N + q0) * C + h * DH, C, r0 + 16 * mt,
+                       N - q0, lane);
+  }
+}
+
+template <int DH>
+cudaError_t launch_tf32(const void* qkv, void* out, int B, int N, int H, float scale,
+                        cudaStream_t stream) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)attn_long_tf32<DH>, opted_in);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (N + 64 * kFwdMT - 1) / (64 * kFwdMT);
+  const dim3 grid((unsigned)(B * n_tiles), (unsigned)H);
+  attn_long_tf32<DH><<<grid, lm::kThreads, tf32_smem_bytes<DH>(), stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), N, H, n_tiles, scale);
+  return cudaGetLastError();
+}
+
 // The fewest score registers that hold the row: N <= 64, 128, 208 (the
 // deployed N = 198), 256; past 256, attn_long_mma.
 template <int DH>
@@ -502,10 +469,12 @@ cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, float s
   return launch_mma<16, DH>(qkv, out, B, N, H, scale, s);
 }
 
+enum Path { kWholeRow = 0, kKeyChunkMma = 1, kKeyChunked = 2 };
+
 template <int DH>
-cudaError_t launch_dh(const void* qkv, void* out, int B, int N, int H, int dtype,
-                      float scale, cudaStream_t s) {
-  if (dtype == 0) return launch<float, DH>(qkv, out, B, N, H, scale, s);
+cudaError_t launch_dh(const void* qkv, void* out, int B, int N, int H, int dtype, float scale,
+                      cudaStream_t s) {
+  if (dtype == 0) return launch_tf32<DH>(qkv, out, B, N, H, scale, s);
   if (dtype == 1) return launch_bf16<DH>(qkv, out, B, N, H, scale, s);
   return cudaErrorInvalidValue;
 }
@@ -586,21 +555,20 @@ cudaError_t launch_chunked(const void* qkv, void* out, int B, int N, int H, int 
 
 // ---- which design a launch takes
 
-enum Path { kWholeRow = 0, kKeyChunkMma = 1, kKeyChunked = 2 };
-
 // bf16 and dh <= 128: attn_kernel_mma to 256 keys, attn_long_mma past
-// them; f32 and dh <= 128: attn_kernel where its block fits `optin` bytes of
-// shared memory; otherwise (and at every dh > 128) attn_chunked_kernel.
-int kernel_path(int n, int head_dim, int elem, long long optin) {
+// them; f32 and dh <= 128: attn_long_tf32 at every N; at every dh > 128
+// attn_chunked_kernel.
+int kernel_path(int n, int head_dim, int elem) {
   if (head_dim > 128) return kKeyChunked;
   if (elem == 2) return n > kLongN ? kKeyChunkMma : kWholeRow;
-  return (long long)smem_bytes(n, head_dim, elem) > optin ? kKeyChunked : kWholeRow;
+  return kKeyChunkMma;
 }
 
-size_t path_smem_bytes(int n, int head_dim, int elem, long long optin) {
-  switch (kernel_path(n, head_dim, elem, optin)) {
-    case kWholeRow: return smem_bytes(n, head_dim, elem);
-    case kKeyChunkMma: return long_fwd_smem_bytes(head_dim);
+size_t path_smem_bytes(int n, int head_dim, int elem) {
+  switch (kernel_path(n, head_dim, elem)) {
+    case kWholeRow: return smem_bytes(n, head_dim);
+    case kKeyChunkMma:
+      return elem == 2 ? long_fwd_smem_bytes(head_dim) : tf32_fwd_smem_bytes(head_dim);
     default: return elem == 2 ? chunked_smem_bytes<bf16>() : chunked_smem_bytes<float>();
   }
 }
@@ -612,7 +580,8 @@ extern "C" {
 // Dynamic shared memory one block needs at sequence length n on `device`
 // (on the path devit_attention_path picks).
 long long devit_attention_smem_bytes(int n, int head_dim, int elem_bytes, int device) {
-  return (long long)path_smem_bytes(n, head_dim, elem_bytes, devit::device_optin(device));
+  (void)device;  // every design's need is the same on every device
+  return (long long)path_smem_bytes(n, head_dim, elem_bytes);
 }
 
 // The design a forward at (n, head_dim, elem_bytes) takes on `device`: 0 one
@@ -620,7 +589,8 @@ long long devit_attention_smem_bytes(int n, int head_dim, int elem_bytes, int de
 // tensor-core kernel over key chunks (attn_long_mma), 2 the key-chunked
 // CUDA-core kernel.
 int devit_attention_path(int n, int head_dim, int elem_bytes, int device) {
-  return kernel_path(n, head_dim, elem_bytes, devit::device_optin(device));
+  (void)device;
+  return kernel_path(n, head_dim, elem_bytes);
 }
 
 // The most dynamic shared memory a block may opt in to on `device`, or -1.
@@ -640,10 +610,7 @@ int devit_fused_attention(const void* qkv, void* out, int B, int N, int H,
                           int head_dim, int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  const cudaError_t derr = cudaGetDevice(&dev);
-  if (derr != cudaSuccess) return (int)derr;
-  if (kernel_path(N, head_dim, dtype == 1 ? 2 : 4, devit::device_optin(dev)) == kKeyChunked)
+  if (kernel_path(N, head_dim, dtype == 1 ? 2 : 4) == kKeyChunked)
     return (int)(dtype == 0 ? launch_chunked<float>(qkv, out, B, N, H, head_dim, scale, s)
                             : launch_chunked<bf16>(qkv, out, B, N, H, head_dim, scale, s));
   if (head_dim == 32) return (int)launch_dh<32>(qkv, out, B, N, H, dtype, scale, s);

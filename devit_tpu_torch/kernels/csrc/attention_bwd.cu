@@ -19,8 +19,8 @@
 // which the tensor cores would be the limit, so the bound is memory bandwidth
 // (B = 256, 6 heads: 272.5 MB, ~0.081 ms at 3.35 TB/s).
 //
-// N <= 256 (kShortN), both dtypes: dk and dv sum over all N queries of one
-// (batch row, head), so one block owns a whole (batch row, head) and walks its
+// bf16, N <= 256 (kShortN): dk and dv sum over all N queries of one (batch
+// row, head), so one block owns a whole (batch row, head) and walks its
 // queries in 32-row tiles: no two blocks write the same output, nothing is
 // summed with atomics, and the result is the same on every run. K and V of
 // the head stay in shared memory for the whole block; the tile's f32 s and dp
@@ -30,8 +30,14 @@
 // dq kernel, then a dk/dv kernel); so it does where the block would not fit
 // shared memory (use_long_path in bwd_mma.cuh: dh 128 at the larger N).
 //
-// Head widths 32, 64 and 128: the tensor-core kernel is templated on dh (see
-// bwd_mma.cuh); in the f32 kernel a lane owns dims l + 32 j, j < dh / 32.
+// f32, every N: the same two kernels on the tensor cores as 3xTF32
+// mma.sync.m16n8k8 (attn_bwd_long_rows_tf32, attn_bwd_long_keys_tf32; the
+// source note of attention_bwd_long.cu says why three TF32 passes keep f32
+// accuracy where one does not). At N 198 they ran 1.4-1.7x faster than the
+// CUDA-core whole-head kernel they replaced, at every head width.
+//
+// Head widths 32, 64 and 128: the tensor-core kernels are templated on dh
+// (see bwd_mma.cuh, long_mma.cuh, long_tf32.cuh).
 //
 // bf16: attn_bwd_kernel_mma<true, true> (bwd_mma.cuh), all five products on
 // the tensor cores in one pass, dk and dv in the warps' accumulators. The
@@ -43,18 +49,6 @@
 // that skip one step each ran faster by 0.17 ms without the softmax/ds rows,
 // 0.17 without s and dp, 0.09 without dq and 0.09 without dk/dv; the staging
 // and barriers alone took 0.18 ms.
-//
-// f32 (attn_bwd_kernel): the PR-1 design on the CUDA cores, kept because the
-// f32 tolerance is 1e-4 and a TF32 mma keeps ~10 mantissa bits of each
-// operand, too few. Thread (warp w, lane l) holds dk or dv of key rows
-// c = w + 16 i, dims l and l + 32; holding both would double those
-// registers, so the block makes two passes over the query tiles: pass 1
-// recomputes p and sums dv; pass 2 recomputes p, forms dp and ds, writes each
-// tile's dq and sums dk. Its steps live in bwd_common.cuh, shared with the
-// f32 split kernels, which run the two passes as two kernels, so at f32 too
-// the split pair equals this kernel bit for bit. The passes stay one loop
-// here: written as two inlined functions they ran 5% slower on the H100 (4.55
-// against 4.31 ms at B 256, bf16, before the tensor-core path).
 
 #include "bwd_common.cuh"
 #include "bwd_mma.cuh"
@@ -63,89 +57,11 @@ namespace {
 
 using namespace devit::bwd;
 
-constexpr int kMaxCPerWarp = kShortN / kWarps;  // key rows of dk/dv a warp holds
-
 // Shared memory of one block at sequence length n on `device`.
 long long smem_bytes(int n, int dh, int elem, int device) {
   if (use_long_path(n, dh, elem, devit::device_optin(device)))
     return (long long)long_smem_bytes(dh, elem);
-  return (long long)(elem == 2 ? mma_smem_bytes<true, true>(n, dh)
-                               : dqdk_smem_bytes<float>(n, dh));
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dqkv,
-                int N, int H, float scale) {
-  constexpr int KS = kv_stride<T>(DH);
-  constexpr int DJ = DH / 32;  // dims a lane owns
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int SP = devit::score_stride(N);
-  float* P = reinterpret_cast<float*>(smem);  // p of the tile (f32)
-  float* D = P + kBQ * SP;                    // dp, then ds, of the tile
-  T* Ks = reinterpret_cast<T*>(D + kBQ * SP);
-  T* Vs = Ks + N * KS;
-  T* Qs = Vs + N * KS;    // the tile's q rows, zero past N
-  T* Gs = Qs + kBQ * DH;  // the tile's g rows, zero past N
-
-  const int C = H * DH;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int64_t row3 = 3LL * C;
-  const T* base = qkv + (int64_t)b * N * row3 + h * DH;
-  const T* gbase = g + (int64_t)b * N * C + h * DH;
-  T* obase = dqkv + (int64_t)b * N * row3 + h * DH;
-
-  load_keys<T, DH>(base, Ks, Vs, N, row3, C);
-  const int warp = threadIdx.x / 32;
-  for (int pass = 0; pass < 2; ++pass) {
-    float acc[kMaxCPerWarp][DJ];  // dv (pass 1), then dk (pass 2)
-#pragma unroll
-    for (int i = 0; i < kMaxCPerWarp; ++i)
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-    for (int q0 = 0; q0 < N; q0 += kBQ) {
-      const int rows = min(kBQ, N - q0);
-      __syncthreads();  // the previous tile's readers of Q, G, P, D are done
-      load_query_tile<T, DH>(base, gbase, Qs, Gs, q0, rows, row3, C);
-      __syncthreads();
-      rows_times_keys<T, DH>(Qs, Ks, P, N, SP, scale);
-      if (pass == 1) rows_times_keys<T, DH>(Gs, Vs, D, N, SP, 1.f);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = 2 * warp + i;
-        if (r >= rows) continue;  // rows past N: never read below
-        softmax_row(P + r * SP, N);
-        if (pass == 1) ds_row<T>(P + r * SP, D + r * SP, N, scale);
-      }
-      __syncthreads();
-      if (pass == 0) {
-        accumulate_keys<T, DH, true, kMaxCPerWarp, DJ>(acc, P, Gs, 0, N, SP, rows);  // dv
-        continue;
-      }
-      accumulate_keys<T, DH, false, kMaxCPerWarp, DJ>(acc, D, Qs, 0, N, SP, rows);  // dk
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = 2 * warp + i;
-        if (r < rows) dq_row<T, DH>(D + r * SP, Ks, obase + (int64_t)(q0 + r) * row3, N);
-      }
-    }
-    store_keys<T, kMaxCPerWarp, DJ>(acc, obase + (pass == 0 ? 2 : 1) * C, row3, 0, N);
-  }
-}
-
-template <typename T, int DH>
-cudaError_t launch(const void* qkv, const void* g, void* dqkv, int B, int N, int H,
-                   float scale, cudaStream_t stream) {
-  static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_kernel<T, DH>, opted_in);
-  if (err != cudaSuccess) return err;
-  if (N > kShortN) return cudaErrorInvalidValue;
-  attn_bwd_kernel<T, DH><<<(unsigned)B * H, kThreads, dqdk_smem_bytes<T>(N, DH), stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(dqkv), N, H,
-      scale);
-  return cudaGetLastError();
+  return (long long)mma_smem_bytes<true, true>(n, dh);
 }
 
 }  // namespace
@@ -183,11 +99,6 @@ int devit_attention_bwd(const void* qkv, const void* g, void* dqkv, void* stats,
   if (use_long_path(N, head_dim, dtype == 1 ? 2 : 4, devit::device_optin(dev)))
     return (int)launch_long(qkv, g, dqkv, row3, static_cast<float*>(stats), B, N, H, head_dim,
                             dtype, true, true, scale, s);
-  if (dtype == 0) {
-    if (head_dim == 32) return (int)launch<float, 32>(qkv, g, dqkv, B, N, H, scale, s);
-    if (head_dim == 64) return (int)launch<float, 64>(qkv, g, dqkv, B, N, H, scale, s);
-    return (int)launch<float, 128>(qkv, g, dqkv, B, N, H, scale, s);
-  }
   if (head_dim == 32) return (int)launch_bwd_mma<true, true, 32>(qkv, g, dqkv, row3, B, N, H,
       scale, s);
   if (head_dim == 64) return (int)launch_bwd_mma<true, true, 64>(qkv, g, dqkv, row3, B, N, H,

@@ -1,9 +1,9 @@
-// The attention backward past kShortN (256) keys, at both dtypes: what the
-// monolithic kernel (attention_bwd.cu) and the split pair
-// (attention_bwd_split.cu) launch when N > 256 (and at bf16, dh 128, from N
+// The chunked attention backward: what the monolithic kernel
+// (attention_bwd.cu) and the split pair (attention_bwd_split.cu) launch at
+// f32 at every N, and at bf16 when N > kShortN (256) (and at dh 128 from N
 // 209, where the monolithic block does not fit: use_long_path).
 //
-// Replaces, for long sequences, devit_tpu/kernels/attention.py:
+// Replaces, for long sequences and at f32, devit_tpu/kernels/attention.py:
 // _attn_bwd_kernel and the split pair _attn_bwd_dv_kernel /
 // _attn_bwd_dqdk_kernel, which hold whole rows and so take any N. Numerics
 // follow the TPU kernels: s = (q . k^T) * dh^-0.5 and p = softmax(s) in f32,
@@ -59,16 +59,25 @@
 // registers), of four at 1.41 (128 registers, spills), two for the rows
 // kernel and three for the keys kernel at 1.17.
 //
-// f32, dh 32, 64 and 128 (attn_bwd_long_rows, attn_bwd_long_keys): the same
-// two kernels on the CUDA-core steps of bwd_common.cuh (the f32 tolerance is
-// 1e-4, finer than TF32), 512-thread blocks over 256-key chunks (128 at dh
-// 128), a lane owning dims l + 32 j. The rows kernel walks the chunks once
-// for each row's max, once for its sum, and (DQ) once for delta and once
-// more for dq; the keys kernel recomputes s and dp for every 32-query tile.
-// A lane's partial max, sum and rowsum run over its columns l + 32 j in
-// softmax_row's and ds_row's order, so at f32 this path computes what the
-// one-block-a-head steps would if their registers held the row. Right, not
-// fast (13.4 ms at B 64, N 578, kh 6): a later redesign's.
+// f32, dh 32, 64 and 128 (attn_bwd_long_rows_tf32, attn_bwd_long_keys_tf32,
+// with the steps of long_tf32.cuh): the bf16 pair's walks, blocks and
+// statistics with every product as 3xTF32 mma.sync.m16n8k8. One TF32 pass
+// keeps 11 significant bits of each operand, too few for the f32 tolerance
+// of 1e-4 (a numpy emulation of one pass misses the f32 reference by ~1e-3);
+// three passes (small big + big small + big big of each operand's TF32 split)
+// drop only the small small term, ~2^-22 of each product, and stay at f32
+// accuracy (the sums over every key or query, dq, dk and dv, add each k8
+// step to their accumulators in f32: long_tf32.cuh chunk_times_cols). ds is
+// not rounded at f32, and p^T and ds^T become A fragments straight from the
+// accumulators (long_tf32.cuh acc_a). A warp owns two m16
+// tiles at dh 64 (128 rows or keys a block, two blocks an SM), one at dh 32
+// and 128. What bounds it on the H100: not the tensor cores (0.498 ms at 165
+// TFLOP/s, three TF32 passes at 495, for the monolithic backward at B 64, N
+// 578, kh 6, against ~3.7 ms) but the instructions a warp issues: nine
+// products where five would do, each operand split where it is read, and
+// three expf and a division a score. It replaced, past 256 keys, a CUDA-core
+// pair that took 13.07 ms there, and below them the whole-head CUDA-core
+// kernels.
 //
 // Head widths past 128 (attn_wide_bwd_rows, attn_wide_bwd_keys), both
 // dtypes: a lane cannot own a whole row's dims in registers, nor a block a
@@ -84,242 +93,13 @@
 #include "attn_chunked.cuh"
 #include "bwd_common.cuh"
 #include "long_mma.cuh"
+#include "long_tf32.cuh"
 
 namespace {
 
 using namespace devit::bwd;
-using devit::from_f;
 using devit::round_to;
 using devit::to_f;
-
-// Keys a chunk (long_chunk), the key rows of a warp in the key-side sums,
-// and the score rows' stride (score_stride of the chunk), by head width.
-template <int DH> constexpr int chunk_keys = long_chunk(DH);
-template <int DH> constexpr int chunk_keys_per_warp = chunk_keys<DH> / kWarps;
-template <int DH> constexpr int chunk_stride = chunk_keys<DH> | 1;
-
-// Walks the key chunks of one (batch row, head): for each chunk, stages its K
-// (and V, when Vs is not null) and computes the tile's scores into P (and
-// dp into D), then calls row_step(r, i, chunk_start, len) for each of the
-// warp's rows r = 2w + i before the sequence's end. A lane reads only the
-// P and D columns it wrote, so row_step needs no barrier before it.
-template <typename T, int DH, typename F>
-__device__ __forceinline__ void walk_chunks(const T* base, T* Ks, T* Vs, const T* Qs,
-                                            const T* Gs, float* P, float* D, int N, int rows,
-                                            int64_t row3, int C, float scale, F row_step) {
-  constexpr int kC = chunk_keys<DH>;
-  const int warp = threadIdx.x / 32;
-  for (int c0 = 0; c0 < N; c0 += kC) {
-    const int len = min(kC, N - c0);
-    __syncthreads();  // the previous chunk's readers of Ks, Vs are done
-    load_keys<T, DH>(base + (int64_t)c0 * row3, Ks, Vs, len, row3, C);
-    __syncthreads();
-    rows_times_keys<T, DH>(Qs, Ks, P, len, chunk_stride<DH>, scale);
-    if (Vs != nullptr) rows_times_keys<T, DH>(Gs, Vs, D, len, chunk_stride<DH>, 1.f);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 2 * warp + i;
-      if (r < rows) row_step(r, i, c0, len);
-    }
-  }
-}
-
-// Block (batch row, head, 32-query tile): the tile's rows' softmax statistics
-// and, with DQ, their dq. stats[(bh N + n) 3 + {0, 1, 2}] = m, l, delta.
-template <typename T, int DH, bool DQ>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_long_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dq,
-                   long long out_stride, float* __restrict__ stats, int N, int H, int n_tiles,
-                   float scale) {
-  constexpr int KS = kv_stride<T>(DH);
-  constexpr int DJ = DH / 32;  // dims a lane owns
-  constexpr int kSP = chunk_stride<DH>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* P = reinterpret_cast<float*>(smem);  // s of the tile and chunk (f32)
-  float* D = P + kBQ * kSP;                   // dp, then ds
-  T* Ks = reinterpret_cast<T*>(D + kBQ * kSP);
-  T* Vs = Ks + chunk_keys<DH> * KS;
-  T* Qs = Vs + chunk_keys<DH> * KS;  // the tile's q rows, zero past N
-  T* Gs = Qs + kBQ * DH;         // the tile's g rows, zero past N
-
-  const int tile = blockIdx.x % n_tiles, bh = blockIdx.x / n_tiles;
-  const int b = bh / H, h = bh % H;
-  const int C = H * DH;
-  const int64_t row3 = 3LL * C;
-  const T* base = qkv + (int64_t)b * N * row3 + h * DH;
-  const T* gbase = g + (int64_t)b * N * C + h * DH;
-  const int q0 = tile * kBQ, rows = min(kBQ, N - q0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  load_query_tile<T, DH>(base, gbase, Qs, Gs, q0, rows, row3, C);
-  // the lane's partials of the warp's two rows (lane l: columns l + 32 j)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
-  walk_chunks<T, DH>(base, Ks, (T*)nullptr, Qs, Gs, P, D, N, rows, row3, C, scale,
-                     [&](int r, int i, int, int len) {
-                       for (int c = lane; c < len; c += 32) m[i] = fmaxf(m[i], P[r * kSP + c]);
-                     });
-  m[0] = devit::warp_max(m[0]);
-  m[1] = devit::warp_max(m[1]);
-  walk_chunks<T, DH>(base, Ks, (T*)nullptr, Qs, Gs, P, D, N, rows, row3, C, scale,
-                     [&](int r, int i, int, int len) {
-                       for (int c = lane; c < len; c += 32) l[i] += expf(P[r * kSP + c] - m[i]);
-                     });
-  l[0] = devit::warp_sum(l[0]);
-  l[1] = devit::warp_sum(l[1]);
-  if (DQ) {
-    walk_chunks<T, DH>(base, Ks, Vs, Qs, Gs, P, D, N, rows, row3, C, scale,
-                       [&](int r, int i, int, int len) {
-                         for (int c = lane; c < len; c += 32) {
-                           const float p = expf(P[r * kSP + c] - m[i]) / l[i];
-                           rs[i] = fmaf(D[r * kSP + c], p, rs[i]);
-                         }
-                       });
-    rs[0] = devit::warp_sum(rs[0]);
-    rs[1] = devit::warp_sum(rs[1]);
-    // dq = sum over the chunks of ds K: lane l sums dims l + 32 j over all
-    // of the row's columns, so each row's ds is complete (warp barrier)
-    // before its lanes read it
-    float acc[2][DJ] = {};
-    walk_chunks<T, DH>(base, Ks, Vs, Qs, Gs, P, D, N, rows, row3, C, scale,
-                       [&](int r, int i, int, int len) {
-                         float* drow = D + r * kSP;
-                         for (int c = lane; c < len; c += 32) {
-                           const float p = expf(P[r * kSP + c] - m[i]) / l[i];
-                           drow[c] = round_to<T>((p * (drow[c] - rs[i])) * scale);
-                         }
-                         __syncwarp();
-                         for (int c = 0; c < len; ++c) {
-#pragma unroll
-                           for (int j = 0; j < DJ; ++j)
-                             acc[i][j] = fmaf(drow[c], to_f(Ks[c * KS + lane + 32 * j]), acc[i][j]);
-                         }
-                       });
-    T* obase = dq + ((int64_t)b * N + q0) * out_stride + h * DH;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 2 * warp + i;
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j)
-        obase[(int64_t)r * out_stride + lane + 32 * j] = from_f<T>(acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 2 * warp + i;
-    if (r < rows && lane == 0) {
-      float* st = stats + ((int64_t)bh * N + q0 + r) * 3;
-      st[0] = m[i];
-      st[1] = l[i];
-      st[2] = rs[i];
-    }
-  }
-}
-
-// Block (batch row, head, 256-key chunk): dk (DK) and dv (DV) of the chunk's
-// keys, summed over all queries with p (and ds) formed from the statistics.
-template <typename T, int DH, bool DK, bool DV>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_long_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ out,
-                   long long out_stride, const float* __restrict__ stats, int N, int H,
-                   int n_chunks, float scale) {
-  constexpr int KS = kv_stride<T>(DH);
-  constexpr int DJ = DH / 32;  // dims a lane owns
-  constexpr int kSP = chunk_stride<DH>;
-  constexpr int kKW = chunk_keys_per_warp<DH>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* P = reinterpret_cast<float*>(smem);  // p of the tile and chunk (f32)
-  float* D = P + kBQ * kSP;                   // dp, then ds
-  T* Ks = reinterpret_cast<T*>(D + kBQ * kSP);
-  T* Vs = Ks + chunk_keys<DH> * KS;
-  T* Qs = Vs + chunk_keys<DH> * KS;
-  T* Gs = Qs + kBQ * DH;
-
-  const int chunk = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks;
-  const int b = bh / H, h = bh % H;
-  const int C = H * DH;
-  const int64_t row3 = 3LL * C;
-  const T* base = qkv + (int64_t)b * N * row3 + h * DH;
-  const T* gbase = g + (int64_t)b * N * C + h * DH;
-  const int c0 = chunk * chunk_keys<DH>, len = min(chunk_keys<DH>, N - c0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  load_keys<T, DH>(base + (int64_t)c0 * row3, Ks, DK ? Vs : nullptr, len, row3, C);
-  float dk[kKW][DJ], dv[kKW][DJ];
-#pragma unroll
-  for (int i = 0; i < kKW; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-  for (int q0 = 0; q0 < N; q0 += kBQ) {
-    const int rows = min(kBQ, N - q0);
-    __syncthreads();  // the previous tile's readers of Qs, Gs, P, D are done
-    load_query_tile<T, DH>(base, gbase, Qs, Gs, q0, rows, row3, C);
-    __syncthreads();
-    rows_times_keys<T, DH>(Qs, Ks, P, len, kSP, scale);
-    if (DK) rows_times_keys<T, DH>(Gs, Vs, D, len, kSP, 1.f);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 2 * warp + i;
-      if (r >= rows) continue;  // rows past N: never read below
-      const float* st = stats + ((int64_t)bh * N + q0 + r) * 3;
-      const float m = st[0], l = st[1], rs = st[2];
-      for (int c = lane; c < len; c += 32) {
-        const float p = expf(P[r * kSP + c] - m) / l;
-        P[r * kSP + c] = p;
-        if (DK) D[r * kSP + c] = round_to<T>((p * (D[r * kSP + c] - rs)) * scale);
-      }
-    }
-    __syncthreads();
-    if (DV) accumulate_keys<T, DH, true, kKW, DJ>(dv, P, Gs, 0, len, kSP, rows);
-    if (DK) accumulate_keys<T, DH, false, kKW, DJ>(dk, D, Qs, 0, len, kSP, rows);
-  }
-  T* obase = out + ((int64_t)b * N + c0) * out_stride + h * DH;
-  if (DK) store_keys<T, kKW, DJ>(dk, obase + C, out_stride, 0, len);
-  if (DV) store_keys<T, kKW, DJ>(dv, obase + (DK ? 2 * C : 0), out_stride, 0, len);
-}
-
-template <typename T, int DH, bool DQ>
-cudaError_t launch_rows(const void* qkv, const void* g, void* out, long long out_stride,
-                        float* stats, int B, int N, int H, float scale, cudaStream_t stream) {
-  static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_long_rows<T, DH, DQ>, opted_in);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (N + kBQ - 1) / kBQ;
-  attn_bwd_long_rows<T, DH, DQ><<<(unsigned)(B * H * n_tiles), kThreads,
-                                  dqdk_smem_bytes<T>(chunk_keys<DH>, DH), stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(out), out_stride,
-      stats, N, H, n_tiles, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int DH, bool DK, bool DV>
-cudaError_t launch_keys(const void* qkv, const void* g, void* out, long long out_stride,
-                        const float* stats, int B, int N, int H, float scale, cudaStream_t stream) {
-  static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_bwd_long_keys<T, DH, DK, DV>, opted_in);
-  if (err != cudaSuccess) return err;
-  const int n_chunks = (N + chunk_keys<DH> - 1) / chunk_keys<DH>;
-  attn_bwd_long_keys<T, DH, DK, DV><<<(unsigned)(B * H * n_chunks), kThreads,
-                                      dqdk_smem_bytes<T>(chunk_keys<DH>, DH), stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<T*>(out), out_stride,
-      stats, N, H, n_chunks, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int DH>
-cudaError_t launch_long_t(const void* qkv, const void* g, void* out, long long out_stride,
-                          float* stats, int B, int N, int H, bool dqdk, bool dv,
-                          float scale, cudaStream_t s) {
-  cudaError_t err =
-      dqdk ? launch_rows<T, DH, true>(qkv, g, out, out_stride, stats, B, N, H, scale, s)
-           : launch_rows<T, DH, false>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
-  if (err != cudaSuccess) return err;
-  if (dqdk && dv)
-    return launch_keys<T, DH, true, true>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
-  if (dqdk)
-    return launch_keys<T, DH, true, false>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
-  return launch_keys<T, DH, false, true>(qkv, g, out, out_stride, stats, B, N, H, scale, s);
-}
 
 // ---- bf16 at head widths 32, 64 and 128: the tensor-core pair (long_mma.cuh)
 
@@ -609,6 +389,275 @@ cudaError_t launch_long_mma(const void* qkv, const void* g, void* out, long long
                            x, gt, o, out_stride, st, N, H, tiles, scale);
 }
 
+// ---- f32 at head widths 32, 64 and 128: the 3xTF32 pair (long_tf32.cuh)
+
+namespace lt = devit::longtf32;
+
+// m16 tiles a warp, the same in both kernels: a rows block takes 64 MT query
+// rows, a keys block 64 MT keys. Two at dh 64 (rows 213 registers, keys 255
+// with a 4-byte spill; two blocks an SM); one at dh 32 and 128, where two
+// spilled (the score tiles of 64-key chunks; dh 128's accumulators) or gained
+// nothing.
+template <int DH>
+__host__ __device__ constexpr int pair_mt() {
+  return DH == 64 ? 2 : 1;
+}
+
+// The rows kernel: the q and g tiles [2][64 MT][dh + 4] | two buffers of a K
+// and a V chunk [2][2][chunk_keys][dh + 4], f32.
+template <int DH>
+constexpr size_t rows_tf32_smem_bytes() {
+  return sizeof(float) * (size_t)(2 * lt::tile_floats<DH>(64 * pair_mt<DH>()) +
+                                  4 * lt::tile_floats<DH>(lt::chunk_keys<DH>()));
+}
+
+// The keys kernel: the chunk's K and V [2][64 MT][dh + 4] | two buffers of a
+// q and a g tile [2][2][chunk_keys][dh + 4] and of the tile's rows'
+// statistics [2][chunk_keys][3], f32.
+template <int DH>
+constexpr size_t keys_tf32_smem_bytes() {
+  return sizeof(float) * (size_t)(2 * lt::tile_floats<DH>(64 * pair_mt<DH>()) +
+                                  4 * lt::tile_floats<DH>(lt::chunk_keys<DH>()) +
+                                  2 * 3 * lt::chunk_keys<DH>());
+}
+
+size_t long_tf32_smem_bytes(int dh) {
+  const size_t r = dh == 32 ? rows_tf32_smem_bytes<32>()
+                   : dh == 64 ? rows_tf32_smem_bytes<64>() : rows_tf32_smem_bytes<128>();
+  const size_t k = dh == 32 ? keys_tf32_smem_bytes<32>()
+                   : dh == 64 ? keys_tf32_smem_bytes<64>() : keys_tf32_smem_bytes<128>();
+  return r > k ? r : k;
+}
+
+// attn_bwd_long_rows_mma's walks at f32 (3xTF32 products), a block (batch
+// row, head, 64 MT query rows), 4 warps of MT m16 tiles (pair_mt): the rows'
+// (m, l) and, with DQ, delta and dq. q and g stay in their staged tiles, read
+// and split once a k8 step of each chunk; ds = (p (dp - delta)) scale (f32,
+// unrounded) is the A fragment of dq += ds k straight from the accumulators
+// (long_tf32.cuh acc_a), K's rows 2t and 2t + 1 its B.
+template <int DH, bool DQ>
+__global__ void __launch_bounds__(lm::kThreads, DH == 32 ? 3 : 2)
+attn_bwd_long_rows_tf32(const float* __restrict__ qkv, const float* __restrict__ g,
+                        float* __restrict__ dq, long long out_stride, float* __restrict__ stats,
+                        int N, int H, int n_tiles, float scale) {
+  constexpr int MT = pair_mt<DH>(), TQ = 64 * MT;
+  constexpr int CK = lt::chunk_keys<DH>(), NT = CK / 8, KT = lt::tile_floats<DH>(CK);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Gs = Qs + lt::tile_floats<DH>(TQ);
+  float* ring = Gs + lt::tile_floats<DH>(TQ);  // buffer i & 1: K chunk, then V chunk
+
+  const int tile = blockIdx.x % n_tiles, bh = blockIdx.x / n_tiles;
+  const int b = bh / H, h = bh % H;
+  const int C = H * DH;
+  const int64_t row3 = 3LL * C;
+  const float* base = qkv + (int64_t)b * N * row3 + h * DH;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = tile * TQ, r0 = 16 * MT * warp;
+  const bool active = q0 + r0 < N;
+  const int n_chunks = (N + CK - 1) / CK;
+
+  lt::load_rows<DH>(Qs, base + (int64_t)q0 * row3, row3, TQ, N - q0, tid, lm::kThreads);
+  if (DQ)
+    lt::load_rows<DH>(Gs, g + ((int64_t)b * N + q0) * C + h * DH, C, TQ, N - q0, tid,
+                      lm::kThreads);
+  float m[MT][2], l[MT][2], dl[MT][2], rl[MT][2], acc[MT][DH / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = dl[mt][0] = dl[mt][1] = 0.f;
+#pragma unroll
+    for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+  }
+  // step i: chunk i % n_chunks, K (and V with DQ) into buffer i & 1
+  lm::ring_walk(
+      DQ ? 2 * n_chunks : n_chunks, active,
+      [&](int i) {
+        lt::fetch_chunk<DH>(ring, i, (i < n_chunks ? i : i - n_chunks) * CK, base + C, C, row3,
+                            N, DQ, tid);
+      },
+      [&](int i) {
+        const float* Kb = ring + (i & 1) * 2 * KT;
+        const int c0 = (i < n_chunks ? i : i - n_chunks) * CK;
+        float s[MT][NT][4], dp[MT][NT][4];
+        lt::times_rows<MT, NT, DH>(s, Qs, r0, Kb, 0, N - c0, lane);
+        if (DQ) lt::times_rows<MT, NT, DH>(dp, Gs, r0, Kb + KT, 0, N - c0, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) lm::scale_mask<NT>(s[mt], c0, N, scale, lane);
+        if (i < n_chunks) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            lm::stats_step<NT, DQ>(s[mt], dp[mt], m[mt], l[mt], dl[mt], rl[mt],
+                                   i == n_chunks - 1);
+          return;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              const float p = lm::prob(s[mt][t][e], m[mt][r], l[mt][r], rl[mt][r]);
+              s[mt][t][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[mt][t][e], dl[mt][r])), scale);
+            }
+        lt::chunk_times_cols<MT, NT, DH>(acc, s, Kb, c0, N, lane);  // dq += ds k
+      });
+  if (!active) return;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int rt = r0 + 16 * mt;
+    if (DQ)
+      lt::store_rows<DH>(acc[mt], dq + ((int64_t)b * N + q0) * out_stride + h * DH, out_stride,
+                         rt, N - q0, lane);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int n = q0 + rt + (lane >> 2) + 8 * i;
+        if (n >= N) continue;
+        float* st = stats + ((int64_t)bh * N + n) * 3;
+        st[0] = m[mt][i];
+        st[1] = l[mt][i];
+        st[2] = DQ ? dl[mt][i] : 0.f;
+      }
+    }
+  }
+}
+
+// attn_bwd_long_keys_mma's block at f32 (3xTF32 products): dk (DK) and dv
+// (DV) of 64 MT keys, 4 warps of MT m16 tiles of keys (pair_mt), the keys'
+// K (and V) staged once and read as A fragments; query tiles of chunk_keys,
+// their g rows and statistics through the ring. s^T = k q^T (and dp^T = v
+// g^T) with keys as rows; p and ds from the columns' statistics (0 past N);
+// then dv += p^T g and dk += ds^T q with p^T and ds^T the A fragments
+// straight from the accumulators and g, q rows 2t and 2t + 1 as B. Every
+// instantiation runs these steps on the same operands in the same order, so
+// the split pair equals the monolithic <true, true> bit for bit.
+template <int DH, bool DK, bool DV>
+__global__ void __launch_bounds__(lm::kThreads, DH == 32 ? 3 : 2)
+attn_bwd_long_keys_tf32(const float* __restrict__ qkv, const float* __restrict__ g,
+                        float* __restrict__ out, long long out_stride,
+                        const float* __restrict__ stats, int N, int H, int n_chunks,
+                        float scale) {
+  static_assert(DK || DV, "an instantiation computes dk, dv or both");
+  constexpr int MT = pair_mt<DH>(), TK = 64 * MT;
+  constexpr int QT = lt::chunk_keys<DH>(), NT = QT / 8, QF = lt::tile_floats<DH>(QT);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + lt::tile_floats<DH>(TK);
+  float* ring = Vs + lt::tile_floats<DH>(TK);  // buffer i & 1: q tile, then g tile
+  float* St = ring + 4 * QF;                   // [2][QT][3]
+
+  const int chunk = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks;
+  const int b = bh / H, h = bh % H;
+  const int C = H * DH;
+  const int64_t row3 = 3LL * C;
+  const float* base = qkv + (int64_t)b * N * row3 + h * DH;
+  const float* gbase = g + (int64_t)b * N * C + h * DH;
+  const float* sbase = stats + (int64_t)bh * N * 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = chunk * TK, len = min(TK, N - c0), kr = 16 * MT * warp;
+  const bool active = kr < len;
+  const int n_tiles = (N + QT - 1) / QT;
+
+  auto fetch = [&](int i) {
+    const int t0 = i * QT;
+    float* Qb = ring + (i & 1) * 2 * QF;
+    lt::load_rows<DH>(Qb, base + (int64_t)t0 * row3, row3, QT, N - t0, tid, lm::kThreads);
+    lt::load_rows<DH>(Qb + QF, gbase + (int64_t)t0 * C, C, QT, N - t0, tid, lm::kThreads);
+    float* sb = St + (i & 1) * 3 * QT;
+    for (int k = tid; k < 3 * QT; k += lm::kThreads) {
+      const bool ok = t0 + k / 3 < N;
+      lm::cp_async4(sb + k, ok ? sbase + (int64_t)t0 * 3 + k : sbase, ok);
+    }
+    devit::mma::cp_async_commit();
+  };
+  lt::load_rows<DH>(Ks, base + C + (int64_t)c0 * row3, row3, TK, len, tid, lm::kThreads);
+  if (DK)
+    lt::load_rows<DH>(Vs, base + 2 * C + (int64_t)c0 * row3, row3, TK, len, tid, lm::kThreads);
+
+  float dk[DK ? MT : 1][DH / 8][4], dv[DV ? MT : 1][DH / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (DK) dk[mt][t][e] = 0.f;
+        if (DV) dv[mt][t][e] = 0.f;
+      }
+  // step i: query tile i, its g rows and statistics into buffer i & 1
+  lm::ring_walk(n_tiles, active, fetch, [&](int i) {
+    const float* Qb = ring + (i & 1) * 2 * QF;
+    const float* Gb = Qb + QF;
+    const float* sb = St + (i & 1) * 3 * QT;
+    const int t0 = i * QT;
+    const bool full = t0 + QT <= N;  // no query past N in the tile
+    float s[MT][NT][4], dp[MT][NT][4];
+    lt::times_rows<MT, NT, DH, true>(s, Ks, kr, Qb, 0, N - t0, lane);
+    if (DK) lt::times_rows<MT, NT, DH, true>(dp, Vs, kr, Gb, 0, N - t0, lane);
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int q = 8 * t + 2 * (lane & 3) + c;  // the column's query in the tile
+        const float mq = sb[3 * q], lq = sb[3 * q + 1], rq = __frcp_rn(lq), dq_ = sb[3 * q + 2];
+        const bool in = full || t0 + q < N;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int e = 2 * half + c;
+            const float p = in ? lm::prob(__fmul_rn(s[mt][t][e], scale), mq, lq, rq) : 0.f;
+            s[mt][t][e] = p;
+            if (DK) dp[mt][t][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[mt][t][e], dq_)), scale);
+          }
+      }
+    if constexpr (DV) lt::chunk_times_cols<MT, NT, DH>(dv, s, Gb, t0, N, lane);   // dv += p^T g
+    if constexpr (DK) lt::chunk_times_cols<MT, NT, DH>(dk, dp, Qb, t0, N, lane);  // dk += ds^T q
+  });
+  if (!active) return;
+  float* obase = out + ((int64_t)b * N + c0) * out_stride + h * DH;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    if constexpr (DK) lt::store_rows<DH>(dk[mt], obase + C, out_stride, kr + 16 * mt, len, lane);
+    if constexpr (DV)
+      lt::store_rows<DH>(dv[mt], obase + (DK ? 2 * C : 0), out_stride, kr + 16 * mt, len, lane);
+  }
+}
+
+// rows<dqdk>, then keys<dqdk, dv>, as launch_long_mma.
+template <int DH>
+cudaError_t launch_long_tf32(const void* qkv, const void* g, void* out, long long out_stride,
+                             float* stats, int B, int N, int H, bool dqdk, bool dv, float scale,
+                             cudaStream_t s) {
+  static std::atomic<bool> opted[5][devit::kMaxDevices];
+  const float* x = static_cast<const float*>(qkv);
+  const float* gt = static_cast<const float*>(g);
+  float* o = static_cast<float*>(out);
+  const unsigned bh = (unsigned)(B * H);
+  constexpr int TQ = 64 * pair_mt<DH>();  // query rows of a rows block, keys of a keys block
+  const int tiles = (N + TQ - 1) / TQ;
+  const size_t rs = rows_tf32_smem_bytes<DH>(), ks = keys_tf32_smem_bytes<DH>();
+  cudaError_t err =
+      dqdk ? launch_mma_kernel(attn_bwd_long_rows_tf32<DH, true>, opted[0], bh * tiles, rs, s, x,
+                               gt, o, out_stride, stats, N, H, tiles, scale)
+           : launch_mma_kernel(attn_bwd_long_rows_tf32<DH, false>, opted[1], bh * tiles, rs, s,
+                               x, gt, o, out_stride, stats, N, H, tiles, scale);
+  if (err != cudaSuccess) return err;
+  const float* st = stats;
+  if (dqdk && dv)
+    return launch_mma_kernel(attn_bwd_long_keys_tf32<DH, true, true>, opted[2], bh * tiles, ks,
+                             s, x, gt, o, out_stride, st, N, H, tiles, scale);
+  if (dqdk)
+    return launch_mma_kernel(attn_bwd_long_keys_tf32<DH, true, false>, opted[3], bh * tiles, ks,
+                             s, x, gt, o, out_stride, st, N, H, tiles, scale);
+  return launch_mma_kernel(attn_bwd_long_keys_tf32<DH, false, true>, opted[4], bh * tiles, ks, s,
+                           x, gt, o, out_stride, st, N, H, tiles, scale);
+}
+
 // ---- head widths past 128 (attn_chunked.cuh's steps)
 
 namespace ch = devit::chunked;
@@ -834,13 +883,13 @@ cudaError_t launch_long_dh(const void* qkv, const void* g, void* out, long long 
       return launch_long_mma<64>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
     if (head_dim == 128)
       return launch_long_mma<128>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
-  } else {  // f32: the CUDA-core kernels above
+  } else {  // f32: the 3xTF32 pair
     if (head_dim == 32)
-      return launch_long_t<T, 32>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+      return launch_long_tf32<32>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
     if (head_dim == 64)
-      return launch_long_t<T, 64>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+      return launch_long_tf32<64>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
     if (head_dim == 128)
-      return launch_long_t<T, 128>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
+      return launch_long_tf32<128>(qkv, g, out, out_stride, stats, B, N, H, dqdk, dv, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -853,8 +902,7 @@ namespace bwd {
 size_t long_smem_bytes(int dh, int elem) {
   if (dh > 128)  // the keys kernel's, the larger of the two
     return elem == 2 ? wide_keys_smem_bytes<__nv_bfloat16>() : wide_keys_smem_bytes<float>();
-  if (elem == 2) return long_mma_smem_bytes(dh);
-  return dqdk_smem_bytes<float>(long_chunk(dh), dh);
+  return elem == 2 ? long_mma_smem_bytes(dh) : long_tf32_smem_bytes(dh);
 }
 
 cudaError_t launch_long(const void* qkv, const void* g, void* out, long long out_stride,

@@ -47,8 +47,10 @@
 //   through a two-stage cp.async ring (at dh 64 one chunk a head).
 // Every output has one writer; no atomics, the same bits on every run.
 //
-// f32: f32 FMAs on the CUDA cores (block_attn_kernel): the f32 tolerance is
-// 1e-4, and a TF32 mma keeps ~10 mantissa bits of each operand, too few. A
+// f32: f32 FMAs on the CUDA cores (block_attn_kernel). One TF32 mma pass
+// keeps too few bits for the f32 tolerance of 1e-4; the forward and the
+// backwards run f32 as three TF32 passes (3xTF32) on the tensor cores, and
+// this half, with no caller, was not moved to them. A
 // block owns one batch row and loops over the heads; no other block touches
 // its rows, so nothing needs atomics and every run gives the same bits. The
 // LayerNorm'd rows (N x C) and the f32 residual accumulator do not fit in
@@ -78,7 +80,8 @@
 // allocates, (B N, 4 K) of t's dtype: block_gemm_kernel<LN> forms qkv =
 // round(LayerNorm(t) . W + b) (statistics in f32, h rounded), the forward's
 // kernels (attention.cu, which chunk the keys: attn_long_mma at bf16 past
-// 256 keys, attn_chunked_kernel otherwise) give o, rounded, and
+// 256 keys, attn_long_tf32 at f32, attn_chunked_kernel past head width 128)
+// give o, rounded, and
 // block_gemm_kernel<!LN> adds o . proj onto t in f32, then proj_bias, one
 // rounding. The GEMMs run f32 FMAs on the CUDA cores (T products are exact
 // in f32): right, not fast.

@@ -36,9 +36,9 @@
 // block walks its queries twice, each pass summing dk and dv for one 64-dim
 // half (s, p, dp and ds recomputed; dq written in the first pass only).
 // Where the monolithic kernel's tiles do not fit shared memory (dh 128 past
-// N 208 at bf16, dh 128 at f32 from about N 150), every backward wrapper
-// takes the chunked path of attention_bwd_long.cu instead (use_long_path),
-// so the split pair still equals the monolithic kernel bit for bit.
+// N 208), every backward wrapper takes the chunked path of
+// attention_bwd_long.cu instead (use_long_path), as it does at f32, so the
+// split pair still equals the monolithic kernel bit for bit.
 //
 // Every instantiation keeps one 512-thread block an SM: the dv kernel with
 // __launch_bounds__(512, 2) (two blocks, ~84 KB of shared memory each at N
@@ -52,7 +52,6 @@
 
 namespace {
 
-using devit::bwd::dqdk_smem_bytes;
 using devit::bwd::kBQ;
 using devit::bwd::kShortN;
 using devit::bwd::kThreads;
@@ -83,21 +82,19 @@ size_t mma_smem_bytes(int n, int dh) {
 
 // Whether every backward (the monolithic kernel and both split kernels) walks
 // key chunks (attention_bwd_long.cu) at (n, dh, elem bytes) on a device that
-// lets a block opt in to `optin` bytes of shared memory: past kShortN keys,
-// or where a block of the monolithic kernel would not fit, and at every head
-// width past 128. One rule for all three keeps the split pair bit for bit
-// equal to the monolithic kernel.
+// lets a block opt in to `optin` bytes of shared memory: at f32 (the 3xTF32
+// pair), past kShortN keys, where a bf16 block of the monolithic kernel would
+// not fit, and at every head width past 128. One rule for all three keeps the
+// split pair bit for bit equal to the monolithic kernel.
 inline bool use_long_path(int n, int dh, int elem, long long optin) {
-  if (n > kShortN || dh > 128) return true;
-  const size_t need = elem == 2 ? mma_smem_bytes<true, true>(n, dh)
-                                : dqdk_smem_bytes<float>(n, dh);
-  return (long long)need > optin;
+  if (n > kShortN || dh > 128 || elem == 4) return true;  // f32: the 3xTF32 pair at every N
+  return (long long)mma_smem_bytes<true, true>(n, dh) > optin;
 }
 
 // Tile rows r0 .. r0 + R - 1: s (in P) -> round(p) into Pb (DV) and, with
 // dp (in D), ds into Sb (DS), bf16, zero past N and in rows past the
-// sequence, with the arithmetic of softmax_row and ds_row (bwd_common.cuh):
-// row max, expf, sum, the IEEE quotient (div_rn), the fmaf rowsum over the
+// sequence, with the arithmetic of an f32 softmax row and its ds row: row
+// max, expf, sum, the IEEE quotient (div_rn), the fmaf rowsum over the
 // unrounded p, ds = round((p (dp - rs)) scale). Lane l holds the column pairs
 // 2l + 64k in registers (float2 loads, bf16x2 stores); R rows go through at
 // once for independent chains. p comes out with the same bits whatever DS and

@@ -1,10 +1,11 @@
 // Tensor-core building blocks shared by the bf16 kernels (attention.cu,
-// attention_bwd.cu, attention_bwd_split.cu, block_attention.cu) and the int8
-// matmul (quant_matmul.cu): 16-byte cp.async staging into an XOR-swizzled
-// tile of head rows (DH = 32, 64 or 128 bf16: 64-, 128- or 256-byte rows) or
-// of 128-byte int8 rows, ldmatrix (plain and
-// transposed), the m16n8k16 bf16 mma.sync with f32 accumulation and the
-// m16n8k32 s8 mma.sync with exact int32 accumulation.
+// attention_bwd.cu, attention_bwd_split.cu, block_attention.cu), the f32
+// attention kernels (long_tf32.cuh) and the int8 matmul (quant_matmul.cu):
+// 16-byte cp.async staging into an XOR-swizzled tile of head rows (DH = 32,
+// 64 or 128 bf16: 64-, 128- or 256-byte rows) or of 128-byte int8 rows,
+// ldmatrix (plain and transposed), the m16n8k16 bf16 mma.sync with f32
+// accumulation, the m16n8k8 TF32 mma.sync and its 3xTF32 product at f32
+// accuracy, and the m16n8k32 s8 mma.sync with exact int32 accumulation.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane l holds, of the f32
 // accumulator, rows l/4 (c0, c1) and l/4 + 8 (c2, c3) at columns 2(l%4) and
@@ -154,6 +155,71 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int Pending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// ---- f32 at f32 accuracy on the TF32 tensor cores (m16n8k8 .tf32, 3xTF32)
+//
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4, t = lane % 4:
+// A {a0, a1, a2, a3} = (row g, k t), (row g + 8, k t), (row g, k t + 4),
+// (row g + 8, k t + 4); B {b0, b1} = (k t, column g), (k t + 4, column g);
+// the f32 accumulator as mma_bf16's, (c0, c1, c2, c3) = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1). An 8x8 b16 matrix of ldmatrix is 8 rows of 4
+// f32, lane l receiving f32 l % 4 of row l / 4: the A fragment's (row, k t)
+// and the B fragment of a tile whose rows are B's columns (k contiguous).
+//
+// One TF32 pass keeps 11 significant bits of each operand, too few for the
+// f32 tolerance. Each operand is split as x = big + small, big = x rounded to
+// TF32 and small = x - big (exact) rounded to TF32, and a b = big big + big
+// small + small big: the dropped small small term and small's own rounding
+// sit ~2^-22 below the product, near the f32 rounding of the sum (the 3xTF32
+// of CUTLASS's OpMultiplyAddFastF32, which SDPA's f32 path runs).
+
+// x = big + small, both TF32 (x given as its 32 bits): big = x rounded to
+// TF32 to nearest, ties away from zero (cvt.rna.tf32.f32's rounding, written
+// as an integer add and mask, two instructions where cvt takes more; equal
+// to it for every finite x), small = x - big (exact) rounded the same way.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big, uint32_t& small) {
+  big = (x + 0x1000u) & 0xffffe000u;
+  const uint32_t r = __float_as_uint(__fsub_rn(__uint_as_float(x), __uint_as_float(big)));
+  small = (r + 0x1000u) & 0xffffe000u;
+}
+
+// d += a b: m16n8k8, TF32 operands, f32 accumulators (one pass).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four registers of fragments (an A fragment, or two B fragments) as their
+// (big, small) halves.
+__device__ __forceinline__ void split4(const uint32_t (&x)[4], uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(x[e], big[e], small[e]);
+}
+
+// d += a b at f32 accuracy from the split halves of a (ab, as) and b ({bb0,
+// bb1}, {bs0, bs1}): three TF32 passes, the small terms first (small a . big
+// b, then big a . small b; with SmallBFirst the other way round), then big a
+// . big b. A product whose operands trade places (k q^T against q k^T) with
+// SmallBFirst flipped adds the same terms in the same order, so it gives the
+// same bits.
+template <bool SmallBFirst = false>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  if (SmallBFirst) {
+    mma_tf32(d, ab, bs0, bs1);
+    mma_tf32(d, as, bb0, bb1);
+  } else {
+    mma_tf32(d, as, bb0, bb1);
+    mma_tf32(d, ab, bs0, bs1);
+  }
+  mma_tf32(d, ab, bb0, bb1);
 }
 
 // ---- int8 (m16n8k32 .s8)

@@ -13,10 +13,12 @@ pair (attention_bwd_dv, attention_bwd_dqdk) at B 64 with kh 6 (the stage-5
 step's shape) and B 256 with kh 6, all at N 198, bf16, by CUDA events over 30
 launches after 3 warm-up launches queued behind a spin kernel (device time,
 without the host's launch overhead), beside SDPA's forward on the same
-inputs; the bf16 kernels past 256 keys at B 64, N 578, kh 6 (dedeit at 384
+inputs; the kernels past 256 keys at B 64, N 578, kh 6 (dedeit at 384
 px): fused_attention, attention_bwd, attention_bwd_split and the dv and
-dq/dk kernels; the bf16 dedeit stage-2 step at 384 px, B 64, with the
-kernels (host clock over 3 steps after one);
+dq/dk kernels, in bf16 and in f32 (beside SDPA's f32 forward and backward);
+the f32 kernels at N 198 and head widths 32, 64 and 128 (the forward at B
+256, the backwards at B 64); the dedeit stage-2 step at 384 px with the
+kernels, bf16 at B 64 and f32 at B 16 (host clock over 3 steps after one);
 fused_int8_matmul (bf16 in and out) at M 50688 (bs256 x 198 tokens) at every
 distinct (K, N) of the deployed divisions' weight products, with each
 layer's own quantized weights, summed over one int8 forward's 192 calls; and
@@ -48,13 +50,17 @@ N, DH = 198, 64
 FWD = [(256, kh) for kh in range(1, 7)] + [(64, 6), (64, 12)]
 BWD = [(256, 6), (64, 6), (64, 12)]
 SPLIT = [(64, 6), (256, 6)]
-LONG = (64, 578, 6)  # B, N, kh of the bf16 kernels past 256 keys (dedeit at 384 px)
+LONG = (64, 578, 6)  # B, N, kh of the kernels past 256 keys (dedeit at 384 px)
+# f32 (3xTF32 on the tensor cores): (head width, heads) at N 198, the
+# forward at B 256, the backwards at B 64, as chip_smoke.py's [heads]
+F32_HEADS = ((32, 12), (64, 6), (128, 6))
 # outputs hashed, not timed: (dtype, B, N, heads, head width) of every other
-# path: f32 at N 198 and past its whole-row block, bf16 and f32 past head
-# width 128, bf16 at dh 32 and 128
-HASHED = ([("f32", 64, N, 6, 64), ("f32", 4, 578, 6, 64), ("bf16", 2, 578, 4, 192),
-           ("f32", 2, 578, 4, 192), ("bf16", 16, N, 12, 32), ("bf16", 16, N, 6, 128)])
-S384 = (64, 3)  # B and timed steps of the bf16 384-px stage-2 step
+# path: f32 at N 198 and 578 (dh 64; dh 32 and 128 past 256 keys), bf16 and
+# f32 past head width 128, bf16 at dh 32 and 128
+HASHED = ([("f32", 64, N, 6, 64), ("f32", 4, 578, 6, 64), ("f32", 2, 578, 12, 32),
+           ("f32", 2, 578, 6, 128), ("bf16", 2, 578, 4, 192), ("f32", 2, 578, 4, 192),
+           ("bf16", 16, N, 12, 32), ("bf16", 16, N, 6, 128)])
+S384 = (("bfloat16", 64, 3), ("float32", 16, 3))  # dtype, B, timed steps: the 384-px steps
 
 
 def _time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
@@ -108,16 +114,41 @@ def child(root: Path) -> dict:
             digest[f"{name} B{B} kh{kh}"] = _digest(fn(x, g, kh))
 
     B, n, kh = LONG
-    x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").bfloat16()
-    g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").bfloat16()
-    for name, fn in (("fwd", lambda: fused_attention(x, num_heads=kh)),
-                     ("bwd", lambda: attention_bwd(x, g, kh)),
-                     ("split", lambda: attention_bwd_split(x, g, kh)),
-                     ("dv", lambda: attention_bwd_dv(x, g, kh)),
-                     ("dqdk", lambda: attention_bwd_dqdk(x, g, kh))):
-        key = f"{name} B{B} N{n} kh{kh}"
-        res[key] = _time_ms(torch, fn, iters=10 if name == "fwd" else 5, warmup=2)
-        digest[key] = _digest(fn())
+    for dt, tag in ((torch.bfloat16, ""), (torch.float32, " f32")):
+        x = torch.randn((B, n, 3 * kh * DH), generator=gen, device="cuda").to(dt)
+        g = torch.randn((B, n, kh * DH), generator=gen, device="cuda").to(dt)
+        for name, fn in (("fwd", lambda: fused_attention(x, num_heads=kh)),
+                         ("bwd", lambda: attention_bwd(x, g, kh)),
+                         ("split", lambda: attention_bwd_split(x, g, kh)),
+                         ("dv", lambda: attention_bwd_dv(x, g, kh)),
+                         ("dqdk", lambda: attention_bwd_dqdk(x, g, kh))):
+            key = f"{name}{tag} B{B} N{n} kh{kh}"
+            res[key] = _time_ms(torch, fn, iters=10 if name == "fwd" else 5, warmup=2)
+            digest[key] = _digest(fn())
+        if dt == torch.float32:  # SDPA's f32 forward and backward on the same inputs
+            q, k, v = (t.contiguous().requires_grad_()
+                       for t in x.view(B, n, 3, kh, DH).permute(2, 0, 3, 1, 4))
+            out = sdpa(q, k, v)
+            gh = g.view(B, n, kh, DH).transpose(1, 2)
+            res[f"sdpa f32 B{B} N{n} kh{kh}"] = _time_ms(
+                torch, lambda: sdpa(q.detach(), k.detach(), v.detach()), iters=10, warmup=2)
+            res[f"sdpa bwd f32 B{B} N{n} kh{kh}"] = _time_ms(
+                torch, lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True),
+                iters=5, warmup=2)
+            del q, k, v, out
+    for dh, kh in F32_HEADS:  # f32 at N 198, every head width
+        xf = torch.randn((256, N, 3 * kh * dh), generator=gen, device="cuda")
+        x = torch.randn((64, N, 3 * kh * dh), generator=gen, device="cuda")
+        g = torch.randn((64, N, kh * dh), generator=gen, device="cuda")
+        for name, fn in (("fwd B256", lambda: fused_attention(xf, num_heads=kh)),
+                         ("bwd B64", lambda: attention_bwd(x, g, kh)),
+                         ("split B64", lambda: attention_bwd_split(x, g, kh)),
+                         ("dv B64", lambda: attention_bwd_dv(x, g, kh)),
+                         ("dqdk B64", lambda: attention_bwd_dqdk(x, g, kh))):
+            key = f"{name} f32 N{N} kh{kh} dh{dh}"
+            res[key] = _time_ms(torch, fn, iters=10, warmup=2)
+            digest[key] = _digest(fn())
+        del xf, x, g
     for dtype, B, n, kh, dh in HASHED:
         dt = torch.float32 if dtype == "f32" else torch.bfloat16
         x = torch.randn((B, n, 3 * kh * dh), generator=gen, device="cuda").to(dt)
@@ -133,7 +164,8 @@ def child(root: Path) -> dict:
         args = (r(4, n, C).to(dt), 1 + 0.1 * r(C), 0.1 * r(C), (0.05 * r(C, 3 * Kh)).to(dt),
                 0.1 * r(3 * Kh), (0.05 * r(Kh, C)).to(dt), 0.1 * r(C))
         digest[f"block {str(dt)[6:]} N{n}"] = _digest(fused_block_attention(*args, num_heads=kh))
-    res["stage2 384px step"] = _step_384(torch)
+    for dtype, B, steps in S384:
+        res[f"stage2 384px step {dtype} B{B}"] = _step_384(torch, getattr(torch, dtype), B, steps)
 
     _, cms, _ = deploy.build_artifacts(device="cuda")
     weights, calls, mix = {}, {}, {}
@@ -168,10 +200,10 @@ def child(root: Path) -> dict:
     return {"ms": res, "digest": digest}
 
 
-def _step_384(torch) -> float:
-    """ms of the bf16 dedeit stage-2 step at 384 px (N 578) with the
-    kernels: S384[1] steps through train_epoch after one warm-up step, host
-    clock ending in synchronize."""
+def _step_384(torch, dtype, B: int, steps: int) -> float:
+    """ms of the dedeit stage-2 step of `dtype` at 384 px (N 578), batch B,
+    with the kernels: `steps` steps through train_epoch after one warm-up
+    step, host clock ending in synchronize."""
     from devit_tpu_torch.data.mixup import MixupConfig
     from devit_tpu_torch.models.vit import create_vit
     from devit_tpu_torch.train.loop import train_epoch
@@ -179,12 +211,11 @@ def _step_384(torch) -> float:
     from devit_tpu_torch.train.state import TrainState
     from devit_tpu_torch.train.steps import make_stage2_step
 
-    B, steps = S384
     gen = torch.Generator(device="cuda").manual_seed(1)
-    batch = (torch.randn((B, 384, 384, 3), generator=gen, device="cuda").bfloat16(),
+    batch = (torch.randn((B, 384, 384, 3), generator=gen, device="cuda").to(dtype),
              torch.randint(0, 25, (B,), generator=gen, device="cuda"))
     model = create_vit("dedeit", img_size=384, num_classes=25, drop_path_rate=0.1,
-                       dtype=torch.bfloat16, use_kernel=True, use_remat=True, device="cuda",
+                       dtype=dtype, use_kernel=True, use_remat=True, device="cuda",
                        generator=torch.Generator().manual_seed(0))
     state = TrainState.create(model, make_optimizer(OptimConfig(lr=5e-4, epochs=100), 100),
                               use_ema=True)

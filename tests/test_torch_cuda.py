@@ -259,13 +259,24 @@ def test_bf16_wrappers_reject_unaligned_operands(gen):
             fn(x, torch.zeros((2, N, DH), device="cuda").bfloat16(), 1)
 
 
+def test_f32_wrappers_reject_unaligned_operands(gen):
+    """The f32 kernels stage head rows with 16-byte cp.async too (3xTF32)."""
+    buf = torch.zeros(1 + 2 * N * 3 * DH, device="cuda")
+    x = buf[1:].view(2, N, 3 * DH)  # contiguous, 4 bytes past an aligned start
+    with pytest.raises(ValueError, match="aligned"):
+        fused_attention(x, num_heads=1)
+    for fn in (attention_bwd, attention_bwd_dv, attention_bwd_dqdk, attention_bwd_split):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(x, torch.zeros((2, N, DH), device="cuda"), 1)
+
+
 # ---- the split backward: attention_bwd_dv, attention_bwd_dqdk (csrc/attention_bwd_split.cu)
 
 
 def _split_errs(x, g, kh):
     """max-abs over max-ref of dq, dk (the dqdk kernel) and dv (the dv
     kernel), each against its plain version."""
-    C = kh * DH
+    C = g.shape[-1]
     dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
     torch.cuda.synchronize()
     want_qk, want_v = reference_attention_bwd_dqdk(x, g, kh), reference_attention_bwd_dv(x, g, kh)
@@ -355,8 +366,8 @@ def test_split_wrappers_reject_what_the_kernels_do_not_take(gen):
 @pytest.mark.parametrize("n", EDGE_N)
 def test_split_equals_monolithic_bit_for_bit(gen, n):
     """The split pair runs the monolithic kernel's steps on the same
-    operands in the same order (bwd_mma.cuh at bf16, bwd_common.cuh at f32):
-    the same bits at every N the one-block-a-head kernels take."""
+    operands in the same order (bwd_mma.cuh at bf16, the 3xTF32 long path of
+    long_tf32.cuh at f32): the same bits at every N up to 256."""
     for dtype in (torch.bfloat16, torch.float32):
         for kh in (1, 6, 12):
             for B in (1, 7):
@@ -437,6 +448,37 @@ def test_bf16_long_path_head_widths(gen, n, dh):
             torch.cuda.synchronize()
             assert _rel(fwd, reference_attention(x, num_heads=kh)) <= TOL[torch.bfloat16]
             assert torch.equal(fwd, fused_attention(x, num_heads=kh))
+
+
+# f32 on the tensor cores (3xTF32: attn_long_tf32, attn_bwd_long_rows_tf32,
+# attn_bwd_long_keys_tf32) at every N: the stage shapes' N 198 and past 256
+# keys, every instantiated head width
+F32_CASES = [(n, dh) for n in (198, 258, 578, 1026) for dh in (32, 64, 128)]
+F32_KH = {32: 12, 64: 6, 128: 6}  # C 384, 384 and 768, as chip_smoke.py's [heads]
+
+
+@pytest.mark.parametrize("n, dh", F32_CASES)
+def test_f32_tensor_core_paths(gen, n, dh):
+    """The f32 forward and each backward wrapper within 1e-4 of their plain
+    versions (dq, dk and dv each), every repeat bit for bit, and the split
+    pair, dq/dk and dv equal to the monolithic backward bit for bit."""
+    kh, B = F32_KH[dh], 2
+    C = kh * dh
+    x = torch.randn((B, n, 3 * C), generator=gen, device="cuda")
+    g = torch.randn((B, n, C), generator=gen, device="cuda")
+    fwd, mono = fused_attention(x, num_heads=kh), attention_bwd(x, g, kh)
+    torch.cuda.synchronize()
+    assert _rel(fwd, reference_attention(x, num_heads=kh)) <= TOL[torch.float32]
+    errs = _bwd_errs(mono, reference_attention_bwd(x, g, kh), C)
+    assert max(errs) <= TOL[torch.float32], errs
+    assert max(_split_errs(x, g, kh)) <= TOL[torch.float32]
+    assert torch.equal(fwd, fused_attention(x, num_heads=kh))
+    assert torch.equal(mono, attention_bwd(x, g, kh))
+    dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
+    assert torch.equal(attention_bwd_split(x, g, kh), mono)
+    assert torch.equal(dqdk, mono[..., :2 * C]) and torch.equal(dv, mono[..., 2 * C:])
+    assert torch.equal(dqdk, attention_bwd_dqdk(x, g, kh))
+    assert torch.equal(dv, attention_bwd_dv(x, g, kh))
 
 
 @pytest.mark.parametrize("mode", ["monolithic", "split"])
@@ -876,6 +918,9 @@ def test_forward_paths_are_the_designs_the_sizes_call_for(gen):
 
     assert attention_path(256, 64, torch.bfloat16) == "whole-row"
     assert attention_path(257, 64, torch.bfloat16) == "key-chunked mma"
-    assert attention_path(198, 64, torch.float32) == "whole-row"
-    assert attention_path(578, 64, torch.float32) == "key-chunked CUDA cores"
+    # f32 at every N up to head width 128: the 3xTF32 kernel over key chunks
+    for n in (1, 198, 578):
+        for dh in (32, 64, 128):
+            assert attention_path(n, dh, torch.float32) == "key-chunked mma", (n, dh)
+    assert attention_path(198, 192, torch.float32) == "key-chunked CUDA cores"
     assert attention_path(198, 192, torch.bfloat16) == "key-chunked CUDA cores"

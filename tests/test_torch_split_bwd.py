@@ -127,7 +127,11 @@ def test_unknown_modes_and_devices_raise(monkeypatch):
 
 def test_long_path_scratch():
     """Past 256 keys the CUDA backwards take a (B, H, N, 3) f32 scratch of
-    row statistics from the wrapper; at 256 and below none."""
-    assert tattn._bwd_stats(torch.zeros((2, 256, 3 * 64)), 1) is None
-    stats = tattn._bwd_stats(torch.zeros((2, 257, 3 * 3 * 64)), 3)
+    row statistics from the wrapper; at bf16 and 256 keys or fewer none. The
+    f32 backwards walk key chunks (the 3xTF32 pair) and take it at every N."""
+    assert tattn._bwd_stats(torch.zeros((2, 256, 3 * 64), dtype=torch.bfloat16), 1) is None
+    stats = tattn._bwd_stats(torch.zeros((2, 257, 3 * 3 * 64), dtype=torch.bfloat16), 3)
     assert stats.shape == (2, 3, 257, 3) and stats.dtype == torch.float32
+    for n in (1, 198, 256, 257):
+        stats = tattn._bwd_stats(torch.zeros((2, n, 3 * 3 * 64)), 3)
+        assert stats.shape == (2, 3, n, 3) and stats.dtype == torch.float32
