@@ -12,7 +12,8 @@ two block-attention kernels; in the f32 forward and backward pair, 3xTF32;
 IMMA in the int8 GEMM), holds each kernel
 against its plain PyTorch version on the card (the split pair also against
 the monolithic kernel, bit for bit; every backward past 256 keys at head
-widths 32, 64 and 128, [bwd-long]), runs the deployed 4-division dedeit
+widths 32, 64 and 128, [bwd-long]; the f32 kernels at N 198 to 4098,
+[f32-long]), runs the deployed 4-division dedeit
 ensemble at full width, serves it over HTTP to concurrent clients, times
 the kernels and the forward. Then the deployment artifacts: the int8 matmul
 kernel against its
@@ -53,12 +54,15 @@ with each kernel's launches, a second `pipeline` that skips every stage,
 requests as engine.predict does, and the served correct count over the
 val set equal to `ensemble --compact-path`'s. Then the attention kernels at
 every sequence length and head width the JAX kernel takes ([attn-long]:
-N 291 to 1026, head widths 32 to 256, the forward, the trainable attention
+N 291 to 1026, head widths 32 to 320, the forward, the trainable attention
 in both backward modes and the block half against their plain versions,
-the key-chunked designs timed), one dedeit stage-2 step at 384 px in f32
+the key-chunked designs and those past head width 128 timed), one dedeit
+stage-2 step at 384 px in f32
 and bf16 against the plain attention, the steady bf16 step at B 64 and f32
 step at B 16 with the kernels and with the plain attention in turns
-([stage2-384]), the CCT family
+([stage2-384]), the stage-2 step of a dedeit with --embed-dim 768
+--num-heads 4 (dh 192, depth 4) in f32 and bf16 against the plain attention,
+the main path of the routes past head width 128 ([stage2-wide]), the CCT family
 ([cct]: cct_14_7x2_224 on the card against the CPU, a bf16 stage-2 step,
 and `pipeline --model cct_7_3x1_32` through every stage) and the stage-5
 resume across optimizer families ([resume]). Then the masked-attention text
@@ -85,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import os
 import pickle
@@ -206,13 +211,16 @@ def _qkv(B: int, kh: int, dtype, gen, zero_head: bool = False) -> torch.Tensor:
 # of attn_bwd_long_rows_mma<DH, DQ> and attn_bwd_long_keys_mma<DH, DK, DV>;
 # the f32 forward attn_long_tf32<DH> and backward pair
 # attn_bwd_long_rows_tf32<DH, DQ> and attn_bwd_long_keys_tf32<DH, DK, DV>
-# (3xTF32: HMMA.1688.F32.TF32); of the bf16 block-attention kernels
+# (3xTF32: HMMA.1688.F32.TF32); past head width 128, in both dtypes,
+# attn_wide_mma<T, SW>, attn_bwd_wide_rows_mma<T, DQ> and
+# attn_bwd_wide_keys_mma<T, DK, DV>; of the bf16 block-attention kernels
 # block_qkv_attn_kernel<KC, DH> and block_proj_kernel<Ragged>; the int8 GEMM
 # (m16n8k32 s8 is IMMA).
 # tests/test_torch_kernel_build.py checks that every __global__ of csrc/ is
 # either here or in its list of CUDA-core kernels.
 HEAD_DIMS = (32, 64, 128)
 KEY_CHUNKS = (4, 8, 13, 16)  # KC: the score registers' key steps (launch_bf16)
+WIDE_TYPES = (("bf16", "13__nv_bfloat16"), ("f32", "f"))  # T of the wide kernels, mangled
 MMA_KERNELS = {
     **{f"attn_kernel_mma<{kc},{dh}>": (rf"attn_kernel_mmaILi{kc}ELi{dh}EE", "HMMA")
        for dh in HEAD_DIMS for kc in KEY_CHUNKS},
@@ -245,6 +253,21 @@ MMA_KERNELS = {
     **{f"attn_bwd_long_keys_tf32<{dh},{a},{b}> ({w} f32)":
        (rf"attn_bwd_long_keys_tf32ILi{dh}ELb{ia}ELb{ib}EE", "HMMA")
        for dh in HEAD_DIMS
+       for a, b, ia, ib, w in (("true", "true", 1, 1, "attention_bwd"),
+                               ("false", "true", 0, 1, "attention_bwd_dv"),
+                               ("true", "false", 1, 0, "attention_bwd_dqdk"))},
+    # past head width 128, both dtypes: the forward and the backward pair over
+    # head pieces and output slabs (csrc/wide.cuh), any slab width
+    **{f"attn_wide_mma<{t}> (fused_attention past dh 128)":
+       (rf"attn_wide_mmaI{m}Li\d+EE", "HMMA") for t, m in WIDE_TYPES},
+    **{f"attn_bwd_wide_rows_mma<{t},{q}> ({w} past dh 128)":
+       (rf"attn_bwd_wide_rows_mmaI{m}Lb{iq}EE", "HMMA")
+       for t, m in WIDE_TYPES
+       for q, iq, w in (("true", 1, "attention_bwd, attention_bwd_dqdk"),
+                        ("false", 0, "attention_bwd_dv"))},
+    **{f"attn_bwd_wide_keys_mma<{t},{a},{b}> ({w} past dh 128)":
+       (rf"attn_bwd_wide_keys_mmaI{m}Lb{ia}ELb{ib}EE", "HMMA")
+       for t, m in WIDE_TYPES
        for a, b, ia, ib, w in (("true", "true", 1, 1, "attention_bwd"),
                                ("false", "true", 0, 1, "attention_bwd_dv"),
                                ("true", "false", 1, 0, "attention_bwd_dqdk"))},
@@ -1302,6 +1325,57 @@ def phase_bwd_long(card: str) -> dict:
                 cases=n_cases, times=times)
 
 
+# the f32 kernels far past the lengths the main paths use: the error of
+# their long sums against N (3xTF32, each k8 step of p . v, dq, dk and dv
+# added to its accumulator in f32), dh 64 and 128 (attn_long_tf32 and the
+# 3xTF32 pair) and 192 (the wide kernels), B 1, kh 2
+F32_LONG_N = (198, 578, 1026, 2050, 4098)
+F32_LONG_DH = (64, 128, 192)
+
+
+def phase_f32_long(card: str) -> dict:
+    """The f32 forward, the monolithic backward and the split pair at
+    F32_LONG_N and F32_LONG_DH (B 1, kh 2), each against its plain version
+    within 1e-4 (max-abs over max-ref; dq, dk and dv each on its own),
+    repeats bit for bit and the split pair equal to the monolithic backward
+    bit for bit. Prints the worst rel err of each N. Launches here are
+    checks, not counted. Returns {N: worst rel err}."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    before = _counts()
+    kh, B, dtype = 2, 1, torch.float32
+    by_n, cells = {}, {}
+    for n in F32_LONG_N:
+        for dh in F32_LONG_DH:
+            C = kh * dh
+            x = torch.randn((B, n, 3 * C), generator=gen, device="cuda")
+            g = torch.randn((B, n, C), generator=gen, device="cuda")
+            fwd, fwd2 = fused_attention(x, num_heads=kh), fused_attention(x, num_heads=kh)
+            mono, mono2 = attention_bwd(x, g, kh), attention_bwd(x, g, kh)
+            split = attention_bwd_split(x, g, kh)
+            torch.cuda.synchronize()
+            errs = [_rel(fwd, reference_attention(x, num_heads=kh))]
+            errs += _bwd_errs(mono, reference_attention_bwd(x, g, kh), C)
+            where = f"[f32-long] N {n} dh {dh} kh {kh} B {B}"
+            if max(errs) > TOL[dtype]:
+                raise AssertionError(f"{where}: rel err o, dq, dk, dv {errs} > 1e-4")
+            if not (torch.equal(fwd, fwd2) and torch.equal(mono, mono2)
+                    and torch.equal(split, mono)):
+                raise AssertionError(f"{where}: a repeat, or the split pair against the "
+                                     "monolithic backward, differs in its bits")
+            cells[f"N {n} dh {dh}"] = errs
+            by_n[n] = max(by_n.get(n, 0.0), max(errs))
+            del x, g, fwd, fwd2, mono, mono2, split
+            torch.cuda.empty_cache()
+    _set_counts(before)
+    print(f"[f32-long] f32 forward, monolithic backward and split pair at N {list(F32_LONG_N)}, "
+          f"dh {list(F32_LONG_DH)}, kh {kh}, B {B} vs their plain versions: every case within "
+          f"1e-4 (o, dq, dk, dv each), repeats and split == monolithic bit for bit; worst rel "
+          f"err by N: {', '.join(f'N {n} {e:.3e}' for n, e in by_n.items())} [{card}]")
+    print(f"[f32-long] rel err o, dq, dk, dv by case: "
+          f"{', '.join(f'{k} ' + '/'.join(f'{e:.2e}' for e in v) for k, v in cells.items())}")
+    return dict(worst_by_n=by_n, cells=cells)
+
+
 TRAIN_B, TRAIN_KH, TRAIN_CLASSES = 256, 6, 25
 
 
@@ -1541,6 +1615,16 @@ def _set_counts(counts) -> None:
 
 def _delta(before) -> tuple:
     return tuple(a - b for a, b in zip(_counts(), before))
+
+
+def _wide_counts() -> tuple:
+    """Each wrapper's launches past head width 128 (`wide_launches`)."""
+    return tuple(k.wide_launches for k in _KERNELS)
+
+
+def _set_wide_counts(counts) -> None:
+    for k, c in zip(_KERNELS, counts):
+        k.wide_launches = c
 
 
 def _set_mode(models, mode: str) -> None:
@@ -2955,13 +3039,16 @@ def phase_heads_pad(card: str) -> dict:
 
 # (N, head width, heads): dedeit's dh 64 at 272, 384, 464 and 512 px (N 291,
 # 578, 843, 1026), dh 32 and 128 at 384 px, and heads past 128 (dh 192: embed
-# 768 at 4 heads; dh 256: 768 at 3) at 224 and 384 px
+# 768 at 4 heads; dh 256: 768 at 3; dh 160 and 320, 640 at 4 and 2, which the
+# wrappers zero-pad to 192 and run in three slabs) at 224 and 384 px
 ATTN_LONG_CASES = ([(n, 64, 6) for n in (291, 578, 843, 1026)] + [(578, 32, 12), (578, 128, 6)]
-                   + [(n, dh, kh) for n in (198, 578) for dh, kh in ((192, 4), (256, 3))])
+                   + [(n, dh, kh) for n in (198, 578)
+                      for dh, kh in ((192, 4), (256, 3), (160, 4), (320, 2))])
 BLOCK_LONG_CASES = [(291, 64, 6), (578, 64, 6), (198, 192, 2), (578, 192, 2)]  # C 384
 ATTN_LONG_B = 2
 ATTN_LONG_TIME = (64, 578, 6)  # B, N, kh of the timed forward (dh 64)
-ATTN_WIDE_TIME = (64, 578, 4, 192)  # B, N, kh, dh of the timed paths past head width 128
+# B, N, kh, dh of the timed paths past head width 128
+ATTN_WIDE_TIME = ((64, 578, 4, 192), (64, 578, 3, 256))
 ATTN_BLOCK_TIME = (16, 578, 6, 384)  # B, N, kh, C of the block half's timed chunked route
 
 
@@ -3051,9 +3138,13 @@ def phase_attn_long(card: str) -> dict:
                                      "split backward against the monolithic one, differs in "
                                      "its bits")
             d = (grads["monolithic"].float() - want_b.float()).abs()
-            for key, v in (("fwd", (fwd.float() - want_f.float()).abs().max()), ("bwd", d.max()),
-                           ("dqdk", d[..., :2 * C].max()), ("dv", d[..., 2 * C:].max())):
+            f = (fwd.float() - want_f.float()).abs().max()
+            for key, v in (("fwd", f), ("bwd", d.max()), ("dqdk", d[..., :2 * C].max()),
+                           ("dv", d[..., 2 * C:].max())):
                 _note(worst, max_abs, key, dtype, 0.0, float(v))
+            if dh > 128:  # the wide kernels' own entries in the kernels line
+                _note(worst, max_abs, "wide fwd", dtype, 0.0, float(f))
+                _note(worst, max_abs, "wide bwd", dtype, 0.0, float(d.max()))
             worst[dtype] = max(worst[dtype], max(max(v) for v in errs.values()))
             paths[f"N {n} dh {dh} {str(dtype)[6:]}"] = attention_path(n, dh, dtype)
             n_cases += 1
@@ -3101,15 +3192,16 @@ def phase_attn_long(card: str) -> dict:
               f"({r['path']}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA "
               f"{r['library_ms']:.4f}, bound {bound:.4f} ({by}) [{card}]")
         del x, q, k, v
-    Bt, n, kh, dh = ATTN_WIDE_TIME
-    C = kh * dh
-    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, F32_FLOPS)):
+    for (Bt, n, kh, dh), dtype in itertools.product(ATTN_WIDE_TIME,
+                                                    (torch.bfloat16, torch.float32)):
+        C = kh * dh
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
         x = torch.randn((Bt, n, 3 * C), generator=gen, device="cuda").to(dtype)
         g = torch.randn((Bt, n, C), generator=gen, device="cuda").to(dtype)
         q, k, v = (t.requires_grad_() for t in _sdpa_qkv(x, kh))
         out = sdpa(q, k, v)
         gh = g.view(Bt, n, kh, dh).transpose(1, 2)
-        tag = str(dtype)[6:]
+        tag, path = str(dtype)[6:], attention_path(n, dh, dtype)
         fb, fby = _attn_bound(Bt, n, kh, dh, x.element_size(), peak)
         bb, bby = _attn_bound(Bt, n, kh, dh, x.element_size(), peak, bwd=True)
         bwd_lib = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True),
@@ -3125,16 +3217,21 @@ def phase_attn_long(card: str) -> dict:
                  lambda: _split_plain(x, g, kh), None, bb, bby)):
             err, mabs, got[name] = _hold_timed(f"dh{dh} {name} {tag} B={Bt} N={n} kh={kh}", fn,
                                                plain, C, dtype)
-            _note(worst, max_abs, "bwd" if name == "split" else name, dtype, err, mabs)
-            r = dict(ms=_time_ms(fn, iters=3, warmup=1),
+            _note(worst, max_abs, "wide fwd" if name == "fwd" else "wide bwd", dtype, err, mabs)
+            r = dict(ms=_time_ms(fn, iters=5, warmup=1),
                      plain_ms=_time_ms(plain, iters=2, warmup=1),
                      library_ms=_time_ms(lib, iters=3, warmup=1) if lib else bwd_lib,
-                     bound_ms=bound, bound_by=by)
+                     bound_ms=bound, bound_by=by, path=path)
+            if dtype == torch.float32:  # the bound at f32 outside the tensor cores, beside
+                r["bound_f32_cores_ms"] = _attn_bound(Bt, n, kh, dh, 4, F32_FLOPS,
+                                                      bwd=name != "fwd")[0]
             times[f"dh{dh} {name} {tag}"] = r
-            print(f"[attn-long] {name} {tag} B={Bt} N={n} kh={kh} dh {dh} (key-chunked CUDA "
-                  f"cores): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA "
+            at = (f" at 165 TFLOP/s (3xTF32); {r['bound_f32_cores_ms']:.4f} at 67 (f32 "
+                  f"CUDA cores)" if dtype == torch.float32 else "")
+            print(f"[attn-long] {name} {tag} B={Bt} N={n} kh={kh} dh {dh} ({path}: head pieces, "
+                  f"output slabs): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA "
                   f"{'backward ' if name != 'fwd' else ''}{r['library_ms']:.4f}, bound "
-                  f"{bound:.4f} ({by}) [{card}]")
+                  f"{bound:.4f} ({by}{at}) [{card}]")
         if not torch.equal(got["split"], got["bwd"]):
             raise AssertionError(f"[attn-long] dh{dh} {tag} B={Bt} N={n}: the split backward "
                                  "differs from the monolithic one in its bits")
@@ -3164,7 +3261,8 @@ def phase_attn_long(card: str) -> dict:
               f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
         del t, w
     print(f"[attn-long] every timed call within tol of its plain version on its inputs, "
-          f"repeats (and the dh {ATTN_WIDE_TIME[3]} split == monolithic) bit for bit; worst rel "
+          f"repeats (and the dh {[t[3] for t in ATTN_WIDE_TIME]} split == monolithic) bit for "
+          f"bit; worst rel "
           f"err bf16 {worst[torch.bfloat16]:.3e}, f32 {worst[torch.float32]:.3e}; max abs err "
           f"{', '.join(f'{k} {v:.3e}' for k, v in max_abs.items())} (bf16 unless f32; with the "
           f"cases above)")
@@ -3548,6 +3646,71 @@ def phase_stage2_384(card: str) -> dict:
         launches["attention_bwd"] += steady[tag]["launches"][1]
         by_dtype[tag] = tuple(a + b for a, b in zip(by_dtype[tag], steady[tag]["launches"]))
     return dict(runs=res, launches=launches, steady=steady, launches_by_dtype=by_dtype)
+
+
+# The main path of the routes past head width 128: the stage-2 step of dedeit
+# with the CLI's --embed-dim 768 --num-heads 4 (dh 192), 224 px (N 198),
+# depth cut to 4, B 32, in f32 and bf16
+WIDE_MODEL, WIDE_B = dict(embed_dim=768, num_heads=4, depth=4), 32
+
+
+def phase_stage2_wide(card: str) -> dict:
+    """[stage2-wide]: one stage-2 step (AdamW + EMA, mixup/cutmix, remat) of
+    WIDE_MODEL, f32 and bf16, with the kernels against the same step with
+    the plain attention (same state, batch and draws): loss and every
+    gradient leaf within 2e-2 (||diff||/||plain||). The kernel step is this
+    route's main-path run: every count and wide count is 0 just before it
+    and read just after; each of its 2 x depth forward and depth backward
+    launches (remat) must be past head width 128, and the plain step
+    launches none."""
+    depth, dh = WIDE_MODEL["depth"], WIDE_MODEL["embed_dim"] // WIDE_MODEL["num_heads"]
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    before, wide_before = _counts(), _wide_counts()
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        images = torch.randn((WIDE_B, 224, 224, 3), generator=gen, device="cuda").to(dtype)
+        labels = torch.randint(0, TRAIN_CLASSES, (WIDE_B,), generator=gen, device="cuda")
+        out = {}
+        for use_kernel in (True, False):
+            model = create_vit("dedeit", **WIDE_MODEL, num_classes=TRAIN_CLASSES,
+                               drop_path_rate=0.1, dtype=dtype, use_kernel=use_kernel,
+                               use_remat=True, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+            _set_counts((0, 0, 0, 0))  # the main path
+            _set_wide_counts((0, 0, 0, 0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = _step_grads(model, (images, labels), seed=3)
+            torch.cuda.synchronize()
+            out[use_kernel] = (loss, grads, (time.perf_counter() - t0) * 1e3, _counts(),
+                               _wide_counts())
+            del model
+        (loss_k, g_k, ms_k, c_k, w_k), (loss_p, g_p, ms_p, c_p, _) = out[True], out[False]
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        rel = {k: float((g_k[k].float() - g_p[k].float()).norm()
+                        / g_p[k].float().norm().clamp_min(1e-30)) for k in g_p}
+        worst = max(rel, key=rel.get)
+        tag = str(dtype)[6:]
+        if not (np.isfinite(loss_k) and loss_rel <= 2e-2 and rel[worst] <= 2e-2):
+            raise AssertionError(f"[stage2-wide] {tag}: loss {loss_k} vs plain {loss_p} (rel "
+                                 f"{loss_rel:.3e}), worst gradient {worst} {rel[worst]:.3e}")
+        want = (2 * depth, depth, 0, 0)
+        if c_k != want or w_k != want or any(c_p):
+            raise AssertionError(f"[stage2-wide] {tag}: launches kernel step {c_k} (past head "
+                                 f"width 128 {w_k}), plain step {c_p}; expected {want} and none")
+        res[tag] = dict(loss=loss_k, plain_loss=loss_p, loss_rel=loss_rel, worst_leaf=worst,
+                        grad_rel=rel[worst], ms=ms_k, plain_ms=ms_p, launches=w_k)
+        print(f"[stage2-wide] dedeit {WIDE_MODEL} (dh {dh}) stage-2 step, {tag}, B {WIDE_B}: "
+              f"loss {loss_k:.6f} vs {loss_p:.6f} plain (rel {loss_rel:.3e}); worst gradient "
+              f"leaf {worst} ||diff||/||plain|| {rel[worst]:.3e} (tol 2e-2, {len(rel)} "
+              f"leaves); launches past head width 128 {w_k[0]} forward + {w_k[1]} backward "
+              f"(plain step none); step (first, with the build of its state) {ms_k:.1f} ms, "
+              f"plain {ms_p:.1f} ms [{card}]")
+        del g_k, g_p, images
+        torch.cuda.empty_cache()
+    _set_counts(before)
+    _set_wide_counts(wide_before)
+    return res
 
 
 CCT_WIDE = "cct_14_7x2_224"  # the widest registered CCT: 384 wide, 14 layers, 6 heads, N 196
@@ -4291,6 +4454,7 @@ def main() -> int:
     bwd_max_abs_err = phase_bwd_checks()
     split_max_abs_err = phase_split_checks()
     times["bwd_long"] = phase_bwd_long(card)
+    times["f32_long"] = phase_f32_long(card)
     train = phase_train(card)
     step = train.pop("step")
     train["profile"] = phase_train_profile(step, card)
@@ -4321,6 +4485,7 @@ def main() -> int:
     times["cli"] = cli = phase_cli(card)
     times["attn_long"] = attn_long = phase_attn_long(card)
     times["stage2_384"] = s384 = phase_stage2_384(card)
+    times["stage2_wide"] = swide = phase_stage2_wide(card)
     times["cct"] = phase_cct(card)
     times["resume"] = phase_resume(card)
     torch.cuda.empty_cache()
@@ -4398,6 +4563,23 @@ def main() -> int:
              max(al["max_abs"]["bwd f32"], blt["max_abs"]["attention_bwd f32"],
                  blt["max_abs"]["attention_bwd_split f32"]),
              blt["times"]["attention_bwd float32"]))]
+    # past head width 128 in both dtypes (attn_wide_mma; the pair
+    # attn_bwd_wide_rows_mma + attn_bwd_wide_keys_mma), timed at B 64, N 578,
+    # kh 4, dh 192; their main-path launches are [stage2-wide]'s
+    dhw = ATTN_WIDE_TIME[0][3]
+    record["kernels"] += [{
+        "name": f"{name} {tag} past head width 128 ({kern})", "route": "cuda",
+        "source": f"devit_tpu_torch/kernels/csrc/{src}",
+        "replaces": f"devit_tpu/kernels/attention.py:{line}",
+        "launches": swide[dt]["launches"][i],
+        "max_abs_err": al["max_abs"][f"wide {step}" + ("" if tag == "bf16" else " f32")],
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for tag, dt in (("bf16", "bfloat16"), ("f32", "float32"))
+        for i, name, step, kern, src, line in (
+            (0, "fused_attention", "fwd", "attn_wide_mma", "attention.cu", 30),
+            (1, "attention_bwd", "bwd", "attn_bwd_wide_rows_mma + attn_bwd_wide_keys_mma",
+             "attention_bwd_long.cu", 238))
+        for t in (al["times"][f"dh{dhw} {step} {dt}"],)]
     i8, bl = times["int8"]["int8_forward"], times["int8"]["block_forward"]
     record["kernels"] += [{
         # per bs256 deployed int8 forward (192 calls); the library yardstick

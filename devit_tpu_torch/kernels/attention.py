@@ -23,18 +23,21 @@ and 128 (HEAD_DIMS); the wrappers take any head_dim up to 128 by
 zero-padding each head's q, k, v (and g) to the next instantiation, launching
 with the true head width's scale and slicing the outputs back. Zero columns
 add exact zeros to every logit and product, so the result is the unpadded
-computation. A head_dim past 128 runs unpadded on the key-chunked CUDA-core
-kernels (csrc/attn_chunked.cuh), which take any width, in both dtypes.
+computation. A head_dim past 128 is padded the same way to the next multiple
+of 64 and runs on the wide tensor-core kernels (csrc/wide.cuh: every score
+product walks the head in 64-dim pieces at bf16, 32-dim at f32, and each
+output is made in slabs of at most 128 dims), in both dtypes.
 
 Every kernel takes any N. The forward picks its design on the C side
 (`attention_path`): at bf16 past 256 keys, and at f32 at every N, it walks K
 and V in chunks through a ring of two shared-memory buffers (attn_long_mma,
-attn_long_tf32; tensor cores). The backwards walk key chunks
-(csrc/attention_bwd_long.cu: a rows kernel, then a keys kernel; on the
-tensor cores up to head_dim 128, otherwise on the CUDA cores) at f32, at
-bf16 past 256 keys or where a block of the monolithic kernel would not fit
-shared memory (head_dim 128 from N 209), and past head_dim 128, with a (B, H,
-N, 3) f32 scratch of row statistics that the wrapper allocates.
+attn_long_tf32; tensor cores), and past head_dim 128 also the head's pieces
+(attn_wide_mma). The backwards walk key chunks (csrc/attention_bwd_long.cu:
+a rows kernel, then a keys kernel; on the tensor cores, past head_dim 128
+over head pieces and output slabs) at f32, at bf16 past 256 keys or where a
+block of the monolithic kernel would not fit shared memory (head_dim 128
+from N 209), and past head_dim 128, with a (B, H, N, 3) f32 scratch of row
+statistics that the wrapper allocates.
 `fused_block_attention` takes a chunked route of three launches (LayerNorm +
 qkv, the forward, proj) where its whole-head block would not fit.
 
@@ -66,16 +69,20 @@ import torch.nn.functional as F
 from devit_tpu_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 128)  # head_dim values the CUDA kernels are instantiated for
+# Past this width a head runs on the wide kernels; each wrapper counts those
+# launches apart too, in `<wrapper>.wide_launches` (also in `launches`).
+WIDE = HEAD_DIMS[-1]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def kernel_head_dim(dh: int) -> int:
     """The width a head of width dh runs at: the narrowest of HEAD_DIMS that
-    holds it, or dh itself past them (the key-chunked kernels take any
-    width)."""
+    holds it, or past 128 the next multiple of 64 (the wide kernels walk the
+    head in 64-dim pieces; the wrappers zero-pad each head to that width and
+    launch with dh's own logit_scale, so the padding adds exact zeros)."""
     if dh < 1:
         raise ValueError(f"head_dim must be positive, got {dh}")
-    return next((width for width in HEAD_DIMS if dh <= width), dh)
+    return next((width for width in HEAD_DIMS if dh <= width), -(-dh // 64) * 64)
 
 
 def logit_scale(dh: int) -> float:
@@ -212,15 +219,15 @@ def _check_smem(kernel: str, N: int, dh: int, elem: int, device: int) -> None:
                       device)
 
 
-ATTENTION_PATHS = ("whole-row", "key-chunked mma", "key-chunked CUDA cores")
+ATTENTION_PATHS = ("whole-row", "key-chunked mma", "wide-head mma")
 
 
 def attention_path(N: int, dh: int, dtype: torch.dtype, device: int = 0) -> str:
     """The design `fused_attention` launches at sequence length N and head
     width dh (before padding) on CUDA device `device`: one block holds the
     head's keys (bf16 to 256 keys); a tensor-core kernel over key chunks
-    (bf16 past 256 keys, f32 at every N); or the key-chunked CUDA-core kernel
-    (past head width 128)."""
+    (bf16 past 256 keys, f32 at every N); or, past head width 128, the
+    tensor-core kernel over key chunks, head pieces and output slabs."""
     code = _build.library().devit_attention_path(N, kernel_head_dim(dh),
                                                  torch.tensor([], dtype=dtype).element_size(),
                                                  device)
@@ -262,6 +269,8 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
                                         logit_scale(dh), stream)
     _build.check_launch(err, "fused_attention")
     fused_attention.launches += 1
+    if width > WIDE:
+        fused_attention.wide_launches += 1
     return unpad_heads(out, 1, num_heads, dh, width)
 
 
@@ -282,6 +291,7 @@ def fused_attention(qkv: torch.Tensor, head_gate: Optional[torch.Tensor] = None,
 
 
 fused_attention.launches = 0
+fused_attention.wide_launches = 0
 
 
 def _check_bwd_input(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, kernel: str):
@@ -335,6 +345,8 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
                                       logit_scale(dh), stream)
     _build.check_launch(err, "attention_bwd")
     attention_bwd.launches += 1
+    if width > WIDE:
+        attention_bwd.wide_launches += 1
     return unpad_heads(dqkv, 3, num_heads, dh, width)
 
 
@@ -352,6 +364,7 @@ def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.T
 
 
 attention_bwd.launches = 0
+attention_bwd.wide_launches = 0
 
 
 def _launch_half(kernel: str, qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
@@ -375,6 +388,8 @@ def _launch_half(kernel: str, qkv: torch.Tensor, g: torch.Tensor, num_heads: int
     wrapper = attention_bwd_dv if kernel == "dv" else attention_bwd_dqdk
     _build.check_launch(err, wrapper.__name__)
     wrapper.launches += 1
+    if dh > WIDE:
+        wrapper.wide_launches += 1
 
 
 def _split_half(kernel: str, plain, qkv: torch.Tensor, g: torch.Tensor,
@@ -409,6 +424,8 @@ def attention_bwd_dqdk(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> to
 
 attention_bwd_dv.launches = 0
 attention_bwd_dqdk.launches = 0
+attention_bwd_dv.wide_launches = 0
+attention_bwd_dqdk.wide_launches = 0
 
 
 def attention_bwd_split(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:

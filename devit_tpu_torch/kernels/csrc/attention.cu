@@ -96,22 +96,32 @@
 //   a whole-chunk path without the key mask took 0.42 to 0.39 ms. exp2 on
 //   prescaled scores ran at 0.332 ms but is not kept: it rounds the
 //   exponent otherwise than the TPU kernel's exp.
-// - both dtypes at dh > 128 (attn_chunked_kernel): the key-chunked CUDA-core
-//   steps of attn_chunked.cuh, any N and any head width, q, k and v read kD
-//   dims at a time, the output made kT dims a block. Right, not fast: s is
-//   computed three times for each output piece.
+// - both dtypes past head width 128 (attn_wide_mma, steps in wide.cuh): the
+//   wrapper pads the head to W, a multiple of 64. One block a (batch row,
+//   head, 64-query tile), 4 warps of 16 rows, on the tensor cores: s = q k^T
+//   walks the head in pieces (64 dims at bf16, 32 at f32) through the same
+//   ring of two cp.async buffers, the q tile's piece staged beside the key
+//   chunk's, so shared memory does not grow with W; o is made 256 dims (a
+//   slab) at a time, the block's slabs one after the other, each recomputing
+//   s (one slab up to dh 256). The numerics are attn_long_mma's at bf16 (a
+//   statistics walk, then p normalised and rounded before p . v) and
+//   attn_long_tf32's at f32 (one online walk a slab, 3xTF32, each k8 step of
+//   p . v added apart). It
+//   replaced the key-chunked CUDA-core kernel (attn_chunked_kernel), which
+//   took 22.09 ms (bf16) and 20.18 ms (f32) at B 64, N 578, kh 4, dh 192.
 
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
-#include "attn_chunked.cuh"
 #include "attn_mma.cuh"
 #include "common.cuh"
 #include "long_mma.cuh"
 #include "long_tf32.cuh"
 #include "mma_common.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -469,7 +479,7 @@ cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, float s
   return launch_mma<16, DH>(qkv, out, B, N, H, scale, s);
 }
 
-enum Path { kWholeRow = 0, kKeyChunkMma = 1, kKeyChunked = 2 };
+enum Path { kWholeRow = 0, kKeyChunkMma = 1, kWide = 2 };
 
 template <int DH>
 cudaError_t launch_dh(const void* qkv, void* out, int B, int N, int H, int dtype, float scale,
@@ -479,77 +489,131 @@ cudaError_t launch_dh(const void* qkv, void* out, int B, int N, int H, int dtype
   return cudaErrorInvalidValue;
 }
 
-// ---- the key-chunked CUDA-core forward (attn_chunked.cuh): any N, any dh
+// ---- past head width 128 (wide.cuh): head pieces and output slabs, both dtypes
 
-namespace ch = devit::chunked;
+namespace wd = devit::wide;
 
+// Elements of a ring buffer: the q tile's piece | the K chunk's piece | the
+// V chunk's slab.
 template <typename T>
-size_t chunked_smem_bytes() {
-  // P [kT][kStride] f32 | the score product's two staged pieces | V rows [kT][kStride]
-  return ch::f32_tile_bytes() + ch::stage_bytes<T>() + ch::tile_bytes<T>();
+__host__ __device__ constexpr int wide_buffer() {
+  using O = wd::Ops<T>;
+  return O::template tile<O::kPiece>(wd::kRows) + O::template tile<O::kPiece>(O::kChunk) +
+         O::template tile<wd::kFwdSlab>(O::kChunk);
 }
 
-// One block: (batch row, head, 64-query tile, 64-dim piece of the output).
-// Passes 1 and 2 take the rows' max and sum over all keys (ch::row_stats);
-// pass 3 forms each 64-key chunk's p, rounded to T, in shared memory and adds
-// p . v into the piece's accumulators.
 template <typename T>
-__global__ void __launch_bounds__(ch::kThreads)
-attn_chunked_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H, int dh,
-                    int n_tiles, int n_pieces, float scale) {
-  using ch::kStride;
-  using ch::kT;
+constexpr size_t wide_smem_bytes() {
+  return 2 * sizeof(T) * (size_t)wide_buffer<T>();
+}
+
+// One block: (batch row, head, 64-query tile), 4 warps of 16 rows, every
+// SW-dim slab of o in turn. Each step of the ring stages a piece of the q
+// tile and of a K chunk (and, at the chunk's last piece, the chunk's V slab);
+// s = q k^T gathers its pieces in the warps' accumulators. bf16 (as
+// attn_long_mma): walk 0 takes the online row max and sum, then one walk a
+// slab computes o += round(exp(s - m) / l) . v. f32 (as attn_long_tf32): one
+// walk a slab with the online max and sum, o rescaled as the max grows and
+// divided by the sum at the end. Each slab leaves as the warp's stores.
+template <typename T, int SW>
+__global__ void __launch_bounds__(wd::kThreads, 2)
+attn_wide_mma(const T* __restrict__ qkv, T* __restrict__ out, int N, int H, int W, int n_tiles,
+              float scale) {
+  using O = wd::Ops<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int CK = O::kChunk, NT = CK / 8, kStats = kF32 ? 0 : 1;
+  constexpr int QE = O::template tile<O::kPiece>(wd::kRows);
+  constexpr int KE = O::template tile<O::kPiece>(CK);
   extern __shared__ __align__(16) unsigned char smem[];
-  float* P = reinterpret_cast<float*>(smem);
-  T* As = reinterpret_cast<T*>(smem + ch::f32_tile_bytes());
-  T* Bs = As + ch::kD * kStride;
-  T* Vs = Bs + ch::kD * kStride;
+  T* ring = reinterpret_cast<T*>(smem);
 
-  const int piece = blockIdx.x % n_pieces;
-  const int tile = (blockIdx.x / n_pieces) % n_tiles;
-  const int b = blockIdx.x / (n_pieces * n_tiles);
-  const int h = blockIdx.y;
-  const int C = H * dh;
+  const int C = H * W;
+  const int tile = blockIdx.x % n_tiles, b = blockIdx.x / n_tiles, h = blockIdx.y;
   const int64_t row3 = 3LL * C;
-  const T* base = qkv + (int64_t)b * N * row3 + (int64_t)h * dh;
-  const int q0 = tile * kT, rows = min(kT, N - q0), e0 = piece * kT;
-  const T* q = base + (int64_t)q0 * row3;
-  const int tx = threadIdx.x % 16;
+  const T* base = qkv + (int64_t)b * N * row3 + (int64_t)h * W;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = tile * wd::kRows, r0 = 16 * warp;
+  const bool active = q0 + r0 < N;  // some of the warp's 16 rows lie before N
+  const wd::Steps steps(N, W, CK, O::kPiece);
+  const int n_slabs = (W + SW - 1) / SW;
 
-  float m[4], l[4], acc[4][4], o[4][4];
+  float s[NT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rl[2], unused[2];
+  float o[SW / 8][4];
+  lm::ring_walk(
+      (kStats + n_slabs) * steps.per_walk, active,
+      [&](int i) {
+        int w, c0, d;
+        steps.at(i, CK, w, c0, d);
+        T* buf = ring + (i & 1) * wide_buffer<T>();
+        O::template stage<O::kPiece>(buf, base + (int64_t)q0 * row3 + d * O::kPiece, row3,
+                                     wd::kRows, N - q0, O::kPiece, tid);
+        O::template stage<O::kPiece>(buf + QE, base + C + (int64_t)c0 * row3 + d * O::kPiece,
+                                     row3, CK, N - c0, O::kPiece, tid);
+        if (w >= kStats && d == steps.pieces - 1) {
+          const int e0 = (w - kStats) * SW;
+          O::template stage<SW>(buf + QE + KE, base + 2 * C + (int64_t)c0 * row3 + e0, row3, CK,
+                                N - c0, W - e0, tid);
+        }
+        devit::mma::cp_async_commit();
+      },
+      [&](int i) {
+        int w, c0, d;
+        steps.at(i, CK, w, c0, d);
+        const T* buf = ring + (i & 1) * wide_buffer<T>();
+        if (d == 0) wd::zero(s);
+        O::template piece_product<NT, false>(s, buf, r0, buf + QE, 0, N - c0, lane);
+        if (d < steps.pieces - 1) return;
+        lm::scale_mask<NT>(s, c0, N, scale, lane);
+        const bool last = c0 + CK >= N;
+        if (w < kStats) {
+          lm::stats_step<NT, false>(s, s, m, l, unused, rl, last);
+          return;
+        }
+        const int e0 = (w - kStats) * SW;
+        if (c0 == 0) {  // a slab's first chunk (at f32 its walk's statistics start over)
+          wd::zero(o);
+          if (kF32) {
+            m[0] = m[1] = -INFINITY;
+            l[0] = l[1] = 0.f;
+          }
+        }
+        if constexpr (kF32) {
+          lt::softmax_step<NT, SW>(s, m, l, o);
+        } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+          for (int t = 0; t < NT; ++t)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-  ch::row_stats(m, l, q, rows, base + C, row3, N, dh, scale, As, Bs);
-  for (int c0 = 0; c0 < N; c0 += kT) {
-    ch::scores(acc, q, row3, rows, base + C + (int64_t)c0 * row3, row3, N - c0, dh, As, Bs);
+            for (int e = 0; e < 4; ++e)
+              s[t][e] = lm::prob(s[t][e], m[e >> 1], l[e >> 1], rl[e >> 1]);
+        }
+        O::template slab_product<NT, SW>(o, s, buf + QE + KE, c0, N, W - e0, lane);
+        if (!last) return;
+        if constexpr (kF32) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+          for (int r = 0; r < 2; ++r) {
+            const float lr = devit::mma::quad_sum(l[r]), rr = __frcp_rn(lr);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        P[ch::row_of(i) * kStride + c] =
-            c0 + c < N ? devit::round_to<T>(expf(acc[i][j] * scale - m[i]) / l[i]) : 0.f;
-      }
-    ch::stage_rows(Vs, base + 2 * C + (int64_t)c0 * row3, row3, N - c0, e0, dh);
-    __syncthreads();
-    ch::rows_times(o, P, Vs);
-    __syncthreads();
-  }
-  ch::store_tile(o, out + ((int64_t)b * N + q0) * C + (int64_t)h * dh, C, rows, e0, dh);
+            for (int t = 0; t < SW / 8; ++t)
+#pragma unroll
+              for (int e = 2 * r; e < 2 * r + 2; ++e) o[t][e] = devit::mma::div_rn(o[t][e], lr, rr);
+          }
+        }
+        O::template store<SW>(o, out + ((int64_t)b * N + q0) * C + (int64_t)h * W + e0, C, r0,
+                              N - q0, W - e0, lane);
+      });
 }
 
 template <typename T>
-cudaError_t launch_chunked(const void* qkv, void* out, int B, int N, int H, int dh, float scale,
-                           cudaStream_t stream) {
+cudaError_t launch_wide(const void* qkv, void* out, int B, int N, int H, int W, float scale,
+                        cudaStream_t stream) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)attn_chunked_kernel<T>, opted_in);
+  constexpr int SW = wd::kFwdSlab;
+  cudaError_t err = devit::opt_in_smem((const void*)attn_wide_mma<T, SW>, opted_in);
   if (err != cudaSuccess) return err;
-  const int n_tiles = (N + ch::kT - 1) / ch::kT, n_pieces = (dh + ch::kT - 1) / ch::kT;
-  const dim3 grid((unsigned)((long long)B * n_tiles * n_pieces), (unsigned)H);
-  attn_chunked_kernel<T><<<grid, ch::kThreads, chunked_smem_bytes<T>(), stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, H, dh, n_tiles, n_pieces, scale);
+  const int n_tiles = (N + wd::kRows - 1) / wd::kRows;
+  const dim3 grid((unsigned)(B * n_tiles), (unsigned)H);
+  attn_wide_mma<T, SW><<<grid, wd::kThreads, wide_smem_bytes<T>(), stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), N, H, W, n_tiles, scale);
   return cudaGetLastError();
 }
 
@@ -557,9 +621,9 @@ cudaError_t launch_chunked(const void* qkv, void* out, int B, int N, int H, int 
 
 // bf16 and dh <= 128: attn_kernel_mma to 256 keys, attn_long_mma past
 // them; f32 and dh <= 128: attn_long_tf32 at every N; at every dh > 128
-// attn_chunked_kernel.
+// attn_wide_mma.
 int kernel_path(int n, int head_dim, int elem) {
-  if (head_dim > 128) return kKeyChunked;
+  if (head_dim > 128) return kWide;
   if (elem == 2) return n > kLongN ? kKeyChunkMma : kWholeRow;
   return kKeyChunkMma;
 }
@@ -569,7 +633,7 @@ size_t path_smem_bytes(int n, int head_dim, int elem) {
     case kWholeRow: return smem_bytes(n, head_dim);
     case kKeyChunkMma:
       return elem == 2 ? long_fwd_smem_bytes(head_dim) : tf32_fwd_smem_bytes(head_dim);
-    default: return elem == 2 ? chunked_smem_bytes<bf16>() : chunked_smem_bytes<float>();
+    default: return elem == 2 ? wide_smem_bytes<bf16>() : wide_smem_bytes<float>();
   }
 }
 
@@ -585,9 +649,10 @@ long long devit_attention_smem_bytes(int n, int head_dim, int elem_bytes, int de
 }
 
 // The design a forward at (n, head_dim, elem_bytes) takes on `device`: 0 one
-// block holds the head's keys (attn_kernel, attn_kernel_mma), 1 the bf16
-// tensor-core kernel over key chunks (attn_long_mma), 2 the key-chunked
-// CUDA-core kernel.
+// block holds the head's keys (bf16 to 256 keys: attn_kernel_mma), 1 a
+// tensor-core kernel over key chunks (bf16 past 256 keys: attn_long_mma;
+// f32: attn_long_tf32), 2 the tensor-core kernel over key chunks, head
+// pieces and output slabs past head width 128 (attn_wide_mma).
 int devit_attention_path(int n, int head_dim, int elem_bytes, int device) {
   (void)device;
   return kernel_path(n, head_dim, elem_bytes);
@@ -602,17 +667,19 @@ long long devit_max_smem_optin(int device) {
 }
 
 // qkv: (B, N, 3*H*head_dim) contiguous; out: (B, N, H*head_dim) contiguous.
-// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 128 or any width past
-// 128. scale multiplies the logits: head_dim^-0.5, or a narrower head's
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 128 or any multiple
+// of 64 past 128. scale multiplies the logits: head_dim^-0.5, or a narrower head's
 // dh^-0.5 when the caller has zero-padded its heads to head_dim. Returns a
 // cudaError_t (0 = launched).
 int devit_fused_attention(const void* qkv, void* out, int B, int N, int H,
                           int head_dim, int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (kernel_path(N, head_dim, dtype == 1 ? 2 : 4) == kKeyChunked)
-    return (int)(dtype == 0 ? launch_chunked<float>(qkv, out, B, N, H, head_dim, scale, s)
-                            : launch_chunked<bf16>(qkv, out, B, N, H, head_dim, scale, s));
+  if (kernel_path(N, head_dim, dtype == 1 ? 2 : 4) == kWide) {
+    if (head_dim % 64) return (int)cudaErrorInvalidValue;
+    return (int)(dtype == 0 ? launch_wide<float>(qkv, out, B, N, H, head_dim, scale, s)
+                            : launch_wide<bf16>(qkv, out, B, N, H, head_dim, scale, s));
+  }
   if (head_dim == 32) return (int)launch_dh<32>(qkv, out, B, N, H, dtype, scale, s);
   if (head_dim == 64) return (int)launch_dh<64>(qkv, out, B, N, H, dtype, scale, s);
   if (head_dim == 128) return (int)launch_dh<128>(qkv, out, B, N, H, dtype, scale, s);

@@ -83,7 +83,7 @@ int devit_attention_bwd_long_path(int n, int head_dim, int elem_bytes, int devic
 
 // qkv: (B, N, 3*H*head_dim), g: (B, N, H*head_dim), dqkv: like qkv; all
 // contiguous and of one dtype (0 = float32, 1 = bfloat16); head_dim 32, 64,
-// 128 or any width past 128 (the long path). stats: B*H*N*3 floats of scratch, used (and needed) only where
+// 128 or any multiple of 64 past 128 (the long path). stats: B*H*N*3 floats of scratch, used (and needed) only where
 // devit_attention_bwd_long_path says so. scale: as devit_fused_attention's.
 // Returns a cudaError_t (0 = launched).
 int devit_attention_bwd(const void* qkv, const void* g, void* dqkv, void* stats, int B, int N,

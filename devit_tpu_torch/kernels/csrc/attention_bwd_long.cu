@@ -79,27 +79,34 @@
 // pair that took 13.07 ms there, and below them the whole-head CUDA-core
 // kernels.
 //
-// Head widths past 128 (attn_wide_bwd_rows, attn_wide_bwd_keys), both
-// dtypes: a lane cannot own a whole row's dims in registers, nor a block a
-// chunk's K and V rows, so the same two kernels are written over the
-// any-width CUDA-core steps of attn_chunked.cuh: 64-query tiles, 64-key
-// chunks, each score product staged 32 dims at a time, each output (dq, dk,
-// dv) made 64 dims a block. The rows kernel's every output piece recomputes
-// the statistics; its first piece writes them. The numerics are those above,
-// so the split pair stays bit for bit the monolithic backward.
+// Head widths past 128 (attn_bwd_wide_rows_mma, attn_bwd_wide_keys_mma), both
+// dtypes, on the tensor cores (steps in wide.cuh): the wrapper pads the head
+// to W, a multiple of 64. A lane cannot own an output row of W dims, nor a
+// block a tile and two chunks of W-wide rows at every W, so the pair above
+// is written over head pieces and output slabs: every score product (s, dp;
+// s^T, dp^T) walks the head 64 dims (bf16) or 32 dims (f32) at a time
+// through the ring, both operands' pieces staged each step, and each output
+// is made in slabs (dq 128 dims; dk and dv 64, 128 in the split pair), a
+// block's slabs one after the other. The rows kernel takes its statistics in walk 0 and writes them
+// once, then one walk a dq slab; the keys kernel one walk a slab. The
+// numerics and the fragment steps are the pairs' above (pack_a and
+// ldmatrix.trans at bf16, acc_a and the Transposed 3xTF32 order at f32), so
+// the split pair stays bit for bit the monolithic backward. They replaced
+// key-chunked CUDA-core kernels (attn_chunked.cuh), which took 63.88 ms
+// (bf16) and 53.94 ms (f32) for the monolithic backward at B 64, N 578, kh
+// 4, dh 192.
 
+#include <algorithm>
 #include <type_traits>
 
-#include "attn_chunked.cuh"
 #include "bwd_common.cuh"
 #include "long_mma.cuh"
 #include "long_tf32.cuh"
+#include "wide.cuh"
 
 namespace {
 
 using namespace devit::bwd;
-using devit::round_to;
-using devit::to_f;
 
 // ---- bf16 at head widths 32, 64 and 128: the tensor-core pair (long_mma.cuh)
 
@@ -658,216 +665,302 @@ cudaError_t launch_long_tf32(const void* qkv, const void* g, void* out, long lon
                            x, gt, o, out_stride, st, N, H, tiles, scale);
 }
 
-// ---- head widths past 128 (attn_chunked.cuh's steps)
+// ---- head widths past 128: head pieces and output slabs (wide.cuh), both dtypes
 
-namespace ch = devit::chunked;
+namespace wd = devit::wide;
 
-template <typename T>
-size_t wide_rows_smem_bytes() {
-  // ds [kT][kStride] f32 | the score products' staged pieces | K rows of a piece
-  return ch::f32_tile_bytes() + ch::stage_bytes<T>() + ch::tile_bytes<T>();
-}
-
-template <typename T>
-size_t wide_keys_smem_bytes() {
-  // p, ds [kT][kStride] f32 | staged pieces | g and q rows of a piece
-  return 2 * ch::f32_tile_bytes() + ch::stage_bytes<T>() + 2 * ch::tile_bytes<T>();
-}
-
-// Block (batch row, head, 64-query tile, 64-dim piece of dq): the tile's
-// rows' m and l (ch::row_stats) and, with DQ, delta = rowsum(dp * p) and the
-// piece of dq = sum ds K. The first piece writes (m, l, delta) to stats.
+// The rows kernel's ring buffer, elements: the q tile's piece | with DQ the g
+// tile's piece | the K chunk's piece | with DQ the V chunk's piece and the K
+// chunk's dq slab.
 template <typename T, bool DQ>
-__global__ void __launch_bounds__(ch::kThreads)
-attn_wide_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dq,
-                   long long out_stride, float* __restrict__ stats, int N, int H, int dh,
-                   int n_tiles, int n_pieces, float scale) {
-  using ch::kStride;
-  using ch::kT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Ds = reinterpret_cast<float*>(smem);
-  T* As = reinterpret_cast<T*>(smem + ch::f32_tile_bytes());
-  T* Bs = As + ch::kD * kStride;
-  T* Ks = Bs + ch::kD * kStride;
-
-  const int piece = blockIdx.x % n_pieces;
-  const int tile = (blockIdx.x / n_pieces) % n_tiles;
-  const int bh = blockIdx.x / (n_pieces * n_tiles);
-  const int b = bh / H, h = bh % H;
-  const int C = H * dh;
-  const int64_t row3 = 3LL * C;
-  const T* base = qkv + (int64_t)b * N * row3 + (int64_t)h * dh;
-  const int q0 = tile * kT, rows = min(kT, N - q0), e0 = piece * kT;
-  const T* q = base + (int64_t)q0 * row3;
-  const T* gq = g + ((int64_t)b * N + q0) * C + (int64_t)h * dh;
-  const int tx = threadIdx.x % 16;
-
-  float m[4], l[4], rs[4] = {0.f, 0.f, 0.f, 0.f};
-  ch::row_stats(m, l, q, rows, base + C, row3, N, dh, scale, As, Bs);
-  if (DQ) {
-    float s[4][4], dp[4][4], acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int pass = 0; pass < 2; ++pass) {  // delta, then dq
-      for (int c0 = 0; c0 < N; c0 += kT) {
-        const T* k = base + C + (int64_t)c0 * row3;
-        ch::scores(s, q, row3, rows, k, row3, N - c0, dh, As, Bs);
-        ch::scores(dp, gq, C, rows, k + C, row3, N - c0, dh, As, Bs);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = tx + 16 * j;
-            const bool in = c0 + c < N;
-            const float p = in ? expf(s[i][j] * scale - m[i]) / l[i] : 0.f;
-            if (pass == 0)
-              rs[i] = fmaf(dp[i][j], p, rs[i]);
-            else
-              Ds[ch::row_of(i) * kStride + c] =
-                  in ? round_to<T>((p * (dp[i][j] - rs[i])) * scale) : 0.f;
-          }
-        if (pass == 0) continue;
-        ch::stage_rows(Ks, k, row3, N - c0, e0, dh);
-        __syncthreads();
-        ch::rows_times(acc, Ds, Ks);
-        __syncthreads();
-      }
-      if (pass == 0) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) rs[i] = ch::row_sum(rs[i]);
-      }
-    }
-    ch::store_tile(acc, dq + ((int64_t)b * N + q0) * out_stride + (int64_t)h * dh, out_stride,
-                   rows, e0, dh);
-  }
-  if (piece == 0 && tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ch::row_of(i);
-      if (r >= rows) continue;
-      float* st = stats + ((int64_t)bh * N + q0 + r) * 3;
-      st[0] = m[i];
-      st[1] = l[i];
-      st[2] = rs[i];
-    }
-  }
+__host__ __device__ constexpr int wide_rows_buffer() {
+  using O = wd::Ops<T>;
+  constexpr int P = O::template tile<O::kPiece>(wd::kRows);
+  constexpr int K = O::template tile<O::kPiece>(O::kChunk);
+  return DQ ? 2 * P + 2 * K + O::template tile<wd::kRowsSlab>(O::kChunk) : P + K;
 }
 
-// Block (batch row, head, 64-key chunk, 64-dim piece): that piece of dk (DK)
-// and dv (DV) of the chunk's keys, summed over every query tile with p (and
-// ds) formed from the statistics.
+// The keys kernel's slab (kKeysSlab in the monolithic backward, kHalfSlab
+// in either half of the split pair; each output column sums the same terms
+// in the same order at any slab width, so the bits agree) and its ring
+// buffer, bytes: the block's K piece | with DK its V piece | the query tile's
+// q piece | with DK its g piece | the tile's q slab (DK) and g slab (DV) |
+// the tile's rows' statistics [kChunk][3] f32.
 template <typename T, bool DK, bool DV>
-__global__ void __launch_bounds__(ch::kThreads)
-attn_wide_bwd_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ out,
-                   long long out_stride, const float* __restrict__ stats, int N, int H, int dh,
-                   int n_chunks, int n_pieces, float scale) {
-  using ch::kStride;
-  using ch::kT;
+struct WideKeysBuffer {
+  using O = wd::Ops<T>;
+  static constexpr int slab = DK && DV ? wd::kKeysSlab : wd::kHalfSlab;
+  static constexpr int kK = O::template tile<O::kPiece>(wd::kRows);
+  static constexpr int kQ = O::template tile<O::kPiece>(O::kChunk);
+  static constexpr int kS = O::template tile<slab>(O::kChunk);
+  static constexpr int v = kK, q = v + (DK ? kK : 0), g = q + kQ, qs = g + (DK ? kQ : 0),
+                       gs = qs + (DK ? kS : 0), stats = gs + (DV ? kS : 0);  // elements
+  static constexpr size_t bytes =
+      (sizeof(T) * stats + sizeof(float) * 3 * O::kChunk + 15) / 16 * 16;
+};
+
+template <typename T>
+size_t wide_smem_bytes() {
+  const size_t r = 2 * sizeof(T) * (size_t)wide_rows_buffer<T, true>();
+  const size_t k = 2 * std::max({WideKeysBuffer<T, true, true>::bytes,
+                                 WideKeysBuffer<T, true, false>::bytes,
+                                 WideKeysBuffer<T, false, true>::bytes});
+  return r > k ? r : k;
+}
+
+// Block (batch row, head, 64-query tile), 4 warps of 16 rows: the rows' (m,
+// l) and, with DQ, delta and dq. Each ring step stages a piece of the q tile
+// and of a K chunk (with DQ also of the g tile and the V chunk); s = q k^T
+// and dp = g v^T gather their pieces in the warps' accumulators. Walk 0: the
+// online (m, l) and rowsum(dp * e) (stats_step, as attn_bwd_long_rows_mma),
+// written to stats[(bh N + n) 3 + {0, 1, 2}] after the last chunk (delta 0
+// without DQ). Then, with DQ, one walk a kRowsSlab-dim slab of dq: s and dp
+// again, ds = (p (dp - delta)) scale (rounded at bf16) times the chunk's
+// staged K slab, the slab written after the last chunk. rows<false> runs
+// walk 0 as rows<true> does, so (m, l) have the same bits in both.
+template <typename T, bool DQ>
+__global__ void __launch_bounds__(wd::kThreads, 2)
+attn_bwd_wide_rows_mma(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dq,
+                       long long out_stride, float* __restrict__ stats, int N, int H, int W,
+                       int n_tiles, float scale) {
+  using O = wd::Ops<T>;
+  constexpr int SW = wd::kRowsSlab, CK = O::kChunk, NT = CK / 8;
+  constexpr int PE = O::template tile<O::kPiece>(wd::kRows), KE = O::template tile<O::kPiece>(CK);
+  constexpr int kG = PE, kK = DQ ? 2 * PE : PE, kV = kK + KE, kKS = kV + KE;  // buffer offsets
   extern __shared__ __align__(16) unsigned char smem[];
-  float* P = reinterpret_cast<float*>(smem);
-  float* D = P + kT * kStride;
-  T* As = reinterpret_cast<T*>(smem + 2 * ch::f32_tile_bytes());
-  T* Bs = As + ch::kD * kStride;
-  T* Gs = Bs + ch::kD * kStride;
-  T* Qs = Gs + kT * kStride;
+  T* ring = reinterpret_cast<T*>(smem);
 
-  const int piece = blockIdx.x % n_pieces;
-  const int chunk = (blockIdx.x / n_pieces) % n_chunks;
-  const int bh = blockIdx.x / (n_pieces * n_chunks);
+  const int tile = blockIdx.x % n_tiles, bh = blockIdx.x / n_tiles;
   const int b = bh / H, h = bh % H;
-  const int C = H * dh;
+  const int C = H * W;
   const int64_t row3 = 3LL * C;
-  const T* base = qkv + (int64_t)b * N * row3 + (int64_t)h * dh;
-  const T* gbase = g + (int64_t)b * N * C + (int64_t)h * dh;
-  const int c0 = chunk * kT, len = min(kT, N - c0), e0 = piece * kT;
-  const T* k = base + C + (int64_t)c0 * row3;
-  const int tx = threadIdx.x % 16;
+  const T* base = qkv + (int64_t)b * N * row3 + (int64_t)h * W;
+  const T* gbase = g + (int64_t)b * N * C + (int64_t)h * W;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = tile * wd::kRows, r0 = 16 * warp;
+  const bool active = q0 + r0 < N;
+  const wd::Steps steps(N, W, CK, O::kPiece);
+  const int n_slabs = DQ ? (W + SW - 1) / SW : 0;
 
-  float s[4][4], dp[4][4], dk[4][4], dv[4][4];
+  float s[NT][4], dp[NT][4], acc[SW / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f}, rl[2];
+  lm::ring_walk(
+      (1 + n_slabs) * steps.per_walk, active,
+      [&](int i) {
+        int w, c0, d;
+        steps.at(i, CK, w, c0, d);
+        T* buf = ring + (i & 1) * wide_rows_buffer<T, DQ>();
+        const int64_t qd = (int64_t)q0 * row3 + d * O::kPiece;
+        const int64_t kd = (int64_t)c0 * row3 + d * O::kPiece;
+        O::template stage<O::kPiece>(buf, base + qd, row3, wd::kRows, N - q0, O::kPiece, tid);
+        O::template stage<O::kPiece>(buf + kK, base + C + kd, row3, CK, N - c0, O::kPiece, tid);
+        if constexpr (DQ) {
+          O::template stage<O::kPiece>(buf + kG, gbase + (int64_t)q0 * C + d * O::kPiece, C,
+                                       wd::kRows, N - q0, O::kPiece, tid);
+          O::template stage<O::kPiece>(buf + kV, base + 2 * C + kd, row3, CK, N - c0, O::kPiece,
+                                       tid);
+          if (w > 0 && d == steps.pieces - 1) {
+            const int e0 = (w - 1) * SW;
+            O::template stage<SW>(buf + kKS, base + C + (int64_t)c0 * row3 + e0, row3, CK, N - c0,
+                                  W - e0, tid);
+          }
+        }
+        devit::mma::cp_async_commit();
+      },
+      [&](int i) {
+        int w, c0, d;
+        steps.at(i, CK, w, c0, d);
+        const T* buf = ring + (i & 1) * wide_rows_buffer<T, DQ>();
+        if (d == 0) {
+          wd::zero(s);
+          wd::zero(dp);
+        }
+        O::template piece_product<NT, false>(s, buf, r0, buf + kK, 0, N - c0, lane);
+        if constexpr (DQ)
+          O::template piece_product<NT, false>(dp, buf + kG, r0, buf + kV, 0, N - c0, lane);
+        if (d < steps.pieces - 1) return;
+        lm::scale_mask<NT>(s, c0, N, scale, lane);
+        const bool last = c0 + CK >= N;
+        if (w == 0) {
+          lm::stats_step<NT, DQ>(s, dp, m, l, dl, rl, last);
+          if (last && (lane & 3) == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+            for (int r = 0; r < 2; ++r) {
+              const int n = q0 + r0 + (lane >> 2) + 8 * r;
+              if (n >= N) continue;
+              float* st = stats + ((int64_t)bh * N + n) * 3;
+              st[0] = m[r];
+              st[1] = l[r];
+              st[2] = DQ ? dl[r] : 0.f;
+            }
+          }
+          return;
+        }
+        const int e0 = (w - 1) * SW;
+        if (c0 == 0) wd::zero(acc);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
-  for (int q0 = 0; q0 < N; q0 += kT) {
-    const int rows = min(kT, N - q0);
-    const T* q = base + (int64_t)q0 * row3;
-    const T* gq = gbase + (int64_t)q0 * C;
-    ch::scores(s, q, row3, rows, k, row3, len, dh, As, Bs);
-    if (DK) ch::scores(dp, gq, C, rows, k + C, row3, len, dh, As, Bs);
+        for (int t = 0; t < NT; ++t)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ch::row_of(i);
-      float mi = 0.f, li = 1.f, ri = 0.f;
-      if (r < rows) {
-        const float* st = stats + ((int64_t)bh * N + q0 + r) * 3;
-        mi = st[0];
-        li = st[1];
-        ri = st[2];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool in = r < rows && c < len;
-        const float p = in ? expf(s[i][j] * scale - mi) / li : 0.f;
-        P[r * kStride + c] = p;
-        if (DK) D[r * kStride + c] = in ? round_to<T>((p * (dp[i][j] - ri)) * scale) : 0.f;
-      }
-    }
-    if (DV) ch::stage_rows(Gs, gq, C, rows, e0, dh);
-    if (DK) ch::stage_rows(Qs, q, row3, rows, e0, dh);
-    __syncthreads();
-    if (DV) ch::cols_times<T, true>(dv, P, Gs);
-    if (DK) ch::cols_times<T, false>(dk, D, Qs);
-    __syncthreads();
-  }
-  T* obase = out + ((int64_t)b * N + c0) * out_stride + (int64_t)h * dh;
-  if (DK) ch::store_tile(dk, obase + C, out_stride, len, e0, dh);
-  if (DV) ch::store_tile(dv, obase + (DK ? 2 * C : 0), out_stride, len, e0, dh);
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = lm::prob(s[t][e], m[r], l[r], rl[r]);
+            s[t][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[t][e], dl[r])), scale);  // ds
+          }
+        O::template slab_product<NT, SW>(acc, s, buf + kKS, c0, N, W - e0, lane);  // dq += ds k
+        if (last)
+          O::template store<SW>(acc, dq + ((int64_t)b * N + q0) * out_stride + (int64_t)h * W + e0,
+                                out_stride, r0, N - q0, W - e0, lane);
+      });
 }
 
-// Launches kernel `fn` on `grid` blocks of ch::kThreads with `smem` bytes,
-// after its opt-in to the device's whole shared memory (`opted`, the
-// kernel's own flags).
-template <typename K, typename... A>
-cudaError_t launch_wide_kernel(K fn, std::atomic<bool>* opted, unsigned grid, size_t smem,
-                               cudaStream_t s, A... args) {
-  cudaError_t err = devit::opt_in_smem((const void*)fn, opted);
-  if (err != cudaSuccess) return err;
-  fn<<<grid, ch::kThreads, smem, s>>>(args...);
-  return cudaGetLastError();
+// Block (batch row, head, 64-key chunk), 4 warps of 16 keys: dk (DK) and dv
+// (DV) of the chunk's keys, summed over every query, one slab after the
+// other (WideKeysBuffer::slab dims). Each ring step stages a piece of the block's K (with DK
+// also V) and of a query tile's q (with DK also g); s^T = k q^T and dp^T = v
+// g^T gather their pieces, keys as rows (the Transposed order at f32). At the
+// tile's last piece the step also stages the tile's q slab (DK), g slab (DV)
+// and its rows' statistics; p = exp(s - m) / l and ds = (p (dp - delta))
+// scale from the columns' statistics (0 for queries at or past N), then dv +=
+// round(p)^T g and dk += ds^T q with p^T and ds^T the A fragments straight
+// from the accumulators. Every instantiation runs these steps on the same
+// operands in the same order, so the split pair equals the monolithic <true,
+// true> bit for bit.
+template <typename T, bool DK, bool DV>
+__global__ void __launch_bounds__(wd::kThreads, 2)
+attn_bwd_wide_keys_mma(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ out,
+                       long long out_stride, const float* __restrict__ stats, int N, int H, int W,
+                       int n_chunks, float scale) {
+  static_assert(DK || DV, "an instantiation computes dk, dv or both");
+  using O = wd::Ops<T>;
+  using Buf = WideKeysBuffer<T, DK, DV>;
+  constexpr int SW = Buf::slab, QT = O::kChunk, NT = QT / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int chunk = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks;
+  const int b = bh / H, h = bh % H;
+  const int C = H * W;
+  const int64_t row3 = 3LL * C;
+  const T* base = qkv + (int64_t)b * N * row3 + (int64_t)h * W;
+  const T* gbase = g + (int64_t)b * N * C + (int64_t)h * W;
+  const float* sbase = stats + (int64_t)bh * N * 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = chunk * wd::kRows, len = min(wd::kRows, N - c0), kr = 16 * warp;
+  const bool active = kr < len;
+  const wd::Steps steps(N, W, QT, O::kPiece);
+  const int n_slabs = (W + SW - 1) / SW;
+
+  float s[NT][4], dp[NT][4], dk[DK ? SW / 8 : 1][4], dv[DV ? SW / 8 : 1][4];
+  lm::ring_walk(
+      n_slabs * steps.per_walk, active,
+      [&](int i) {
+        int w, t0, d;
+        steps.at(i, QT, w, t0, d);
+        T* buf = reinterpret_cast<T*>(smem + (i & 1) * Buf::bytes);
+        const int64_t kd = (int64_t)c0 * row3 + d * O::kPiece;
+        const int64_t qd = (int64_t)t0 * row3 + d * O::kPiece;
+        O::template stage<O::kPiece>(buf, base + C + kd, row3, wd::kRows, len, O::kPiece, tid);
+        O::template stage<O::kPiece>(buf + Buf::q, base + qd, row3, QT, N - t0, O::kPiece, tid);
+        if constexpr (DK) {
+          O::template stage<O::kPiece>(buf + Buf::v, base + 2 * C + kd, row3, wd::kRows, len,
+                                       O::kPiece, tid);
+          O::template stage<O::kPiece>(buf + Buf::g, gbase + (int64_t)t0 * C + d * O::kPiece, C,
+                                       QT, N - t0, O::kPiece, tid);
+        }
+        if (d == steps.pieces - 1) {
+          const int e0 = w * SW;
+          if constexpr (DK)
+            O::template stage<SW>(buf + Buf::qs, base + (int64_t)t0 * row3 + e0, row3, QT, N - t0,
+                                  W - e0, tid);
+          if constexpr (DV)
+            O::template stage<SW>(buf + Buf::gs, gbase + (int64_t)t0 * C + e0, C, QT, N - t0,
+                                  W - e0, tid);
+          float* sb = reinterpret_cast<float*>(buf + Buf::stats);
+          for (int k = tid; k < 3 * QT; k += wd::kThreads) {
+            const bool ok = t0 + k / 3 < N;
+            lm::cp_async4(sb + k, ok ? sbase + (int64_t)t0 * 3 + k : sbase, ok);
+          }
+        }
+        devit::mma::cp_async_commit();
+      },
+      [&](int i) {
+        int w, t0, d;
+        steps.at(i, QT, w, t0, d);
+        const T* buf = reinterpret_cast<const T*>(smem + (i & 1) * Buf::bytes);
+        if (d == 0) {
+          wd::zero(s);
+          wd::zero(dp);
+        }
+        O::template piece_product<NT, true>(s, buf, kr, buf + Buf::q, 0, N - t0, lane);
+        if constexpr (DK)
+          O::template piece_product<NT, true>(dp, buf + Buf::v, kr, buf + Buf::g, 0, N - t0, lane);
+        if (d < steps.pieces - 1) return;
+        const int e0 = w * SW;
+        if (t0 == 0) {
+          if constexpr (DK) wd::zero(dk);
+          if constexpr (DV) wd::zero(dv);
+        }
+        const float* sb = reinterpret_cast<const float*>(buf + Buf::stats);
+        const bool full = t0 + QT <= N;  // no query past N in the tile
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int q = 8 * t + 2 * (lane & 3) + c;  // the column's query in the tile
+            const float mq = sb[3 * q], lq = sb[3 * q + 1], rq = __frcp_rn(lq), dq_ = sb[3 * q + 2];
+            const bool in = full || t0 + q < N;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int e = 2 * half + c;
+              const float p = in ? lm::prob(__fmul_rn(s[t][e], scale), mq, lq, rq) : 0.f;
+              s[t][e] = p;
+              if (DK) dp[t][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[t][e], dq_)), scale);
+            }
+          }
+        if constexpr (DV)  // dv += round(p)^T g
+          O::template slab_product<NT, SW>(dv, s, buf + Buf::gs, t0, N, W - e0, lane);
+        if constexpr (DK)  // dk += ds^T q
+          O::template slab_product<NT, SW>(dk, dp, buf + Buf::qs, t0, N, W - e0, lane);
+        if (t0 + QT < N) return;  // not the last query tile
+        T* obase = out + ((int64_t)b * N + c0) * out_stride + (int64_t)h * W + e0;
+        if constexpr (DK) O::template store<SW>(dk, obase + C, out_stride, kr, len, W - e0, lane);
+        if constexpr (DV)
+          O::template store<SW>(dv, obase + (DK ? 2 * C : 0), out_stride, kr, len, W - e0, lane);
+      });
 }
 
+// rows<dqdk>, then keys<dqdk, dv>, as launch_long_mma, at a head width W
+// that is a multiple of 64.
 template <typename T>
 cudaError_t launch_wide(const void* qkv, const void* g, void* out, long long out_stride,
-                        float* stats, int B, int N, int H, int dh, bool dqdk, bool dv,
-                        float scale, cudaStream_t s) {
+                        float* stats, int B, int N, int H, int W, bool dqdk, bool dv, float scale,
+                        cudaStream_t s) {
+  if (W % 64) return cudaErrorInvalidValue;
   static std::atomic<bool> opted[5][devit::kMaxDevices];
   const T* x = static_cast<const T*>(qkv);
   const T* gt = static_cast<const T*>(g);
   T* o = static_cast<T*>(out);
-  const long long bh = (long long)B * H;
-  const int tiles = (N + ch::kT - 1) / ch::kT, pieces = (dh + ch::kT - 1) / ch::kT;
-  const size_t rows_smem = wide_rows_smem_bytes<T>(), keys_smem = wide_keys_smem_bytes<T>();
+  const unsigned bh = (unsigned)(B * H);
+  const int tiles = (N + wd::kRows - 1) / wd::kRows;  // query tiles, and key chunks
   cudaError_t err =
-      dqdk ? launch_wide_kernel(attn_wide_bwd_rows<T, true>, opted[0],
-                                (unsigned)(bh * tiles * pieces), rows_smem, s, x, gt, o,
-                                out_stride, stats, N, H, dh, tiles, pieces, scale)
-           : launch_wide_kernel(attn_wide_bwd_rows<T, false>, opted[1], (unsigned)(bh * tiles),
-                                rows_smem, s, x, gt, o, out_stride, stats, N, H, dh, tiles, 1,
-                                scale);
+      dqdk ? launch_mma_kernel(attn_bwd_wide_rows_mma<T, true>, opted[0], bh * tiles,
+                               2 * sizeof(T) * wide_rows_buffer<T, true>(), s, x, gt, o,
+                               out_stride, stats, N, H, W, tiles, scale)
+           : launch_mma_kernel(attn_bwd_wide_rows_mma<T, false>, opted[1], bh * tiles,
+                               2 * sizeof(T) * wide_rows_buffer<T, false>(), s, x, gt, o,
+                               out_stride, stats, N, H, W, tiles, scale);
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)(bh * tiles * pieces);
   const float* st = stats;
   if (dqdk && dv)
-    return launch_wide_kernel(attn_wide_bwd_keys<T, true, true>, opted[2], grid, keys_smem, s,
-                              x, gt, o, out_stride, st, N, H, dh, tiles, pieces, scale);
+    return launch_mma_kernel(attn_bwd_wide_keys_mma<T, true, true>, opted[2], bh * tiles,
+                             2 * WideKeysBuffer<T, true, true>::bytes, s, x, gt, o, out_stride,
+                             st, N, H, W, tiles, scale);
   if (dqdk)
-    return launch_wide_kernel(attn_wide_bwd_keys<T, true, false>, opted[3], grid, keys_smem, s,
-                              x, gt, o, out_stride, st, N, H, dh, tiles, pieces, scale);
-  return launch_wide_kernel(attn_wide_bwd_keys<T, false, true>, opted[4], grid, keys_smem, s, x,
-                            gt, o, out_stride, st, N, H, dh, tiles, pieces, scale);
+    return launch_mma_kernel(attn_bwd_wide_keys_mma<T, true, false>, opted[3], bh * tiles,
+                             2 * WideKeysBuffer<T, true, false>::bytes, s, x, gt, o, out_stride,
+                             st, N, H, W, tiles, scale);
+  return launch_mma_kernel(attn_bwd_wide_keys_mma<T, false, true>, opted[4], bh * tiles,
+                           2 * WideKeysBuffer<T, false, true>::bytes, s, x, gt, o, out_stride, st,
+                           N, H, W, tiles, scale);
 }
 
 template <typename T>
@@ -900,8 +993,8 @@ namespace devit {
 namespace bwd {
 
 size_t long_smem_bytes(int dh, int elem) {
-  if (dh > 128)  // the keys kernel's, the larger of the two
-    return elem == 2 ? wide_keys_smem_bytes<__nv_bfloat16>() : wide_keys_smem_bytes<float>();
+  if (dh > 128)  // the larger of the two kernels'
+    return elem == 2 ? wide_smem_bytes<__nv_bfloat16>() : wide_smem_bytes<float>();
   return elem == 2 ? long_mma_smem_bytes(dh) : long_tf32_smem_bytes(dh);
 }
 

@@ -90,7 +90,7 @@ long long devit_attention_bwd_dqdk_smem_bytes(int n, int head_dim, int elem_byte
 }
 
 // qkv: (B, N, 3*H*head_dim), g: (B, N, H*head_dim), contiguous, one dtype
-// (0 = float32, 1 = bfloat16), head_dim 32, 64, 128 or any width past 128.
+// (0 = float32, 1 = bfloat16), head_dim 32, 64, 128 or any multiple of 64 past 128.
 // dv: token n of batch
 // row b starts at dv + (b * N + n) * out_stride and takes H*head_dim
 // elements. stats: B*H*N*3 floats of scratch, used (and needed) only where

@@ -80,7 +80,7 @@
 // allocates, (B N, 4 K) of t's dtype: block_gemm_kernel<LN> forms qkv =
 // round(LayerNorm(t) . W + b) (statistics in f32, h rounded), the forward's
 // kernels (attention.cu, which chunk the keys: attn_long_mma at bf16 past
-// 256 keys, attn_long_tf32 at f32, attn_chunked_kernel past head width 128)
+// 256 keys, attn_long_tf32 at f32, attn_wide_mma past head width 128)
 // give o, rounded, and
 // block_gemm_kernel<!LN> adds o . proj onto t in f32, then proj_bias, one
 // rounding. The GEMMs run f32 FMAs on the CUDA cores (T products are exact
@@ -930,7 +930,7 @@ int devit_block_attention_chunked(int n, int head_dim, int elem_bytes, int devic
 // `scratch` (B, N, H head_dim) bf16 for o and `acc` unused; on the chunked
 // route (devit_block_attention_chunked), `scratch` (B, N, 4 H head_dim) of
 // the dtype and `acc` unused. C must be a multiple of 32, and the bf16
-// operands 16-byte aligned; head_dim 32, 64, 128 or any width past 128.
+// operands 16-byte aligned; head_dim 32, 64, 128 or any multiple of 64 past 128.
 // dtype: 0 = float32, 1 = bfloat16. scale: as devit_fused_attention's.
 // Returns a cudaError_t (0 = launched).
 int devit_block_attention(const void* t, const void* ns, const void* nb, const void* qw,

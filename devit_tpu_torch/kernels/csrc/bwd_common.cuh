@@ -27,8 +27,8 @@ constexpr int kShortN = 16 * kWarps;
 size_t long_smem_bytes(int dh, int elem);
 
 // dq and dk (dqdk) and/or dv (dv) of (B, N, 3C) qkv and (B, N, C) g, any N,
-// dtype 0 = float32, 1 = bfloat16, head_dim 32, 64, 128 or any width past
-// 128. Token n of batch row b writes
+// dtype 0 = float32, 1 = bfloat16, head_dim 32, 64, 128 or any multiple of
+// 64 past 128. Token n of batch row b writes
 // from out + (b N + n) out_stride: dq there, dk C further, dv 2C further with
 // dqdk and at the start without. stats: B * H * N * 3 floats of scratch (each
 // row's softmax max, sum and rowsum(dp * p)).

@@ -16,8 +16,12 @@ without the host's launch overhead), beside SDPA's forward on the same
 inputs; the kernels past 256 keys at B 64, N 578, kh 6 (dedeit at 384
 px): fused_attention, attention_bwd, attention_bwd_split and the dv and
 dq/dk kernels, in bf16 and in f32 (beside SDPA's f32 forward and backward);
-the f32 kernels at N 198 and head widths 32, 64 and 128 (the forward at B
-256, the backwards at B 64); the dedeit stage-2 step at 384 px with the
+the same five calls past head width 128 at B 64, N 578, dh 192 (kh 4) and
+dh 256 (kh 3), in both dtypes (at dh 192 also the device time of each kernel
+one attention_bwd and one attention_bwd_split call launch, by
+torch.profiler); the f32 kernels at N 198 and head widths 32,
+64 and 128 (the forward at B 256, the backwards at B 64); the dedeit
+stage-2 step at 384 px with the
 kernels, bf16 at B 64 and f32 at B 16 (host clock over 3 steps after one);
 fused_int8_matmul (bf16 in and out) at M 50688 (bs256 x 198 tokens) at every
 distinct (K, N) of the deployed divisions' weight products, with each
@@ -51,6 +55,7 @@ FWD = [(256, kh) for kh in range(1, 7)] + [(64, 6), (64, 12)]
 BWD = [(256, 6), (64, 6), (64, 12)]
 SPLIT = [(64, 6), (256, 6)]
 LONG = (64, 578, 6)  # B, N, kh of the kernels past 256 keys (dedeit at 384 px)
+WIDE = ((64, 578, 4, 192), (64, 578, 3, 256))  # B, N, kh, dh past head width 128
 # f32 (3xTF32 on the tensor cores): (head width, heads) at N 198, the
 # forward at B 256, the backwards at B 64, as chip_smoke.py's [heads]
 F32_HEADS = ((32, 12), (64, 6), (128, 6))
@@ -94,7 +99,7 @@ def child(root: Path) -> dict:
     _build.build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    res, digest = {}, {}
+    res, digest, by_kernel = {}, {}, {}
     for B, kh in FWD:
         x = torch.randn((B, N, 3 * kh * DH), generator=gen, device="cuda").bfloat16()
         q, k, v = (t.contiguous() for t in x.view(B, N, 3, kh, DH).permute(2, 0, 3, 1, 4))
@@ -136,6 +141,21 @@ def child(root: Path) -> dict:
                 torch, lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True),
                 iters=5, warmup=2)
             del q, k, v, out
+    for (B, n, kh, dh), dt in ((w, d) for w in WIDE for d in (torch.bfloat16, torch.float32)):
+        x = torch.randn((B, n, 3 * kh * dh), generator=gen, device="cuda").to(dt)
+        g = torch.randn((B, n, kh * dh), generator=gen, device="cuda").to(dt)
+        tag = "" if dt == torch.bfloat16 else " f32"
+        for name, fn in (("fwd", lambda: fused_attention(x, num_heads=kh)),
+                         ("bwd", lambda: attention_bwd(x, g, kh)),
+                         ("split", lambda: attention_bwd_split(x, g, kh)),
+                         ("dv", lambda: attention_bwd_dv(x, g, kh)),
+                         ("dqdk", lambda: attention_bwd_dqdk(x, g, kh))):
+            key = f"{name}{tag} B{B} N{n} kh{kh} dh{dh}"
+            res[key] = _time_ms(torch, fn, iters=3, warmup=1)
+            digest[key] = _digest(fn())
+            if name in ("bwd", "split") and dh == WIDE[0][3]:
+                by_kernel[key] = _device_ms_by_kernel(torch, fn)
+        del x, g
     for dh, kh in F32_HEADS:  # f32 at N 198, every head width
         xf = torch.randn((256, N, 3 * kh * dh), generator=gen, device="cuda")
         x = torch.randn((64, N, 3 * kh * dh), generator=gen, device="cuda")
@@ -197,7 +217,28 @@ def child(root: Path) -> dict:
                       warmup=2)
         res[f"block B256 kh{kh}"] = ms
         res["block forward"] += mix.get(kh, 0) * ms
-    return {"ms": res, "digest": digest}
+    return {"ms": res, "digest": digest, "by_kernel": by_kernel}
+
+
+def _device_ms_by_kernel(torch, fn) -> dict:
+    """Device ms of each kernel that one call of fn launches (torch.profiler,
+    after a warm-up call), by its name and template arguments; empty where
+    the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"attn_\w+(?:<[^>]*>)?", e.key)
+            key = m.group(0) if m else e.key[:60]
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3
+    return out
 
 
 def _step_384(torch, dtype, B: int, steps: int) -> float:
@@ -300,6 +341,7 @@ def main() -> int:
     print(card)
     turns = {"old": [], "new": []}
     digests = {"old": [], "new": []}
+    by_kernel = {"old": [], "new": []}
     for side in ("old", "new", "new", "old"):
         out = subprocess.run([sys.executable, __file__, args.old, args.new, "--child",
                               getattr(args, side)], capture_output=True, text=True)
@@ -308,7 +350,11 @@ def main() -> int:
         turn = json.loads(out.stdout.strip().splitlines()[-1])
         turns[side].append(turn["ms"])
         digests[side].append(turn["digest"])
+        by_kernel[side].append(turn["by_kernel"])
         print(side, json.dumps({k: round(v, 4) for k, v in turn["ms"].items()}))
+        for call, ms in turn["by_kernel"].items():
+            print(f"{side} {call}: device ms by kernel "
+                  f"{', '.join(f'{k} {v:.4f}' for k, v in ms.items()) or 'not recorded'}")
     mean = {side: {k: sum(t[k] for t in ts) / len(ts) for k in ts[0]} for side, ts in turns.items()}
     for k in mean["new"]:
         print(f"{k:24s} old {mean['old'][k]:9.4f} ms  new {mean['new'][k]:9.4f} ms  "
@@ -335,8 +381,8 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(card=card, turns=turns, mean=mean,
-                                                  same_bits=same, repeat=repeat, sass=sass),
-                                             indent=1))
+                                                  by_kernel=by_kernel, same_bits=same,
+                                                  repeat=repeat, sass=sass), indent=1))
     return 0
 
 

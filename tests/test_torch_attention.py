@@ -162,12 +162,14 @@ def test_padded_head_widths_match_pallas(dh, kh):
 
 
 @pytest.mark.parametrize("dh,width", [(8, 32), (16, 32), (32, 32), (48, 64), (80, 128),
-                                      (96, 128), (128, 128)])
+                                      (96, 128), (128, 128), (129, 192), (160, 192), (192, 192),
+                                      (200, 256), (320, 320)])
 def test_padded_staging_is_the_unpadded_computation(dh, width):
     """What the wrappers stage for the card: each head's q, k, v zero-padded
-    to the instantiation's width (the padding all zeros, the slice back the
-    input), and the plain attention over the padded heads at the true
-    width's scale, sliced back, is the unpadded attention."""
+    to the instantiation's width (past 128, the next multiple of 64; the
+    padding all zeros, the slice back the input), and the plain attention
+    over the padded heads at the true width's scale, sliced back, is the
+    unpadded attention."""
     assert tattn.kernel_head_dim(dh) == width
     assert tattn.logit_scale(dh) == float(np.float32(1) / np.sqrt(np.float32(dh)))
     kh, B, n = 3, 2, 19
@@ -186,21 +188,25 @@ def test_padded_staging_is_the_unpadded_computation(dh, width):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
 
 
-def test_head_widths_past_128_raise():
-    """Widths past 128 once raised here; they now run at their own width on
-    the key-chunked kernels (no padding), and only a non-positive width
-    raises."""
-    for dh in (129, 192, 256, 384, 768):
-        assert tattn.kernel_head_dim(dh) == dh
+@pytest.mark.parametrize("dh", [129, 160, 192, 200, 256, 384, 768])
+def test_head_widths_past_128_raise(dh):
+    """Widths past 128 once raised here; they now run on the wide tensor-core
+    kernels, which walk the head in 64-dim pieces: the wrappers zero-pad the
+    head to the next multiple of 64 (a multiple of 64 stays as it is), and
+    only a non-positive width raises."""
+    width = tattn.kernel_head_dim(dh)
+    assert width % 64 == 0 and dh <= width < dh + 64
+    assert width == dh if dh % 64 == 0 else width > dh
     with pytest.raises(ValueError, match="head_dim must be positive"):
         tattn.kernel_head_dim(0)
 
 
-# past the kernels' one-block designs: a head wider than 128 (the key-chunked
-# CUDA-core kernels on the card) and N 291 (dedeit at 272 px: key chunks at
-# bf16, and at f32 past the whole-row block's shared memory); on the CPU the
-# wrappers take their plain versions, held here to the Pallas kernels
-@pytest.mark.parametrize("n,dh,kh", [(37, 192, 2), (291, 64, 2)])
+# past the kernels' one-block designs: heads wider than 128 (the wide
+# tensor-core kernels on the card; 160 zero-padded to 192) and N 291 (dedeit
+# at 272 px: key chunks at bf16, and at f32 past the whole-row block's shared
+# memory); on the CPU the wrappers take their plain versions, held here to the
+# Pallas kernels
+@pytest.mark.parametrize("n,dh,kh", [(37, 192, 2), (291, 64, 2), (37, 256, 2), (19, 160, 2)])
 def test_long_and_wide_heads_match_pallas(n, dh, kh):
     rng = np.random.default_rng(n + dh)
     x = rng.standard_normal((2, n, 3 * kh * dh)).astype(np.float32)

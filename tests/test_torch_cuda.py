@@ -35,7 +35,7 @@ pytestmark = pytest.mark.cuda
 N, DH = 198, 64
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # max|got-want| / max|want|
 # (head_dim, heads) past the widest instantiation (128), which the wrappers
-# once rejected: they run unpadded on the key-chunked CUDA-core kernels
+# once rejected: they run on the wide tensor-core kernels (csrc/wide.cuh)
 BAD_DH = ((256, 1),)
 
 
@@ -172,7 +172,7 @@ def test_function_gradient_matches_autograd_through_plain(gen):
 
 
 def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(gen):
-    for dh, kh in BAD_DH:  # once rejected: now the long path's any-width kernels
+    for dh, kh in BAD_DH:  # once rejected: now the long path's wide kernels
         x = torch.randn((1, N, 3 * kh * dh), generator=gen, device="cuda")
         g = torch.randn((1, N, kh * dh), generator=gen, device="cuda")
         errs = _bwd_errs(attention_bwd(x, g, kh), reference_attention_bwd(x, g, kh), kh * dh)
@@ -868,9 +868,8 @@ def test_head_widths_block_kernel_matches_plain(gen, dh, dtype):
 
 
 # ---- every sequence length and head width: the key-chunked paths
-# (csrc/attention.cu attn_long_mma and attn_chunked_kernel,
-# csrc/attention_bwd_long.cu's any-width kernels, block_attention.cu's
-# chunked route)
+# (csrc/attention.cu attn_long_mma and attn_wide_mma,
+# csrc/attention_bwd_long.cu's pairs, block_attention.cu's chunked route)
 
 LONG_CASES = ([(n, 64, 6) for n in (291, 578, 843, 1026)] + [(578, 32, 12), (578, 128, 6)]
               + [(n, dh, kh) for n in (198, 578) for dh, kh in ((192, 4), (256, 3))])
@@ -922,5 +921,51 @@ def test_forward_paths_are_the_designs_the_sizes_call_for(gen):
     for n in (1, 198, 578):
         for dh in (32, 64, 128):
             assert attention_path(n, dh, torch.float32) == "key-chunked mma", (n, dh)
-    assert attention_path(198, 192, torch.float32) == "key-chunked CUDA cores"
-    assert attention_path(198, 192, torch.bfloat16) == "key-chunked CUDA cores"
+    # past head width 128 in both dtypes, padded or not: head pieces and slabs
+    for dh in (129, 160, 192, 256, 320, 768):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert attention_path(198, dh, dtype) == "wide-head mma", (dh, dtype)
+
+
+# past head width 128 (csrc/wide.cuh): widths that pad (160 -> 192, 320 is a
+# multiple of 64 past two slabs) and that do not (192, 256), at N 1 (a
+# constant softmax), 17 (one partial tile), 198 and 578 (several chunks)
+WIDE_CASES = [(n, dh, kh) for n in (1, 17, 198, 578)
+              for dh, kh in ((160, 2), (192, 2), (256, 1), (320, 1))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,dh,kh", WIDE_CASES)
+def test_wide_heads_match_plain(gen, n, dh, kh, dtype):
+    """fused_attention and the four backward wrappers past head width 128
+    against their plain versions (dq, dk and dv each), every call repeated
+    bit for bit, and the split pair, dq/dk and dv equal to the monolithic
+    backward bit for bit."""
+    C = kh * dh
+    x = torch.randn((2, n, 3 * C), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((2, n, C), generator=gen, device="cuda").to(dtype)
+    fwd, fwd2 = fused_attention(x, num_heads=kh), fused_attention(x, num_heads=kh)
+    mono, mono2 = attention_bwd(x, g, kh), attention_bwd(x, g, kh)
+    split = attention_bwd_split(x, g, kh)
+    dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
+    torch.cuda.synchronize()
+    assert _rel(fwd, reference_attention(x, num_heads=kh)) <= TOL[dtype]
+    errs = _bwd_errs(mono, reference_attention_bwd(x, g, kh), C)
+    assert max(errs) <= TOL[dtype], errs
+    assert torch.equal(fwd, fwd2) and torch.equal(mono, mono2) and torch.equal(split, mono)
+    assert torch.equal(dqdk, mono[..., :2 * C]) and torch.equal(dv, mono[..., 2 * C:])
+
+
+@pytest.mark.parametrize("dh,wide", [(64, 0), (128, 0), (129, 1), (192, 1)])
+def test_wide_launches_are_counted(gen, dh, wide):
+    """Every wrapper counts a launch in `launches`, and past head width 128
+    also in `wide_launches`; the split pair counts one launch on each half."""
+    x = torch.randn((1, 17, 6 * dh), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((1, 17, 2 * dh), generator=gen, device="cuda").bfloat16()
+    wrappers = (fused_attention, attention_bwd, attention_bwd_dv, attention_bwd_dqdk)
+    before = [(w.launches, w.wide_launches) for w in wrappers]
+    fused_attention(x, num_heads=2)
+    attention_bwd(x, g, 2)
+    attention_bwd_split(x, g, 2)
+    got = [(w.launches - a, w.wide_launches - b) for w, (a, b) in zip(wrappers, before)]
+    assert got == [(1, wide)] * 4

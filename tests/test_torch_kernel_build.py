@@ -67,14 +67,11 @@ def test_concurrent_builds_compile_once(tmp_path):
 
 # ---- every kernel is classified for chip_smoke.py's SASS check
 
-# The __global__ kernels of csrc/ that run on the CUDA cores (the paths past
-# head width 128, the f32 block half, the int8 quantisation); every other
-# kernel must have an entry in chip_smoke.py's MMA_KERNELS. A new kernel is
-# classified here or there by hand.
-CUDA_CORE_KERNELS = {
-    "attn_chunked_kernel", "attn_wide_bwd_rows", "attn_wide_bwd_keys", "block_attn_kernel",
-    "block_gemm_kernel", "quant_rows_kernel",
-}
+# The __global__ kernels of csrc/ that run on the CUDA cores (the f32 block
+# half, the block half's chunked-route GEMMs, the int8 quantisation); every
+# other kernel must have an entry in chip_smoke.py's MMA_KERNELS. A new kernel
+# is classified here or there by hand.
+CUDA_CORE_KERNELS = {"block_attn_kernel", "block_gemm_kernel", "quant_rows_kernel"}
 
 
 def test_every_bf16_mma_kernel_is_in_the_sass_check():
@@ -93,7 +90,8 @@ def test_every_bf16_mma_kernel_is_in_the_sass_check():
     kernels = {k for f in csrc.glob("*.cu*") for k in name.findall(f.read_text())}
     assert {"attn_kernel_mma", "attn_bwd_kernel_mma", "attn_long_mma", "attn_bwd_long_rows_mma",
             "attn_bwd_long_keys_mma", "attn_long_tf32", "attn_bwd_long_rows_tf32",
-            "attn_bwd_long_keys_tf32", "quant_mma_kernel"} <= kernels, sorted(kernels)
+            "attn_bwd_long_keys_tf32", "attn_wide_mma", "attn_bwd_wide_rows_mma",
+            "attn_bwd_wide_keys_mma", "quant_mma_kernel"} <= kernels, sorted(kernels)
     in_check = {k for k in kernels if any(re.match(rf"{k}(?![a-z0-9_])", p) for p in patterns)}
     unclassified = sorted(kernels - in_check - CUDA_CORE_KERNELS)
     assert not unclassified, f"kernels in neither MMA_KERNELS nor CUDA_CORE_KERNELS: {unclassified}"

@@ -1,5 +1,6 @@
 """The numerics behind the port's f32 attention kernels on the tensor cores
-(devit_tpu_torch/kernels/csrc/long_tf32.cuh, mma_common.cuh mma_3xtf32):
+(devit_tpu_torch/kernels/csrc/long_tf32.cuh, wide.cuh past head width 128,
+mma_common.cuh mma_3xtf32):
 three TF32 passes a product (3xTF32) keep f32 accuracy, one pass does not.
 
 A numpy emulation of the kernels' split: big = x rounded to TF32 (to
@@ -97,6 +98,17 @@ def test_tf32_rounds_to_nearest_ties_away_from_zero():
 @pytest.mark.parametrize("N", [198, 578])
 @pytest.mark.parametrize("dh", [64, 128])
 def test_3xtf32_keeps_f32_accuracy_where_one_pass_does_not(N, dh):
+    _hold_3xtf32(N, dh)
+
+
+# past head width 128 (csrc/wide.cuh): the same products over wider heads,
+# dh 192 (embed 768 at 4 heads) and 256 (768 at 3)
+@pytest.mark.parametrize("dh", [192, 256])
+def test_3xtf32_keeps_f32_accuracy_past_head_width_128(dh):
+    _hold_3xtf32(198, dh)
+
+
+def _hold_3xtf32(N: int, dh: int) -> None:
     B, H = 1, 2
     rng = np.random.default_rng(N * 1000 + dh)
     qkv = rng.standard_normal((B, N, 3 * H * dh)).astype(np.float32)
