@@ -8,8 +8,9 @@ sources in the checkout, counts the tensor-core instructions in the built
 library (HMMA in the bf16 attention kernels at each head width: the
 forward, the monolithic backward and the split pair, three instantiations
 of one template, the forward and the backward pair past 256 keys, and the
-two block-attention kernels; in the f32 forward and backward pair, 3xTF32;
-IMMA in the int8 GEMM), holds each kernel
+block-attention kernels: the whole-row pair and the chunked route's
+LayerNorm + qkv GEMM; 3xTF32 HMMA in the f32 forward, backward pair and
+block-half GEMMs; IMMA in the int8 GEMM), holds each kernel
 against its plain PyTorch version on the card (the split pair also against
 the monolithic kernel, bit for bit; every backward past 256 keys at head
 widths 32, 64 and 128, [bwd-long]; the f32 kernels at N 198 to 4098,
@@ -18,7 +19,8 @@ ensemble at full width, serves it over HTTP to concurrent clients, times
 the kernels and the forward. Then the deployment artifacts: the int8 matmul
 kernel against its
 plain version at every deployed weight shape, the block-attention kernel at
-every deployed layer, the divisions and the fusion head written to disk in
+every deployed layer and through its routes' main paths (the deployed
+forward in bf16 and f32, and at 384 px), the divisions and the fusion head written to disk in
 the JAX package's format, loaded back into a server whose replies equal the
 in-memory engine's, a fusion head hot-swapped over POST /reload, and the
 int8 forward of the loaded divisions (192 int8 kernel launches), timed
@@ -213,8 +215,10 @@ def _qkv(B: int, kh: int, dtype, gen, zero_head: bool = False) -> torch.Tensor:
 # attn_bwd_long_rows_tf32<DH, DQ> and attn_bwd_long_keys_tf32<DH, DK, DV>
 # (3xTF32: HMMA.1688.F32.TF32); past head width 128, in both dtypes,
 # attn_wide_mma<T, SW>, attn_bwd_wide_rows_mma<T, DQ> and
-# attn_bwd_wide_keys_mma<T, DK, DV>; of the bf16 block-attention kernels
-# block_qkv_attn_kernel<KC, DH> and block_proj_kernel<Ragged>; the int8 GEMM
+# attn_bwd_wide_keys_mma<T, DK, DV>; of the block-attention kernels, bf16
+# block_qkv_attn_kernel<KC, DH> and block_proj_kernel<Ragged> (the whole-row
+# route) and block_ln_qkv_mma (the chunked route's LayerNorm + qkv), f32
+# block_gemm_tf32<LN> (the chunked route's two GEMMs, 3xTF32); the int8 GEMM
 # (m16n8k32 s8 is IMMA).
 # tests/test_torch_kernel_build.py checks that every __global__ of csrc/ is
 # either here or in its list of CUDA-core kernels.
@@ -276,6 +280,10 @@ MMA_KERNELS = {
        for dh in HEAD_DIMS for kc in KEY_CHUNKS},
     **{f"block_proj_kernel<{r}> (fused_block_attention)": (rf"block_proj_kernelILb{i}EE", "HMMA")
        for r, i in (("false", 0), ("true", 1))},
+    "block_ln_qkv_mma (fused_block_attention chunked)": ("block_ln_qkv_mma", "HMMA"),
+    **{f"block_gemm_tf32<{ln}> (fused_block_attention f32 {w})":
+       (rf"block_gemm_tf32ILb{i}EE", "HMMA")
+       for ln, i, w in (("true", 1, "LayerNorm + qkv"), ("false", 0, "proj"))},
     "quant_mma_kernel (fused_int8_matmul)": ("quant_mma_kernel", "IMMA"),
 }
 
@@ -584,16 +592,18 @@ def _int8_bound(M: int, K: int, Nn: int, elem: int = 2):
     return max(t_bytes, 2 * M * K * Nn / INT8_OPS) * 1e3, t_bytes * 1e3
 
 
-def _block_bound(B: int, C: int, K: int, elem: int = 2):
-    """Least time of one fused_block_attention call: read t (B, N, C) and the
-    layer's LN, qkv (C, 3K) and proj (K, C) weights and biases, write (B, N,
-    C), against 2 B N C 3K + 4 B N^2 K + 2 B N K C operations at the bf16
-    peak. Returns (ms, bytes ms)."""
-    M = B * N
+def _block_bound(B: int, C: int, K: int, dtype=torch.bfloat16, n: int = N):
+    """Least time of one fused_block_attention call: read t (B, n, C) and the
+    layer's LN, qkv (C, 3K) and proj (K, C) weights and biases, write (B, n,
+    C), against 2 B n C 3K + 4 B n^2 K + 2 B n K C operations at the dtype's
+    peak (bf16; f32 as 3xTF32). Returns (ms, bytes ms)."""
+    M = B * n
+    elem = 4 if dtype == torch.float32 else 2
     nbytes = elem * (2 * M * C + 4 * C + C * 3 * K + 3 * K + K * C + C)
-    flops = 2 * M * C * 3 * K + 4 * B * N * N * K + 2 * M * K * C
+    flops = 2 * M * C * 3 * K + 4 * B * n * n * K + 2 * M * K * C
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_bytes, flops / BF16_FLOPS) * 1e3, t_bytes * 1e3
+    peak = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    return max(t_bytes, flops / peak) * 1e3, t_bytes * 1e3
 
 
 def _int8_shapes(cm):
@@ -767,9 +777,9 @@ def _profile(fwd, tag: str, what: str, card: str, kind=_kind) -> dict:
 # ---- the deployment artifacts, the int8 path and the block-attention kernel
 
 
-def _images(B: int, seed: int) -> torch.Tensor:
+def _images(B: int, seed: int, px: int = PX) -> torch.Tensor:
     return normalize(torch.from_numpy(np.random.default_rng(seed).integers(
-        0, 256, (B, PX, PX, 3), dtype=np.uint8)).cuda(), torch.float32)
+        0, 256, (B, px, px, 3), dtype=np.uint8)).cuda(), torch.float32)
 
 
 def _deployed_weights(cms) -> dict:
@@ -825,22 +835,44 @@ def _block_args(lp, t: torch.Tensor):
             lp.qkv_bias, lp.proj_kernel.to(t.dtype).contiguous(), lp.proj_bias)
 
 
-def _block_forward(cms, ens, x):
-    """The deployed forward (bf16, fast_math) with each layer's attention
-    half through fused_block_attention and its MLP half as compact_forward
-    runs it."""
+def _block_features(cms, x, dtype=torch.bfloat16, fast_math: bool = True):
+    """The divisions' stacked (cls, dist) tokens of the deployed forward with
+    each layer's attention half through fused_block_attention and its MLP
+    half and final LayerNorm as compact_forward runs them."""
     from devit_tpu_torch.models.vit import layer_norm
 
     cls_t, dist_t = [], []
     for cm in cms:
-        t = embed_patches(cm, x, patch_size=16, dtype=torch.bfloat16)
+        t = embed_patches(cm, x, patch_size=16, dtype=dtype)
         for lp in cm.layers:
             t = fused_block_attention(*_block_args(lp, t), num_heads=lp.num_heads, eps=cm.eps)
-            t = mlp_half(lp, t, eps=cm.eps, dtype=torch.bfloat16)
-        t = layer_norm(t, cm.norm_scale, cm.norm_bias, cm.eps, torch.bfloat16)
+            t = mlp_half(lp, t, eps=cm.eps, dtype=dtype, fast_math=fast_math)
+        t = layer_norm(t, cm.norm_scale, cm.norm_bias, cm.eps,
+                       dtype if fast_math else torch.float32)
         cls_t.append(t[:, 0])
         dist_t.append(t[:, 1])
-    return ens(torch.stack(cls_t), torch.stack(dist_t)).logits
+    return torch.stack(cls_t), torch.stack(dist_t)
+
+
+BLOCK_384 = (64, 384)  # batch and image side of the 384-px forward through the chunked route
+
+
+def _at_px(cms, px: int) -> list:
+    """Copies of the compact divisions for px-wide images: the position
+    embeddings resized to the new grid (bicubic, as the checkpoint
+    converters resize them), every other weight shared."""
+    from devit_tpu_torch.io.checkpoint import resize_pos_embed
+
+    out = []
+    for cm in cms:
+        c = copy.copy(cm)  # a shallow copy: the layers are the same modules
+        c._parameters = dict(cm._parameters)
+        n = (px // 16) ** 2 + 1 + int(cm.distilled)
+        pe = resize_pos_embed(cm.pos_embed.detach().cpu().numpy(), n, 1 + int(cm.distilled))
+        c.pos_embed = torch.nn.Parameter(torch.from_numpy(pe).to(cm.pos_embed.device),
+                                         requires_grad=False)
+        out.append(c)
+    return out
 
 
 @torch.inference_mode()
@@ -852,7 +884,12 @@ def phase_block_attention(cms, ens, card: str) -> dict:
     strict numerics (tol 1e-4, and within the JAX test's 2e-4 of the split
     sequence, attention_half); every case launched twice, bit for bit. Then
     the deployed bs256 forward with every attention half through the kernel
-    (its 48 launches, counted from 0), logits against compact_forward's."""
+    (its 48 launches on the whole-row route, counted from 0), logits against
+    compact_forward's; the main paths of the chunked route, each counted
+    from 0: the same forward at f32 (strict numerics; the divisions' tokens
+    within 2e-4 of compact_forward's) and the forward of 384-px images (N 578;
+    the position embeddings resized) in bf16 (logits within 2e-2), 48
+    chunked launches each; the 384-px route timed layer by layer."""
     fa_before, before = fused_attention.launches, fused_block_attention.launches
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     vs_split = max_abs = 0.0
@@ -892,23 +929,82 @@ def phase_block_attention(cms, ens, card: str) -> dict:
 
     x = _images(256, seed=69)
     layers = sum(len(cm.layers) for cm in cms)
-    fused_block_attention.launches = 0
-    got = _block_forward(cms, ens, x)
+    before_chunked = fused_block_attention.chunked_launches
+    fused_block_attention.launches = fused_block_attention.chunked_launches = 0
+    got = ens(*_block_features(cms, x)).logits
     torch.cuda.synchronize()
     launches = fused_block_attention.launches
     want = _forward(cms, ens, x, dtype=torch.bfloat16, use_kernel=True, fast_math=True)
     rel = _rel(got, want)
-    if launches != layers or rel > 2e-2:
+    if launches != layers or fused_block_attention.chunked_launches or rel > 2e-2:
         raise AssertionError(f"bs256 forward through fused_block_attention: {launches} "
-                             f"launches (expected {layers}), logits vs compact_forward rel "
-                             f"{rel:.3e}")
+                             f"launches (expected {layers}), "
+                             f"{fused_block_attention.chunked_launches} on the chunked route "
+                             f"(expected 0), logits vs compact_forward rel {rel:.3e}")
     print(f"[block-attn] deployed bs256 forward with every attention half through the kernel: "
-          f"{launches} launches, logits vs compact_forward's rel err {rel:.3e} (tol 2e-2) [{card}]")
+          f"{launches} launches (the whole-row route), logits vs compact_forward's rel err "
+          f"{rel:.3e} (tol 2e-2) [{card}]")
+
+    # the chunked route's main paths, each counted from 0: the f32 forward
+    # (every f32 call: 3xTF32 GEMMs, attn_long_tf32) and the 384-px bf16
+    # forward (N 578, past the whole-row block: block_ln_qkv_mma,
+    # attn_long_mma, block_proj_kernel)
+    chunked = {}
+    B384, px = BLOCK_384
+    cms384 = _at_px(cms, px)
+    for tag, mods, xs, dtype, fast in (
+            ("f32", cms, x, torch.float32, False),
+            ("bf16 384px", cms384, _images(B384, seed=70, px=px), torch.bfloat16, True)):
+        fused_block_attention.launches = fused_block_attention.chunked_launches = 0
+        feats = _block_features(mods, xs, dtype, fast)
+        torch.cuda.synchronize()
+        counts = (fused_block_attention.launches, fused_block_attention.chunked_launches)
+        plain = _features(mods, xs, dtype=dtype, use_kernel=True, fast_math=fast)
+        # f32: the divisions' tokens, within the JAX test's 2e-4 of the split
+        # sequence; bf16: the fusion head's logits, within 2e-2
+        errs = ([_rel(a, b) for a, b in zip(feats, plain)] if dtype == torch.float32
+                else [_rel(ens(*feats).logits, ens(*plain).logits)])
+        tol = 2e-4 if dtype == torch.float32 else 2e-2
+        if counts != (layers, layers) or max(errs) > tol:
+            raise AssertionError(f"[block-attn] {tag} forward through the chunked route: "
+                                 f"launches {counts} (expected {layers} and {layers} chunked), "
+                                 f"rel err {errs} (tol {tol:.0e})")
+        chunked[tag] = dict(launches=counts[1], rel=max(errs))
+        what = "cls and dist tokens" if dtype == torch.float32 else "logits"
+        print(f"[block-attn] deployed forward at {xs.shape[0]} x {xs.shape[1]} px, "
+              f"{str(dtype)[6:]}, every attention half through the chunked route: "
+              f"{counts[0]} launches, {counts[1]} chunked; {what} vs compact_forward's rel err "
+              f"{max(errs):.3e} (tol {tol:.0e}) [{card}]")
     fused_attention.launches = fa_before
-    fused_block_attention.launches = before + launches
+    fused_block_attention.launches = before + launches + 2 * layers
+    fused_block_attention.chunked_launches = before_chunked + 2 * layers
+
+    # the 384-px route timed at each of its 48 layers (timing launches, not
+    # counted), beside its plain version and its bound
+    t384 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0}
+    counts = fused_block_attention.launches, fused_block_attention.chunked_launches
+    x384 = _images(B384, seed=71, px=px)
+    for cm in cms384:
+        t = embed_patches(cm, x384, patch_size=16, dtype=torch.bfloat16)
+        for lp in cm.layers:
+            args, kw = _block_args(lp, t), dict(num_heads=lp.num_heads, eps=cm.eps)
+            t384["ms"] += _time_ms(lambda: fused_block_attention(*args, **kw), iters=5, warmup=1)
+            t384["plain_ms"] += _time_ms(lambda: reference_block_attention(*args, **kw), iters=3,
+                                         warmup=1)
+            bound, bytes_ms = _block_bound(B384, t.shape[-1], lp.num_heads * DH, n=t.shape[1])
+            t384["bound_ms"] += bound
+            t384["bytes_ms"] += bytes_ms
+            t = mlp_half(lp, attention_half(lp, t, eps=cm.eps), eps=cm.eps)
+    t384["bound_by"] = ("bytes" if t384["bytes_ms"] >= t384["bound_ms"] * (1 - 1e-9)
+                        else "operations")
+    fused_block_attention.launches, fused_block_attention.chunked_launches = counts
+    print(f"[block-attn] fused_block_attention over the {px}-px bs{B384} forward's {layers} "
+          f"layers (bf16, N {t.shape[1]}, the chunked route): kernels {t384['ms']:.3f} ms, plain "
+          f"{t384['plain_ms']:.3f}, bound {t384['bound_ms']:.3f} ({t384['bound_by']}) [{card}]")
+    torch.cuda.empty_cache()
     return dict(max_abs_err=max_abs, worst={str(k)[6:]: v for k, v in worst.items()},
-                vs_split=vs_split, cases=n,
-                launches=launches, forward_rel=rel)
+                vs_split=vs_split, cases=n, launches=launches, forward_rel=rel,
+                chunked=chunked, time_384=t384)
 
 
 def _reload(url: str, path: str) -> int:
@@ -1043,10 +1139,11 @@ def phase_int8_times(cms, qcms, ens, card: str) -> dict:
     (K, N) at M = 256 x 198 beside its plain version, its bound, the dot
     alone through torch._int_mm (cuBLASLt int8) and the bf16 product
     (torch.matmul), summed over one forward's 192 calls; and
-    fused_block_attention at each of the 48 deployed layers at B 256 (bf16,
-    on the layer's own input) beside its plain version, its bound and the
-    split sequence it replaces (attention_half with the attention kernel).
-    Timing launches are not the main path's: the counts are restored."""
+    fused_block_attention at each of the 48 deployed layers at B 256 (bf16
+    with fast_math, and f32 with strict numerics, on the layer's own input)
+    beside its plain version, its bound at the dtype's peak and the split
+    sequence it replaces (attention_half with the attention kernel). Timing
+    launches are not the main path's: the counts are restored."""
     counts = (fused_attention.launches, fused_int8_matmul.launches,
               fused_block_attention.launches)
     e2e = {}
@@ -1101,28 +1198,37 @@ def phase_int8_times(cms, qcms, ens, card: str) -> dict:
           f"{int8_fwd['bound_ms']:.3f} ({int8_fwd['bound_by']}) [{card}]")
 
     x = _images(256, seed=82)
-    block = {"ms": 0.0, "plain_ms": 0.0, "split_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0}
-    for cm in cms:
-        t = embed_patches(cm, x, patch_size=16, dtype=torch.bfloat16)
-        for lp in cm.layers:
-            args, kw = _block_args(lp, t), dict(num_heads=lp.num_heads, eps=cm.eps)
-            block["ms"] += _time_ms(lambda: fused_block_attention(*args, **kw), iters=3, warmup=1)
-            block["plain_ms"] += _time_ms(lambda: reference_block_attention(*args, **kw),
-                                          iters=3, warmup=1)
-            block["split_ms"] += _time_ms(lambda: attention_half(lp, t, eps=cm.eps), iters=3,
-                                          warmup=1)
-            bound, bytes_ms = _block_bound(256, t.shape[-1], lp.num_heads * DH)
-            block["bound_ms"] += bound
-            block["bytes_ms"] += bytes_ms
-            t = mlp_half(lp, attention_half(lp, t, eps=cm.eps), eps=cm.eps)
-    block["bound_by"] = "bytes" if block["bytes_ms"] >= block["bound_ms"] * (1 - 1e-9) else \
-        "operations"
-    print(f"[int8-time] fused_block_attention over one bs256 forward's {sum(len(cm.layers) for cm in cms)} layers (bf16): kernel "
-          f"{block['ms']:.3f} ms, plain {block['plain_ms']:.3f}, the split sequence it replaces "
-          f"{block['split_ms']:.3f}, bound {block['bound_ms']:.3f} ({block['bound_by']}) [{card}]")
+    blocks = {}
+    for dtype, fast in ((torch.bfloat16, True), (torch.float32, False)):
+        block = {"ms": 0.0, "plain_ms": 0.0, "split_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0}
+        half = dict(dtype=dtype, fast_math=fast)
+        for cm in cms:
+            t = embed_patches(cm, x, patch_size=16, dtype=dtype)
+            for lp in cm.layers:
+                args, kw = _block_args(lp, t), dict(num_heads=lp.num_heads, eps=cm.eps)
+                block["ms"] += _time_ms(lambda: fused_block_attention(*args, **kw), iters=3,
+                                        warmup=1)
+                block["plain_ms"] += _time_ms(lambda: reference_block_attention(*args, **kw),
+                                              iters=3, warmup=1)
+                block["split_ms"] += _time_ms(lambda: attention_half(lp, t, eps=cm.eps, **half),
+                                              iters=3, warmup=1)
+                bound, bytes_ms = _block_bound(256, t.shape[-1], lp.num_heads * DH, dtype)
+                block["bound_ms"] += bound
+                block["bytes_ms"] += bytes_ms
+                t = mlp_half(lp, attention_half(lp, t, eps=cm.eps, **half), eps=cm.eps, **half)
+        block["bound_by"] = ("bytes" if block["bytes_ms"] >= block["bound_ms"] * (1 - 1e-9)
+                             else "operations")
+        blocks[dtype] = block
+        peak = " at 165 TFLOP/s (3xTF32)" if dtype == torch.float32 else ""
+        print(f"[int8-time] fused_block_attention over one bs256 forward's "
+              f"{sum(len(cm.layers) for cm in cms)} layers ({str(dtype)[6:]}): kernel "
+              f"{block['ms']:.3f} ms, plain {block['plain_ms']:.3f}, the split sequence it "
+              f"replaces {block['split_ms']:.3f}, bound {block['bound_ms']:.3f} "
+              f"({block['bound_by']}{peak}) [{card}]")
     fused_attention.launches, fused_int8_matmul.launches, fused_block_attention.launches = counts
     return dict(forward=e2e, int8_per_shape={f"{k}x{n}": r for (k, n), r in per_shape.items()},
-                int8_forward=int8_fwd, block_forward=block)
+                int8_forward=int8_fwd, block_forward=blocks[torch.bfloat16],
+                block_forward_f32=blocks[torch.float32])
 
 
 def _bwd_errs(got: torch.Tensor, want: torch.Tensor, C: int):
@@ -2485,9 +2591,7 @@ def phase_heads(card: str) -> dict:
                 mono, mono2 = attention_bwd(x, g, kh), attention_bwd(x, g, kh)
                 dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
                 split = attention_bwd_split(x, g, kh)
-                # f32 at dh 128 holds the block's head in shared memory to N 108
-                nb = 98 if dtype == torch.float32 and dh == 128 else N
-                t = torch.randn((B, nb, 384), generator=gen, device="cuda").to(dtype)
+                t = torch.randn((B, N, 384), generator=gen, device="cuda").to(dtype)
                 w = _block_weights(gen, 384, kb * dh, dtype)
                 blk = fused_block_attention(t, **w, num_heads=kb)
                 blk2 = fused_block_attention(t, **w, num_heads=kb)
@@ -2971,8 +3075,6 @@ def phase_heads_pad(card: str) -> dict:
     version at the true width (2e-2 bf16, 1e-4 f32; dq, dk and dv each),
     repeats and the split pair against the monolithic kernel bit for bit.
     Launches here are checks, not counted. Returns the bf16 max-abs errors."""
-    from devit_tpu_torch.kernels.attention import kernel_head_dim
-
     gen = torch.Generator(device="cuda").manual_seed(41)
     before, before_block = _counts(), fused_block_attention.launches
     max_abs = {"fwd": 0.0, "bwd": 0.0, "dv": 0.0, "dqdk": 0.0, "block": 0.0}
@@ -2988,9 +3090,7 @@ def phase_heads_pad(card: str) -> dict:
                 mono, mono2 = attention_bwd(x, g, kh), attention_bwd(x, g, kh)
                 dqdk, dv = attention_bwd_dqdk(x, g, kh), attention_bwd_dv(x, g, kh)
                 split = attention_bwd_split(x, g, kh)
-                # f32 holds the block's head in shared memory to N 108 at width 128
-                nb = 98 if dtype == torch.float32 and kernel_head_dim(dh) == 128 else N
-                t = torch.randn((B, nb, 384), generator=gen, device="cuda").to(dtype)
+                t = torch.randn((B, N, 384), generator=gen, device="cuda").to(dtype)
                 w = _block_weights(gen, 384, kh * dh, dtype)
                 blk = fused_block_attention(t, **w, num_heads=kh)
                 blk2 = fused_block_attention(t, **w, num_heads=kh)
@@ -3049,7 +3149,9 @@ ATTN_LONG_B = 2
 ATTN_LONG_TIME = (64, 578, 6)  # B, N, kh of the timed forward (dh 64)
 # B, N, kh, dh of the timed paths past head width 128
 ATTN_WIDE_TIME = ((64, 578, 4, 192), (64, 578, 3, 256))
-ATTN_BLOCK_TIME = (16, 578, 6, 384)  # B, N, kh, C of the block half's timed chunked route
+# B, N, kh, head width, C of the block half's timed chunked route: dedeit at
+# 384 px, and heads of 192 at C 768
+ATTN_BLOCK_TIME = ((16, 578, 6, 64, 384), (16, 578, 4, 192, 768))
 
 
 def _attn_bound(B: int, n: int, kh: int, dh: int, elem: int, flops_peak: float,
@@ -3095,7 +3197,8 @@ def phase_attn_long(card: str) -> dict:
     one bit for bit; the design each forward took (attention_path). Then the
     chunked forwards timed at B 64, N 578, kh 6 beside the plain version and
     SDPA, the paths past head width 128 at B 64, N 578, dh 192, and the block
-    half's chunked route at B 16, N 578, C 384; each timed call is first held
+    half's chunked route at B 16, N 578 (C 384, kh 6; C 768, four heads of
+    192); each timed call is first held
     against its plain version on the same inputs (_hold_timed). Launches here
     are checks, not counted."""
     from devit_tpu_torch.kernels.attention import attention_path
@@ -3236,9 +3339,9 @@ def phase_attn_long(card: str) -> dict:
             raise AssertionError(f"[attn-long] dh{dh} {tag} B={Bt} N={n}: the split backward "
                                  "differs from the monolithic one in its bits")
         del x, g, q, k, v, out, got
-    Bt, n, kh, C = ATTN_BLOCK_TIME
-    K = kh * DH
-    for dtype, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32, F32_FLOPS)):
+    for (Bt, n, kh, dh, C), (dtype, peak) in itertools.product(
+            ATTN_BLOCK_TIME, ((torch.bfloat16, BF16_FLOPS), (torch.float32, TF32X3_FLOPS))):
+        K = kh * dh
         t = torch.randn((Bt, n, C), generator=gen, device="cuda").to(dtype)
         w = _block_weights(gen, C, K, dtype)
         err, mabs, _ = _hold_timed(f"fused_block_attention {dtype} B={Bt} N={n} C={C}",
@@ -3255,10 +3358,12 @@ def phase_attn_long(card: str) -> dict:
                  library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
                  bound_by="bytes" if t_bytes >= t_ops else "operations")
         tag = str(dtype)[6:]
-        times[f"block {tag}"] = r
-        print(f"[attn-long] fused_block_attention {tag} B={Bt} N={n} C={C} kh={kh} (the chunked "
-              f"route: LayerNorm + qkv, the forward, proj): kernels {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
+        times[f"block {tag}" + (f" dh{dh}" if dh != DH else "")] = r
+        at = " at 165 TFLOP/s (3xTF32)" if dtype == torch.float32 else ""
+        print(f"[attn-long] fused_block_attention {tag} B={Bt} N={n} C={C} kh={kh} dh {dh} (the "
+              f"chunked route: LayerNorm + qkv, the forward, proj): kernels {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}{at}) "
+              f"[{card}]")
         del t, w
     print(f"[attn-long] every timed call within tol of its plain version on its inputs, "
           f"repeats (and the dh {[t[3] for t in ATTN_WIDE_TIME]} split == monolithic) bit for "
@@ -4598,6 +4703,24 @@ def main() -> int:
         "launches": block["launches"], "max_abs_err": max(block["max_abs_err"], hm["block"]),
         "ms": bl["ms"], "plain_ms": bl["plain_ms"], "bound_ms": bl["bound_ms"],
         "bound_by": bl["bound_by"], "library_ms": None}]
+    # the block half's chunked route, every product on the tensor cores: at
+    # f32 (3xTF32) per bs256 forward's 48 calls; at bf16 per 384-px bs64
+    # forward's 48 calls (N 578); their main paths are [block-attn]'s
+    # forwards through that route
+    bl32, b384 = times["int8"]["block_forward_f32"], block["time_384"]
+    record["kernels"] += [{
+        "name": f"fused_block_attention {tag} chunked route ({kern})", "route": "cuda",
+        "source": "devit_tpu_torch/kernels/csrc/block_attention.cu",
+        "replaces": "devit_tpu/kernels/attention.py:133",
+        "launches": block["chunked"][key]["launches"],
+        "max_abs_err": al["max_abs"][f"block{suffix}"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None}
+        for tag, key, suffix, t, kern in (
+            ("f32", "f32", " f32", bl32,
+             "block_gemm_tf32<LN> + attn_long_tf32 + block_gemm_tf32<proj>"),
+            ("bf16", "bf16 384px", "", b384,
+             "block_ln_qkv_mma + attn_long_mma + block_proj_kernel"))]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(

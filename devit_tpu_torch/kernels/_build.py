@@ -53,9 +53,9 @@ SIGNATURES = {
     # Kp, N, x dtype, out dtype, stream
     "devit_quant_matmul": ([_VP] * 7 + [_LL, _I, _I, _I, _I, _I, _VP], _I),
     # t, norm scale, norm bias, qkv kernel, qkv bias (or NULL), proj kernel,
-    # proj bias, scratch (f32: the LN'd rows; bf16: o; the chunked route:
-    # qkv and o), f32 accumulator (or NULL at bf16 and on the chunked route),
-    # out, B, N, C, H, head_dim, eps, dtype, scale, stream
+    # proj bias, scratch (the chunked route, every f32 call: qkv and o; the
+    # bf16 whole-row route: o), an unused pointer (NULL), out, B, N, C, H,
+    # head_dim, eps, dtype, scale, stream
     "devit_block_attention": ([_VP] * 10 + [_I] * 5 + [_F, _I, _F, _VP], _I),
     # every query takes the device: which design a launch takes (a whole head
     # in one block, or key chunks) depends on its opt-in shared memory

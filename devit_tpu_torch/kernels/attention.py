@@ -12,13 +12,13 @@ falls back.
 The head gate is applied outside the kernel, as in the JAX package.
 
 At bf16 the forward, the backwards and `fused_block_attention` compute every
-product on the tensor cores (mma.sync m16n8k16). At f32 the forward and the
-backwards do too, as 3xTF32 (mma.sync m16n8k8): each operand is split into
-two TF32 halves and each product takes three passes (small big + big small
-+ big big), which keeps f32 accuracy where one TF32 pass (11 significant
-bits an operand) misses the f32 tolerance by ~10x (tests/test_torch_tf32x3.py
-holds that decision on the CPU). The f32 block half stays on the CUDA cores
-(see the sources' notes). Every kernel is instantiated for head_dim 32, 64
+product on the tensor cores (mma.sync m16n8k16). At f32 they do too, as
+3xTF32 (mma.sync m16n8k8): each operand is split into two TF32 halves and
+each product takes three passes (small big + big small + big big), which
+keeps f32 accuracy where one TF32 pass (11 significant bits an operand)
+misses the f32 tolerance by ~10x (tests/test_torch_tf32x3.py holds that
+decision on the CPU, for the attention and for the block half's GEMMs).
+Every kernel is instantiated for head_dim 32, 64
 and 128 (HEAD_DIMS); the wrappers take any head_dim up to 128 by
 zero-padding each head's q, k, v (and g) to the next instantiation, launching
 with the true head width's scale and slicing the outputs back. Zero columns
@@ -39,7 +39,8 @@ block of the monolithic kernel would not fit shared memory (head_dim 128
 from N 209), and past head_dim 128, with a (B, H, N, 3) f32 scratch of row
 statistics that the wrapper allocates.
 `fused_block_attention` takes a chunked route of three launches (LayerNorm +
-qkv, the forward, proj) where its whole-head block would not fit.
+qkv, the forward, proj; tensor-core GEMMs) at f32, and at bf16 where its
+whole-head block would not fit or past head_dim 128.
 
 `make_trainable_attention` is the differentiable form the training path
 uses: its forward is `fused_attention`, registered as the dispatcher op
@@ -578,31 +579,32 @@ def _launch_block(t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, p
         proj_kernel = proj_kernel.reshape(num_heads * width, C)
         if vecs[2] is not None:
             vecs[2] = pad_heads(vecs[2].reshape(1, 1, threeK), 3, num_heads, dh, width)
-    if t.dtype == torch.bfloat16:  # the f32 block half reads its operands 4 bytes at a time
-        _check_aligned(t, qkv_kernel, proj_kernel)
-    ns, nb, qb, pb = (None if v is None else v.float().contiguous() for v in vecs)
+    _check_aligned(t, qkv_kernel, proj_kernel)  # staged with 16-byte loads
+    # the vectors too (a view may start anywhere: such a one is copied)
+    ns, nb, qb, pb = (None if v is None else _aligned16(v.float().contiguous()) for v in vecs)
     out = torch.empty_like(t)
     if B == 0:
         return out
-    if chunked:  # qkv and o of every head: (B N, 3 K) then (B N, K)
-        scratch, acc = torch.empty((B, N, 4 * num_heads * width), dtype=t.dtype,
-                                   device=t.device), None
-    elif t.dtype == torch.bfloat16:  # o of every head, for the proj kernel
-        scratch, acc = torch.empty((B, N, num_heads * width), dtype=t.dtype,
-                                   device=t.device), None
-    else:  # the LN'd rows and the f32 residual accumulator
-        scratch = torch.empty_like(t)
-        acc = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    # chunked: qkv and o of every head, (B N, 3 K) then (B N, K); else o for
+    # the proj kernel
+    scratch = torch.empty((B, N, (4 if chunked else 1) * num_heads * width), dtype=t.dtype,
+                          device=t.device)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = _build.library().devit_block_attention(
             t.data_ptr(), ns.data_ptr(), nb.data_ptr(), qkv_kernel.data_ptr(),
             None if qb is None else qb.data_ptr(), proj_kernel.data_ptr(), pb.data_ptr(),
-            scratch.data_ptr(), None if acc is None else acc.data_ptr(), out.data_ptr(), B, N,
-            C, num_heads, width, eps, _DTYPE_CODES[t.dtype], logit_scale(dh), stream)
+            scratch.data_ptr(), None, out.data_ptr(), B, N, C, num_heads, width, eps,
+            _DTYPE_CODES[t.dtype], logit_scale(dh), stream)
     _build.check_launch(err, "fused_block_attention")
     fused_block_attention.launches += 1
+    if chunked:
+        fused_block_attention.chunked_launches += 1
     return out
+
+
+def _aligned16(v: torch.Tensor) -> torch.Tensor:
+    return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
 def fused_block_attention(t: torch.Tensor, norm_scale: torch.Tensor, norm_bias: torch.Tensor,
@@ -615,11 +617,12 @@ def fused_block_attention(t: torch.Tensor, norm_scale: torch.Tensor, norm_bias: 
     attention -> proj -> residual sequence, with the TPU kernel's numerics
     (see reference_block_attention). CUDA tensor: the kernels in
     csrc/block_attention.cu (one call counted once in
-    `fused_block_attention.launches`; bf16 on the tensor cores, two
-    launches; where the whole head does not fit one block, or past head_dim
-    128, three: LayerNorm + qkv, the forward's kernels, proj), which take
-    the two weight kernels in t's dtype. CPU tensor:
-    `reference_block_attention`."""
+    `fused_block_attention.launches`; bf16 two launches; at f32, and at
+    bf16 where the whole head does not fit one block or past head_dim 128,
+    three: LayerNorm + qkv, the forward's kernels, proj; those calls are
+    counted in `fused_block_attention.chunked_launches` too), every product
+    on the tensor cores (3xTF32 at f32), which take the two weight kernels
+    in t's dtype. CPU tensor: `reference_block_attention`."""
     args = (t, norm_scale, norm_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias)
     if t.device.type == "cpu":
         return reference_block_attention(*args, num_heads=num_heads, eps=eps)
@@ -630,3 +633,4 @@ def fused_block_attention(t: torch.Tensor, norm_scale: torch.Tensor, norm_bias: 
 
 
 fused_block_attention.launches = 0
+fused_block_attention.chunked_launches = 0

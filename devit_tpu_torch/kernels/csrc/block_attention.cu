@@ -19,12 +19,17 @@
 // the output once (~4 B N C bytes in bf16, the weights are small), against
 // 2 B N C 3K + 4 B N^2 K + 2 B N K C operations: ~250 operations a byte at
 // the deployed shapes (C 384, N 198, K 64..320), so the bf16 tensor cores
-// and HBM set about the same bound.
+// and HBM set about the same bound; at f32 (8 bytes a value read and
+// written, 3xTF32 at a third of TF32's rate) the operations bound it.
 //
-// bf16: two kernels on the tensor cores (mma.sync m16n8k16, bf16 operands,
-// f32 accumulators). The TPU kernel holds a batch block's rows, qkv and
-// residual in VMEM through one grid step; a block here has neither the room
-// nor the order for that, so the work is cut at the heads:
+// Every product runs on the tensor cores: mma.sync m16n8k16 at bf16 (bf16
+// operands, f32 accumulators), three TF32 passes (3xTF32, m16n8k8) at f32.
+// Two routes.
+//
+// bf16, the whole row (N to ~420 at dh 64, 208 at dh 128): two kernels. The
+// TPU kernel holds a batch block's rows, qkv and residual in VMEM through one
+// grid step; a block here has neither the room nor the order for that, so
+// the work is cut at the heads:
 // - block_qkv_attn_kernel: one block a (batch row, head), B H blocks, 4
 //   warps. It takes the LayerNorm statistics of its row's N tokens (8 lanes
 //   a token, 16 tokens in flight: a warp a token waited on each token's
@@ -45,46 +50,57 @@
 //   128 x 128 output tiles (8 warps of 64 x 32), its f32 accumulators
 //   started from t and proj's 64-row chunks of K = H dh taken in order
 //   through a two-stage cp.async ring (at dh 64 one chunk a head).
+// Head widths 32, 64 and 128 (DH, a template parameter): the head tiles hold
+// rows of DH bf16 (swz_dh); at dh 128 the qkv product makes q, k and v one
+// after the other (a warp's 16 tokens x 3 x 128 f32 accumulators would not
+// fit its registers), and the proj kernel takes o and proj in 64-row chunks
+// of K (at dh 32 and an odd H the last chunk is zero-filled past K).
+//
+// The chunked route (use_chunked): f32 at every size, and bf16 where a block
+// above would not fit shared memory (the whole head staged: past N ~ 420 at
+// dh 64) and at every head width past 128. The same computation runs as
+// three launches over a (B N, 4 K) scratch of t's dtype that the wrapper
+// allocates (qkv, then o):
+// 1. LayerNorm + qkv = round(LayerNorm(t) . W + b): a GEMM over 128 x 128
+//    output tiles of (B N, 3K), 8 warps of 64 x 32, with the tile's 128 rows'
+//    statistics taken first (f32, two passes, block_qkv_attn_kernel's 8
+//    lanes a row). The rows arrive by 16-byte loads one chunk of C ahead (in
+//    registers while the current chunk's mma runs) and are normalised with
+//    its (x - mean) rstd ns + nb, rounded to bf16 at bf16, on their way into
+//    shared memory; the weights come with them. bf16: block_ln_qkv_mma,
+//    64-deep chunks, the weights by cp.async, block_proj_kernel's tiles and
+//    fragment loads. f32: block_gemm_tf32<true>, 32-deep chunks.
+// 2. The forward's kernels (attention.cu, which chunk the keys: attn_long_mma
+//    at bf16 past 256 keys, attn_long_tf32 at f32, attn_wide_mma past head
+//    width 128) give o, rounded.
+// 3. proj: out = round(t + o . proj + proj_bias), accumulators started from t
+//    in f32. bf16: block_proj_kernel as the whole-row route launches it
+//    (o is its (B N, K) operand either way). f32: block_gemm_tf32<false>.
+// block_gemm_tf32 splits each operand into its (big, small) TF32 halves once,
+// where it is staged (two shared-memory tiles an operand), so a fragment
+// serves every warp that reads it without a split of its own: splitting where
+// operands are read made the f32 attention kernels issue-bound. The A tiles
+// are [128][32 + 4] f32 (ldmatrix rows on distinct bank groups), the B tiles
+// [32][128 + 8] (the B fragments' 32-bit loads of (k t, column g) on 32
+// banks). Each m16 tile's passes over a chunk are summed apart and added to
+// the accumulators by an f32 add, as long_tf32.cuh's long sums (the tensor
+// core's own f32 sums over a depth of 384-768 drift); the proj's accumulators
+// start from t and take proj_bias last. At one block an SM (141 KB of shared
+// memory, 8 warps) what bounds it on the H100 is shared memory and issue, not
+// the tensor cores: the split halves double every fragment read, and a
+// chunk's stores (normalise, split, 16-byte stores) run between barriers
+// beside no mma. The LayerNorm kernel also takes its rows' statistics once a
+// column tile, from L2: its time an operation is ~27% above the proj's
+// (kh 5 at B 256). Tried on the H100 and not kept
+// (scripts/kernel_variants.py block, the deployed f32 forward's 48 calls at
+// B 256): an f32 add after every k8 step's three passes, 66.6 ms against
+// 60.5 kept; no adds, 58.7 but ten times the error (6.3e-6 against 5.9e-7
+// of the plain version); 16-deep chunks, 63.1-69.8; 128 x 64 tiles of 4
+// warps, two blocks an SM, 76.1; each stage's stores interleaved with the
+// m16 tiles' products, 61.9 against 60.2 (and 0.244 against 0.225 ms for
+// the bf16 route at B 16, N 578, kh 6, where block_ln_qkv_mma at one block
+// an SM took 0.247).
 // Every output has one writer; no atomics, the same bits on every run.
-//
-// f32: f32 FMAs on the CUDA cores (block_attn_kernel). One TF32 mma pass
-// keeps too few bits for the f32 tolerance of 1e-4; the forward and the
-// backwards run f32 as three TF32 passes (3xTF32) on the tensor cores, and
-// this half, with no caller, was not moved to them. A
-// block owns one batch row and loops over the heads; no other block touches
-// its rows, so nothing needs atomics and every run gives the same bits. The
-// LayerNorm'd rows (N x C) and the f32 residual accumulator do not fit in
-// shared memory beside the rest (at C 384, N 198: 304 KB in f32 for the rows
-// alone), so the block writes them once to global scratch that only it
-// reads back (from L2, mostly). Per head it makes that head's q, k and v (N
-// x 64 each) from the rows in shared memory, 64 token rows at a time with
-// staged chunks of rows and weights; then for each 64-query tile it runs
-// attention.cu's f32 steps (the f32 score tile in shared memory, softmax, p
-// rounded, p . v), writes o, rounded, over the tile's q columns (no longer
-// needed), and adds o . proj[head rows] onto the accumulator with staged
-// chunks of proj. At the end it adds proj_bias and writes the output. At N
-// 198 a block takes ~198 KB of shared memory: one block an SM.
-//
-// Head widths 32, 64 and 128 (DH, a template parameter of every kernel). At
-// bf16 the head tiles hold rows of DH bf16 (swz_dh); at dh 128 the qkv
-// product makes q, k and v one after the other (a warp's 16 tokens x 3 x 128
-// f32 accumulators would not fit its registers), and the proj kernel takes
-// o and proj in 64-row chunks of K = H dh (at dh 32 and an odd H the last
-// chunk is zero-filled past K). At f32, dh 128 fits shared memory up to N
-// 108 (Qt, Kt and V of the head in f32).
-//
-// The chunked route (use_chunked): where a block above would not fit shared
-// memory (the whole head staged: bf16 past N ~ 420 at dh 64, f32 past N ~
-// 250 at dh 64 or 108 at dh 128) and at every head width past 128, the
-// same computation runs as three launches over scratch the wrapper
-// allocates, (B N, 4 K) of t's dtype: block_gemm_kernel<LN> forms qkv =
-// round(LayerNorm(t) . W + b) (statistics in f32, h rounded), the forward's
-// kernels (attention.cu, which chunk the keys: attn_long_mma at bf16 past
-// 256 keys, attn_long_tf32 at f32, attn_wide_mma past head width 128)
-// give o, rounded, and
-// block_gemm_kernel<!LN> adds o . proj onto t in f32, then proj_bias, one
-// rounding. The GEMMs run f32 FMAs on the CUDA cores (T products are exact
-// in f32): right, not fast.
 
 #include <math.h>
 #include <stdint.h>
@@ -100,278 +116,7 @@ extern "C" long long devit_attention_smem_bytes(int n, int head_dim, int elem_by
 
 namespace {
 
-using devit::from_f;
-using devit::score_stride;
 using devit::to_f;
-using devit::warp_max;
-using devit::warp_sum;
-
-constexpr int kBQ = 64;        // query rows of an attention tile, token rows of a qkv tile
-constexpr int kThreads = 256;  // 16 column lanes x 16 row groups of 4
-constexpr int kKC = 32;        // depth of a staged chunk of LN'd rows and qkv weights
-constexpr int kPC = 128;       // output columns of a staged chunk of proj
-
-size_t scratch_bytes(int n, int dh, int elem) {
-  // one region, three uses in turn: the f32 score tile S [kBQ][score_stride(N)];
-  // the qkv product's staging Hs [kBQ][kKC + 1] | Ws [kKC][3 dh]; the proj
-  // product's staging P [dh][kPC]
-  const size_t s = (size_t)kBQ * score_stride(n) * sizeof(float);
-  const size_t qkv = (size_t)elem * (kBQ * (kKC + 1) + kKC * 3 * dh);
-  const size_t proj = (size_t)elem * dh * kPC;
-  return s > qkv ? (s > proj ? s : proj) : (qkv > proj ? qkv : proj);
-}
-
-size_t smem_bytes(int n, int dh, int elem) {
-  // Qt [dh][N] | Kt [dh][N] | V [N][dh] (a multiple of 128 bytes) | scratch
-  return (size_t)3 * n * dh * elem + scratch_bytes(n, dh, elem);
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-block_attn_kernel(const T* __restrict__ t, const float* __restrict__ ns,
-                  const float* __restrict__ nb, const T* __restrict__ qw,
-                  const float* __restrict__ qb, const T* __restrict__ pw,
-                  const float* __restrict__ pb, T* __restrict__ hbuf,
-                  float* __restrict__ acc, T* __restrict__ out, int N, int C, int H,
-                  float scale, float eps) {
-  static_assert(DH % 16 == 0, "a thread owns dims tx + 16 j");
-  constexpr int DJ = DH / 16;  // dims of a head a thread owns
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qt = reinterpret_cast<T*>(smem);  // [DH][N]: q, then o over each finished tile
-  T* Kt = Qt + DH * N;                 // [DH][N]
-  T* V = Kt + DH * N;                  // [N][DH]
-  unsigned char* scratch = reinterpret_cast<unsigned char*>(V + N * DH);
-  float* S = reinterpret_cast<float*>(scratch);
-  T* Hs = reinterpret_cast<T*>(scratch);  // [kBQ][kKC + 1]
-  T* Ws = Hs + kBQ * (kKC + 1);           // [kKC][3 DH]
-  T* P = reinterpret_cast<T*>(scratch);   // [DH][kPC]
-
-  const int K = H * DH;
-  const int64_t row0 = (int64_t)blockIdx.x * N;  // this block's first token row
-  const T* tb = t + row0 * C;
-  T* hb = hbuf + row0 * C;
-  float* ab = acc + row0 * C;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int SP = score_stride(N);
-
-  // ---- LayerNorm of every token row (f32 statistics), a warp a row; the
-  // rounded rows into hbuf, an f32 copy of t into the accumulator
-  for (int n = warp; n < N; n += kThreads / 32) {
-    const T* tr = tb + (int64_t)n * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += to_f(tr[c]);
-    const float mu = warp_sum(s) / (float)C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = to_f(tr[c]) - mu;
-      v = fmaf(d, d, v);
-    }
-    const float r = rsqrtf(warp_sum(v) / (float)C + eps);
-    for (int c = lane; c < C; c += 32) {
-      const float xv = to_f(tr[c]);
-      const float h = __fadd_rn(__fmul_rn(__fmul_rn(xv - mu, r), ns[c]), nb[c]);
-      hb[(int64_t)n * C + c] = from_f<T>(h);
-      ab[(int64_t)n * C + c] = xv;
-    }
-  }
-  __syncthreads();
-
-  for (int hd = 0; hd < H; ++hd) {
-    // ---- q, k, v of head hd: (64-row tile of h) . (C x [q | k | v] columns)
-    for (int r0 = 0; r0 < N; r0 += kBQ) {
-      float a[4][3 * DJ];  // rows 4*ty+i, columns tx + 16*j of the 3*DH
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 3 * DJ; ++j) a[i][j] = 0.f;
-      for (int k0 = 0; k0 < C; k0 += kKC) {
-        for (int i = threadIdx.x; i < kBQ * kKC; i += kThreads) {
-          const int r = i / kKC, c = i % kKC;
-          const int n = r0 + r;
-          Hs[r * (kKC + 1) + c] = n < N ? hb[(int64_t)n * C + k0 + c] : from_f<T>(0.f);
-        }
-        for (int i = threadIdx.x; i < kKC * 3 * DH; i += kThreads) {
-          const int k = i / (3 * DH), j = i % (3 * DH);
-          Ws[i] = qw[(int64_t)(k0 + k) * 3 * K + (j / DH) * K + hd * DH + j % DH];
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int k = 0; k < kKC; ++k) {
-          float h[4], w[3 * DJ];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) h[i] = to_f(Hs[(4 * ty + i) * (kKC + 1) + k]);
-#pragma unroll
-          for (int j = 0; j < 3 * DJ; ++j) w[j] = to_f(Ws[k * 3 * DH + tx + 16 * j]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 3 * DJ; ++j) a[i][j] = fmaf(h[i], w[j], a[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = r0 + 4 * ty + i;
-        if (n >= N) continue;
-#pragma unroll
-        for (int j = 0; j < 3 * DJ; ++j) {
-          const int sec = j / DJ, d = tx + 16 * (j % DJ);  // [q | k | v], dim
-          const float bias = qb != nullptr ? qb[sec * K + hd * DH + d] : 0.f;
-          const T v = from_f<T>(a[i][j] + bias);
-          if (sec == 0) Qt[d * N + n] = v;
-          else if (sec == 1) Kt[d * N + n] = v;
-          else V[n * DH + d] = v;
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int q0 = 0; q0 < N; q0 += kBQ) {
-      // ---- S = (q . k^T) * scale, f32, 64 key columns per pass
-      for (int c0 = 0; c0 < N; c0 += 64) {
-        float s[4][4];
-        int col[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) col[j] = c0 + tx + 16 * j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < DH; ++d) {
-          float q[4], k[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int n = q0 + 4 * ty + i;
-            q[i] = n < N ? to_f(Qt[d * N + n]) : 0.f;
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) k[j] = col[j] < N ? to_f(Kt[d * N + col[j]]) : 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(q[i], k[j], s[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (col[j] < N) S[(4 * ty + i) * SP + col[j]] = s[i][j] * scale;
-      }
-      __syncthreads();
-
-      // ---- softmax over each row's N keys, f32; p rounded to T
-      for (int r = warp; r < kBQ; r += kThreads / 32) {
-        if (q0 + r >= N) continue;
-        float* row = S + r * SP;
-        float m = -INFINITY;
-        for (int c = lane; c < N; c += 32) m = fmaxf(m, row[c]);
-        m = warp_max(m);
-        float sum = 0.f;
-        for (int c = lane; c < N; c += 32) {
-          const float e = expf(row[c] - m);
-          row[c] = e;
-          sum += e;
-        }
-        sum = warp_sum(sum);
-        for (int c = lane; c < N; c += 32) row[c] = to_f(from_f<T>(row[c] / sum));
-      }
-      __syncthreads();
-
-      // ---- o = p . v, f32, rounded to T, over this tile's q columns of Qt
-      {
-        float o[4][DJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < N; ++c) {
-          float p[4], v[DJ];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) p[i] = S[(4 * ty + i) * SP + c];
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) v[j] = to_f(V[c * DH + tx + 16 * j]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < DJ; ++j) o[i][j] = fmaf(p[i], v[j], o[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int n = q0 + 4 * ty + i;
-          if (n >= N) continue;
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) Qt[(tx + 16 * j) * N + n] = from_f<T>(o[i][j]);
-        }
-      }
-      __syncthreads();
-
-      // ---- acc[rows of the tile] += o . proj[head rows], kPC columns at a time
-      for (int c0 = 0; c0 < C; c0 += kPC) {
-        for (int i = threadIdx.x; i < DH * kPC; i += kThreads) {
-          const int d = i / kPC, c = i % kPC;
-          P[i] = c0 + c < C ? pw[(int64_t)(hd * DH + d) * C + c0 + c] : from_f<T>(0.f);
-        }
-        __syncthreads();
-        float y[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) y[i][j] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < DH; ++d) {
-          float o[4], w[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int n = q0 + 4 * ty + i;
-            o[i] = n < N ? to_f(Qt[d * N + n]) : 0.f;
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j) w[j] = to_f(P[d * kPC + tx + 16 * j]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) y[i][j] = fmaf(o[i], w[j], y[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int n = q0 + 4 * ty + i;
-          if (n >= N) continue;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int c = c0 + tx + 16 * j;
-            if (c < C) {
-              float* dst = ab + (int64_t)n * C + c;
-              *dst = __fadd_rn(*dst, y[i][j]);
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-  }
-
-  // ---- out = acc + proj_bias, one rounding
-  for (int64_t i = threadIdx.x; i < (int64_t)N * C; i += kThreads)
-    out[row0 * C + i] = from_f<T>(__fadd_rn(ab[i], pb[i % C]));
-}
-
-template <typename T, int DH>
-cudaError_t launch(const void* t, const float* ns, const float* nb, const void* qw,
-                   const float* qb, const void* pw, const float* pb, void* hbuf, float* acc,
-                   void* out, int B, int N, int C, int H, float eps, float scale,
-                       cudaStream_t stream) {
-  static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)block_attn_kernel<T, DH>, opted_in);
-  if (err != cudaSuccess) return err;
-  block_attn_kernel<T, DH><<<B, kThreads, smem_bytes(N, DH, sizeof(T)), stream>>>(
-      static_cast<const T*>(t), ns, nb, static_cast<const T*>(qw), qb,
-      static_cast<const T*>(pw), pb, static_cast<T*>(hbuf), acc, static_cast<T*>(out), N, C, H,
-      scale, eps);
-  return cudaGetLastError();
-}
 
 // ---- bf16 on the tensor cores
 
@@ -743,161 +488,452 @@ cudaError_t launch_bf16(const void* t, const float* ns, const float* nb, const v
   return launch_proj<false>(tt, ob, pwt, pb, outt, M, C, K, s);
 }
 
-// ---- the chunked route: LN + qkv, the forward's kernels, proj
+// ---- the chunked route: LayerNorm + qkv, the forward's kernels, proj
 
-constexpr int kGT = 64;         // output rows and columns of a block_gemm_kernel block
-constexpr int kGK = 32;         // depth of its staged chunks
-constexpr int kGStride = kGT + 1;
+using devit::mma::cp_async_commit;
+using devit::mma::cp_async_wait_all;
+using devit::mma::mma_3xtf32;
+using devit::mma::split_tf32;
 
-size_t gemm_smem_bytes() {
-  // A^T [kGK][kGStride] | W [kGK][kGStride] | mean, rstd [kGT], f32
-  return sizeof(float) * (2 * kGK * kGStride + 2 * kGT);
-}
+// Bytes of block_ln_qkv_mma's shared memory: two stages of block_proj_kernel's
+// size (rows [128][64] | W [2][64][64], bf16), then the rows' mean and rstd.
+size_t ln_qkv_smem_bytes() { return 2 * (size_t)kProjStage + 2 * kPM * sizeof(float); }
 
-// out[m][n] = round(init + sum_k a[m][k] w[k][n] + bias[n]), m < M, n < Nc,
-// for (M, Kd) rows a and a (Kd, Nc) weight w. LN: a is t and its rows enter
-// as round(LayerNorm(a)) (the two-pass f32 statistics, then (a - mean) rstd
-// ns + nb), init 0: the qkv product. Otherwise init = t[m][n] (width Nc):
-// the proj product onto the residual. bias may be null. One block a 64 x 64
-// output tile, 16 column lanes x 16 row groups of 4.
-template <typename T, bool LN>
-__global__ void __launch_bounds__(kThreads)
-block_gemm_kernel(const T* __restrict__ a, const T* __restrict__ t, const float* __restrict__ ns,
-                  const float* __restrict__ nb, const T* __restrict__ w,
-                  const float* __restrict__ bias, T* __restrict__ out, long long M, int Kd,
-                  int Nc, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Ws = As + kGK * kGStride;
-  float* mean = Ws + kGK * kGStride;
-  float* rstd = mean + kGT;
-  const int col_tiles = (Nc + kGT - 1) / kGT;
-  const long long m0 = (long long)(blockIdx.x / col_tiles) * kGT;
-  const int n0 = (blockIdx.x % col_tiles) * kGT;
-  const int rows = (int)(M - m0 < kGT ? M - m0 : kGT);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  if (LN) {  // 4 lanes a row
-    const int r = tid / 4, sub = tid % 4;
-    const T* row = a + (m0 + r) * Kd;
-    float sum = 0.f, sq = 0.f;
-    if (r < rows)
-      for (int k = sub; k < Kd; k += 4) sum += to_f(row[k]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float mu = sum / Kd;
-    if (r < rows)
-      for (int k = sub; k < Kd; k += 4) {
-        const float d = to_f(row[k]) - mu;
-        sq = fmaf(d, d, sq);
+// block_gemm_tf32's staging: 32-deep chunks; per stage the A tile [128][32 +
+// 4] and the B tile [32][128 + 8], each as its big and its small TF32 half.
+constexpr int kFK = 32;
+constexpr int kFAStride = kFK + 4, kFBStride = kPN + 8;  // floats a row
+constexpr int kFATile = kPM * kFAStride, kFBTile = kFK * kFBStride;  // floats
+constexpr int kFStage = 2 * (kFATile + kFBTile);  // A big | A small | B big | B small
+
+size_t tf32_smem_bytes() { return sizeof(float) * (2 * (size_t)kFStage + 2 * kPM); }
+
+// mean and rstd (f32, two passes: the sum, then the sum of squared
+// deviations) of rows m0 .. m0 + 127 of t (M, C), 8 lanes a row with 16-byte
+// loads, as block_qkv_attn_kernel's statistics. Rows past M take row M - 1's
+// (never used: those rows are zero-filled and never written).
+template <typename T>
+__device__ __forceinline__ void tile_stats(const T* __restrict__ t, int64_t m0, int64_t M, int C,
+                                           float eps, float* mean, float* rstd, int tid) {
+  constexpr int kVec = 16 / sizeof(T);  // values a load
+  const int sub = tid & 7;
+  for (int r = tid >> 3; r < kPM; r += kProjThreads / 8) {
+    const T* tr = t + (m0 + r < M ? m0 + r : M - 1) * C;
+    float s = 0.f;
+#pragma unroll 4
+    for (int c = kVec * sub; c < C; c += 8 * kVec) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(tr + c);
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) s += to_f(v[j]);
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mu = s / (float)C;
+    float var = 0.f;
+#pragma unroll 4
+    for (int c = kVec * sub; c < C; c += 8 * kVec) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(tr + c);
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float d = to_f(v[j]) - mu;
+        var = fmaf(d, d, var);
       }
-    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
-    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
     if (sub == 0) {
       mean[r] = mu;
-      rstd[r] = rsqrtf(sq / Kd + eps);
+      rstd[r] = rsqrtf(var / (float)C + eps);
     }
   }
-  float acc[4][4];
+}
+
+// x LayerNorm'd: (x - mean) rstd ns + nb, in this order, each step rounded
+// (no FMA), as the whole-row kernel and the TPU kernel compute it.
+__device__ __forceinline__ float layer_norm(float x, float mu, float rs, float s, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(x - mu, rs), s), b);
+}
+
+// Row r and 16-byte chunk c of the [128][64] row tile of one chunk that
+// thread tid's j-th load covers (block_ln_qkv_mma).
+__device__ __forceinline__ int ln_row(int tid, int j) { return (tid + j * kProjThreads) >> 3; }
+__device__ __forceinline__ int ln_chunk(int tid, int j) { return (tid + j * kProjThreads) & 7; }
+
+// qkv = round(LayerNorm(t) . w + qb) at bf16: t (M, C), w (C, N3), qkv (M,
+// N3). One block a 128 x 128 output tile (a row tile's column tiles are
+// adjacent blocks, so its rows stay in L2), 8 warps of 64 x 32 as
+// block_proj_kernel's; C in 64-column chunks through two stages. A stage's
+// rows are loaded into registers while the previous stage's mma runs and
+// stored normalised and rounded after it; its W columns come by cp.async.
+__global__ void __launch_bounds__(kProjThreads, 2)
+block_ln_qkv_mma(const bf16* __restrict__ t, const float* __restrict__ ns,
+                 const float* __restrict__ nb, const bf16* __restrict__ w,
+                 const float* __restrict__ qb, bf16* __restrict__ qkv, int64_t M, int C, int N3,
+                 float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* stages = reinterpret_cast<bf16*>(smem);
+  constexpr int kStageElems = kProjStage / 2;
+  float* mean = reinterpret_cast<float*>(smem + 2 * kProjStage);
+  float* rstd = mean + kPM;
+  const int n_kc = (C + kPK - 1) / kPK;      // 64-column chunks of C
+  const int n_tiles = (N3 + kPN - 1) / kPN;
+  const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * kPM;
+  const int n0 = (blockIdx.x % n_tiles) * kPN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;  // the warp's rows and columns
+
+  // W rows 64 kc .. of columns n0 .. n0 + 127 into a stage's two [64][64] tiles
+  auto w_stage = [&](int kc) {
+    bf16* Ws = stages + (kc & 1) * kStageElems + kPM * kPK;
+#pragma unroll
+    for (int j = 0; j < kPK * 16 / kProjThreads; ++j) {
+      const int i = tid + j * kProjThreads;
+      const int r = i >> 4, half = (i >> 3) & 1, c = i & 7;
+      const int col = n0 + 64 * half + 8 * c, row = kc * kPK + r;
+      const bool ok = col < N3 && row < C;
+      cp_async16(Ws + half * kPK * kPK + swz(r, c), w + (ok ? (int64_t)row * N3 + col : 0), ok);
+    }
+    cp_async_commit();
+  };
+  uint4 raw[kPM * 8 / kProjThreads];  // the next chunk's rows, 8 bf16 a load
+  auto load_rows = [&](int kc) {
+#pragma unroll
+    for (int j = 0; j < kPM * 8 / kProjThreads; ++j) {
+      const int64_t row = m0 + ln_row(tid, j);
+      const int col = kc * kPK + 8 * ln_chunk(tid, j);
+      raw[j] = row < M && col < C ? *reinterpret_cast<const uint4*>(t + row * C + col)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto store_rows = [&](int kc) {  // normalised, rounded; zero past M and past C
+    bf16* As = stages + (kc & 1) * kStageElems;
+#pragma unroll
+    for (int j = 0; j < kPM * 8 / kProjThreads; ++j) {
+      const int r = ln_row(tid, j), c = ln_chunk(tid, j);
+      const int col = kc * kPK + 8 * c;
+      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < M && col < C) {
+        const bf16* v = reinterpret_cast<const bf16*>(&raw[j]);
+        const float4 s0 = *reinterpret_cast<const float4*>(ns + col);
+        const float4 s1 = *reinterpret_cast<const float4*>(ns + col + 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(nb + col);
+        const float4 b1 = *reinterpret_cast<const float4*>(nb + col + 4);
+        const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        const float mu = mean[r], rs = rstd[r];
+        uint32_t* p = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = pack_bf16(layer_norm(__bfloat162float(v[2 * e]), mu, rs, s[2 * e], b[2 * e]),
+                           layer_norm(__bfloat162float(v[2 * e + 1]), mu, rs, s[2 * e + 1],
+                                      b[2 * e + 1]));
+      }
+      *reinterpret_cast<uint4*>(As + swz(r, c)) = packed;
+    }
+  };
+
+  w_stage(0);
+  tile_stats(t, m0, M, C, eps, mean, rstd, tid);
+  load_rows(0);
+  __syncthreads();  // the statistics are in
+  store_rows(0);
+  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < Kd; k0 += kGK) {
-    __syncthreads();  // the statistics are in; the previous chunk's readers are done
-    for (int i = tid; i < kGT * kGK; i += kThreads) {
-      const int r = i / kGK, k = i % kGK;
-      float v = 0.f;
-      if (r < rows && k0 + k < Kd) {
-        v = to_f(a[(m0 + r) * Kd + k0 + k]);
-        if (LN) v = devit::round_to<T>((v - mean[r]) * rstd[r] * ns[k0 + k] + nb[k0 + k]);
-      }
-      As[k * kGStride + r] = v;
-    }
-    for (int i = tid; i < kGK * kGT; i += kThreads) {
-      const int k = i / kGT, c = i % kGT;
-      Ws[k * kGStride + c] =
-          k0 + k < Kd && n0 + c < Nc ? to_f(w[(int64_t)(k0 + k) * Nc + n0 + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kGK; ++k) {
-      float av[4], wv[4];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[k * kGStride + 4 * ty + i];
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int kc = 0; kc < n_kc; ++kc) {
+    cp_async_wait_all();
+    __syncthreads();  // stage kc is in; every warp is done with stage kc - 1
+    if (kc + 1 < n_kc) {
+      w_stage(kc + 1);
+      load_rows(kc + 1);
+    }
+    const bf16* As = stages + (kc & 1) * kStageElems;
+    const bf16* Ws = As + kPM * kPK + (wn >> 6) * kPK * kPK;  // the warp's 64-column tile
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = Ws[k * kGStride + tx + 16 * j];
+    for (int ks = 0; ks < kPK / 16; ++ks) {
+      uint32_t a[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(a[i], As + swz(wm + 16 * i + (lane & 15), 2 * ks + (lane >> 4)));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+      for (int d = 0; d < 2; ++d) {
+        uint32_t wb[4];  // columns wn + 16d ..: {wb0, wb1}; wn + 16d + 8 ..: {wb2, wb3}
+        ldmatrix_x4_trans(wb, Ws + swz(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                       2 * ((wn & 63) / 16 + d) + (lane >> 4)));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_bf16(acc[i][2 * d], a[i], wb[0], wb[1]);
+          mma_bf16(acc[i][2 * d + 1], a[i], wb[2], wb[3]);
+        }
+      }
     }
+    if (kc + 1 < n_kc) store_rows(kc + 1);
   }
+
+  // ---- + the bias, one rounding (N3 is a multiple of 8: a column pair lies
+  // wholly before or past it)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (r >= rows) continue;
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn + 8 * j + 2 * (lane & 3);
+    if (col >= N3) continue;
+    const float b0 = qb != nullptr ? qb[col] : 0.f, b1 = qb != nullptr ? qb[col + 1] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c >= Nc) continue;
-      const int64_t at = (m0 + r) * Nc + c;
-      float v = LN ? acc[i][j] : to_f(t[at]) + acc[i][j];
-      if (bias != nullptr) v += bias[c];
-      out[at] = from_f<T>(v);
-    }
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int64_t row = m0 + wm + 16 * i + (lane >> 2) + 8 * half;
+        if (row < M)
+          *reinterpret_cast<uint32_t*>(qkv + row * N3 + col) =
+              pack_bf16(acc[i][j][2 * half] + b0, acc[i][j][2 * half + 1] + b1);
+      }
   }
 }
 
-template <typename T, bool LN>
-cudaError_t launch_gemm(const T* a, const T* t, const float* ns, const float* nb, const T* w,
-                        const float* bias, T* out, long long M, int Kd, int Nc, float eps,
-                        cudaStream_t s) {
+// out = init + a . b + bias at f32 as 3xTF32: a (M, depth), b (depth,
+// ncols), out (M, ncols). LN (the qkv product): a is t, its rows entering as
+// LayerNorm(t) (the tile's statistics first), init 0, bias qb (or null).
+// Otherwise (the proj product): a is o, init = t (M, ncols), bias proj_bias.
+// One block a 128 x 128 output tile (a row tile's column tiles adjacent), 8
+// warps of 64 x 32; depth in 32-deep chunks through two stages. A stage's
+// chunk of a and b is loaded into registers (16-byte loads) while the
+// previous stage's mma runs, then normalised (LN), split into its TF32 halves
+// and stored after it; every fragment is read already split. Per chunk a
+// warp reads its B fragments (4 k8 steps x 4 n8 tiles, big and small) once
+// into registers, then takes its m16 tiles one at a time: the tile's 12
+// passes over the chunk (4 k8 steps x 3) go into zeroed partial sums, added
+// to the accumulators by one f32 add each (the tensor core's own f32 sums
+// drift over a depth of 384-768: long_tf32.cuh).
+template <bool LN>
+__global__ void __launch_bounds__(kProjThreads, 1)
+block_gemm_tf32(const float* __restrict__ a, const float* __restrict__ t,
+                const float* __restrict__ ns, const float* __restrict__ nb,
+                const float* __restrict__ b, const float* __restrict__ bias,
+                float* __restrict__ out, int64_t M, int depth, int ncols, float eps) {
+  constexpr int kLoadsA = kPM * kFK / 4 / kProjThreads;  // 16-byte loads a thread, of a
+  constexpr int kLoadsB = kFK * kPN / 4 / kProjThreads;  // and of b
+  constexpr int kBC = kPN / 4;                           // 16-byte chunks of a b row
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint32_t* stages = reinterpret_cast<uint32_t*>(smem);
+  float* mean = reinterpret_cast<float*>(stages + 2 * kFStage);
+  float* rstd = mean + kPM;
+  const int n_kc = (depth + kFK - 1) / kFK;
+  const int n_tiles = (ncols + kPN - 1) / kPN;
+  const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * kPM;
+  const int n0 = (blockIdx.x % n_tiles) * kPN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+
+  // thread tid's j-th load: a row i / kAC, columns 4 (i % kAC) ..; b row i /
+  // 32, columns 4 (i % 32) .., i = tid + j kProjThreads
+  constexpr int kAC = kFK / 4;  // 16-byte chunks of a chunk's a row
+  float4 ra[kLoadsA], rb[kLoadsB];
+  auto load = [&](int kc) {
+#pragma unroll
+    for (int j = 0; j < kLoadsA; ++j) {
+      const int i = tid + j * kProjThreads;
+      const int64_t row = m0 + i / kAC;
+      const int col = kc * kFK + 4 * (i % kAC);
+      ra[j] = row < M && col < depth ? *reinterpret_cast<const float4*>(a + row * depth + col)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < kLoadsB; ++j) {
+      const int i = tid + j * kProjThreads;
+      const int brow = kc * kFK + i / kBC, bcol = n0 + 4 * (i % kBC);
+      rb[j] = brow < depth && bcol < ncols
+                  ? *reinterpret_cast<const float4*>(b + (int64_t)brow * ncols + bcol)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto put = [](uint32_t* big, uint32_t* small, float4 v) {
+    uint4 hi, lo;
+    split_tf32(__float_as_uint(v.x), hi.x, lo.x);
+    split_tf32(__float_as_uint(v.y), hi.y, lo.y);
+    split_tf32(__float_as_uint(v.z), hi.z, lo.z);
+    split_tf32(__float_as_uint(v.w), hi.w, lo.w);
+    *reinterpret_cast<uint4*>(big) = hi;
+    *reinterpret_cast<uint4*>(small) = lo;
+  };
+  auto store = [&](int kc) {
+    uint32_t* A = stages + (kc & 1) * kFStage;
+    uint32_t* Bt = A + 2 * kFATile;
+#pragma unroll
+    for (int j = 0; j < kLoadsA; ++j) {
+      const int i = tid + j * kProjThreads;
+      const int r = i / kAC, c = i % kAC;
+      float4 v = ra[j];
+      const int col = kc * kFK + 4 * c;
+      if (LN && m0 + r < M && col < depth) {  // zero past M and past C stays zero
+        const float4 s = *reinterpret_cast<const float4*>(ns + col);
+        const float4 o = *reinterpret_cast<const float4*>(nb + col);
+        const float mu = mean[r], rs = rstd[r];
+        v = make_float4(layer_norm(v.x, mu, rs, s.x, o.x), layer_norm(v.y, mu, rs, s.y, o.y),
+                        layer_norm(v.z, mu, rs, s.z, o.z), layer_norm(v.w, mu, rs, s.w, o.w));
+      }
+      put(A + r * kFAStride + 4 * c, A + kFATile + r * kFAStride + 4 * c, v);
+    }
+#pragma unroll
+    for (int j = 0; j < kLoadsB; ++j) {
+      const int i = tid + j * kProjThreads;
+      const int br = i / kBC, bc = i % kBC;
+      put(Bt + br * kFBStride + 4 * bc, Bt + kFBTile + br * kFBStride + 4 * bc, rb[j]);
+    }
+  };
+
+  if (LN) tile_stats(a, m0, M, depth, eps, mean, rstd, tid);
+  load(0);
+  if (LN) __syncthreads();  // the statistics are in
+  store(0);
+  // the accumulators start from t at the proj (0 at qkv); ncols is a
+  // multiple of 8, so a column pair lies wholly before or past it
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + wn + 8 * j + 2 * (lane & 3);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int64_t row = m0 + wm + 16 * i + (lane >> 2) + 8 * half;
+        float2 v = make_float2(0.f, 0.f);
+        if (!LN && row < M && col < ncols)
+          v = *reinterpret_cast<const float2*>(t + row * ncols + col);
+        acc[i][j][2 * half] = v.x;
+        acc[i][j][2 * half + 1] = v.y;
+      }
+    }
+
+  for (int kc = 0; kc < n_kc; ++kc) {
+    __syncthreads();  // stage kc is in; every warp is done with stage kc - 1
+    if (kc + 1 < n_kc) load(kc + 1);
+    const uint32_t* A = stages + (kc & 1) * kFStage;
+    const uint32_t* Bt = A + 2 * kFATile;
+    uint32_t bf[kFK / 8][4][4];  // B fragments of the chunk: (ks, n8 tile) -> bb0, bb1, bs0, bs1
+#pragma unroll
+    for (int ks = 0; ks < kFK / 8; ++ks) {
+      const int bt = (8 * ks + (lane & 3)) * kFBStride + wn + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bf[ks][j][0] = Bt[bt + 8 * j];
+        bf[ks][j][1] = Bt[bt + 4 * kFBStride + 8 * j];
+        bf[ks][j][2] = Bt[kFBTile + bt + 8 * j];
+        bf[ks][j][3] = Bt[kFBTile + bt + 4 * kFBStride + 8 * j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float part[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kFK / 8; ++ks) {
+        uint32_t ab[4], as[4];
+        const int at = (wm + 16 * i + (lane & 15)) * kFAStride + 4 * (2 * ks + (lane >> 4));
+        ldmatrix_x4(ab, A + at);
+        ldmatrix_x4(as, A + kFATile + at);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_3xtf32(part[j], ab, as, bf[ks][j][0], bf[ks][j][1], bf[ks][j][2], bf[ks][j][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[j][e]);
+    }
+    if (kc + 1 < n_kc) store(kc + 1);
+  }
+
+  // ---- + the bias
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn + 8 * j + 2 * (lane & 3);
+    if (col >= ncols) continue;
+    const float b0 = bias != nullptr ? bias[col] : 0.f, b1 = bias != nullptr ? bias[col + 1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int64_t row = m0 + wm + 16 * i + (lane >> 2) + 8 * half;
+        if (row < M)
+          *reinterpret_cast<float2*>(out + row * ncols + col) =
+              make_float2(__fadd_rn(acc[i][j][2 * half], b0), __fadd_rn(acc[i][j][2 * half + 1], b1));
+      }
+  }
+}
+
+unsigned gemm_grid(int64_t M, int ncols) {
+  return (unsigned)(((M + kPM - 1) / kPM) * ((ncols + kPN - 1) / kPN));
+}
+
+cudaError_t launch_ln_qkv(const bf16* t, const float* ns, const float* nb, const bf16* w,
+                          const float* qb, bf16* qkv, int64_t M, int C, int N3, float eps,
+                          cudaStream_t s) {
   static std::atomic<bool> opted_in[devit::kMaxDevices];
-  cudaError_t err = devit::opt_in_smem((const void*)block_gemm_kernel<T, LN>, opted_in);
+  cudaError_t err = devit::opt_in_smem((const void*)block_ln_qkv_mma, opted_in);
   if (err != cudaSuccess) return err;
-  const long long blocks = ((M + kGT - 1) / kGT) * ((Nc + kGT - 1) / kGT);
-  block_gemm_kernel<T, LN><<<(unsigned)blocks, kThreads, gemm_smem_bytes(), s>>>(
-      a, t, ns, nb, w, bias, out, M, Kd, Nc, eps);
+  block_ln_qkv_mma<<<gemm_grid(M, N3), kProjThreads, ln_qkv_smem_bytes(), s>>>(
+      t, ns, nb, w, qb, qkv, M, C, N3, eps);
+  return cudaGetLastError();
+}
+
+template <bool LN>
+cudaError_t launch_tf32(const float* a, const float* t, const float* ns, const float* nb,
+                        const float* b, const float* bias, float* out, int64_t M, int depth,
+                        int ncols, float eps, cudaStream_t s) {
+  static std::atomic<bool> opted_in[devit::kMaxDevices];
+  cudaError_t err = devit::opt_in_smem((const void*)block_gemm_tf32<LN>, opted_in);
+  if (err != cudaSuccess) return err;
+  block_gemm_tf32<LN><<<gemm_grid(M, ncols), kProjThreads, tf32_smem_bytes(), s>>>(
+      a, t, ns, nb, b, bias, out, M, depth, ncols, eps);
   return cudaGetLastError();
 }
 
 // Whether the block half takes the chunked route at (n, head_dim, elem
-// bytes) on a device that lets a block opt in to `optin` bytes.
+// bytes) on a device that lets a block opt in to `optin` bytes: at f32
+// always, at bf16 past head width 128 or where the whole-row pair's block
+// would not fit.
 bool use_chunked(int n, int dh, int elem, long long optin) {
-  if (dh > 128) return true;
-  const size_t need = elem == 2 ? mma_smem_bytes(n, dh) : smem_bytes(n, dh, elem);
-  return (long long)need > optin;
+  return elem == 4 || dh > 128 || (long long)mma_smem_bytes(n, dh) > optin;
 }
 
-template <typename T>
 cudaError_t launch_chunked(const void* t, const float* const (&f)[4], const void* qw,
                            const void* pw, void* scratch, void* out, int B, int N, int C, int H,
                            int dh, float eps, int dtype, float scale, cudaStream_t s) {
-  const long long M = (long long)B * N;
+  const int64_t M = (int64_t)B * N;
   const int K = H * dh;
-  const T* tt = static_cast<const T*>(t);
-  T* qkv = static_cast<T*>(scratch);
-  T* o = qkv + M * 3 * K;
-  cudaError_t err = launch_gemm<T, true>(tt, nullptr, f[0], f[1], static_cast<const T*>(qw),
-                                         f[2], qkv, M, C, 3 * K, eps, s);
+  if (dtype == 0) {
+    const float* tt = static_cast<const float*>(t);
+    float* qkv = static_cast<float*>(scratch);
+    float* o = qkv + M * 3 * K;
+    cudaError_t err = launch_tf32<true>(tt, nullptr, f[0], f[1], static_cast<const float*>(qw),
+                                        f[2], qkv, M, C, 3 * K, eps, s);
+    if (err != cudaSuccess) return err;
+    err = (cudaError_t)devit_fused_attention(qkv, o, B, N, H, dh, dtype, scale, s);
+    if (err != cudaSuccess) return err;
+    return launch_tf32<false>(o, tt, nullptr, nullptr, static_cast<const float*>(pw), f[3],
+                              static_cast<float*>(out), M, K, C, eps, s);
+  }
+  const bf16* tt = static_cast<const bf16*>(t);
+  bf16* qkv = static_cast<bf16*>(scratch);
+  bf16* o = qkv + M * 3 * K;
+  cudaError_t err = launch_ln_qkv(tt, f[0], f[1], static_cast<const bf16*>(qw), f[2], qkv, M, C,
+                                  3 * K, eps, s);
   if (err != cudaSuccess) return err;
   err = (cudaError_t)devit_fused_attention(qkv, o, B, N, H, dh, dtype, scale, s);
   if (err != cudaSuccess) return err;
-  return launch_gemm<T, false>(o, tt, nullptr, nullptr, static_cast<const T*>(pw), f[3],
-                               static_cast<T*>(out), M, K, C, eps, s);
-}
-
-template <int DH>
-cudaError_t launch_dh(const void* t, const float* const (&f)[4], const void* qw, const void* pw,
-                      void* scratch, void* acc, void* out, int B, int N, int C, int H, float eps,
-                      int dtype, float scale, cudaStream_t s) {
-  if (dtype == 0)
-    return launch<float, DH>(t, f[0], f[1], qw, f[2], pw, f[3], scratch,
-                             static_cast<float*>(acc), out, B, N, C, H, eps, scale, s);
-  if (dtype == 1)
-    return launch_bf16<DH>(t, f[0], f[1], qw, f[2], pw, f[3], scratch, out, B, N, C, H, eps,
-                           scale, s);
-  return cudaErrorInvalidValue;
+  const bf16* pwt = static_cast<const bf16*>(pw);
+  bf16* outt = static_cast<bf16*>(out);
+  if (K % kPK != 0) return launch_proj<true>(tt, o, pwt, f[3], outt, M, C, K, s);
+  return launch_proj<false>(tt, o, pwt, f[3], outt, M, C, K, s);
 }
 
 }  // namespace
@@ -905,38 +941,38 @@ cudaError_t launch_dh(const void* t, const float* const (&f)[4], const void* qw,
 extern "C" {
 
 // Dynamic shared memory one block needs at sequence length n on `device`
-// (bf16: the larger of the two kernels' needs; the chunked route: the
-// largest of its launches').
+// (the whole-row route: the larger of its two kernels' needs; the chunked
+// route: the largest of its launches').
 long long devit_block_attention_smem_bytes(int n, int head_dim, int elem_bytes, int device) {
   if (use_chunked(n, head_dim, elem_bytes, devit::device_optin(device))) {
     const long long attn = devit_attention_smem_bytes(n, head_dim, elem_bytes, device);
-    const long long gemm = (long long)gemm_smem_bytes();
+    const long long gemm = (long long)(elem_bytes == 4 ? tf32_smem_bytes() : ln_qkv_smem_bytes());
     return attn > gemm ? attn : gemm;
   }
-  return (long long)(elem_bytes == 2 ? mma_smem_bytes(n, head_dim)
-                                     : smem_bytes(n, head_dim, elem_bytes));
+  return (long long)mma_smem_bytes(n, head_dim);
 }
 
 // 1 when the block half takes the chunked route at (n, head_dim,
-// elem_bytes) on `device`, and so needs the (B N, 4 H head_dim) scratch.
+// elem_bytes) on `device` (at f32 always), and so needs the (B N, 4 H
+// head_dim) scratch.
 int devit_block_attention_chunked(int n, int head_dim, int elem_bytes, int device) {
   return use_chunked(n, head_dim, elem_bytes, devit::device_optin(device)) ? 1 : 0;
 }
 
 // t, out: (B, N, C) contiguous of the dtype; qkv_kernel (C, 3 H head_dim)
 // and proj_kernel (H head_dim, C) contiguous of the dtype; norm scale/bias,
-// proj bias (C,) and qkv bias (3 H head_dim,) or NULL, f32. Scratch: f32,
-// `scratch` (B, N, C) f32 for the LN'd rows and `acc` (B, N, C) f32; bf16,
-// `scratch` (B, N, H head_dim) bf16 for o and `acc` unused; on the chunked
-// route (devit_block_attention_chunked), `scratch` (B, N, 4 H head_dim) of
-// the dtype and `acc` unused. C must be a multiple of 32, and the bf16
-// operands 16-byte aligned; head_dim 32, 64, 128 or any multiple of 64 past 128.
-// dtype: 0 = float32, 1 = bfloat16. scale: as devit_fused_attention's.
+// proj bias (C,) and qkv bias (3 H head_dim,) or NULL, f32. Scratch: on the
+// chunked route (devit_block_attention_chunked; f32 always), (B, N, 4 H
+// head_dim) of the dtype; on the bf16 whole-row route (B, N, H head_dim)
+// bf16 for o. `acc` is unused (NULL). C must be a multiple of 32, and every
+// operand 16-byte aligned; head_dim 32, 64, 128 or any multiple of 64 past
+// 128. dtype: 0 = float32, 1 = bfloat16. scale: as devit_fused_attention's.
 // Returns a cudaError_t (0 = launched).
 int devit_block_attention(const void* t, const void* ns, const void* nb, const void* qw,
                           const void* qb, const void* pw, const void* pb, void* scratch,
                           void* acc, void* out, int B, int N, int C, int H, int head_dim,
                           float eps, int dtype, float scale, void* stream) {
+  (void)acc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C % 32 != 0 || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
@@ -946,16 +982,17 @@ int devit_block_attention(const void* t, const void* ns, const void* nb, const v
   const cudaError_t derr = cudaGetDevice(&dev);
   if (derr != cudaSuccess) return (int)derr;
   if (use_chunked(N, head_dim, dtype == 1 ? 2 : 4, devit::device_optin(dev)))
-    return (int)(dtype == 0 ? launch_chunked<float>(t, f, qw, pw, scratch, out, B, N, C, H,
-                                                    head_dim, eps, dtype, scale, s)
-                            : launch_chunked<bf16>(t, f, qw, pw, scratch, out, B, N, C, H,
-                                                   head_dim, eps, dtype, scale, s));
+    return (int)launch_chunked(t, f, qw, pw, scratch, out, B, N, C, H, head_dim, eps, dtype, scale,
+                               s);
   if (head_dim == 32)
-    return (int)launch_dh<32>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, scale, s);
+    return (int)launch_bf16<32>(t, f[0], f[1], qw, f[2], pw, f[3], scratch, out, B, N, C, H, eps,
+                                scale, s);
   if (head_dim == 64)
-    return (int)launch_dh<64>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, scale, s);
+    return (int)launch_bf16<64>(t, f[0], f[1], qw, f[2], pw, f[3], scratch, out, B, N, C, H, eps,
+                                scale, s);
   if (head_dim == 128)
-    return (int)launch_dh<128>(t, f, qw, pw, scratch, acc, out, B, N, C, H, eps, dtype, scale, s);
+    return (int)launch_bf16<128>(t, f[0], f[1], qw, f[2], pw, f[3], scratch, out, B, N, C, H, eps,
+                                 scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -32,7 +32,10 @@ the outputs on fixed inputs (every timed call, and the forward and the
 three backwards of every other path: f32 at N 198 and 578, head width 192
 in both dtypes, bf16 dh 32 and 128; the block half in bf16 and f32, the
 int8 matmul), so the script says which outputs the two checkouts' kernels
-give the same bits. Last, the SASS of every kernel of each side's library
+give the same bits. The block half is also timed at f32 at B 256, N 198,
+kh 1-6 (summed at the deployed mix, as the bf16 one) and on its chunked
+route in both dtypes at B 16, N 578: kh 6 at C 384, and kh 4 of head width
+192 at C 768 (timed and hashed). Last, the SASS of every kernel of each side's library
 (cuobjdump beside nvcc): instructions, HMMA instructions and a hash of the
 opcode sequence, so a kernel whose source should compile unchanged can be
 checked, and the kernels only one side has. Prints the card's name and
@@ -66,6 +69,9 @@ HASHED = ([("f32", 64, N, 6, 64), ("f32", 4, 578, 6, 64), ("f32", 2, 578, 12, 32
            ("f32", 2, 578, 6, 128), ("bf16", 2, 578, 4, 192), ("f32", 2, 578, 4, 192),
            ("bf16", 16, N, 12, 32), ("bf16", 16, N, 6, 128)])
 S384 = (("bfloat16", 64, 3), ("float32", 16, 3))  # dtype, B, timed steps: the 384-px steps
+# B, N, kh, dh, C of the block half's chunked route (both dtypes): dedeit at
+# 384 px, and heads of 192 at C 768
+BLOCK_CHUNKED = ((16, 578, 6, 64, 384), (16, 578, 4, 192, 768))
 
 
 def _time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
@@ -206,17 +212,27 @@ def child(root: Path) -> dict:
         res[f"int8 M{M} K{K} N{Nn}"] = ms
         res["int8 forward"] += calls[(K, Nn)] * ms
         digest[f"int8 K{K} N{Nn}"] = _digest(fused_int8_matmul(x, qw))
-    res["block forward"] = 0.0
-    for kh in range(1, 7):
-        C, Kh = 384, kh * DH
-        r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
-        args = (r(256, N, C).bfloat16(), 1 + 0.1 * r(C), 0.1 * r(C),
-                (0.05 * r(C, 3 * Kh)).bfloat16(), 0.1 * r(3 * Kh), (0.05 * r(Kh, C)).bfloat16(),
-                0.1 * r(C))
-        ms = _time_ms(torch, lambda: fused_block_attention(*args, num_heads=kh), iters=10,
-                      warmup=2)
-        res[f"block B256 kh{kh}"] = ms
-        res["block forward"] += mix.get(kh, 0) * ms
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+
+    def block_args(dt, B, n, C, Kh):
+        return (r(B, n, C).to(dt), 1 + 0.1 * r(C), 0.1 * r(C), (0.05 * r(C, 3 * Kh)).to(dt),
+                0.1 * r(3 * Kh), (0.05 * r(Kh, C)).to(dt), 0.1 * r(C))
+
+    for dt, tag in ((torch.bfloat16, ""), (torch.float32, " f32")):
+        res[f"block forward{tag}"] = 0.0
+        for kh in range(1, 7):
+            args = block_args(dt, 256, N, 384, kh * DH)
+            ms = _time_ms(torch, lambda: fused_block_attention(*args, num_heads=kh), iters=10,
+                          warmup=2)
+            res[f"block{tag} B256 kh{kh}"] = ms
+            res[f"block forward{tag}"] += mix.get(kh, 0) * ms
+    for (B, n, kh, dh, C), dt in ((c, d) for c in BLOCK_CHUNKED
+                                  for d in (torch.bfloat16, torch.float32)):
+        args = block_args(dt, B, n, C, kh * dh)
+        key = f"block {str(dt)[6:]} B{B} N{n} kh{kh} dh{dh}"
+        res[key] = _time_ms(torch, lambda: fused_block_attention(*args, num_heads=kh), iters=10,
+                            warmup=2)
+        digest[key] = _digest(fused_block_attention(*args, num_heads=kh))
     return {"ms": res, "digest": digest, "by_kernel": by_kernel}
 
 

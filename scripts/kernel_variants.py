@@ -18,14 +18,18 @@ point is called through ctypes, as the wrappers call it:
   calls; each output checked bit for bit against dynamic_int8_matmul; the
   profiler's device time of each launch summed over the forward; and the
   wrapper's host-and-device time a call at M 1.
-- block: fused_block_attention at bf16, B 256, N 198, C 384, kh 1-6 (random
-  weights), timed in turns and summed over one forward's 48 layers at the
-  deployed kh mix; each within 2e-2 of reference_block_attention; the
-  profiler's device time of its two launches.
+- block: fused_block_attention at bf16 and f32, B 256, N 198, C 384, kh 1-6
+  (random weights), timed in turns and summed over one forward's 48 layers
+  at the deployed kh mix, and its chunked route at B 16, N 578, kh 6 in both
+  dtypes; each within 2e-2 (bf16) or 1e-4 (f32) of
+  reference_block_attention; the profiler's device time of each launch
+  (block_attention.cu is linked with attention.cu, whose forward the chunked
+  route launches).
 
-Prints the card's name and power limit first. A variant's -D names must be
-ones the source reads; the kept sources read none, so a variant is tried by
-adding its #if to the source first.
+Prints the card's name and power limit first. An empty DEFINES argument is
+the source as it stands. A variant's -D names must be ones the source reads;
+the kept sources read none, so a variant is tried by adding its #if to the
+source first.
 """
 
 from __future__ import annotations
@@ -79,10 +83,27 @@ def _device_ms(fn, mark: str, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {re.search(r"\w*" + mark + r"\w*", e.key).group(0):
+    return {re.search(r"\w*" + mark + r"\w*", e.key).group(0) if mark else _short(e.key):
             e.self_device_time_total / 1e3 / reps
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and mark in e.key}
+
+
+def _short(kernel: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    parameter list."""
+    return re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", kernel)
+
+
+def _ptxas(log: str, mark: str) -> list:
+    """ptxas's spill and register lines of the kernels whose name holds mark."""
+    out, name = [], ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[-1].strip(" '")
+        elif ("Used" in line or "spill" in line) and mark in name:
+            out.append(f"{name[-60:]}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def build(source: str, variants: list) -> list:
@@ -90,8 +111,10 @@ def build(source: str, variants: list) -> list:
     src = _build.CSRC / source
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     outs = [_build.BUILD_DIR / f"variant{i}-{src.stem}.so" for i in range(len(variants))]
+    # the block half's chunked route launches the forward's kernels: linked in
+    extra = [str(_build.CSRC / "attention.cu")] if source == "block_attention.cu" else []
     procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                               *[f"-D{d}" for d in v], "-o", str(o), str(src)],
+                               *[f"-D{d}" for d in v], "-o", str(o), str(src), *extra],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for v, o in zip(variants, outs)]
     entry = {"quant_matmul.cu": "devit_quant_matmul",
@@ -101,7 +124,7 @@ def build(source: str, variants: list) -> list:
         log = p.communicate()[0]
         if p.returncode:
             raise SystemExit(f"nvcc failed for {v}:\n{log}")
-        print(v, [line.strip() for line in log.splitlines() if "Used" in line or "spill" in line])
+        print(v, _ptxas(log, "block_" if source == "block_attention.cu" else ""))
         fn = getattr(ctypes.CDLL(str(o)), entry)
         fn.argtypes, fn.restype = _build.SIGNATURES[entry]
         fns.append(fn)
@@ -158,6 +181,12 @@ def int8(fns: list, variants: list) -> None:
           f"{(time.perf_counter() - t0) / 200 * 1e6:.1f} us")
 
 
+# block cases: (dtype, B, N, kh) at C 384, dh 64: the deployed layers' kh at
+# B 256, N 198 (summed at KH_MIX), and the chunked route at B 16, N 578
+BLOCK_CASES = ([(dt, 256, N, kh) for dt in (torch.bfloat16, torch.float32) for kh in range(1, 7)]
+               + [(dt, 16, 578, 6) for dt in (torch.bfloat16, torch.float32)])
+
+
 def block(fns: list, variants: list) -> None:
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -165,38 +194,40 @@ def block(fns: list, variants: list) -> None:
         t, ns, nb, qw, qb, pw, pb = args
         B, n, C = t.shape
         out = torch.empty_like(t)
-        o = torch.empty((B, n, kh * 64), dtype=t.dtype, device="cuda")
+        scratch = torch.empty((B, n, 4 * kh * 64), dtype=t.dtype, device="cuda")  # either route
         err = fn(t.data_ptr(), ns.data_ptr(), nb.data_ptr(), qw.data_ptr(), qb.data_ptr(),
-                 pw.data_ptr(), pb.data_ptr(), o.data_ptr(), None, out.data_ptr(), B, n, C, kh,
-                 64, 1e-6, 1, stream)
+                 pw.data_ptr(), pb.data_ptr(), scratch.data_ptr(), None, out.data_ptr(), B, n, C,
+                 kh, 64, 1e-6, 0 if t.dtype == torch.float32 else 1, 0.125, stream)
         if err:
             raise RuntimeError(f"launch failed: {err}")
         return out
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    total = [0.0 for _ in fns]
-    for kh in range(1, 7):
+    total = {dt: [0.0 for _ in fns] for dt in (torch.bfloat16, torch.float32)}
+    for dt, B, n, kh in BLOCK_CASES:
         C, K = 384, kh * 64
         r = lambda *s: torch.randn(s, generator=gen, device="cuda")
-        args = (r(256, N, C).bfloat16(), 1 + 0.1 * r(C), 0.1 * r(C),
-                (0.05 * r(C, 3 * K)).bfloat16(), 0.1 * r(3 * K), (0.05 * r(K, C)).bfloat16(),
-                0.1 * r(C))
+        args = (r(B, n, C).to(dt), 1 + 0.1 * r(C), 0.1 * r(C), (0.05 * r(C, 3 * K)).to(dt),
+                0.1 * r(3 * K), (0.05 * r(K, C)).to(dt), 0.1 * r(C))
         want = reference_block_attention(*args, num_heads=kh).float()
         times = {}
         for order in (range(len(fns)), reversed(range(len(fns)))):
             for i in order:
                 ms = _time_ms(lambda: call(fns[i], args, kh))
                 times.setdefault(i, []).append(round(ms, 4))
-                total[i] += KH_MIX.get(kh, 0) * ms / 2
+                if n == N:
+                    total[dt][i] += KH_MIX.get(kh, 0) * ms / 2
         rel = [float((call(fn, args, kh).float() - want).abs().max() / want.abs().max())
                for fn in fns]
-        split = [{k: round(ms, 4) for k, ms in _device_ms(lambda: call(fn, args, kh),
-                                                           "block_").items()} for fn in fns]
-        if max(rel) > 2e-2:
-            raise SystemExit(f"kh {kh}: a variant is off the plain version: {rel}")
-        print(f"kh{kh}: ms by variant {times}, rel err {rel}, device {split}", flush=True)
-    for v, t in zip(variants, total):
-        print(f"per forward's 48 layers {v}: {t:.3f} ms")
+        split = [{k: round(ms, 4) for k, ms in _device_ms(lambda: call(fn, args, kh), "").items()}
+                 for fn in fns]
+        if max(rel) > (1e-4 if dt == torch.float32 else 2e-2):
+            raise SystemExit(f"{dt} N{n} kh {kh}: a variant is off the plain version: {rel}")
+        print(f"{str(dt)[6:]} B{B} N{n} kh{kh}: ms by variant {times}, rel err "
+              f"{[f'{e:.2e}' for e in rel]}, device {split}", flush=True)
+    for dt, tot in total.items():
+        for v, t in zip(variants, tot):
+            print(f"{str(dt)[6:]} per forward's 48 layers (B 256) {v}: {t:.3f} ms")
 
 
 def main() -> int:
@@ -206,7 +237,7 @@ def main() -> int:
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    variants = [a.split(",") for a in sys.argv[2:]] or [[]]
+    variants = [[d for d in a.split(",") if d] for a in sys.argv[2:]] or [[]]
     source = {"int8": "quant_matmul.cu", "block": "block_attention.cu"}[sys.argv[1]]
     fns = build(source, variants)
     (int8 if sys.argv[1] == "int8" else block)(fns, variants)

@@ -599,13 +599,17 @@ def _block_case(gen, B, n, kh, dtype, C=384, with_bias=True, dh=DH):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kh", [1, 3, 5, 6])
 def test_block_kernel_matches_plain(gen, kh, dtype):
-    for B in (1, 7):
-        for with_bias in (True, False):
-            t, w = _block_case(gen, B, N, kh, dtype, with_bias=with_bias)
-            got = fused_block_attention(t, **w, num_heads=kh)
-            torch.cuda.synchronize()
-            want = reference_block_attention(t, **w, num_heads=kh)
-            assert _rel(got, want) <= TOL[dtype], (B, with_bias)
+    """N 198 at head widths 64 and 128 (at f32 past the N 108 that a
+    whole-row block once held at width 128), and N 578 (the chunked route in
+    both dtypes)."""
+    for n, dh, batches in ((N, DH, (1, 7)), (N, 128, (1, 7)), (578, DH, (2,))):
+        for B in batches:
+            for with_bias in (True, False):
+                t, w = _block_case(gen, B, n, kh, dtype, with_bias=with_bias, dh=dh)
+                got = fused_block_attention(t, **w, num_heads=kh)
+                torch.cuda.synchronize()
+                want = reference_block_attention(t, **w, num_heads=kh)
+                assert _rel(got, want) <= TOL[dtype], (n, dh, B, with_bias)
 
 
 def test_block_randomized_shape_sweep(gen):
@@ -623,14 +627,29 @@ def test_block_randomized_shape_sweep(gen):
         torch.cuda.synchronize()
         rel = _rel(got, reference_block_attention(t, **w, num_heads=kh))
         assert rel <= TOL[dtype], f"trial {trial}: B{B} N{n} C{C} kh{kh} {dtype}: {rel:.3e}"
+    # the chunked route's GEMM tails in both dtypes: C 96 and 160 (a last
+    # 64-column chunk half past C at bf16), K 160 (dh 32, five heads), dh 192
+    for B, n, C, kh, dh in ((2, 578, 96, 1, 64), (1, 1100, 160, 5, 32), (2, 198, 160, 1, 192),
+                            (3, 450, 384, 3, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            t, w = _block_case(gen, B, n, kh, dtype, C=C, with_bias=n % 2 == 0, dh=dh)
+            got = fused_block_attention(t, **w, num_heads=kh)
+            torch.cuda.synchronize()
+            rel = _rel(got, reference_block_attention(t, **w, num_heads=kh))
+            assert rel <= TOL[dtype], f"B{B} N{n} C{C} kh{kh} dh{dh} {dtype}: {rel:.3e}"
 
 
-def test_block_kernel_is_deterministic_and_counted(gen):
-    t, w = _block_case(gen, 3, N, 4, torch.bfloat16)
-    before = fused_block_attention.launches
+@pytest.mark.parametrize("dtype,n,chunked", [(torch.bfloat16, N, 0), (torch.float32, N, 1),
+                                              (torch.bfloat16, 578, 1)])
+def test_block_kernel_is_deterministic_and_counted(gen, dtype, n, chunked):
+    """Each call counts once in `launches`, and in `chunked_launches` too on
+    the three-launch route (every f32 call, bf16 past the whole-row block)."""
+    t, w = _block_case(gen, 3, n, 4, dtype)
+    before = fused_block_attention.launches, fused_block_attention.chunked_launches
     a, b = fused_block_attention(t, **w, num_heads=4), fused_block_attention(t, **w, num_heads=4)
     reference_block_attention(t, **w, num_heads=4)
-    assert fused_block_attention.launches == before + 2
+    assert fused_block_attention.launches == before[0] + 2
+    assert fused_block_attention.chunked_launches == before[1] + 2 * chunked
     assert torch.equal(a, b)  # one writer per output: the same bits on every run
 
 
@@ -851,10 +870,9 @@ def test_head_widths_trainable_attention_matches_autograd(gen, dh, kh):
 @pytest.mark.parametrize("dh", [8, 16, 32, 48, 80, 96, 128])
 def test_head_widths_block_kernel_matches_plain(gen, dh, dtype):
     """Odd head counts at dh 32 make K = H dh not a multiple of the proj
-    kernel's 64-row chunks; the f32 whole-head block fits shared memory to N
-    108 at width 128 and short of N 256 at width 64, past which the chunked
-    route runs. Widths between the instantiations run padded (zero qkv
-    columns and proj rows per head)."""
+    kernel's 64-row chunks; f32 runs the chunked route at every N, bf16 the
+    whole-row pair here. Widths between the instantiations run padded (zero
+    qkv columns and proj rows per head)."""
     width = kernel_head_dim(dh)
     lengths = (1, 17, 65, 198, 256)
     for n in lengths:

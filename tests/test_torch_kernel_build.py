@@ -67,11 +67,13 @@ def test_concurrent_builds_compile_once(tmp_path):
 
 # ---- every kernel is classified for chip_smoke.py's SASS check
 
-# The __global__ kernels of csrc/ that run on the CUDA cores (the f32 block
-# half, the block half's chunked-route GEMMs, the int8 quantisation); every
-# other kernel must have an entry in chip_smoke.py's MMA_KERNELS. A new kernel
-# is classified here or there by hand.
-CUDA_CORE_KERNELS = {"block_attn_kernel", "block_gemm_kernel", "quant_rows_kernel"}
+# The __global__ kernels of csrc/ that run on the CUDA cores: only the int8
+# path's row quantisation, which has no product (per-row absmax, scale,
+# round to int8 codes); every product of every other kernel, the block
+# half's in both dtypes included, runs on the tensor cores, so each other
+# kernel must have an entry in chip_smoke.py's MMA_KERNELS. A new kernel is
+# classified here or there by hand.
+CUDA_CORE_KERNELS = {"quant_rows_kernel"}
 
 
 def test_every_bf16_mma_kernel_is_in_the_sass_check():
@@ -91,7 +93,8 @@ def test_every_bf16_mma_kernel_is_in_the_sass_check():
     assert {"attn_kernel_mma", "attn_bwd_kernel_mma", "attn_long_mma", "attn_bwd_long_rows_mma",
             "attn_bwd_long_keys_mma", "attn_long_tf32", "attn_bwd_long_rows_tf32",
             "attn_bwd_long_keys_tf32", "attn_wide_mma", "attn_bwd_wide_rows_mma",
-            "attn_bwd_wide_keys_mma", "quant_mma_kernel"} <= kernels, sorted(kernels)
+            "attn_bwd_wide_keys_mma", "block_qkv_attn_kernel", "block_proj_kernel",
+            "block_ln_qkv_mma", "block_gemm_tf32", "quant_mma_kernel"} <= kernels, sorted(kernels)
     in_check = {k for k in kernels if any(re.match(rf"{k}(?![a-z0-9_])", p) for p in patterns)}
     unclassified = sorted(kernels - in_check - CUDA_CORE_KERNELS)
     assert not unclassified, f"kernels in neither MMA_KERNELS nor CUDA_CORE_KERNELS: {unclassified}"

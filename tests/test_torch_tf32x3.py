@@ -1,6 +1,6 @@
-"""The numerics behind the port's f32 attention kernels on the tensor cores
+"""The numerics behind the port's f32 kernels on the tensor cores
 (devit_tpu_torch/kernels/csrc/long_tf32.cuh, wide.cuh past head width 128,
-mma_common.cuh mma_3xtf32):
+block_attention.cu's block_gemm_tf32, mma_common.cuh mma_3xtf32):
 three TF32 passes a product (3xTF32) keep f32 accuracy, one pass does not.
 
 A numpy emulation of the kernels' split: big = x rounded to TF32 (to
@@ -12,9 +12,11 @@ accumulation is not modelled). Every product of the kernels goes through it
 (q k^T, p v; g v^T, p^T g, ds k, ds^T q) for the attention forward and dq,
 dk and dv, on inputs made from a seed, against the JAX package's f32
 fused_attention and its VJP in interpret mode (as tests/test_kernels.py runs
-them on the CPU). 3xTF32 stays within 1e-4 (max-abs over max-ref, the f32
-tolerance of the card's checks); one TF32 pass misses it and is at least
-10x farther."""
+them on the CPU); and the block half (fused_block_attention at f32: qkv at
+depth C, the attention's products, proj at depth K) against the JAX
+package's f32 fused_block_attention in interpret mode. 3xTF32 stays within
+1e-4 (max-abs over max-ref, the f32 tolerance of the card's checks); one
+TF32 pass misses it and is at least 10x farther."""
 
 import jax
 import jax.numpy as jnp
@@ -130,3 +132,53 @@ def _hold_3xtf32(N: int, dh: int) -> None:
     assert three.max() <= TOL, errs  # o, dq, dk, dv
     assert (one >= 10 * three).all(), errs
     assert one.max() > TOL, errs
+
+
+# ---- the block half (fused_block_attention at f32: csrc/block_attention.cu,
+# LayerNorm + qkv and proj in block_gemm_tf32, the attention between them)
+
+
+def block_half(a: dict, H: int, mm, eps: float = 1e-6) -> np.ndarray:
+    """t + proj(attention(qkv(LayerNorm(t)))) at f32 with every product of
+    the kernels' route taken by mm: qkv = h . W at depth C, per head q k^T
+    and p v, then t + o . proj at depth K (one product over every head, as
+    the proj GEMM sums it), + proj_bias; the LayerNorm and softmax in f32."""
+    t = a["t"]
+    B, N, C = t.shape
+    K = a["qw"].shape[1] // 3
+    dh = K // H
+    scale = np.float32(1.0) / np.sqrt(np.float32(dh))
+    mu = t.mean(axis=-1, keepdims=True, dtype=np.float32)
+    var = np.square(t - mu).mean(axis=-1, keepdims=True, dtype=np.float32)
+    h = ((t - mu) / np.sqrt(var + np.float32(eps)) * a["ns"] + a["nb"]).astype(np.float32)
+    out = np.empty_like(t)
+    for b in range(B):
+        qkv = mm(h[b], a["qw"]) + a["qb"]
+        q, k, v = (qkv[:, i * K:(i + 1) * K].reshape(N, H, dh).transpose(1, 0, 2)
+                   for i in range(3))
+        o = np.empty((N, H, dh), np.float32)
+        for hd in range(H):
+            s = mm(q[hd], k[hd].T) * scale
+            e = np.exp(s - s.max(axis=-1, keepdims=True))
+            p = (e / e.sum(axis=-1, keepdims=True)).astype(np.float32)
+            o[:, hd] = mm(p, v[hd])
+        out[b] = t[b] + mm(o.reshape(N, K), a["pw"]) + a["pb"]
+    return out
+
+
+# the deployed divisions' width (C 384, six heads of 64) and a head past 128
+# (C 768, four heads of 192), N 198: the GEMMs' depths 384 and 768
+@pytest.mark.parametrize("C,H,dh", [(384, 6, 64), (768, 4, 192)])
+def test_3xtf32_keeps_f32_accuracy_in_the_block_half(C, H, dh):
+    N, K = 198, H * dh
+    rng = np.random.default_rng(C + dh)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    a = dict(t=f(1, N, C), ns=1 + 0.1 * f(C), nb=0.1 * f(C), qw=0.1 * f(C, 3 * K),
+             qb=0.1 * f(3 * K), pw=0.1 * f(K, C), pb=0.1 * f(C))
+    a = {k: v.astype(np.float32) for k, v in a.items()}
+    want = np.asarray(jattn.fused_block_attention(
+        *(jnp.asarray(a[k]) for k in ("t", "ns", "nb", "qw", "qb", "pw", "pb")), num_heads=H,
+        eps=1e-6, block_b=1, interpret=True))
+    three, one = _rel(block_half(a, H, mm3), want), _rel(block_half(a, H, mm1), want)
+    assert three <= TOL, (three, one)
+    assert one >= 10 * three and one > TOL, (three, one)
