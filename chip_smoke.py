@@ -67,7 +67,13 @@ step at B 16 with the kernels and with the plain attention in turns
 the main path of the routes past head width 128 ([stage2-wide]), the CCT family
 ([cct]: cct_14_7x2_224 on the card against the CPU, a bf16 stage-2 step,
 and `pipeline --model cct_7_3x1_32` through every stage) and the stage-5
-resume across optimizer families ([resume]). Then the masked-attention text
+resume across optimizer families ([resume]). Then orbax checkpoints through
+the command line ([orbax]): `train_sub` of full-width dedeit for an epoch
+and a resumed epoch with --ckpt-format msgpack and orbax, their checkpoints
+equal bit for bit, `convert` and `inspect` on the orbax directory, the
+JAX-written checkpoint of tests/torch_data/jax_orbax_tiny run by the f32
+forward against the JAX package's logits, and each format's save and
+restore times. Then the masked-attention text
 CCT at its defaults against the CPU and in 10 AdamW steps ([text]), and the
 stage-2 step under five remat policies, each held to full remat, with its
 attention launches a step, ms a step and peak memory ([remat]). Then
@@ -105,6 +111,7 @@ import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -130,7 +137,8 @@ from devit_tpu_torch.data.randaugment import OP_NAMES as RA_OP_NAMES
 from devit_tpu_torch.data.randaugment import STEPPED_OPS as RA_STEPPED
 from devit_tpu_torch.data.randaugment import RandAugmentDraws, apply_rand_augment
 from devit_tpu_torch.kernels import _build
-from devit_tpu_torch.io.bridge import ensmlp_to_jax_params
+from devit_tpu_torch.configs import get_vit_config
+from devit_tpu_torch.io.bridge import ensmlp_to_jax_params, vit_from_jax_params
 from devit_tpu_torch.io.checkpoint import restore_pytree, save_pytree
 from devit_tpu_torch.io.native import gather_rows
 from devit_tpu_torch.kernels.attention import (
@@ -3957,6 +3965,189 @@ def phase_resume(card: str) -> dict:
     return dict(warning=warning.strip(), first=logged[0])
 
 
+# [orbax]: `train_sub` of full-width dedeit (384 wide, 12 layers, 6 heads,
+# 224 px, the CLI's defaults otherwise: bf16, EMA, AdamW) on 10 synthetic
+# classes of 256 images (4 steps an epoch at bs64), in each format
+ORBAX_ARGS = ["--model", "dedeit", "--dataset", "synthetic:10:256:224", "--num_division", "1",
+              "--batch-size", "64", "--device", "cuda"]
+ORBAX_FIXTURE = ROOT / "tests" / "torch_data" / "jax_orbax_tiny"
+ORBAX_FIXTURE_GEOMETRY = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=2,
+                              num_classes=10)
+F32_FORWARD_TOL = TOL[torch.float32]  # max |got - want| / max |want|
+
+
+def _bits(tree, prefix="") -> dict:
+    """{leaf path: (dtype, shape, bytes)}; None and an empty dict alike (the
+    msgpack tree holds optax's empty states as {}, orbax records None)."""
+    if isinstance(tree, dict) and tree:
+        out = {}
+        for k, v in tree.items():
+            out.update(_bits(v, f"{prefix}{k}/"))
+        return out
+    if tree is None or isinstance(tree, dict):
+        return {prefix: None}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        return {prefix: (str(tree.dtype), tuple(t.shape), t.numpy().tobytes())}
+    a = np.asarray(tree)
+    return {prefix: (a.dtype.str, a.shape, a.tobytes())}
+
+
+def _same_bits(a, b, what: str) -> int:
+    ba, bb = _bits(a), _bits(b)
+    if ba.keys() != bb.keys():
+        raise AssertionError(f"[orbax] {what}: leaves differ: {sorted(set(ba) ^ set(bb))[:6]}")
+    bad = [k for k in ba if ba[k] != bb[k]]
+    if bad:
+        raise AssertionError(f"[orbax] {what}: {len(bad)} leaves differ, first {bad[:4]}")
+    return len(ba)
+
+
+def _orbax_times(tree: dict, root: Path, reps: int = 3) -> dict:
+    """What training and a resume wait for a checkpoint, in each format, of
+    the live stage-2 state of `tree` (the full-width TrainState of
+    `train_sub`, rebuilt as `train_sub` builds it and loaded from `tree`,
+    its parameters, EMA and moments on the card). Medians of `reps` in
+    turns, ms:
+    - tree: `stage2_tree(state, epoch)` alone (every leaf copied to the
+      host, the layers stacked), the first part of either save;
+    - msgpack_save, orbax_save: `make_saver(args)(path, stage2_tree(state,
+      epoch))`, the call `train_sub` makes at the end of each epoch (msgpack:
+      the tree, encode, write, rename, no fsync; orbax: the tree, each leaf
+      copied again, the write handed to the background);
+    - orbax_durable: orbax_save and then `wait_for_checkpoints` (every file
+      fsynced, the directory renamed and promoted);
+    - msgpack_resume, orbax_resume: `restore_stage2_tree(state,
+      restore_pytree(path))`, what `--resume` does, warm page cache."""
+    from devit_tpu_torch.cli import common as C
+    from devit_tpu_torch.cli.__main__ import build_parser
+    from devit_tpu_torch.io.checkpoint import wait_for_checkpoints
+
+    args = build_parser().parse_args(["train_sub", *ORBAX_ARGS])
+    model = C.build_model(args.model, 10, args, seed=args.seed)
+    tx = make_optimizer(C.optim_config_from_args(args, args.batch_size), 4)
+    state = TrainState.create(model, tx, use_ema=args.model_ema, ema_decay=args.model_ema_decay)
+    state, start = restore_stage2_tree(state, tree)
+    epoch = start - 1
+    _same_bits(stage2_tree(state, epoch), tree, "the rebuilt live state's stage2_tree")
+    savers = {fmt: C.make_saver(SimpleNamespace(ckpt_format=fmt)) for fmt in ("msgpack", "orbax")}
+    out = {k: [] for k in ("tree", "msgpack_save", "orbax_save", "orbax_durable",
+                           "msgpack_resume", "orbax_resume")}
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage2_tree(state, epoch)
+        out["tree"].append(time.perf_counter() - t0)
+        for fmt in ("msgpack", "orbax"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            savers[fmt](str(root / f"{fmt}{i}.msgpack"), stage2_tree(state, epoch))
+            out[f"{fmt}_save"].append(time.perf_counter() - t0)
+            if fmt == "orbax":
+                wait_for_checkpoints()
+                out["orbax_durable"].append(time.perf_counter() - t0)
+        for fmt in ("msgpack", "orbax"):
+            t0 = time.perf_counter()
+            restore_stage2_tree(state, restore_pytree(str(root / f"{fmt}{i}.{fmt}")))
+            torch.cuda.synchronize()
+            out[f"{fmt}_resume"].append(time.perf_counter() - t0)
+    del state, model
+    return {k: float(np.median(v)) * 1e3 for k, v in out.items()}
+
+
+def phase_orbax(card: str) -> dict:
+    """Orbax checkpoints through the CLI at full width: (a) `train_sub` of
+    full-width dedeit for one epoch from one seed, once with --ckpt-format
+    msgpack and once with orbax: the two checkpoint_temp trees equal bit
+    for bit; (b) each resumed for a second epoch: the final trees equal bit
+    for bit, and the attention forward and backward kernels launched (the
+    counts of (a) and (b) are this main path's); (c) `convert` orbax ->
+    msgpack -> orbax gives the same tree, and `inspect --json` of the orbax
+    directory reports the msgpack file's geometry; (d) the JAX-written
+    fixture (tests/torch_data/jax_orbax_tiny, a gated dedeit at 32 px) read
+    and run by the port's f32 forward through the kernel: its logits within
+    F32_FORWARD_TOL of the JAX package's; (e) the save and restore times of
+    (a)'s tree in each format."""
+    root = Path(tempfile.mkdtemp(prefix="devit_orbax_"))
+    trees = {}
+    _set_counts((0, 0, 0, 0))
+    t0 = time.perf_counter()
+    for fmt in ("msgpack", "orbax"):
+        out = root / fmt
+        _cli(["train_sub", *ORBAX_ARGS, "--ckpt-format", fmt, "--epochs", "1",
+              "--output_dir", str(out)])
+        first = restore_pytree(str(out / "checkpoint_temp.msgpack"))
+        _cli(["train_sub", *ORBAX_ARGS, "--ckpt-format", fmt, "--epochs", "2",
+              "--resume", str(out / f"checkpoint_temp.{fmt}"), "--output_dir", str(out)])
+        trees[fmt] = (first, restore_pytree(str(out / "checkpoint_temp.msgpack")))
+    torch.cuda.synchronize()
+    runs_s = time.perf_counter() - t0
+    launches = _counts()
+    if not (os.path.isdir(root / "orbax" / "checkpoint_temp.orbax")
+            and (root / "msgpack" / "checkpoint_temp.msgpack").is_file()):
+        raise AssertionError(f"[orbax] checkpoint artifacts missing: "
+                             f"{sorted(os.listdir(root / 'orbax'))}")
+    if launches[0] == 0 or launches[1] == 0:
+        raise AssertionError(f"[orbax] the stage-2 runs launched fused_attention "
+                             f"{launches[0]} and attention_bwd {launches[1]} times")
+    epochs = [int(np.asarray(trees[f][i]["epoch"])) for f in trees for i in (0, 1)]
+    if epochs != [0, 1, 0, 1]:
+        raise AssertionError(f"[orbax] checkpoint epochs {epochs}, expected [0, 1, 0, 1]")
+    n = _same_bits(trees["msgpack"][0], trees["orbax"][0], "epoch 0's checkpoint_temp")
+    _same_bits(trees["msgpack"][1], trees["orbax"][1], "the resumed epoch 1's checkpoint_temp")
+    nbytes = sum(len(v[2]) for v in _bits(trees["orbax"][1]).values() if v is not None)
+    print(f"[orbax] train_sub dedeit 224 px bf16 bs64, 1 epoch + a resumed epoch, msgpack vs "
+          f"orbax: checkpoint_temp equal bit for bit after each ({n} leaves, "
+          f"{nbytes / 1e6:.1f} MB); fused_attention {launches[0]}, attention_bwd "
+          f"{launches[1]} launches ({runs_s:.1f} s for the 4 runs) [{card}]")
+
+    ck = str(root / "orbax" / "checkpoint_temp.orbax")
+    mp, ob = str(root / "conv.msgpack"), str(root / "conv.orbax")
+    _cli(["convert", ck, mp, "--device", "cuda"])
+    _cli(["convert", mp, ob, "--device", "cuda"])
+    _same_bits(restore_pytree(mp), trees["orbax"][1], "convert orbax -> msgpack")
+    _same_bits(restore_pytree(ob), trees["orbax"][1], "convert msgpack -> orbax")
+    from devit_tpu_torch.cli.inspect_ckpt import summarize_artifact
+
+    got, want = summarize_artifact(ck), summarize_artifact(mp)
+    if got["format"] != "orbax" or any(got.get(k) != want.get(k) for k in (
+            "kind", "geometry", "epoch", "param_count", "has_ema", "has_opt_state")):
+        raise AssertionError(f"[orbax] inspect: {got} vs the msgpack's {want}")
+    print(f"[orbax] convert orbax -> msgpack -> orbax: the same tree; inspect: format orbax, "
+          f"{got['kind']}, {got['geometry']}, epoch {got['epoch']}, "
+          f"{got['param_count']:,} params as the msgpack's [{card}]")
+
+    fx = restore_pytree(str(ORBAX_FIXTURE / "checkpoint.orbax"))
+    expected = np.load(ORBAX_FIXTURE / "expected.npz")
+    model = vit_from_jax_params(fx["params"], get_vit_config("dedeit", **ORBAX_FIXTURE_GEOMETRY),
+                                device="cuda", dtype=torch.float32).eval()
+    gates = Gates(*(torch.as_tensor(np.asarray(fx["gates"][k]), device="cuda")
+                    for k in ("head", "neuron")))
+    before = _counts()
+    with torch.no_grad():
+        logits = model(torch.from_numpy(expected["images"]).cuda(), gates).logits
+    torch.cuda.synchronize()
+    fx_launches = _delta(before)[0]
+    want = expected["logits"]
+    err = float(np.abs(logits.cpu().numpy() - want).max() / np.abs(want).max())
+    if fx_launches != ORBAX_FIXTURE_GEOMETRY["depth"] or not err <= F32_FORWARD_TOL:
+        raise AssertionError(f"[orbax] the JAX-written fixture: {fx_launches} launches, "
+                             f"logits rel err {err:.3e} (tol {F32_FORWARD_TOL})")
+    print(f"[orbax] the JAX-written fixture (gated dedeit 32 px, depth 2, dh 32) on the card, "
+          f"f32 through the kernel ({fx_launches} launches): logits rel err {err:.3e} vs the "
+          f"JAX package's (tol {F32_FORWARD_TOL}) [{card}]")
+
+    times = _orbax_times(trees["orbax"][1], root)
+    print("[orbax] what a step and a resume wait: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in times.items())
+          + f" (the live {nbytes / 1e6:.1f}-MB stage-2 state, medians of 3) [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(leaves=n, mbytes=nbytes / 1e6, launches=list(launches),
+                fixture=dict(launches=fx_launches, rel_err=err), runs_s=runs_s, times_ms=times)
+
+
 TEXT_B, TEXT_VOCAB, TEXT_CLASSES, TEXT_L = 256, 30000, 4, 64  # a word vocabulary; AG News' 4
 
 
@@ -4593,6 +4784,7 @@ def main() -> int:
     times["stage2_wide"] = swide = phase_stage2_wide(card)
     times["cct"] = phase_cct(card)
     times["resume"] = phase_resume(card)
+    times["orbax"] = orbax = phase_orbax(card)
     torch.cuda.empty_cache()
     times["text"] = phase_text(card)
     times["remat"] = remat = phase_remat(card)
@@ -4616,13 +4808,14 @@ def main() -> int:
         # the launches of every main-path run: serving, stage 2, stage 5, DEKD,
         # stage 3 (the policy search's chunks), stage 2 from the files, the CLI
         # pipeline, stage 2 at 384 px, every rank of the multi-rank phases,
-        # the collaborative server's stream
+        # the collaborative server's stream, the orbax train_sub runs
         "launches": (launches + train["launches"]["fused_attention"]
                      + ens["launches"]["fused_attention"] + dekd["launches"]["fused_attention"]
                      + stage3["launches"] + times["data_train"]["launches"]["fused_attention"]
                      + cli["launches"]["fused_attention"]
                      + s384["launches"]["fused_attention"] + dist[0]
-                     + collab["launches"][0] + remat["launches"]["fused_attention"]),
+                     + collab["launches"][0] + remat["launches"]["fused_attention"]
+                     + orbax["launches"][0]),
         # every shape checked: [kernel]'s up to B 256, stage 3's B 4096, [heads],
         # past 256 keys
         "max_abs_err": max(max_abs_err, stage3["shrink"]["attention"]["max_abs_err"],
@@ -4636,7 +4829,7 @@ def main() -> int:
                      + dekd["launches"]["attention_bwd"]
                      + times["data_train"]["launches"]["attention_bwd"]
                      + cli["launches"]["attention_bwd"] + s384["launches"]["attention_bwd"]
-                     + dist[1] + remat["launches"]["attention_bwd"]),
+                     + dist[1] + remat["launches"]["attention_bwd"] + orbax["launches"][1]),
         "max_abs_err": max(bwd_max_abs_err, hm["bwd"], bl["attention_bwd"],
                            bl["attention_bwd_split"]),
         "ms": bw["ms"], "plain_ms": bw["plain_ms"], "bound_ms": bw["bound_ms"],
@@ -4652,8 +4845,10 @@ def main() -> int:
         "bound_by": es[k]["bound_by"], "library_ms": es[k]["library_ms"]}
         for i, k, line in ((2, "dv", 306), (3, "dqdk", 324))]}
     # the f32 routes on the tensor cores (3xTF32), timed at B 64, N 578, kh 6;
-    # their main-path launches are [stage2-384]'s f32 steps
-    f32_launches = s384["launches_by_dtype"]["float32"]
+    # their main-path launches are [stage2-384]'s f32 steps and the forward
+    # of [orbax]'s JAX-written checkpoint
+    f32_launches = list(s384["launches_by_dtype"]["float32"])
+    f32_launches[0] += orbax["fixture"]["launches"]
     al, blt = times["attn_long"], times["bwd_long"]
     record["kernels"] += [{
         "name": name, "route": "cuda", "source": f"devit_tpu_torch/kernels/csrc/{src}",

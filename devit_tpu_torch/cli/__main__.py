@@ -11,8 +11,10 @@ Stages mirror the reference's five entry scripts plus deploy/serve
   distill   — DEKD distillation with shrink masks (distill_sub.py)
   ensemble  — token-fusion ensemble training/eval (ensemble.py)
 
-`bench` raises: the port's benchmark waits for ROADMAP Queue 1 item 1; so
-does --ckpt-format orbax. Both model families (ViT/DeiT and CCT) run.
+`bench` raises: the port's benchmark waits for ROADMAP Queue 1 item 1.
+Checkpoints are msgpack files or, with --ckpt-format orbax, the JAX
+package's orbax directories; every stage, convert, inspect and serve read
+both. Both model families (ViT/DeiT and CCT) run.
 """
 
 from __future__ import annotations
@@ -180,8 +182,8 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--compact-path", type=str, required=True,
                     help="dir with sub-dataset{i}/compact.msgpack (devit deploy)")
     sv.add_argument("--ens-path", type=str, default=None,
-                    help="stage-5 fusion checkpoint (omit = smoke mode with a "
-                         "random fusion head)")
+                    help="stage-5 fusion checkpoint, msgpack or orbax (omit = smoke "
+                         "mode with a random fusion head)")
     sv.add_argument("--num-division", type=int, default=0,
                     help="0 = auto-discover contiguous sub-dataset{i} dirs")
     sv.add_argument("--host", type=str, default="127.0.0.1")
@@ -212,10 +214,10 @@ def build_parser() -> argparse.ArgumentParser:
     sv.set_defaults(fn=_serve_main)
 
     cv = sub.add_parser("convert", help="convert checkpoints: torch .pth/.pt "
-                                        "<-> msgpack, flax .npz -> ours "
+                                        "<-> msgpack/orbax, flax .npz -> ours "
                                         "(geometry inferred from the file)")
-    cv.add_argument("src", help=".pth/.pt/.npz/.msgpack input")
-    cv.add_argument("dst", help=".msgpack/.pth/.pt output")
+    cv.add_argument("src", help=".pth/.pt/.npz/.msgpack/.orbax input")
+    cv.add_argument("dst", help=".msgpack/.orbax/.pth/.pt output")
     cv.add_argument("--ema", action="store_true",
                     help="export the EMA parameters instead of the raw ones")
     cv.set_defaults(fn=stages.convert_main)

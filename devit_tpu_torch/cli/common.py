@@ -179,7 +179,9 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
                         "Train/*, Test/Top1|Top5|loss, train_subdata.py:437-472); the JSONL "
                         "artifacts are always written")
     p.add_argument("--ckpt-format", choices=["msgpack", "orbax"], default="msgpack",
-                   help="msgpack (the port's format); orbax raises: it is not ported")
+                   help="msgpack (one file, written atomically) or orbax (a checkpoint "
+                        "directory '.orbax', written in the background; the JAX package's "
+                        "orbax format)")
 
 
 def parse_ra_string(aa: Optional[str]) -> Tuple[bool, int, float, int, bool, bool]:
@@ -506,17 +508,32 @@ def load_params_for(model: VisionTransformer, path: str, log=None) -> VisionTran
 
 
 def make_saver(args):
-    """Stage checkpoint writer: msgpack. --ckpt-format orbax raises (the
-    port reads and writes msgpack only, as io/checkpoint.py). Off the main
-    process it writes nothing (reference save_on_master,
-    dist_utils.py:210-212): the caller hands it what one process holds."""
+    """Stage checkpoint writer honoring --ckpt-format. Off the main process it
+    writes nothing (reference save_on_master, dist_utils.py:210-212).
+    msgpack: one file. orbax: the '.msgpack' suffix becomes '.orbax' (a
+    checkpoint directory), the save is async (fit waits for durability at
+    the end of training), and the stage trees' device state is recorded as
+    the JAX package's jax.Arrays (train/state.py HOST_ENTRIES). The JAX
+    package's orbax save is a collective, every process writing its
+    addressable shards, because its trees may be sharded across processes;
+    the port's states are replicated (DDP) or gathered before the save
+    (parallel/mesh.py gathered_state), so process 0 holds the whole tree
+    and writes it alone. The other ranks read it only past the stage's
+    closing barrier, which follows fit's wait for durability."""
     from devit_tpu_torch.runtime import is_main_process
 
-    if getattr(args, "ckpt_format", "msgpack") == "orbax":
-        raise ValueError("--ckpt-format orbax: orbax checkpoints are not ported; the port "
-                         "writes msgpack")
     if not is_main_process():
         return lambda path, tree: None
+    if getattr(args, "ckpt_format", "msgpack") == "orbax":
+        from devit_tpu_torch.io.checkpoint import save_pytree_orbax
+        from devit_tpu_torch.train.state import HOST_ENTRIES
+
+        def save(path, tree):
+            if path.endswith(".msgpack"):
+                path = path[: -len(".msgpack")] + ".orbax"
+            save_pytree_orbax(path, tree, device_state=set(tree) - HOST_ENTRIES)
+
+        return save
     return save_pytree
 
 

@@ -1,6 +1,6 @@
 """`devit-torch inspect`: checkpoint/artifact introspection (a copy of
-devit_tpu/cli/inspect_ckpt.py over the port's own msgpack codec; orbax
-checkpoint directories raise, as everywhere in the port).
+devit_tpu/cli/inspect_ckpt.py over the port's own msgpack and orbax
+readers).
 
 Answers "what is this file?" for every artifact the framework (or the
 reference) produces, without needing model flags: format, family, geometry,
@@ -349,10 +349,12 @@ def summarize_artifact(path: str) -> Dict[str, Any]:
         info["kind"] = "json"
         info["keys"] = sorted(d) if isinstance(d, dict) else None
         return info
-    from devit_tpu_torch.io.checkpoint import restore_pytree
+    from devit_tpu_torch.io.checkpoint import orbax_path, restore_pytree
 
-    info["format"] = "msgpack"
-    tree = restore_pytree(path)  # raises on an orbax checkpoint directory
+    # restore_pytree's dispatch: a directory (or its crash-cut '.new'), or the
+    # '.msgpack' name --ckpt-format orbax rewrote to '.orbax', is orbax
+    info["format"] = "msgpack" if orbax_path(path) is None else "orbax"
+    tree = restore_pytree(path)
     return _summarize_ours(tree, info)
 
 
@@ -405,21 +407,12 @@ def _print_human(info: Dict[str, Any]) -> None:
               f"(classes per division {info['classes_per_division']})")
 
 
-def _artifact_exists(path: str) -> bool:
-    # an orbax directory (or its '.orbax' sibling) exists too, and then
-    # raises in restore_pytree rather than as a missing file
-    if os.path.exists(path) or os.path.isdir(path + ".new"):
-        return True
-    if path.endswith(".msgpack"):
-        sib = path[: -len(".msgpack")] + ".orbax"
-        return os.path.isdir(sib) or os.path.isdir(sib + ".new")
-    return False
-
-
 def inspect_main(args) -> int:
+    from devit_tpu_torch.io.checkpoint import orbax_path
+
     infos: List[Dict[str, Any]] = []
     for path in args.paths:
-        if not _artifact_exists(path):
+        if not os.path.exists(path) and orbax_path(path) is None:
             raise FileNotFoundError(path)
         infos.append(summarize_artifact(path))
     if args.json:

@@ -9,9 +9,10 @@ evaluation data-parallel, stage 5 over the ('div', 'data') layout, where
 the JAX CLI places its meshes. Rank 0 writes every file; each stage ends
 at a barrier, so the next stage's ranks read what it wrote.
 
-Checkpoints are the JAX package's msgpack trees, so either CLI resumes or
-continues from the other's artifacts. Both model families run (the CCT
-family's deploy is skipped, as in the JAX CLI); --ckpt-format orbax raises.
+Checkpoints are the JAX package's msgpack trees or orbax directories
+(--ckpt-format), so either CLI resumes or continues from the other's
+artifacts. Both model families run (the CCT family's deploy is skipped, as
+in the JAX CLI).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from devit_tpu_torch.data.datasets import BatchIterator, build_dataset, pad_batc
 from devit_tpu_torch.data.pipeline import eval_transform
 from devit_tpu_torch.data.splitter import DivisionManifest
 from devit_tpu_torch.io.bridge import ensmlp_from_jax_params, vit_values_from_jax_params
-from devit_tpu_torch.io.checkpoint import restore_pytree
+from devit_tpu_torch.io.checkpoint import orbax_path, restore_pytree
 from devit_tpu_torch.models.cct import CCT
 from devit_tpu_torch.models.ensemble import (
     EnsembleCCT, EnsMLP, features_param_names, init_multivit, stack_division_gates,
@@ -680,20 +681,25 @@ def pipeline_main(args):
         d.update(overrides)
         return argparse.Namespace(**d)
 
+    def artifact(p):
+        # p, or the '.orbax' directory --ckpt-format orbax wrote for its
+        # '.msgpack' name: either marks a completed stage; None if neither
+        return p if os.path.exists(p) else orbax_path(p)
+
     def stage_resume(stage_dir):
-        """Intra-stage resume: a killed stage leaves checkpoint_temp.msgpack.
-        --force retrains from scratch (a completed stage's checkpoint_temp
-        would resume at epochs and train nothing)."""
+        """Intra-stage resume: a killed stage leaves checkpoint_temp.msgpack
+        (or .orbax). --force retrains from scratch (a completed stage's
+        checkpoint_temp would resume at epochs and train nothing)."""
         if args.force:
             return ""
-        ptmp = os.path.join(stage_dir, "checkpoint_temp.msgpack")
-        if os.path.exists(ptmp):
+        ptmp = artifact(os.path.join(stage_dir, "checkpoint_temp.msgpack"))
+        if ptmp:
             log.info(f"pipeline: resuming interrupted stage from {ptmp}")
             return ptmp
         return ""
 
     def done(*path):
-        return not args.force and os.path.exists(os.path.join(root, *path))
+        return not args.force and artifact(os.path.join(root, *path)) is not None
 
     manifest = os.path.join(root, f"division{args.num_division}", "manifest.json")
     results = {}
@@ -878,13 +884,13 @@ def deploy_main(args):
 def convert_main(args):
     """Standalone checkpoint conversion (docs/MIGRATION.md "Checkpoint
     compatibility"): in .pth/.pt (reference-layout ViT state dict), .npz
-    (Flax ViT), .msgpack (ours); out .msgpack (the full tree) or .pth/.pt
-    (ViT family: the reference layout). Geometry (depth, a CCT's conv
-    stages) is read from the file. --ema exports the EMA parameters. Orbax
-    directories raise (not ported)."""
+    (Flax ViT), .msgpack / .orbax (ours); out .msgpack / .orbax (the full
+    tree; an orbax write is durable before this returns) or .pth/.pt (ViT
+    family: the reference layout). Geometry (depth, a CCT's conv stages) is
+    read from the file. --ema exports the EMA parameters."""
     from devit_tpu_torch.io.checkpoint import (
         load_flax_npz_vit, load_torch_state_dict, params_to_torch_vit, save_pytree,
-        torch_cct_to_params, torch_vit_to_params,
+        save_pytree_orbax, torch_cct_to_params, torch_vit_to_params, wait_for_checkpoints,
     )
 
     src, dst = args.src, args.dst
@@ -930,11 +936,12 @@ def convert_main(args):
                   "reference keeps them non-persistent); apply them there via "
                   "core/imp_rank masks")
     elif dst.endswith(".orbax"):
-        raise ValueError(f"{dst}: orbax checkpoints are not ported; write .msgpack")
+        save_pytree_orbax(dst, dict(tree, params=params) if args.ema else tree)
+        wait_for_checkpoints()
     elif dst.endswith(".msgpack"):
         save_pytree(dst, dict(tree, params=params) if args.ema else tree)
     else:
-        raise ValueError(f"{dst}: expected .msgpack, .pth or .pt")
+        raise ValueError(f"{dst}: expected .msgpack, .orbax, .pth or .pt")
     n = sum(int(np.prod(np.shape(x))) for x in C.tree_leaves(params))
     print(f"converted {src} -> {dst} ({n / 1e6:.2f}M params{', ema' if args.ema else ''})")
     return dst

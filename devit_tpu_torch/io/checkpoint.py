@@ -1,9 +1,9 @@
-"""Checkpoint save/restore in the JAX package's msgpack format and the
+"""Checkpoint save/restore in the JAX package's two formats, and the
 ingestion of torch and Flax .npz ViT checkpoints (counterpart of
-devit_tpu/io/checkpoint.py: :28-58, the msgpack part, and :159-476), over
-the port's own msgpack codec (io/msgpack.py), so a file either package
-writes, the other reads. Orbax checkpoint directories are not read:
-restore_pytree raises on one.
+devit_tpu/io/checkpoint.py): msgpack files over the port's own codec
+(io/msgpack.py) and orbax checkpoint directories over its own OCDBT, zarr
+and zstd code (io/orbax.py), so a checkpoint either package writes, the
+other reads. `restore_pytree` takes either format by what is on disk.
 
 The converters produce and take the JAX package's parameter tree (nested
 dicts of numpy arrays, `blocks/*` leaves stacked over depth), which
@@ -14,11 +14,14 @@ converters come with the CCT slice.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, Iterable, Optional, Set
 
 import numpy as np
 
-from devit_tpu_torch.io import msgpack
+from devit_tpu_torch.io import msgpack, orbax
 
 
 def save_pytree(path: str, tree: Any) -> None:
@@ -32,28 +35,110 @@ def save_pytree(path: str, tree: Any) -> None:
     os.replace(tmp, path)
 
 
-def _orbax_dir(path: str) -> bool:
-    """The JAX package's orbax layouts: a directory (or its '.new' promotion
-    left by a crash), or a '.msgpack' name whose '.orbax' sibling is one."""
+def orbax_path(path: str) -> Optional[str]:
+    """The orbax checkpoint directory `path` names, else None: a directory
+    (or its '.new' promotion left by a crash), or a '.msgpack' name that is
+    no file and whose '.orbax' sibling is one (--ckpt-format orbax rewrites
+    '.msgpack' to '.orbax' on save)."""
     if os.path.isdir(path) or os.path.isdir(path + ".new"):
-        return True
+        return path
     if not os.path.exists(path) and path.endswith(".msgpack"):
         sibling = path[: -len(".msgpack")] + ".orbax"
-        return os.path.isdir(sibling) or os.path.isdir(sibling + ".new")
-    return False
+        if os.path.isdir(sibling) or os.path.isdir(sibling + ".new"):
+            return sibling
+    return None
 
 
 def restore_pytree(path: str) -> Any:
-    """The raw tree of a msgpack checkpoint (flax's msgpack_restore: nested
-    dicts, numpy leaves, bfloat16 as torch tensors, chunked arrays joined).
-    Raises ValueError on an orbax checkpoint directory or malformed data,
-    FileNotFoundError on a missing file."""
-    if _orbax_dir(path):
-        raise ValueError(f"{path!r} is an orbax checkpoint directory; the port reads "
-                         "msgpack checkpoints only (orbax is not ported yet)")
+    """The raw tree of a checkpoint: a msgpack file (flax's msgpack_restore:
+    nested dicts, numpy leaves, bfloat16 as torch tensors, chunked arrays
+    joined) or an orbax checkpoint directory (`orbax_path`; the same tree,
+    io/orbax.py), so --resume takes either format. Raises ValueError on
+    malformed data or a directory that is no checkpoint, FileNotFoundError
+    on a missing file."""
+    ob = orbax_path(path)
+    if ob is not None:
+        return restore_pytree_orbax(ob)
     with open(path, "rb") as f:
         data = f.read()
     return msgpack.restore(data)
+
+
+# ------------------------------------------------------- orbax backend
+#
+# The JAX package's two-phase async save (devit_tpu/io/checkpoint.py
+# save_pytree_orbax): a save writes '<path>.new' in the background, and the
+# durable '.new' is promoted over <path> at the next save or wait, so a
+# restorable checkpoint is on disk at every moment. One background writer
+# takes the saves in order; its failure is raised at the next save,
+# restore or wait.
+
+_WRITER = ThreadPoolExecutor(1, thread_name_prefix="orbax-save")
+_INFLIGHT: Optional[Future] = None
+_PENDING_PROMOTE: Set[str] = set()
+_LOCK = threading.Lock()
+
+
+def _wait_inflight() -> None:
+    """Block until the background write is durable; raise its failure."""
+    global _INFLIGHT
+    with _LOCK:
+        fut, _INFLIGHT = _INFLIGHT, None
+    if fut is not None:
+        fut.result()
+
+
+def _promote_orbax(path: str) -> None:
+    """Promote a durable '<path>.new' over <path>: the writer renames its
+    temporary directory to '<path>.new' only when the write is complete, so
+    this swaps whole valid checkpoints."""
+    new = path + ".new"
+    if os.path.isdir(new):
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(new, path)
+
+
+def save_pytree_orbax(path: str, tree: Any, device_state: Iterable[str] = ()) -> None:
+    """Async orbax save of `tree` as the checkpoint directory `path`; call
+    wait_for_checkpoints() before reading it from another process or
+    exiting. The arrays under the top-level keys `device_state` are recorded
+    as the JAX package's device arrays (jax.Array), the others as numpy
+    arrays (io/orbax.py). The blocking part waits for the previous write (raising its
+    failure), promotes this path's previous '.new', and copies every leaf
+    to host memory, so updating the caller's tensors in place once this
+    returns cannot reach the checkpoint; encoding and writing '<path>.new'
+    run in the background."""
+    global _INFLIGHT
+    path = os.path.abspath(path)
+    leaves = orbax.snapshot(tree)
+    _wait_inflight()
+    _promote_orbax(path)
+    shutil.rmtree(path + ".new", ignore_errors=True)  # a stale uncommitted write
+    with _LOCK:
+        _INFLIGHT = _WRITER.submit(orbax.write_checkpoint, path + ".new", leaves,
+                                   frozenset(device_state))
+        _PENDING_PROMOTE.add(path)
+
+
+def restore_pytree_orbax(path: str) -> Any:
+    """The raw tree of the orbax checkpoint `path`, or of its '.new' where a
+    crash came between the write and its promotion: read-only, so
+    concurrent readers never race a promotion (the writer promotes at its
+    next save or wait)."""
+    _wait_inflight()
+    path = os.path.abspath(path)
+    if os.path.isdir(path + ".new"):
+        path = path + ".new"
+    return orbax.read_checkpoint(path)
+
+
+def wait_for_checkpoints() -> None:
+    """Block until every async orbax write is durable (raising a failed
+    write's error), then promote them to their paths."""
+    _wait_inflight()
+    while _PENDING_PROMOTE:
+        _promote_orbax(_PENDING_PROMOTE.pop())
 
 
 # ------------------------------------------------------- torch ingestion

@@ -21,9 +21,10 @@ Protocol (stdlib http.server; one POST = one or more images):
     GET /stats     -> request/image/batch counters + latency percentiles
 
 `build_engine_from_artifacts` serves what the deploy stage wrote
-(`sub-dataset{i}/compact.msgpack`) with a stage-5 fusion checkpoint, both
-in the JAX package's msgpack format. Images are scaled by 1/255 once, as on
-the offline eval path. (The JAX daemon divides by 255 twice; the port does
+(`sub-dataset{i}/compact.msgpack`) with a stage-5 fusion checkpoint, in
+the JAX package's msgpack or orbax format (io/checkpoint.py
+restore_pytree; /reload takes either, with the same geometry checks).
+Images are scaled by 1/255 once, as on the offline eval path. (The JAX daemon divides by 255 twice; the port does
 not reproduce that defect.) The engine serves through the collaborative
 server (parallel/serve.py): with --device cuda and several visible cards a
 division a card and the fusion on a spare one, as the JAX daemon does on

@@ -16,6 +16,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from devit_tpu_torch.data.datasets import pad_batch_to_steady
+from devit_tpu_torch.io.checkpoint import wait_for_checkpoints
 from devit_tpu_torch.runtime import is_main_process
 from devit_tpu_torch.train.meters import MetricLogger
 from devit_tpu_torch.utils_profile import device_memory_stats, trace
@@ -146,4 +147,7 @@ def fit(*, carry, step_fn: Callable, train_batches_fn: Callable[[int], Iterable]
     finally:
         if tb_writer is not None:
             tb_writer.close()
+        # on every exit path: an async orbax write's failure surfaces only at
+        # the next save or wait, and its '.new' is promoted here
+        wait_for_checkpoints()
     return carry, best_acc

@@ -54,6 +54,12 @@ class TrainState:
 # ---- the JAX package's stage-2 checkpoint tree (devit_tpu/cli/stages.py
 # save_state and _try_resume): {params, ema_params, opt_state, epoch}
 
+# The entries of the stage-2/4/5 trees below that the JAX package holds on
+# the host (numpy: the epoch, the shrink gates); every other entry is its
+# device state. An orbax checkpoint records the difference (jax.Array or
+# np.ndarray; cli/common.py make_saver), msgpack does not.
+HOST_ENTRIES = frozenset({"epoch", "gates"})
+
 
 def _chain_layout(tx: Optimizer) -> list:
     """The elements of the optax.chain devit_tpu/train/optim.py's

@@ -174,6 +174,16 @@ def test_save_restore_pytree_both_ways(tmp_path):
 
 
 def test_restore_pytree_refuses_orbax_directories(tmp_path):
+    """restore_pytree reads an orbax checkpoint directory (by its name and
+    by its '.msgpack' sibling's) and refuses a directory that holds none;
+    a missing file is still a FileNotFoundError."""
+    tree = {"a": {"b": np.arange(6, dtype=np.float32)}, "epoch": np.int32(3)}
+    tck.save_pytree_orbax(str(tmp_path / "real.orbax"), tree)
+    tck.wait_for_checkpoints()
+    for path in (tmp_path / "real.orbax", tmp_path / "real.msgpack"):
+        got = tck.restore_pytree(str(path))
+        np.testing.assert_array_equal(got["a"]["b"], tree["a"]["b"])
+        assert int(got["epoch"]) == 3
     (tmp_path / "ckpt.orbax").mkdir()
     (tmp_path / "dir").mkdir()
     for path in (tmp_path / "ckpt.msgpack", tmp_path / "dir"):
@@ -407,6 +417,13 @@ def test_reload_hot_swaps_the_fusion_head(artifacts, engine, server, tmp_path):
     with open(corrupt, "wb") as f:
         f.write(b"not msgpack \x00\xff garbage")
     assert _reload(server, corrupt)[0] == 400
+    # an orbax checkpoint of the same head (by its '.msgpack' name) -> 200;
+    # an empty '.orbax' directory -> 400
+    tck.save_pytree_orbax(str(tmp_path / "alt_ob.orbax"),
+                          {"ens_params": jax.device_get(alt["params"])})
+    tck.wait_for_checkpoints()
+    code, out = _reload(server, str(tmp_path / "alt_ob.msgpack"))
+    assert code == 200 and out["status"] == "reloaded"
     (tmp_path / "ck.orbax").mkdir()
     code, out = _reload(server, str(tmp_path / "ck.msgpack"))
     assert code == 400 and "orbax" in out["error"]

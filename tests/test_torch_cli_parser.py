@@ -7,7 +7,9 @@ subcommands that raise name their ROADMAP items, and the CCT family, which
 raised until it was ported, runs."""
 
 import argparse
+import os
 
+import numpy as np
 import pytest
 
 from devit_tpu.cli.__main__ import build_parser as jax_parser
@@ -90,11 +92,18 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     from devit_tpu_torch import runtime
     from devit_tpu_torch.serving.daemon import ServeConfig
 
-    with pytest.raises(ValueError, match="orbax"):
-        main(["train_sub", "--device", "cpu", "--ckpt-format", "orbax", "--input-size", "32",
-              "--patch-size", "8", "--model", "dedeit", "--depth", "1",
-              "--dataset", "synthetic:4:64:32", "--num_division", "1", "--batch-size", "16",
-              "--epochs", "1", "--output_dir", str(tmp_path)])
+    # --ckpt-format orbax is ported: it parses, and its saver writes the
+    # '.orbax' directory for the '.msgpack' name
+    args = torch_parser().parse_args(["train_sub", "--device", "cpu", "--ckpt-format", "orbax",
+                                      "--output_dir", str(tmp_path)])
+    assert args.ckpt_format == "orbax"
+    from devit_tpu_torch.cli.common import make_saver
+    from devit_tpu_torch.io.checkpoint import restore_pytree, wait_for_checkpoints
+
+    make_saver(args)(str(tmp_path / "checkpoint_temp.msgpack"), {"epoch": np.int32(0)})
+    wait_for_checkpoints()
+    assert os.path.isdir(tmp_path / "checkpoint_temp.orbax")
+    assert int(restore_pytree(str(tmp_path / "checkpoint_temp.msgpack"))["epoch"]) == 0
     with pytest.raises(ValueError, match="AOT"):
         ServeConfig(aot_cache=True)
     # multi-process runs are ported (runtime.py); a coordinator without the

@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of devit_tpu_torch, and
 chip_smoke.py's import graph, loads neither JAX (jax, flax, optax), nor the
 msgpack package (the machine with the card has none; the port carries its
-own codec), nor anything of the JAX package; and chip_smoke.py's import
+own codec), nor orbax, tensorstore, zstandard or ml_dtypes (the port reads
+and writes orbax checkpoints itself, over the system's libzstd), nor
+anything of the JAX package; and chip_smoke.py's import
 graph loads no PIL (the card's machine is not known to have it: the port
 imports it inside the functions that decode or augment on the host).
 Checked in a fresh interpreter, since this test process has imported all of
@@ -18,7 +20,8 @@ import pytest
 import devit_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "devit_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "devit_tpu", "orbax", "tensorstore",
+             "zstandard", "ml_dtypes")
 
 _PROBE = """
 import importlib, json, sys
@@ -47,7 +50,8 @@ def test_every_port_module_is_listed():
         "core.shrink", "data", "data.autoaugment", "data.datasets", "data.fine_grained",
         "data.host_augment", "data.mixup", "data.pipeline", "data.randaugment",
         "data.splitter", "deploy", "device", "entry", "io",
-        "io.bridge", "io.checkpoint", "io.msgpack", "io.native", "kernels", "kernels._build",
+        "io.bridge", "io.checkpoint", "io.msgpack", "io.native", "io.ocdbt", "io.orbax",
+        "io.zstd", "kernels", "kernels._build",
         "kernels.attention", "kernels.quant", "models", "models.cct",
         "models.compact_vit", "models.ensemble", "models.text", "models.vit", "parallel",
         "parallel.launch",
