@@ -1,0 +1,8 @@
+"""idle_in_mix.train: percent of the traced slice the device idled while
+the host was in a training step's mix (span step.mix innermost)."""
+
+from benchmark.metrics._program_spans import TRAIN, idle_share_in
+
+
+def read(ctx):
+    return idle_share_in(ctx, TRAIN, ("step.mix",))

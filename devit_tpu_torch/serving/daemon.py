@@ -18,7 +18,8 @@ Protocol (stdlib http.server; one POST = one or more images):
       body:    {"ens_path": "<stage-5 checkpoint>"}: hot-swap the fusion head
                (same geometry only; 400 otherwise)
     GET /healthz   -> model/device info (also the readiness probe)
-    GET /stats     -> request/image/batch counters + latency percentiles
+    GET /stats     -> request/image/batch counters, latency and queue-wait
+                      percentiles (MicroBatcher.snapshot)
 
 `build_engine_from_artifacts` serves what the deploy stage wrote
 (`sub-dataset{i}/compact.msgpack`) with a stage-5 fusion checkpoint, in
@@ -58,6 +59,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from devit_tpu_torch import tracing
 from devit_tpu_torch.data.pipeline import normalize
 from devit_tpu_torch.device import DeviceLike, resolve_device
 from devit_tpu_torch.io.bridge import ensmlp_from_jax_params
@@ -127,14 +129,18 @@ class InferenceEngine:
         """One padded-bucket forward; images_u8 (n <= max bucket, S, S, 3)."""
         n = images_u8.shape[0]
         bucket = next(b for b in sorted(self.cfg.buckets) if b >= n)
-        if n < bucket:
-            pad = np.zeros((bucket - n,) + images_u8.shape[1:], np.uint8)
-            images_u8 = np.concatenate([images_u8, pad], axis=0)
-        # request bodies arrive as read-only views: torch wants writable memory
-        img = torch.from_numpy(np.require(images_u8, requirements=("C", "W"))).to(
-            self.division_devices[0])
-        logits = self._serve(dict(self.ens.named_parameters()), normalize(img, torch.float32))
-        return logits[:n].float().cpu().numpy()
+        with tracing.span("engine.copy_in"):
+            if n < bucket:
+                pad = np.zeros((bucket - n,) + images_u8.shape[1:], np.uint8)
+                images_u8 = np.concatenate([images_u8, pad], axis=0)
+            # request bodies arrive as read-only views: torch wants writable memory
+            img = torch.from_numpy(np.require(images_u8, requirements=("C", "W"))).to(
+                self.division_devices[0])
+            img = normalize(img, torch.float32)
+        with tracing.span("engine.forward"):
+            logits = self._serve(dict(self.ens.named_parameters()), img)
+        with tracing.span("engine.copy_out"):
+            return logits[:n].float().cpu().numpy()
 
     def predict(self, images_u8: np.ndarray) -> np.ndarray:
         """uint8 (N, S, S, 3) -> float32 logits (N, num_classes). N beyond the
@@ -222,19 +228,38 @@ def _host_resize(img: np.ndarray, size: int) -> np.ndarray:
     return np.asarray(im.crop((left, top, left + size, top + size)), dtype=np.uint8)
 
 
+def nearest_rank(sorted_values: Sequence[float], pct: int) -> Optional[float]:
+    """The `pct`-th percentile of ascending values by nearest rank: the
+    value at index ceil(pct/100 * n) - 1; None for no values."""
+    n = len(sorted_values)
+    return sorted_values[(pct * n + 99) // 100 - 1] if n else None
+
+
 class MicroBatcher:
     """Single device-owner thread coalescing concurrent requests.
 
-    Requests (uint8 (n,S,S,3), Future) enter a queue; the loop takes the
-    oldest request, drains everything that arrives within `max_wait_ms` of it
-    (up to the largest bucket), runs ONE engine.predict over the
-    concatenation, and splits the logits back per request."""
+    Requests (uint8 (n,S,S,3), Future) enter a queue stamped with their
+    arrival (perf_counter); the loop takes the oldest request, drains
+    everything that arrives within `max_wait_ms` of its arrival (up to the
+    largest bucket), runs ONE engine.predict over the concatenation, and
+    splits the logits back per request.
+
+    snapshot() reports the counters, and nearest-rank percentiles over the
+    last `WINDOW` answered requests (`latency_samples` of them): latency
+    from arrival to the batch's logits, and the queue wait from arrival to
+    the moment a batch took the request. Under a running torch profiler each
+    batch records the spans batcher.batch (key: the batch number) >
+    batcher.form, the engine's copy_in/forward/copy_out, batcher.deliver,
+    and one batcher.queue span a request (devit_tpu_torch/tracing.py)."""
+
+    WINDOW = 4096
 
     def __init__(self, engine: InferenceEngine):
         self.engine = engine
         self.q: "queue.Queue" = queue.Queue()
         self.stats = {"requests": 0, "images": 0, "batches": 0, "coalesced": 0}
-        self._latencies: deque = deque(maxlen=1024)  # seconds, per request
+        self._latencies: deque = deque(maxlen=self.WINDOW)  # seconds, per request
+        self._waits: deque = deque(maxlen=self.WINDOW)  # seconds, per request
         self._lock = threading.Lock()  # guards stats + latencies vs snapshots
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -260,65 +285,79 @@ class MicroBatcher:
 
     def submit(self, images_u8: np.ndarray) -> Future:
         fut: Future = Future()
-        self.q.put((images_u8, fut, time.time()))
+        self.q.put((images_u8, fut, time.perf_counter()))
         return fut
 
     def _loop(self) -> None:
-        cap = max(self.engine.cfg.buckets)
-        wait = self.engine.cfg.max_wait_ms / 1000.0
+        key = 0
         while not self._stop.is_set():
             item = self.q.get()
             if item is None:
                 continue
-            group = [item]
-            total = item[0].shape[0]
-            deadline = item[2] + wait
-            while total < cap:
-                try:
-                    # requests that queued while the previous batch ran are
-                    # ready at zero cost: always drain them
-                    nxt = self.q.get_nowait()
-                except queue.Empty:
-                    timeout = deadline - time.time()
-                    if timeout <= 0:
-                        break
+            key += 1
+            with tracing.span("batcher.batch", key=key):
+                self._run_batch(item, key)
+
+    def _run_batch(self, first: tuple, key: int) -> None:
+        cap = max(self.engine.cfg.buckets)
+        group, taken = [first], [time.perf_counter()]
+        try:
+            with tracing.span("batcher.form"):
+                total = first[0].shape[0]
+                deadline = first[2] + self.engine.cfg.max_wait_ms / 1000.0
+                while total < cap:
                     try:
-                        nxt = self.q.get(timeout=timeout)
+                        # requests that queued while the previous batch ran
+                        # are ready at zero cost: always drain them
+                        nxt = self.q.get_nowait()
                     except queue.Empty:
+                        timeout = deadline - time.perf_counter()
+                        if timeout <= 0:
+                            break
+                        try:
+                            nxt = self.q.get(timeout=timeout)
+                        except queue.Empty:
+                            break
+                    if nxt is None:
                         break
-                if nxt is None:
-                    break
-                group.append(nxt)
-                total += nxt[0].shape[0]
-            try:
+                    group.append(nxt)
+                    taken.append(time.perf_counter())
+                    total += nxt[0].shape[0]
                 batch = (group[0][0] if len(group) == 1 else
                          np.concatenate([g[0] for g in group], axis=0))
-                logits = self.engine.predict(batch)
-            except Exception as e:  # deliver the failure to every waiter
-                for _, fut, _ in group:
-                    fut.set_exception(e)
-                continue
-            now = time.time()
+            logits = self.engine.predict(batch)
+        except Exception as e:  # deliver the failure to every waiter
+            for _, fut, _ in group:
+                fut.set_exception(e)
+            return
+        done = time.perf_counter()
+        with tracing.span("batcher.deliver"):
             off = 0
-            for imgs, fut, t0 in group:
+            for imgs, fut, _ in group:
                 n = imgs.shape[0]
                 fut.set_result(logits[off:off + n])
                 off += n
-            with self._lock:
-                self._latencies.extend(now - t0 for _, _, t0 in group)
-                self.stats["requests"] += len(group)
-                self.stats["images"] += total
-                self.stats["batches"] += 1
-                self.stats["coalesced"] += len(group) > 1
+        for (_, _, arrived), t in zip(group, taken):
+            tracing.record("batcher.queue", arrived, t, key=key)
+        with self._lock:
+            self._latencies.extend(done - arrived for _, _, arrived in group)
+            self._waits.extend(t - arrived for (_, _, arrived), t in zip(group, taken))
+            self.stats["requests"] += len(group)
+            self.stats["images"] += total
+            self.stats["batches"] += 1
+            self.stats["coalesced"] += len(group) > 1
 
     def snapshot(self) -> dict:
         with self._lock:
             lat = sorted(self._latencies)
+            waits = sorted(self._waits)
             out = dict(self.stats)
-        pct = (lambda p: round(lat[min(int(p * len(lat)), len(lat) - 1)] * 1e3, 3)
-               ) if lat else (lambda p: None)
-        out.update(latency_ms_p50=pct(0.50), latency_ms_p99=pct(0.99),
-                   queue_depth=self.q.qsize())
+        ms = lambda v: None if v is None else round(v * 1e3, 3)
+        out.update(latency_ms_p50=ms(nearest_rank(lat, 50)),
+                   latency_ms_p99=ms(nearest_rank(lat, 99)),
+                   queue_wait_ms_p50=ms(nearest_rank(waits, 50)),
+                   queue_wait_ms_p99=ms(nearest_rank(waits, 99)),
+                   latency_samples=len(lat), queue_depth=self.q.qsize())
         return out
 
 
@@ -442,7 +481,7 @@ class _Handler(BaseHTTPRequestHandler):
             return self._json(200, {"status": "reloaded", "ens_path": path})
         if url.path != "/predict":
             return self._json(404, {"error": f"unknown path {url.path!r}"})
-        t0 = time.time()
+        t0 = time.perf_counter()
         try:
             shape = tuple(int(v) for v in
                           self.headers.get("X-Image-Shape", "").split(","))
@@ -481,7 +520,7 @@ class _Handler(BaseHTTPRequestHandler):
             "predictions": [
                 {"topk": r.tolist(), "probs": np.round(p[i, r], 6).tolist()}
                 for i, r in enumerate(idx)],
-            "latency_ms": round((time.time() - t0) * 1e3, 3),
+            "latency_ms": round((time.perf_counter() - t0) * 1e3, 3),
         })
 
 

@@ -13,6 +13,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from devit_tpu_torch import tracing
 from devit_tpu_torch.io.bridge import (
     ensmlp_to_jax_params, ensmlp_values_from_jax_params, stacked_vit_to_jax_params,
     stacked_vit_values_from_jax_params, vit_to_jax_params, vit_values_from_jax_params,
@@ -44,9 +45,10 @@ class TrainState:
 
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]) -> "TrainState":
         """One optimizer update (and EMA update) in place; returns self."""
-        self.tx.update(grads, self.opt_state, self.params)
-        if self.ema_params is not None:
-            ema_update(self.ema_params, self.params, self.ema_decay)
+        with tracing.span("step.optimizer", device=True):
+            self.tx.update(grads, self.opt_state, self.params)
+            if self.ema_params is not None:
+                ema_update(self.ema_params, self.params, self.ema_decay)
         self.step += 1
         return self
 

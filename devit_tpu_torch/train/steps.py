@@ -22,11 +22,13 @@ W-rank step is the one-process step on the same global batch.
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch.func import functional_call
 
+from devit_tpu_torch import tracing
 from devit_tpu_torch.data.mixup import MixupConfig, mixup_cutmix
 from devit_tpu_torch.models.ensemble import EnsMLP, multicct_features, multivit_features
 from devit_tpu_torch.models.vit import Gates, VisionTransformer
@@ -52,10 +54,21 @@ def _on(gates: Optional[Gates], device: torch.device) -> Optional[Gates]:
     return Gates(*(torch.as_tensor(t, device=device) for t in gates))
 
 
+def _traced_step(step):
+    """`step` inside the span "step" keyed by its train state's (first
+    argument's) step count: the parent of the step.* spans below."""
+    @functools.wraps(step)
+    def traced(state, *args, **kwargs):
+        with tracing.span("step", key=state.step):
+            return step(state, *args, **kwargs)
+    return traced
+
+
 def _mix(mixup_active: bool, mixup: Optional[MixupConfig], generator, images, labels):
-    if mixup_active:
-        return mixup_cutmix(generator, images, labels, mixup)
-    return images, labels
+    with tracing.span("step.mix", device=True):
+        if mixup_active:
+            return mixup_cutmix(generator, images, labels, mixup)
+        return images, labels
 
 
 def _rows(layout: Optional[Layout], batch: int):
@@ -88,6 +101,15 @@ def _sum_counters(layout: Optional[Layout], rows, counters: dict) -> dict:
     names = list(counters)
     flat = layout.sum_over_data(torch.stack([counters[k].double() for k in names]))
     return {k: flat[i].to(counters[k].dtype) for i, k in enumerate(names)}
+
+
+def _backward(layout: Optional[Layout], loss: torch.Tensor, states: Sequence[TrainState],
+              metrics: dict):
+    """_grads, then _mean_over_data: the span step.backward covers the
+    backward pass (remat's recompute included), the zero gradients and the
+    mean over the data group."""
+    with tracing.span("step.backward", device=True):
+        return _mean_over_data(layout, _grads(loss, states), metrics)
 
 
 def _grads(loss: torch.Tensor, states: Sequence[TrainState]) -> list:
@@ -167,43 +189,46 @@ def make_stage2_step(
     mixup_active = mixup is not None and mixup.active
     base_criterion = L.make_base_criterion(mixup_active, smoothing)
 
+    @_traced_step
     def step(state: TrainState, teacher_variables, images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator):
         images_m, targets = _mix(mixup_active, mixup, generator, images, labels)
         rows = _rows(layout, images_m.shape[0])
         images_m, targets = batch_rows(rows, images_m, targets)
 
-        teacher_logits = teacher_token = None
-        if distillation_type != "none":
-            with torch.no_grad():
-                t_out = _apply(teacher_model, teacher_variables, images_m,
-                               distill_token=distill_token)
-            teacher_logits, teacher_token = t_out.logits, t_out.last_tokens
+        with tracing.span("step.forward", device=True):
+            teacher_logits = teacher_token = None
+            if distillation_type != "none":
+                with torch.no_grad():
+                    t_out = _apply(teacher_model, teacher_variables, images_m,
+                                   distill_token=distill_token)
+                teacher_logits, teacher_token = t_out.logits, t_out.last_tokens
 
-        out = model(images_m, train=True, generator=generator, distill_token=distill_token,
-                    rows=rows)
-        cls_logits = out.cls_logits
-        kd_logits = out.dist_logits if out.dist_logits is not None else out.cls_logits
-        base = base_criterion(cls_logits, targets)
-        metrics = {}
-        if distillation_type == "none":
-            loss = base
-        else:
-            kd = L.cls_distill_loss(kd_logits, teacher_logits, distillation_type,
-                                    distillation_tau)
-            loss = base * (1 - distillation_alpha) + kd * distillation_alpha
-            if distill_token:
-                s_tok, t_tok = out.last_tokens, teacher_token
-                if isinstance(s_tok, tuple):
-                    token_loss = L.mse_loss(s_tok[0], t_tok[0]) + L.mse_loss(s_tok[1], t_tok[1])
-                else:
-                    token_loss = L.mse_loss(s_tok, t_tok)
-                metrics["cls_loss"] = loss
-                metrics["token_loss"] = token_loss
-                loss = loss + token_loss
-        metrics["loss"] = loss
+            out = model(images_m, train=True, generator=generator, distill_token=distill_token,
+                        rows=rows)
+            cls_logits = out.cls_logits
+            kd_logits = out.dist_logits if out.dist_logits is not None else out.cls_logits
+            base = base_criterion(cls_logits, targets)
+            metrics = {}
+            if distillation_type == "none":
+                loss = base
+            else:
+                kd = L.cls_distill_loss(kd_logits, teacher_logits, distillation_type,
+                                        distillation_tau)
+                loss = base * (1 - distillation_alpha) + kd * distillation_alpha
+                if distill_token:
+                    s_tok, t_tok = out.last_tokens, teacher_token
+                    if isinstance(s_tok, tuple):
+                        token_loss = (L.mse_loss(s_tok[0], t_tok[0])
+                                      + L.mse_loss(s_tok[1], t_tok[1]))
+                    else:
+                        token_loss = L.mse_loss(s_tok, t_tok)
+                    metrics["cls_loss"] = loss
+                    metrics["token_loss"] = token_loss
+                    loss = loss + token_loss
+            metrics["loss"] = loss
 
-        (grads,), metrics = _mean_over_data(layout, _grads(loss, [state]), metrics)
+        (grads,), metrics = _backward(layout, loss, [state], metrics)
         state.apply_gradients(grads)
         return state, {k: v.detach() for k, v in metrics.items()}
 
@@ -239,29 +264,31 @@ def make_dekd_step(
     base_criterion = L.make_base_criterion(mixup_active, smoothing)
     capture = "middle" if distillation_inter else "none"
 
+    @_traced_step
     def step(state: TrainState, teacher_variables, gates: Gates, images: torch.Tensor,
              labels: torch.Tensor, generator: torch.Generator):
         images_m, targets = _mix(mixup_active, mixup, generator, images, labels)
         rows = _rows(layout, images_m.shape[0])
         images_m, targets = batch_rows(rows, images_m, targets)
-        with torch.no_grad():
-            t_out = _apply(teacher, teacher_variables, images_m, capture_qkv=capture)
-        out = student(images_m, gates=_on(gates, images_m.device), train=True,
-                      generator=generator, capture_qkv=capture, rows=rows)
-        kd_logits = out.dist_logits if out.dist_logits is not None else out.cls_logits
-        if distillation_inter:
-            total, aux = L.dekd_loss(
-                (out.cls_logits, kd_logits), out.qkv, t_out.logits, t_out.qkv, targets,
-                base_criterion, depth=student.cfg.depth, gamma=gamma,
-                distillation_type=distillation_type, alpha=distillation_alpha,
-                tau=distillation_tau)
-        else:
-            cls = L.distill_loss(out.cls_logits, kd_logits, t_out.logits, targets,
-                                 base_criterion, distillation_type, distillation_alpha,
-                                 distillation_tau)
-            total, aux = cls, {"cls_loss": cls}
-        aux["loss"] = total
-        (grads,), aux = _mean_over_data(layout, _grads(total, [state]), aux)
+        with tracing.span("step.forward", device=True):
+            with torch.no_grad():
+                t_out = _apply(teacher, teacher_variables, images_m, capture_qkv=capture)
+            out = student(images_m, gates=_on(gates, images_m.device), train=True,
+                          generator=generator, capture_qkv=capture, rows=rows)
+            kd_logits = out.dist_logits if out.dist_logits is not None else out.cls_logits
+            if distillation_inter:
+                total, aux = L.dekd_loss(
+                    (out.cls_logits, kd_logits), out.qkv, t_out.logits, t_out.qkv, targets,
+                    base_criterion, depth=student.cfg.depth, gamma=gamma,
+                    distillation_type=distillation_type, alpha=distillation_alpha,
+                    tau=distillation_tau)
+            else:
+                cls = L.distill_loss(out.cls_logits, kd_logits, t_out.logits, targets,
+                                     base_criterion, distillation_type, distillation_alpha,
+                                     distillation_tau)
+                total, aux = cls, {"cls_loss": cls}
+            aux["loss"] = total
+        (grads,), aux = _backward(layout, total, [state], aux)
         state.apply_gradients(grads)
         return state, {k: v.detach() for k, v in aux.items()}
 
@@ -304,34 +331,37 @@ def make_ensemble_train_step(
     base_criterion = L.make_base_criterion(mixup_active, smoothing)
     family = "deit" if backbone.cfg.distilled else "vit"
 
+    @_traced_step
     def step(backbone_state: TrainState, ens_state: TrainState, teacher_variables,
              stacked_gates: Optional[Gates], images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator):
         images_m, targets = _mix(mixup_active, mixup, generator, images, labels)
         rows = _rows(layout, images_m.shape[0])
         images_m, targets = batch_rows(rows, images_m, targets)
-        tea_logits = tea_tokens = None
-        if distillation_type != "none":
-            with torch.no_grad():
-                t_out = _apply(teacher, teacher_variables, images_m, distill_token=True)
-            tea_logits, tea_tokens = t_out.logits, t_out.last_tokens
+        with tracing.span("step.forward", device=True):
+            tea_logits = tea_tokens = None
+            if distillation_type != "none":
+                with torch.no_grad():
+                    t_out = _apply(teacher, teacher_variables, images_m, distill_token=True)
+                tea_logits, tea_tokens = t_out.logits, t_out.last_tokens
 
-        cls_t, dist_t = _division_tokens(
-            layout, multivit_features, backbone, backbone_state.params, images_m,
-            _on(stacked_gates, images_m.device), train=True, generator=generator, rows=rows)
-        ens_out = ens_model(cls_t, dist_t, distill=True, train=True)
-        if distillation_type == "none":
-            loss = base_criterion(ens_out.logits, targets)
-            metrics = {"loss": loss}
-        else:
-            token_loss, cls_loss = L.ens_loss(
-                ens_out.ens_tokens, ens_out.logits, tea_tokens, tea_logits, targets,
-                base_criterion, model_family=family, distillation_type=distillation_type,
-                alpha=distillation_alpha, tau=distillation_tau, token_loss_type=token_loss_type)
-            loss = token_loss + cls_loss  # engine.py:176
-            metrics = {"loss": loss, "token_loss": token_loss, "cls_loss": cls_loss}
-        (bb_grads, ens_grads), metrics = _mean_over_data(
-            layout, _grads(loss, [backbone_state, ens_state]), metrics)
+            cls_t, dist_t = _division_tokens(
+                layout, multivit_features, backbone, backbone_state.params, images_m,
+                _on(stacked_gates, images_m.device), train=True, generator=generator, rows=rows)
+            ens_out = ens_model(cls_t, dist_t, distill=True, train=True)
+            if distillation_type == "none":
+                loss = base_criterion(ens_out.logits, targets)
+                metrics = {"loss": loss}
+            else:
+                token_loss, cls_loss = L.ens_loss(
+                    ens_out.ens_tokens, ens_out.logits, tea_tokens, tea_logits, targets,
+                    base_criterion, model_family=family, distillation_type=distillation_type,
+                    alpha=distillation_alpha, tau=distillation_tau,
+                    token_loss_type=token_loss_type)
+                loss = token_loss + cls_loss  # engine.py:176
+                metrics = {"loss": loss, "token_loss": token_loss, "cls_loss": cls_loss}
+        (bb_grads, ens_grads), metrics = _backward(
+            layout, loss, [backbone_state, ens_state], metrics)
         backbone_state.apply_gradients(bb_grads)
         ens_state.apply_gradients(ens_grads)
         return backbone_state, ens_state, {k: v.detach() for k, v in metrics.items()}
@@ -448,8 +478,8 @@ def make_cct_ensemble_train_step(
                 alpha=distillation_alpha, tau=distillation_tau, token_loss_type=token_loss_type)
             loss = token_loss + cls_loss
             metrics = {"loss": loss, "token_loss": token_loss, "cls_loss": cls_loss}
-        (bb_grads, ens_grads), metrics = _mean_over_data(
-            layout, _grads(loss, [backbone_state, ens_state]), metrics)
+        (bb_grads, ens_grads), metrics = _backward(
+            layout, loss, [backbone_state, ens_state], metrics)
         backbone_state.apply_gradients(bb_grads)
         ens_state.apply_gradients(ens_grads)
         return backbone_state, ens_state, {k: v.detach() for k, v in metrics.items()}

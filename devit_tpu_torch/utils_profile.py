@@ -1,27 +1,22 @@
 """Profiling hooks (counterpart of devit_tpu/utils_profile.py): a
-torch.profiler trace, a wall-clock step timer, and the card's memory
-counters.
+torch.profiler trace and the card's memory counters.
 
     with trace("/tmp/devit-trace"):
         run_steps()
     # -> a Chrome trace (*.pt.trace.json) in the directory; open it in
     #    Perfetto or chrome://tracing
 
-    timer = StepTimer()
-    for batch in ...:
-        with timer:
-            step(...)
-    print(timer.summary())
+While the trace runs, the port's own spans (devit_tpu_torch/tracing.py:
+the batcher's and engine's phases, a training step's mix, forward,
+backward and optimizer) record and show in it by name.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 
@@ -41,30 +36,6 @@ def trace(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, f"devit.{os.getpid()}.pt.trace.json"))
-
-
-class StepTimer:
-    """Wall-clock step timer with a percentile summary (the analogue of
-    MetricLogger's iter/data times, dist_utils.py:114-158). Time device work
-    by synchronizing inside the block."""
-
-    def __init__(self):
-        self.times = []
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-
-    def summary(self) -> str:
-        if not self.times:
-            return "no steps timed"
-        a = np.asarray(self.times[1:] or self.times)  # drop the first (warm-up) step
-        return (f"steps={len(self.times)} mean={a.mean() * 1e3:.1f}ms "
-                f"p50={np.percentile(a, 50) * 1e3:.1f}ms p95={np.percentile(a, 95) * 1e3:.1f}ms")
 
 
 def device_memory_stats() -> Optional[dict]:

@@ -56,7 +56,7 @@ def test_every_port_module_is_listed():
         "models.compact_vit", "models.ensemble", "models.text", "models.vit", "parallel",
         "parallel.launch",
         "parallel.mesh", "parallel.serve", "runtime", "serving",
-        "serving.daemon", "train", "train.loop", "train.losses", "train.meters", "train.optim",
+        "serving.daemon", "tracing", "train", "train.loop", "train.losses", "train.meters", "train.optim",
         "train.state", "train.steps", "utils_profile")]
 
 
