@@ -16,7 +16,12 @@ the monolithic kernel, bit for bit; every backward past 256 keys at head
 widths 32, 64 and 128, [bwd-long]; the f32 kernels at N 198 to 4098,
 [f32-long]), runs the deployed 4-division dedeit
 ensemble at full width, serves it over HTTP to concurrent clients, times
-the kernels and the forward. Then the deployment artifacts: the int8 matmul
+the kernels and the forward. Right after the attention checks, [gelu]
+holds the A&S-erf GELU kernels (csrc/gelu.cu) against the plain chain (the
+forward bit for bit in bf16, f16 and f32, special values included; the
+backward's error against f64 no larger than autograd of the chain's) and
+times both at the stage-2 hidden tensors, (256, 198, 1536) and
+(64, 578, 1536), against the chain, F.gelu and the bytes bound. Then the deployment artifacts: the int8 matmul
 kernel against its
 plain version at every deployed weight shape, the block-attention kernel at
 every deployed layer and through its routes' main paths (the deployed
@@ -136,7 +141,7 @@ from devit_tpu_torch.data.pipeline import (
 from devit_tpu_torch.data.randaugment import OP_NAMES as RA_OP_NAMES
 from devit_tpu_torch.data.randaugment import STEPPED_OPS as RA_STEPPED
 from devit_tpu_torch.data.randaugment import RandAugmentDraws, apply_rand_augment
-from devit_tpu_torch.kernels import _build
+from devit_tpu_torch.kernels import _build, gelu
 from devit_tpu_torch.configs import get_vit_config
 from devit_tpu_torch.io.bridge import ensmlp_to_jax_params, vit_from_jax_params
 from devit_tpu_torch.io.checkpoint import restore_pytree, save_pytree
@@ -190,12 +195,16 @@ def _card() -> str:
     return out.strip().splitlines()[0]
 
 
-def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events around `iters` calls."""
+def _time_ms(fn, iters: int = 20, warmup: int = 3, spin: bool = False) -> float:
+    """Mean device time of one call, by CUDA events around `iters` calls;
+    with `spin`, queued behind a ~3 ms spin kernel, so the calls' host time
+    stays out of a short call's reading."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -330,6 +339,117 @@ def phase_build() -> tuple:
     print(f"[build] tensor-core instructions (cuobjdump -sass; HMMA bf16 and TF32, IMMA int8): "
           f"{', '.join(f'{k} {MMA_KERNELS[k][1]} {n}' for k, n in counts.items())}")
     return secs, counts
+
+
+# the stage-2 MLP hidden tensors: bs256 at 224 px (N 198) and bs64 at 384 px (N 578)
+GELU_SHAPES = ((256, 198, 1536), (64, 578, 1536))
+
+
+def _gelu_mismatches(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(elements whose bits differ, the largest |got - want| over them), NaN
+    against NaN counting as equal; a NaN or infinity against anything else
+    reads as an infinite gap."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+    both_nan = got.isnan() & want.isnan()
+    differ = (got.view(ints[got.dtype]) != want.view(ints[want.dtype])) & ~both_nan
+    gap = (got.double() - want.double()).abs()[differ].nan_to_num(nan=float("inf"))
+    return int(differ.sum()), gap.max().item() if gap.numel() else 0.0
+
+
+def _chain_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    xr = x.detach().requires_grad_(True)
+    (dx,) = torch.autograd.grad(gelu.reference_gelu(xr), xr, dy)
+    return dx
+
+
+def phase_gelu(card: str) -> dict:
+    """[gelu] The A&S-erf GELU kernels (csrc/gelu.cu) against the plain chain
+    (reference_gelu and autograd through it), then timed at the stage-2
+    hidden tensors: kernel, chain, F.gelu (the exact erf) and the bytes
+    bound, each operand read and written once at 3.35 TB/s. These launches
+    are not the main path's: the counts are restored."""
+    counts = (gelu.fused_gelu.launches, gelu.fused_gelu_bwd.launches)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-45, -1e-45,
+                             3e-39, -1e-38, 1e30, -1e30, 65504.0, -65504.0, 10.0, -10.0],
+                            device="cuda")
+    checks, fwd_err = {}, 0.0
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        tiny = torch.finfo(dtype).tiny
+        odd = torch.randn((3, 5, 7), generator=gen, device="cuda").to(dtype)
+        big = (3 * torch.randn(GELU_SHAPES[0], generator=gen, device="cuda")).to(dtype)
+        extra = torch.cat([specials.to(dtype), (tiny * torch.tensor([0.5, -0.25, 0.01],
+                                                                    device="cuda")).to(dtype)])
+        for x in (odd, big, extra, big.flatten()[1:1001], big[:, :7].transpose(0, 1)):
+            bad, gap = _gelu_mismatches(gelu.fused_gelu(x), gelu.reference_gelu(x))
+            fwd_err = max(fwd_err, gap)
+            if bad:
+                raise AssertionError(f"[gelu] forward {dtype} {tuple(x.shape)}: {bad} elements "
+                                     f"differ from the chain (largest gap {gap:.3e})")
+        del big
+        # the backward against the chain's autograd (and at f32 both against
+        # f64): a 1-D mix near 0 and up to |x| 10, then the stage-2 shapes
+        line = torch.cat([torch.linspace(-0.05, 0.05, 200_001, device="cuda"),
+                          torch.linspace(-10, 10, 20_001, device="cuda"),
+                          3 * torch.randn(1_000_000, generator=gen, device="cuda")])
+        checks[str(dtype)] = r = {}
+        for x in [line] + [3 * torch.randn(shape, generator=gen, device="cuda")
+                           for shape in GELU_SHAPES]:
+            x = x.to(dtype)
+            dy = (torch.rand(x.shape, generator=gen, device="cuda") + 0.5).to(dtype)
+            got, want = gelu.fused_gelu_bwd(x, dy), _chain_grad(x, dy)
+            where = "x".join(map(str, x.shape))
+            if dtype == torch.float32:
+                exact = gelu.gelu_as_slope(x.double()) * dy.double()
+                err, chain_err = ((t.double() - exact).abs().max().item() for t in (got, want))
+                del exact
+                r[where] = dict(bwd_err=err, chain_bwd_err=chain_err)
+                if not err <= chain_err:
+                    raise AssertionError(f"[gelu] backward f32 {where}: error {err:.3e} against "
+                                         f"f64, the chain's {chain_err:.3e}")
+            else:
+                ulp = torch.finfo(dtype).eps * want.float().abs().clamp_min(tiny)
+                gap = (got.float() - want.float()).abs()
+                over = int((gap > ulp + 8 * 2.0 ** -23 * dy.float().abs()).sum())
+                r[where] = dict(bwd_over_one_ulp=over, bwd_max_gap=gap.max().item())
+                if over:
+                    raise AssertionError(f"[gelu] backward {dtype} {where}: {over} elements "
+                                         f"past one ulp of the chain's")
+            del x, dy, got, want
+        torch.cuda.empty_cache()
+    bwd_err = max(v["bwd_err"] for v in checks["torch.float32"].values())
+    print(f"[gelu] forward bit for bit the chain in bf16, f16, f32 (odd sizes, a misaligned "
+          f"and a strided input, +-0, subnormals, +-inf, NaN; largest gap {fwd_err:.3e}); "
+          f"backward at a 1-D mix and {GELU_SHAPES}: {checks} [{card}]")
+
+    times = {}
+    for shape in GELU_SHAPES:
+        x = (3 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+        dy = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        xr = x.detach().requires_grad_(True)
+        y_chain, y_lib = gelu.reference_gelu(xr), torch.nn.functional.gelu(xr)
+        n = x.numel()
+        r = {"fwd": dict(ms=_time_ms(lambda: gelu.fused_gelu(x), iters=30, spin=True),
+                         plain_ms=_time_ms(lambda: gelu.reference_gelu(x), iters=5, spin=True),
+                         library_ms=_time_ms(lambda: torch.nn.functional.gelu(x), iters=30,
+                                             spin=True),
+                         bound_ms=2 * n * 2 / HBM_BYTES_PER_S * 1e3),
+             "bwd": dict(ms=_time_ms(lambda: gelu.fused_gelu_bwd(x, dy), iters=30, spin=True),
+                         plain_ms=_time_ms(lambda: torch.autograd.grad(
+                             y_chain, xr, dy, retain_graph=True), iters=5, spin=True),
+                         library_ms=_time_ms(lambda: torch.autograd.grad(
+                             y_lib, xr, dy, retain_graph=True), iters=30, spin=True),
+                         bound_ms=3 * n * 2 / HBM_BYTES_PER_S * 1e3)}
+        for k, t in r.items():
+            t.update(bound_by="bytes", share=t["bound_ms"] / t["ms"])
+            print(f"[gelu] {k} bf16 {shape}: kernel {t['ms']:.4f} ms ({t['share']:.1%} of the "
+                  f"bytes bound {t['bound_ms']:.4f}); chain {t['plain_ms']:.4f}; F.gelu "
+                  f"{t['library_ms']:.4f} [{card}]")
+        times["x".join(map(str, shape))] = r
+        del x, dy, xr, y_chain, y_lib
+    torch.cuda.empty_cache()
+    gelu.fused_gelu.launches, gelu.fused_gelu_bwd.launches = counts
+    return dict(checks=checks, fwd_err=fwd_err, bwd_err=bwd_err, times=times)
 
 
 def phase_kernel_checks() -> float:
@@ -1567,14 +1687,18 @@ def phase_train(card: str) -> dict:
 
     states = {k: _train_state(m) for k, m in models.items()}
     steps = {k: _train_step(m) for k, m in models.items()}
-    per_step, losses = [], []
+    per_step, gelu_per_step, losses = [], [], []
 
     def step_fn(use_kernel):
         def fn(state, images, labels, generator):
             f0, b0 = fused_attention.launches, attention_bwd.launches
+            g0, gb0 = gelu.fused_gelu.launches, gelu.fused_gelu_bwd.launches
             state, metrics = steps[use_kernel](state, None, images, labels, generator)
             if use_kernel:
                 per_step.append((fused_attention.launches - f0, attention_bwd.launches - b0))
+            # both models' steps run the GELU kernels (forward, recompute, backward)
+            gelu_per_step.append((gelu.fused_gelu.launches - g0,
+                                  gelu.fused_gelu_bwd.launches - gb0))
             losses.append(metrics["loss"])
             return state, metrics
         return fn
@@ -1604,6 +1728,10 @@ def phase_train(card: str) -> dict:
         raise AssertionError(f"per-step kernel launches {per_step}, expected (24, 12) each")
     if launches != {"fused_attention": 24 * len(per_step), "attention_bwd": 12 * len(per_step)}:
         raise AssertionError(f"train launches {launches}: the plain steps launched a kernel")
+    if len(gelu_per_step) != 2 * len(per_step) or any(c != (24, 12) for c in gelu_per_step):
+        raise AssertionError(f"per-step GELU kernel launches {gelu_per_step}, expected (24, 12) "
+                             f"each")
+    launches.update(fused_gelu=24 * len(gelu_per_step), fused_gelu_bwd=12 * len(gelu_per_step))
     host_losses = [float(l) for l in losses]
     if not all(np.isfinite(host_losses)):
         raise AssertionError(f"non-finite training loss: {host_losses}")
@@ -1612,7 +1740,8 @@ def phase_train(card: str) -> dict:
           f"{ms[True]:.3f} ms/step = {TRAIN_B / ms[True] * 1e3:.1f} img/s with the kernels; "
           f"{ms[False]:.3f} ms/step = {TRAIN_B / ms[False] * 1e3:.1f} img/s with the plain "
           f"attention; turns (ms/step) {runs}; {len(per_step)} kernel steps, each 24 forward "
-          f"+ 12 backward launches; {len(host_losses)} losses all finite "
+          f"+ 12 backward launches; {len(gelu_per_step)} steps, each 24 + 12 GELU launches; "
+          f"{len(host_losses)} losses all finite "
           f"(first {host_losses[0]:.4f}, last {host_losses[-1]:.4f}); peak memory "
           f"{peak:.2f} GiB [{card}]")
     return dict(ms=ms[True], plain_ms=ms[False], img_s=TRAIN_B / ms[True] * 1e3,
@@ -4728,6 +4857,7 @@ def main() -> int:
 
     build_s, mma_counts = phase_build()
     max_abs_err = phase_kernel_checks()
+    gelu_times = phase_gelu(card)
     t0 = time.perf_counter()
     _, cms, ens = deploy.build_artifacts(device="cuda")
     print(f"[forward] deployed artifacts built in {time.perf_counter() - t0:.1f} s: kept heads "
@@ -4916,6 +5046,19 @@ def main() -> int:
              "block_gemm_tf32<LN> + attn_long_tf32 + block_gemm_tf32<proj>"),
             ("bf16", "bf16 384px", "", b384,
              "block_ln_qkv_mma + attn_long_mma + block_proj_kernel"))]
+    # the GELU pair at the 224-px stage-2 hidden tensor; its launches are
+    # [train]'s main path, counted and checked step by step (24 + 12 a step);
+    # max_abs_err: the forward's largest gap to the chain, the backward's f32
+    # error against f64, each over [gelu]'s checks
+    gt = gelu_times["times"]["x".join(map(str, GELU_SHAPES[0]))]
+    record["kernels"] += [{
+        "name": name, "route": "cuda", "source": "devit_tpu_torch/kernels/csrc/gelu.cu",
+        "replaces": None, "launches": train["launches"][key], "max_abs_err": gelu_times[err],
+        **{k: gt[step][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for name, key, step, err in (
+            ("fused_gelu (gelu_as_fwd)", "fused_gelu", "fwd", "fwd_err"),
+            ("fused_gelu_bwd (gelu_as_bwd)", "fused_gelu_bwd", "bwd", "bwd_err"))]
+    times["gelu"] = gelu_times
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(

@@ -13,9 +13,10 @@ build leaves no stale lock), and a process that waited for it finds the
 library built.
 
 `library()` loads it once with every kernel's C signature declared; the
-kernel modules (attention.py, quant.py) launch through it and raise through
-`check_launch`. No flag relaxes IEEE arithmetic: the int8 kernel's
-quantization divides and rounds as its plain version does.
+kernel modules (attention.py, quant.py, gelu.py) launch through it and raise
+through `check_launch`. No flag relaxes IEEE arithmetic: the int8 kernel's
+quantization divides and rounds as its plain version does, and the GELU
+forward's expf and reciprocal are PyTorch's own.
 """
 
 from __future__ import annotations
@@ -67,6 +68,9 @@ SIGNATURES = {
     "devit_attention_bwd_long_path": ([_I, _I, _I, _I], _I),
     "devit_block_attention_smem_bytes": ([_I, _I, _I, _I], _LL),
     "devit_block_attention_chunked": ([_I, _I, _I, _I], _I),
+    # x, (dy,) out, number of values, dtype (0 f32, 1 bf16, 2 f16), stream
+    "devit_gelu_fwd": ([_VP, _VP, _LL, _I, _VP], _I),
+    "devit_gelu_bwd": ([_VP, _VP, _VP, _LL, _I, _VP], _I),
     "devit_max_smem_optin": ([_I], _LL),
     "devit_error_string": ([_I], ctypes.c_char_p),
 }

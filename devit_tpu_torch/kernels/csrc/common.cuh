@@ -1,10 +1,12 @@
-// Helpers shared by the attention kernels (attention.cu, attention_bwd.cu):
-// dtype conversion, warp reductions, the odd score-row stride and the
-// once-per-device opt-in to the whole dynamic shared memory.
+// Helpers shared by the attention kernels (attention.cu, attention_bwd.cu)
+// and the GELU pair (gelu.cu): dtype conversion, warp reductions, the odd
+// score-row stride and the once-per-device opt-in to the whole dynamic
+// shared memory.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -15,12 +17,14 @@ constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 
 // x rounded to T and read back as f32 (the identity for T = float)
 template <typename T> __device__ __forceinline__ float round_to(float x) {

@@ -35,6 +35,8 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from devit_tpu_torch.configs import ViTConfig, get_vit_config
 from devit_tpu_torch.device import DeviceLike, resolve_device, to_device
 from devit_tpu_torch.kernels.attention import make_trainable_attention, trainable_attention_op
+from devit_tpu_torch.kernels.gelu import (  # fast_erf: the JAX module's name, re-exported
+    fast_erf, fused_gelu, reference_gelu)
 
 
 class Gates(NamedTuple):
@@ -140,23 +142,14 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(dtype)
 
 
-def fast_erf(x: torch.Tensor) -> torch.Tensor:
-    """erf via Abramowitz–Stegun 7.1.26 (max abs error 1.5e-7), computed in
-    f32 and cast back to the input dtype — the same constants and rounding
-    as the JAX package, so both packages agree on the exact-erf GELU."""
-    xf = x.to(torch.float32)
-    z = xf.abs()
-    t = 1.0 / (1.0 + 0.3275911 * z)
-    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
-           + t * (-1.453152027 + t * 1.061405429))))
-    e = 1.0 - poly * torch.exp(-z * z)
-    return (torch.sign(xf) * e).to(x.dtype)
-
-
 def fast_gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact-erf GELU with the A&S erf (see fast_erf)."""
-    xf = x.to(torch.float32)
-    return (0.5 * xf * (1.0 + fast_erf(xf * 0.7071067811865476))).to(x.dtype)
+    """Exact-erf GELU with the A&S erf (kernels/gelu.py fast_erf). A CUDA
+    tensor runs `fused_gelu` (one kernel each way, the forward bit for bit
+    the chain; a dtype the kernels do not take raises TypeError); a CPU
+    tensor runs the plain chain, `reference_gelu`, and autograd through it."""
+    if x.device.type == "cuda":
+        return fused_gelu(x)
+    return reference_gelu(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

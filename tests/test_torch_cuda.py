@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: fused_attention, attention_bwd, the
-split pair attention_bwd_dv / attention_bwd_dqdk, fused_int8_matmul and
-fused_block_attention (the hand-written kernels in
-devit_tpu_torch/kernels/csrc/attention.cu, attention_bwd.cu,
-attention_bwd_split.cu, quant_matmul.cu and block_attention.cu) vs their
-plain PyTorch versions, their launch counters and what their wrappers
+split pair attention_bwd_dv / attention_bwd_dqdk, fused_int8_matmul,
+fused_block_attention and the GELU pair fused_gelu / fused_gelu_bwd (the
+hand-written kernels in devit_tpu_torch/kernels/csrc/attention.cu,
+attention_bwd.cu, attention_bwd_split.cu, quant_matmul.cu,
+block_attention.cu and gelu.cu) vs their plain PyTorch versions, their launch counters and what their wrappers
 reject; the backwards past 256 keys (their chunked path), the split pair
 equal to the monolithic kernel bit for bit, every kernel at sequence
 lengths and head widths past one block's shared memory (the key-chunked
@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from devit_tpu_torch.data.pipeline import normalize
+from devit_tpu_torch.kernels import gelu
 from devit_tpu_torch.kernels.attention import (
     attention_bwd, attention_bwd_dqdk, attention_bwd_dv, attention_bwd_split,
     fused_attention, fused_block_attention, kernel_head_dim, make_trainable_attention,
@@ -29,6 +30,7 @@ from devit_tpu_torch.kernels.attention import (
 )
 from devit_tpu_torch.kernels.quant import (QuantizedLinear, dynamic_int8_matmul,
                                            fused_int8_matmul, quantize_weight)
+from devit_tpu_torch.models import vit as tvit
 
 pytestmark = pytest.mark.cuda
 
@@ -987,3 +989,169 @@ def test_wide_launches_are_counted(gen, dh, wide):
     attention_bwd_split(x, g, 2)
     got = [(w.launches - a, w.wide_launches - b) for w, (a, b) in zip(wrappers, before)]
     assert got == [(1, wide)] * 4
+
+
+# ---- the A&S-erf GELU (csrc/gelu.cu)
+
+F32_ULP = 2.0 ** -23
+GELU_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
+def _gelu_specials(dtype) -> torch.Tensor:
+    """+-0, subnormals of dtype, +-inf, NaN, and large finite values."""
+    tiny = torch.finfo(dtype).tiny
+    vals = [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-45, -3e-39, 1e30, -1e30,
+            65504.0, -65504.0, 10.0, -10.0, 0.5 * tiny, -0.25 * tiny, 0.01 * tiny]
+    return torch.tensor(vals, device="cuda").to(dtype)
+
+
+def _bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Every element's bits equal, NaN against NaN."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+    nan = got.isnan()
+    same = got.contiguous().view(ints[got.dtype]) == want.contiguous().view(ints[want.dtype])
+    return torch.equal(nan, want.isnan()) and bool((same | nan).all())
+
+
+def _chain_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    xr = x.detach().requires_grad_(True)
+    (dx,) = torch.autograd.grad(gelu.reference_gelu(xr), xr, dy)
+    return dx
+
+
+@pytest.mark.parametrize("dtype", GELU_DTYPES)
+def test_gelu_forward_bit_equal_to_the_chain(gen, dtype):
+    """gelu_as_fwd against reference_gelu run by PyTorch's CUDA ops: every
+    element's bits, at a numel that is no multiple of the vector width, the
+    stage-2 hidden width, the special values, a misaligned operand (copied
+    to an aligned one) and a strided one (made contiguous)."""
+    big = (3 * torch.randn((4, 198, 1536), generator=gen, device="cuda")).to(dtype)
+    cases = [torch.randn((3, 5, 7), generator=gen, device="cuda").to(dtype), big,
+             _gelu_specials(dtype), big.flatten()[1:4099], big[:, :9].transpose(0, 1)]
+    before = gelu.fused_gelu.launches
+    for x in cases:
+        got = gelu.fused_gelu(x)
+        assert got.dtype == dtype and got.shape == x.shape
+        assert _bits_equal(got, gelu.reference_gelu(x)), (dtype, tuple(x.shape))
+    assert gelu.fused_gelu.launches == before + len(cases)
+    strided = big[:, :9].transpose(0, 1)
+    assert _bits_equal(tvit.fast_gelu(strided), gelu.reference_gelu(strided))
+    assert gelu.fused_gelu.launches == before + len(cases) + 1
+
+
+def test_gelu_backward_error_no_larger_than_the_chains(gen):
+    """gelu_as_bwd against the same derivative in f64: at f32 its largest
+    error is no larger than autograd of the chain's (the chain's ~3 f32 ulps
+    of 1, worst near x = 0, where the kernel's polynomial in 1 - t keeps
+    about half of it); at bf16 and f16 it is within one ulp of the chain's
+    result, or of f32 rounding where g' is near 0 (the tails, where the
+    chain's 1 + E cancels to 0, and the zero of g' at x = -0.75)."""
+    x32 = torch.cat([torch.linspace(-0.05, 0.05, 200_001, device="cuda"),
+                     torch.linspace(-10, 10, 20_001, device="cuda"),
+                     torch.tensor([0.0, -0.0, 1e-30, -1e-30], device="cuda"),
+                     3 * torch.randn(1_000_000, generator=gen, device="cuda")])
+    dy32 = torch.rand(x32.shape, generator=gen, device="cuda") + 0.5
+    for dtype in GELU_DTYPES:
+        x, dy = x32.to(dtype), dy32.to(dtype)
+        before = gelu.fused_gelu_bwd.launches
+        got, want = gelu.fused_gelu_bwd(x, dy), _chain_grad(x, dy)
+        assert gelu.fused_gelu_bwd.launches == before + 1 and got.dtype == dtype
+        if dtype == torch.float32:
+            exact = gelu.gelu_as_slope(x.double()) * dy.double()
+            err, chain_err = ((t.double() - exact).abs().max().item() for t in (got, want))
+            assert err <= chain_err <= 4 * F32_ULP, (err, chain_err)
+        else:
+            ulp = torch.finfo(dtype).eps * want.float().abs().clamp_min(torch.finfo(dtype).tiny)
+            gap = (got.float() - want.float()).abs()
+            assert bool((gap <= ulp + 8 * F32_ULP * dy.float().abs()).all()), dtype
+    # operands that start mid-vector are copied to aligned ones first
+    x, dy = x32.bfloat16()[1:100_004], dy32.bfloat16()[1:100_004]
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    assert torch.equal(gelu.fused_gelu_bwd(x, dy), gelu.fused_gelu_bwd(x.clone(), dy.clone()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gelu_remat_block_step_matches_the_chain(gen, dtype, monkeypatch):
+    """A full-remat training forward and backward of a small dedeit on the
+    card, the GELU through the kernels against the same step through the
+    chain (fast_gelu swapped for reference_gelu): the loss equal, and every
+    parameter's gradient within f32 rounding at f32, and within what a bf16
+    rounding of the GELU's dx moves at bf16. 2 forward launches a block
+    (the forward and remat's recompute) and 1 backward."""
+    model = tvit.create_vit("dedeit", img_size=32, patch_size=8, embed_dim=128, depth=3,
+                            num_heads=2, num_classes=7, dtype=dtype, use_remat=True,
+                            device="cuda", generator=torch.Generator().manual_seed(0))
+    images = torch.randn((6, 32, 32, 3), generator=gen, device="cuda")
+
+    def grads():
+        out = model(images, train=True, generator=torch.Generator().manual_seed(1))
+        loss = out.logits.float().square().mean()
+        return loss, torch.autograd.grad(loss, list(model.parameters()), allow_unused=True,
+                                         materialize_grads=True)
+
+    f0, b0 = gelu.fused_gelu.launches, gelu.fused_gelu_bwd.launches
+    loss_k, g_k = grads()
+    assert (gelu.fused_gelu.launches - f0, gelu.fused_gelu_bwd.launches - b0) == (6, 3)
+    monkeypatch.setattr(tvit, "fast_gelu", gelu.reference_gelu)
+    loss_c, g_c = grads()
+    assert gelu.fused_gelu.launches - f0 == 6
+    assert loss_k.item() == loss_c.item()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for (name, _), a, b in zip(model.named_parameters(), g_k, g_c):
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+def test_gelu_launches_in_a_stage2_step_and_none_in_a_fast_math_forward(gen):
+    """One stage-2 step of a depth-12 dedeit (full remat): 24 forward
+    launches (the forward and remat's recompute) and 12 backward; a served
+    compact_forward under fast_math (the tanh GELU) launches none, and the
+    same forward without fast_math one a layer."""
+    from devit_tpu_torch.data.mixup import MixupConfig
+    from devit_tpu_torch.io.bridge import vit_to_jax_params
+    from devit_tpu_torch.models.compact_vit import compact_forward, compact_vit_ragged
+    from devit_tpu_torch.models.vit import Gates, create_vit
+    from devit_tpu_torch.train.optim import OptimConfig, make_optimizer
+    from devit_tpu_torch.train.state import TrainState
+    from devit_tpu_torch.train.steps import make_stage2_step
+
+    model = create_vit("dedeit", img_size=32, patch_size=8, embed_dim=64, num_heads=2,
+                       num_classes=5, drop_path_rate=0.1, dtype=torch.bfloat16, use_remat=True,
+                       device="cuda", generator=torch.Generator().manual_seed(0))
+    cfg = model.cfg
+    assert cfg.depth == 12
+    state = TrainState.create(model, make_optimizer(OptimConfig(lr=5e-4, epochs=100), 100),
+                              use_ema=True)
+    mix = MixupConfig(mixup_alpha=0.8, cutmix_alpha=1.0, prob=1.0, switch_prob=0.5,
+                      label_smoothing=0.1, num_classes=5)
+    step = make_stage2_step(model, None, mixup=mix, smoothing=0.1, distillation_type="none")
+    images = torch.randn((4, 32, 32, 3), generator=gen, device="cuda").bfloat16()
+    labels = torch.randint(0, 5, (4,), generator=gen, device="cuda")
+    f0, b0 = gelu.fused_gelu.launches, gelu.fused_gelu_bwd.launches
+    state, metrics = step(state, None, images, labels, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    assert (gelu.fused_gelu.launches - f0, gelu.fused_gelu_bwd.launches - b0) == (24, 12)
+    assert np.isfinite(float(metrics["loss"]))
+
+    gates = Gates(np.ones((cfg.depth, cfg.num_heads), np.float32),
+                  np.ones((cfg.depth, cfg.hidden_dim), np.float32))
+    cm = compact_vit_ragged(vit_to_jax_params(model), gates, cfg, neuron_multiple=8,
+                            device="cuda")
+    f0 = gelu.fused_gelu.launches
+    with torch.no_grad():
+        compact_forward(cm, images.float(), patch_size=8, fast_math=True)
+        assert gelu.fused_gelu.launches == f0
+        compact_forward(cm, images.float(), patch_size=8, fast_math=False)
+    assert gelu.fused_gelu.launches == f0 + 12
+
+
+def test_gelu_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x = torch.randn((4, 8), generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        gelu.fused_gelu(x.double())
+    with pytest.raises(ValueError):
+        gelu.fused_gelu_bwd(x, torch.ones((4, 9), device="cuda"))
+    # fast_gelu sends every CUDA tensor to the kernels, so it rejects the same
+    with pytest.raises(TypeError):
+        tvit.fast_gelu(x.double())
+    before = gelu.fused_gelu.launches
+    assert gelu.fused_gelu(x[:0]).shape == (0, 8) and gelu.fused_gelu.launches == before
