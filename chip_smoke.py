@@ -21,7 +21,13 @@ holds the A&S-erf GELU kernels (csrc/gelu.cu) against the plain chain (the
 forward bit for bit in bf16, f16 and f32, special values included; the
 backward's error against f64 no larger than autograd of the chain's) and
 times both at the stage-2 hidden tensors, (256, 198, 1536) and
-(64, 578, 1536), against the chain, F.gelu and the bytes bound. Then the deployment artifacts: the int8 matmul
+(64, 578, 1536), against the chain, F.gelu and the bytes bound. Then
+[moe] holds the sparse-expert dispatch and combine kernels (csrc/moe.cu)
+against their eager paths at the V-MoE cell's group (T 25,216, C 1,024,
+E 32, cap 1,655, bf16: four calls bit for bit, the weights' gradient
+within 1e-5), times each against its eager path and its bytes bound, and
+runs two remat'd stage-2 steps of V-MoE-L/16 (3.43 B parameters, built on
+the card) through train_epoch, counting each step's kernel launches. Then the deployment artifacts: the int8 matmul
 kernel against its
 plain version at every deployed weight shape, the block-attention kernel at
 every deployed layer and through its routes' main paths (the deployed
@@ -142,6 +148,7 @@ from devit_tpu_torch.data.randaugment import OP_NAMES as RA_OP_NAMES
 from devit_tpu_torch.data.randaugment import STEPPED_OPS as RA_STEPPED
 from devit_tpu_torch.data.randaugment import RandAugmentDraws, apply_rand_augment
 from devit_tpu_torch.kernels import _build, gelu
+from devit_tpu_torch.kernels import moe as kmoe
 from devit_tpu_torch.configs import get_vit_config
 from devit_tpu_torch.io.bridge import ensmlp_to_jax_params, vit_from_jax_params
 from devit_tpu_torch.io.checkpoint import restore_pytree, save_pytree
@@ -157,6 +164,7 @@ from devit_tpu_torch.models.compact_vit import (
     attention_half, embed_patches, mlp_half, quantize_compact, save_compact,
     stack_division_features,
 )
+from devit_tpu_torch.models import moe
 from devit_tpu_torch.models.ensemble import EnsMLP, init_multivit, stack_division_gates
 from devit_tpu_torch.data.splitter import DivisionManifest
 from devit_tpu_torch.models.vit import Gates, VisionTransformer, create_vit
@@ -450,6 +458,148 @@ def phase_gelu(card: str) -> dict:
     torch.cuda.empty_cache()
     gelu.fused_gelu.launches, gelu.fused_gelu_bwd.launches = counts
     return dict(checks=checks, fwd_err=fwd_err, bwd_err=bwd_err, times=times)
+
+
+# V-MoE-L/16's routing group at the cell's batch: T = 128 x 197 tokens, C,
+# experts, capacity round(2 T 1.05 / 32); the main-path steps' batch
+MOE_SHAPE, MOE_K, MOE_STEP_B = (128 * 197, 1024, 32, 1655), 2, 16
+
+
+def _moe_bytes(T: int, K: int, S: int, C: int, kept: int, elem: int = 2) -> dict:
+    """Least bytes of each MoE kernel call, every value read or written
+    once (benchmark/metrics/_moe_counts.py counts a step the same way):
+    kept rows read, every slot or token row written, the maps and the f32
+    weights."""
+    rows = kept * C * elem
+    return {"gather": rows + S * C * elem + S * 4,
+            "gather_weighted": rows + S * C * elem + S * 4 + 2 * T * K * 4,
+            "combine": rows + 2 * T * K * 4 + T * C * elem,
+            "combine_w1": rows + T * K * 4 + T * C * elem,
+            "combine_dw": T * C * elem + rows + 2 * T * K * 4}
+
+
+def phase_moe(card: str) -> dict:
+    """[moe] The dispatch and combine kernels (csrc/moe.cu) against their
+    eager paths at the V-MoE cell's group in bf16: the gather (plain and
+    weighted) and the combine (weighted and of weight 1) bit for bit, the
+    weights' gradient within 1e-5 of the largest; each timed against the
+    eager path and its bytes bound. Then the main path: two remat'd stage-2
+    steps of V-MoE-L/16 at B 16, the counters zeroed just before them, each
+    step launching 3 gathers and 4 combines a MoE layer."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    T, C, E, cap = MOE_SHAPE
+    choice = moe.top_k(torch.randn((T, E), generator=gen, device="cuda"), MOE_K)
+    tok_slot, slot_tok, _ = moe.slot_maps(choice, E, cap)
+    kept = int((tok_slot >= 0).sum())
+    x = torch.randn((T, C), generator=gen, device="cuda").bfloat16()
+    buf = torch.randn((E * cap, C), generator=gen, device="cuda").bfloat16()
+    w = torch.rand((T, MOE_K), generator=gen, device="cuda")
+    calls = {
+        "gather": (lambda: kmoe.moe_gather(x, slot_tok),
+                   lambda: kmoe.reference_gather(x, slot_tok)),
+        "gather_weighted": (lambda: kmoe.moe_gather(x, slot_tok, tok_slot, w),
+                            lambda: kmoe.reference_gather(x, slot_tok, tok_slot, w)),
+        "combine": (lambda: kmoe.moe_combine(buf, tok_slot, w),
+                    lambda: kmoe.reference_combine(buf, tok_slot, w)),
+        "combine_w1": (lambda: kmoe.moe_combine(buf, tok_slot),
+                       lambda: kmoe.reference_combine(buf, tok_slot)),
+        "combine_dw": (lambda: kmoe.moe_combine_dw(x, buf, tok_slot),
+                       lambda: kmoe.reference_combine_dw(x, buf, tok_slot))}
+    gaps = {}
+    for name, (kernel, eager) in calls.items():
+        got, want = kernel(), eager()
+        if name == "combine_dw":
+            rel = _rel(got, want)
+            gaps[name] = (got - want).abs().max().item()
+            if not rel < 1e-5:
+                raise AssertionError(f"[moe] combine_dw: {rel:.3e} of the largest from the "
+                                     f"eager path (tol 1e-5)")
+            continue
+        bad, gaps[name] = _gelu_mismatches(got, want)
+        if bad:
+            raise AssertionError(f"[moe] {name}: {bad} values differ from the eager path "
+                                 f"(largest gap {gaps[name]:.3e})")
+    nbytes = _moe_bytes(T, MOE_K, E * cap, C, kept)
+    times = {}
+    for name, (kernel, eager) in calls.items():
+        t = dict(ms=_time_ms(kernel, iters=30, spin=True),
+                 plain_ms=_time_ms(eager, iters=5, spin=True),
+                 bound_ms=nbytes[name] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 library_ms=None)
+        t["share"] = t["bound_ms"] / t["ms"]
+        times[name] = t
+    print(f"[moe] T {T}, C {C}, E {E}, cap {cap}, bf16, {kept / (T * MOE_K):.2%} of the "
+          f"choices kept: gather, weighted gather, combine and combine of weight 1 bit for bit "
+          f"the eager path; combine_dw's largest gap {gaps['combine_dw']:.3e} (under 1e-5 of "
+          f"the largest) [{card}]")
+    for name, t in times.items():
+        print(f"[moe] {name}: kernel {t['ms']:.4f} ms ({t['share']:.1%} of the bytes bound "
+              f"{t['bound_ms']:.4f}); eager {t['plain_ms']:.4f} [{card}]")
+    del x, buf, w, choice, tok_slot, slot_tok, calls
+    torch.cuda.empty_cache()
+
+    # the main path: V-MoE-L/16 built on the card, N(0, 0.02) kernels
+    cfg = get_vit_config("vmoe_l16_e32", num_classes=100, drop_path_rate=0.1)
+    with torch.device("cuda"):
+        model = VisionTransformer(cfg, dtype=torch.bfloat16, use_kernel=True, use_remat=True)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale":
+                p.fill_(1.0)
+            elif leaf == "bias":
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    params = sum(p.numel() for p in model.parameters())
+    state = TrainState.create(model, make_optimizer(OptimConfig(lr=5e-4, epochs=100), 391),
+                              use_ema=False)
+    mix = MixupConfig(mixup_alpha=0.8, cutmix_alpha=1.0, prob=1.0, switch_prob=0.5,
+                      label_smoothing=0.1, num_classes=100)
+    step = make_stage2_step(model, None, mixup=mix, smoothing=0.1, distillation_type="none")
+    images = torch.randn((MOE_STEP_B, 224, 224, 3), generator=gen, device="cuda").bfloat16()
+    labels = torch.randint(0, 100, (MOE_STEP_B,), generator=gen, device="cuda")
+    per_step, losses = [], []
+
+    def step_fn(state, images, labels, generator):
+        g0, c0 = kmoe.moe_gather.launches, kmoe.moe_combine.launches
+        state, metrics = step(state, None, images, labels, generator)
+        per_step.append((kmoe.moe_gather.launches - g0, kmoe.moe_combine.launches - c0))
+        losses.append((metrics["loss"], metrics["aux_loss"]))
+        return state, metrics
+
+    moe.reset_route_counts(model)
+    torch.cuda.reset_peak_memory_stats()
+    kmoe.moe_gather.launches = kmoe.moe_combine.launches = 0
+    t0 = time.perf_counter()
+    state, _, _ = train_epoch(step_fn, state, [(images, labels)] * 2,
+                              torch.Generator().manual_seed(24), epoch=0, log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    layers = len(cfg.moe_layers)
+    launches = (kmoe.moe_gather.launches, kmoe.moe_combine.launches)
+    if per_step != [(3 * layers, 4 * layers)] * 2 or launches != (6 * layers, 8 * layers):
+        raise AssertionError(f"[moe] per-step launches {per_step} (in all {launches}), expected "
+                             f"({3 * layers}, {4 * layers}) in each of 2 steps")
+    host = [(float(l), float(a)) for l, a in losses]
+    if not np.isfinite(host).all():
+        raise AssertionError(f"[moe] non-finite loss or auxiliary loss: {host}")
+    counts = moe.route_counts(model)
+    routed = sum(c["routed"] for c in counts.values())
+    dropped = sum(c["dropped"] for c in counts.values())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[moe] V-MoE-L/16 ({params / 1e6:.2f} M parameters) at B {MOE_STEP_B}, bf16, remat, "
+          f"mixup/cutmix, AdamW: 2 steps through train_epoch in {secs:.2f} s (the first builds "
+          f"cuBLAS's plans), each {per_step[0][0]} gather + {per_step[0][1]} combine launches "
+          f"over {layers} MoE layers; (loss, aux) {host}; {dropped / routed:.1%} of {routed} "
+          f"token-choices dropped (seeded routers); peak {peak:.2f} GiB [{card}]")
+    del model, state, step, images, labels
+    torch.cuda.empty_cache()
+    return dict(checks=gaps, kept_share=kept / (T * MOE_K), times=times,
+                gather_err=max(gaps["gather"], gaps["gather_weighted"]),
+                combine_err=max(gaps["combine"], gaps["combine_w1"], gaps["combine_dw"]),
+                launches=launches, per_step=per_step, losses=host, steps_s=secs,
+                dropped_share=dropped / routed, peak_gib=peak, params=params)
 
 
 def phase_kernel_checks() -> float:
@@ -4858,6 +5008,7 @@ def main() -> int:
     build_s, mma_counts = phase_build()
     max_abs_err = phase_kernel_checks()
     gelu_times = phase_gelu(card)
+    moe_times = phase_moe(card)
     t0 = time.perf_counter()
     _, cms, ens = deploy.build_artifacts(device="cuda")
     print(f"[forward] deployed artifacts built in {time.perf_counter() - t0:.1f} s: kept heads "
@@ -5059,6 +5210,19 @@ def main() -> int:
             ("fused_gelu (gelu_as_fwd)", "fused_gelu", "fwd", "fwd_err"),
             ("fused_gelu_bwd (gelu_as_bwd)", "fused_gelu_bwd", "bwd", "bwd_err"))]
     times["gelu"] = gelu_times
+    # the dispatch and combine at the V-MoE cell's group (the gather's time
+    # is the dispatch's, the combine's the weighted forward's; the other
+    # calls are in times["moe"]); launches: [moe]'s two main-path steps;
+    # max_abs_err: the largest gap to the eager path over [moe]'s checks
+    record["kernels"] += [{
+        "name": name, "route": "cuda", "source": "devit_tpu_torch/kernels/csrc/moe.cu",
+        "replaces": None, "launches": moe_times["launches"][i], "max_abs_err": moe_times[err],
+        **{k: moe_times["times"][call][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for i, name, call, err in (
+            (0, "moe_gather (moe_gather_rows)", "gather", "gather_err"),
+            (1, "moe_combine (moe_combine_rows)", "combine", "combine_err"))]
+    times["moe"] = moe_times
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(

@@ -8,7 +8,7 @@ models/deit_vit.py:457-525, models/cct.py:226-470).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +36,16 @@ class ViTConfig:
     # set by compaction when the MLP / attention width is no longer the default
     hidden_override: Optional[int] = None
     head_dim_override: Optional[int] = None
+    # sparse experts (V-MoE, models/moe.py): the layers whose MLP half is
+    # `num_experts` routed expert MLPs, `top_k` of them a token, each expert
+    # holding round(top_k * tokens * capacity_ratio / num_experts) tokens of
+    # a batch; the auxiliary losses enter the training loss times
+    # `aux_loss_weight`. () is a dense model.
+    moe_layers: Tuple[int, ...] = ()
+    num_experts: int = 0
+    top_k: int = 2
+    capacity_ratio: float = 1.05
+    aux_loss_weight: float = 0.01
 
     @property
     def grid_size(self) -> int:
@@ -107,6 +117,13 @@ VIT_CONFIGS = {
     ),
     "vit_large_patch16_224": _vit(
         "vit_large_patch16_224", embed_dim=1024, depth=24, num_heads=16, distilled=False
+    ),
+    # V-MoE-L/16 "Every-2" (Riquelme et al. 2021, arXiv:2106.05974): ViT-L/16
+    # with the MLP of every other layer replaced by 32 experts, top-2
+    "vmoe_l16_e32": _vit(
+        "vmoe_l16_e32", embed_dim=1024, depth=24, num_heads=16, distilled=False,
+        moe_layers=tuple(range(1, 24, 2)), num_experts=32, top_k=2, capacity_ratio=1.05,
+        aux_loss_weight=0.01
     ),
 }
 

@@ -221,6 +221,9 @@ def model_shrink(
     """End-to-end policy search. `val_batches_fn()` returns a fresh iterable
     of RAW HOST (images, labels) batches; `prepare` is the eval transform
     (see evaluate_policies, which `layout` shards)."""
+    if getattr(getattr(model, "cfg", None), "moe_layers", ()):
+        raise ValueError(f"the shrink search does not take a model with MoE layers "
+                         f"({model.cfg.name})")
     if full_gmacs is None:
         zeros = [0.0] * layer
         full_gmacs = 2 * cal_shrink_macs(

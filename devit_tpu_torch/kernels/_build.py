@@ -13,7 +13,7 @@ build leaves no stale lock), and a process that waited for it finds the
 library built.
 
 `library()` loads it once with every kernel's C signature declared; the
-kernel modules (attention.py, quant.py, gelu.py) launch through it and raise
+kernel modules (attention.py, quant.py, gelu.py, moe.py) launch through it and raise
 through `check_launch`. No flag relaxes IEEE arithmetic: the int8 kernel's
 quantization divides and rounds as its plain version does, and the GELU
 forward's expf and reciprocal are PyTorch's own.
@@ -71,6 +71,11 @@ SIGNATURES = {
     # x, (dy,) out, number of values, dtype (0 f32, 1 bf16, 2 f16), stream
     "devit_gelu_fwd": ([_VP, _VP, _LL, _I, _VP], _I),
     "devit_gelu_bwd": ([_VP, _VP, _VP, _LL, _I, _VP], _I),
+    # the MoE dispatch and combine (csrc/moe.cu): x, slot_tok, tok_slot (or
+    # NULL), w (or NULL), out, S, K, C, dtype, stream; buf, tok_slot, w (or
+    # NULL), dy (or NULL), y (or NULL), dw (or NULL), T, K, C, dtype, stream
+    "devit_moe_gather": ([_VP] * 5 + [_I] * 4 + [_VP], _I),
+    "devit_moe_combine": ([_VP] * 6 + [_I] * 4 + [_VP], _I),
     "devit_max_smem_optin": ([_I], _LL),
     "devit_error_string": ([_I], ctypes.c_char_p),
 }

@@ -37,6 +37,7 @@ from devit_tpu_torch.device import DeviceLike, resolve_device, to_device
 from devit_tpu_torch.kernels.attention import make_trainable_attention, trainable_attention_op
 from devit_tpu_torch.kernels.gelu import (  # fast_erf: the JAX module's name, re-exported
     fast_erf, fused_gelu, reference_gelu)
+from devit_tpu_torch.models.moe import Experts, RouteLog, moe_mlp
 
 
 class Gates(NamedTuple):
@@ -79,6 +80,7 @@ class ViTOutput(NamedTuple):
     embedding: Optional[torch.Tensor] = None  # (B,N,C or resize_dim) post-pos-embed tokens
     neuron_act: Optional[torch.Tensor] = None  # (L,B,N,hidden) post-GELU pre-gate
     head_out: Optional[torch.Tensor] = None  # (L,B,N,H,dh) pre-gate head outputs
+    aux_loss: Optional[torch.Tensor] = None  # MoE layers' auxiliary loss (training)
 
 
 Rows = Tuple[int, int, int]  # (start, stop, global batch): a rank's rows of a batch
@@ -267,29 +269,40 @@ def _rows(gate: torch.Tensor) -> torch.Tensor:
 class Block(nn.Module):
     """One pre-norm transformer block with head and neuron gates. A gate is
     one vector for the whole batch, or one row per batch row (candidate gates
-    folded into the batch, core/shrink.py)."""
+    folded into the batch, core/shrink.py). Block `index` of a config that
+    lists it in moe_layers has the sparse-expert MLP half (models/moe.py:
+    `router`, the stacked `experts`) in place of fc1 and fc2."""
 
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, index: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.index = index
+        self.moe = index in cfg.moe_layers
         C, A = cfg.embed_dim, cfg.attn_dim
         self.norm1 = LayerNorm(C, cfg.layer_norm_eps)
         self.qkv = Dense(C, 3 * A, use_bias=cfg.qkv_bias)
         self.proj = Dense(A, C)
         self.norm2 = LayerNorm(C, cfg.layer_norm_eps)
-        self.fc1 = Dense(C, cfg.hidden_dim)
-        self.fc2 = Dense(cfg.hidden_dim, C)
+        if self.moe:
+            self.router = Dense(C, cfg.num_experts, use_bias=False)
+            self.experts = Experts(cfg.num_experts, C, cfg.hidden_dim)
+            self.route_log = RouteLog()
+        else:
+            self.fc1 = Dense(C, cfg.hidden_dim)
+            self.fc2 = Dense(cfg.hidden_dim, C)
 
     def forward(self, x: torch.Tensor, head_gate: torch.Tensor, neuron_gate: torch.Tensor,
                 dp_rate: float, dp_masks: Optional[torch.Tensor], dropout_seed: Optional[int],
                 *, dtype: torch.dtype, stat_dtype: torch.dtype, fast_math: bool,
                 use_kernel: bool, train: bool, capture_qkv: bool,
                 capture_rank_stats: bool, capture_attn: bool,
-                rows: Optional[Rows] = None) -> Tuple[torch.Tensor, dict]:
+                rows: Optional[Rows] = None,
+                moe_seed: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
         """dp_masks: (2, B, 1, 1) keep masks of the attention and MLP branches,
         or None (no drop-path). dropout_seed seeds a generator on x's device
         for dropout, so a recompute draws the same bits; `rows` as in
-        _dropout."""
+        _dropout. moe_seed seeds a MoE block's router noise the same way
+        (training); such a block puts its auxiliary loss in outs["aux"]."""
         cfg = self.cfg
         B, N, _ = x.shape
         H, dh, A = cfg.num_heads, cfg.head_dim, cfg.attn_dim
@@ -323,16 +336,23 @@ class Block(nn.Module):
         x = x + (attn_out if dp_masks is None else drop_path(attn_out, dp_rate, dp_masks[0]))
 
         h = self.norm2(x, stat_dtype)
-        h = self.fc1(h, dtype)
-        h = gelu_tanh(h) if fast_math else fast_gelu(h)
-        if train:
-            h = _dropout(h, cfg.drop_rate, gen, rows)
-        if capture_rank_stats:
-            outs["neuron_act"] = h
-        h = h * _rows(neuron_gate.to(dtype))[:, None, :]
-        h = self.fc2(h, dtype)
-        if train:
-            h = _dropout(h, cfg.drop_rate, gen, rows)
+        if self.moe:
+            h, outs["aux"] = moe_mlp(
+                h, self.router.kernel, self.experts, self.route_log, layer=self.index,
+                num_experts=cfg.num_experts, k=cfg.top_k, ratio=cfg.capacity_ratio,
+                neuron_gate=neuron_gate, seed=moe_seed, train=train, dtype=dtype,
+                gelu=gelu_tanh if fast_math else fast_gelu)
+        else:
+            h = self.fc1(h, dtype)
+            h = gelu_tanh(h) if fast_math else fast_gelu(h)
+            if train:
+                h = _dropout(h, cfg.drop_rate, gen, rows)
+            if capture_rank_stats:
+                outs["neuron_act"] = h
+            h = h * _rows(neuron_gate.to(dtype))[:, None, :]
+            h = self.fc2(h, dtype)
+            if train:
+                h = _dropout(h, cfg.drop_rate, gen, rows)
         x = x + (h if dp_masks is None else drop_path(h, dp_rate, dp_masks[1]))
         if capture_attn:
             outs["attn"] = attn_out
@@ -416,7 +436,9 @@ class VisionTransformer(nn.Module):
             self.resize_mlp = Dense(C, cfg.resize_dim)
             self.resize_att_mlp = Dense(C, cfg.resize_dim)
             self.resize_encoder_mlp = Dense(C, cfg.resize_dim)
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        if cfg.moe_layers and cfg.drop_rate > 0:
+            raise ValueError("MoE layers take no dropout (drop_rate must be 0)")
+        self.blocks = nn.ModuleList(Block(cfg, i) for i in range(cfg.depth))
         self.norm = LayerNorm(C, cfg.layer_norm_eps)
         head_in = C
         if cfg.representation_size is not None and not cfg.distilled:
@@ -478,9 +500,12 @@ class VisionTransformer(nn.Module):
         if cfg.distilled:
             toks.append(self.dist_token.to(dtype).expand(B, 1, C))
         t = torch.cat(toks + [t], dim=1) + self.pos_embed.to(dtype)
-        seeds, masks = [None] * (cfg.depth + 1), None
+        seeds, masks, moe_seeds = [None] * (cfg.depth + 1), None, {}
         if train:
-            seeds, masks = train_draws(cfg, generator, B, rows)
+            if cfg.moe_layers and rows is not None:
+                raise ValueError("MoE layers route the batch on one device; a data-parallel "
+                                 "`rows` split is not supported")
+            seeds, masks, moe_seeds = train_draws(cfg, generator, B, rows)
         if train and cfg.drop_rate > 0:
             t = _dropout(t, cfg.drop_rate, _seeded(seeds[0], t.device), rows)
         resize = cfg.resize_dim is not None
@@ -509,6 +534,8 @@ class VisionTransformer(nn.Module):
                                                            and i == capture_layer),
                       capture_rank_stats=capture_rank_stats,
                       capture_attn=capture_block_outputs, rows=rows)
+            if blk.moe:
+                kw["moe_seed"] = moe_seeds.get(i)
             args = (t, gates.head[i], gates.neuron[i], dp_rates[i],
                     None if masks is None else masks[i], seeds[i + 1])
             if remat:
@@ -552,8 +579,10 @@ class VisionTransformer(nn.Module):
                 last_tokens = self.resize_mlp(cls_feat, dtype) if resize else cls_feat
         rank = dict(neuron_act=stacked("neuron_act"), head_out=stacked("head_out")) \
             if capture_rank_stats else {}
+        aux = [o["aux"] for o in layer_outs if o.get("aux") is not None]
         common = dict(cls_feat=cls_feat, dist_feat=dist_feat, last_tokens=last_tokens, qkv=qkv,
-                      attn=attn, encoders=encoders, embedding=embedding, **rank)
+                      attn=attn, encoders=encoders, embedding=embedding,
+                      aux_loss=torch.stack(aux).mean() if aux else None, **rank)
         if features_only:
             return ViTOutput(logits=cls_feat, **common)
 
@@ -567,13 +596,15 @@ class VisionTransformer(nn.Module):
 
 
 def train_draws(cfg: ViTConfig, generator: torch.Generator, batch: int,
-                rows: Optional[Rows] = None) -> Tuple[list, Optional[torch.Tensor]]:
+                rows: Optional[Rows] = None) -> Tuple[list, Optional[torch.Tensor], dict]:
     """What a train=True forward at `batch` rows draws from `generator`:
     the seeds of the embedding's dropout (0) and each block's (1..depth),
     None without dropout, then the drop-path masks (drop_path_masks, on the
-    generator's device), None without drop-path. A division-parallel rank
-    draws and drops another rank's divisions' share, so its generator stays
-    in step with one process that runs all of them."""
+    generator's device), None without drop-path, then, only for a config
+    with MoE layers, one router-noise seed a MoE layer ({layer index: seed},
+    else {}). A division-parallel rank draws and drops another rank's
+    divisions' share, so its generator stays in step with one process that
+    runs all of them."""
     seeds = [None] * (cfg.depth + 1)
     if cfg.drop_rate > 0 or cfg.attn_drop_rate > 0:
         seeds = torch.randint(0, 2 ** 62, (cfg.depth + 1,), generator=generator,
@@ -582,17 +613,24 @@ def train_draws(cfg: ViTConfig, generator: torch.Generator, batch: int,
     if cfg.drop_path_rate > 0:
         rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
         masks = drop_path_masks(generator, rates, batch, rows)
-    return seeds, masks
+    moe_seeds = {}
+    if cfg.moe_layers:
+        drawn = torch.randint(0, 2 ** 62, (len(cfg.moe_layers),), generator=generator,
+                              device=generator.device).tolist()
+        moe_seeds = dict(zip(cfg.moe_layers, drawn))
+    return seeds, masks, moe_seeds
 
 
 def create_vit(name: str, *, device: DeviceLike = None,
                generator: Optional[torch.Generator] = None, **overrides) -> VisionTransformer:
     """A VisionTransformer of the registry's geometry `name`, with its
-    parameters drawn from `generator` (seed 0 if None), on `device`."""
+    parameters drawn from `generator` (seed 0 if None), built on `device`
+    (a 3.4 B-parameter model is never held on the host whole)."""
     model_kw = {k: overrides.pop(k) for k in
                 ("dtype", "fast_math", "use_kernel", "use_remat", "remat_policy")
                 if k in overrides}
-    model = VisionTransformer(get_vit_config(name, **overrides), **model_kw)
+    with torch.device(resolve_device(device)):
+        model = VisionTransformer(get_vit_config(name, **overrides), **model_kw)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return model.reset_parameters(generator).to(resolve_device(device))
+    return model.reset_parameters(generator)

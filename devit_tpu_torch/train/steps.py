@@ -54,6 +54,13 @@ def _on(gates: Optional[Gates], device: torch.device) -> Optional[Gates]:
     return Gates(*(torch.as_tensor(t, device=device) for t in gates))
 
 
+def _dense_only(model, step: str) -> None:
+    """Raise for a model with MoE layers where `step` does not take one."""
+    if getattr(getattr(model, "cfg", None), "moe_layers", ()):
+        raise ValueError(f"{step} does not take a model with MoE layers "
+                         f"({model.cfg.name}); make_stage2_step trains one")
+
+
 def _traced_step(step):
     """`step` inside the span "step" keyed by its train state's (first
     argument's) step count: the parent of the step.* spans below."""
@@ -181,8 +188,11 @@ def make_stage2_step(
     metrics). `state` holds `model`'s own parameters (TrainState.create
     (model, ...)) and is updated in place. `generator` draws the mixup
     parameters and the drop-path masks on its own device (the CPU: a few
-    scalars and one (depth, 2, B) mask tensor per step). Metrics are device
-    tensors, so the caller decides when to wait for them."""
+    scalars and one (depth, 2, B) mask tensor per step), then a model with
+    MoE layers' router-noise seeds. Such a model's loss adds
+    cfg.aux_loss_weight times its auxiliary loss, reported as
+    metrics["aux_loss"]. Metrics are device tensors, so the caller decides
+    when to wait for them."""
     if distillation_type != "none" and teacher_model is None:
         raise ValueError(f"distillation_type={distillation_type!r} requires a teacher "
                          "model (--teacher-path)")
@@ -226,6 +236,10 @@ def make_stage2_step(
                     metrics["cls_loss"] = loss
                     metrics["token_loss"] = token_loss
                     loss = loss + token_loss
+            aux = getattr(out, "aux_loss", None)  # a CCT's output has none
+            if aux is not None:
+                metrics["aux_loss"] = aux
+                loss = loss + model.cfg.aux_loss_weight * aux
             metrics["loss"] = loss
 
         (grads,), metrics = _backward(layout, loss, [state], metrics)
@@ -260,6 +274,7 @@ def make_dekd_step(
     them). distillation_inter=False drops the relation losses and the
     captures (loss = cls distillation only), and every layer runs the
     kernels."""
+    _dense_only(student, "make_dekd_step")
     mixup_active = mixup is not None and mixup.active
     base_criterion = L.make_base_criterion(mixup_active, smoothing)
     capture = "middle" if distillation_inter else "none"
@@ -320,6 +335,7 @@ def make_ensemble_train_step(
     are updated in place. The backbones train with their drop-path active
     (engine.py:146). Under a division-sharded `layout` backbone_state and
     stacked_gates hold this rank's divisions (parallel/mesh.shard_state)."""
+    _dense_only(backbone, "make_ensemble_train_step")
     if distillation_type != "none":
         if teacher is None:
             raise ValueError(f"distillation_type={distillation_type!r} requires a teacher "

@@ -52,8 +52,9 @@ def test_every_port_module_is_listed():
         "data.splitter", "deploy", "device", "entry", "io",
         "io.bridge", "io.checkpoint", "io.msgpack", "io.native", "io.ocdbt", "io.orbax",
         "io.zstd", "kernels", "kernels._build",
-        "kernels.attention", "kernels.gelu", "kernels.quant", "models", "models.cct",
-        "models.compact_vit", "models.ensemble", "models.text", "models.vit", "parallel",
+        "kernels.attention", "kernels.gelu", "kernels.moe", "kernels.quant", "models",
+        "models.cct", "models.compact_vit", "models.ensemble", "models.moe", "models.text",
+        "models.vit", "parallel",
         "parallel.launch",
         "parallel.mesh", "parallel.serve", "runtime", "serving",
         "serving.daemon", "tracing", "train", "train.loop", "train.losses", "train.meters", "train.optim",

@@ -68,13 +68,15 @@ def test_concurrent_builds_compile_once(tmp_path):
 # ---- every kernel is classified for chip_smoke.py's SASS check
 
 # The __global__ kernels of csrc/ that run on the CUDA cores: the int8
-# path's row quantisation and the GELU forward and backward, which have no
-# product (per-row absmax, scale, round to int8 codes; an elementwise pass);
+# path's row quantisation, the GELU forward and backward, and the MoE
+# dispatch and combine, which have no matrix product (per-row absmax, scale,
+# round to int8 codes; an elementwise pass; row gathers and weighted sums);
 # every product of every other kernel, the block half's in both dtypes
 # included, runs on the tensor cores, so each other kernel must have an entry
 # in chip_smoke.py's MMA_KERNELS. A new kernel is classified here or there by
 # hand.
-CUDA_CORE_KERNELS = {"quant_rows_kernel", "gelu_as_fwd", "gelu_as_bwd"}
+CUDA_CORE_KERNELS = {"quant_rows_kernel", "gelu_as_fwd", "gelu_as_bwd", "moe_gather_rows",
+                     "moe_combine_rows"}
 
 
 def test_every_bf16_mma_kernel_is_in_the_sass_check():
